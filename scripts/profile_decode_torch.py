@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Where a decode step of the PyTorch/CUDA port spends its time, on one GPU.
+
+    python3 scripts/profile_decode_torch.py [--rows 8] [--steps 8]
+
+Builds full-width qwen2.5-3b as ``chip_smoke.py`` does (random weights from
+seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
+ragged length (5 to 900 tokens) into a paged fp pool, then runs decode steps
+(``decoding.serve_step`` through the block table) and reports:
+
+* host wall time per step, synchronised at the end of the steps;
+* from a ``torch.profiler`` trace of ``steps`` steps: device time per step by
+  kernel name and by group, kernel launches per step, and the share of the
+  step the device was busy (the rest is the host issuing work).
+
+The last line is a JSON object with the same numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LENGTHS = (5, 37, 64, 130, 300, 511, 700, 900)
+GROUPS = (   # kernel-name fragment -> group, first match wins
+    ("paged_attention", "paged attention (port)"),
+    ("bcsc_mlp", "fused BCSC MLP (port)"),
+    ("bcsc_g", "BCSC GEMM/GEMV (port)"),
+    ("gemm", "dense matmul (cuBLAS)"), ("gemv", "dense matmul (cuBLAS)"),
+    ("xmma", "dense matmul (cuBLAS)"), ("cutlass", "dense matmul (cuBLAS)"),
+    ("reduce", "reductions"), ("index", "gather/scatter"),
+    ("scatter", "gather/scatter"), ("gather", "gather/scatter"),
+    ("elementwise", "elementwise"), ("Memset", "memset/memcpy"),
+    ("Memcpy", "memset/memcpy"),
+)
+
+
+def group_of(name: str) -> str:
+    for frag, group in GROUPS:
+        if frag in name:
+            return group
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("profile_decode_torch: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import plan_for_scheduler
+    from repro_torch.models import decoding
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.sparse import sparsify_mlp_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2.5-3b")
+    R = args.rows
+    params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    packed, _ = sparsify_mlp_params(params, cfg, sparsity=0.75)
+    del params
+    params = tfm.compute_copy(packed)
+    del packed
+    plan = plan_for_scheduler(cfg, rows=R, cache_len=1024, page_size=64,
+                              attn_path="paged", share_prefix=False,
+                              kv_quant="fp", sync_every=8)
+    MP = plan.max_pages
+    cache = decoding.init_paged_cache(cfg, R, plan.cache_len, R * MP,
+                                      plan.page_size, "fp", device=dev)
+    bt = torch.arange(R * MP, dtype=torch.int32, device=dev).reshape(R, MP)
+    lengths = torch.tensor([LENGTHS[i % len(LENGTHS)] for i in range(R)],
+                           dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (R, plan.tier(int(lengths.max()))),
+                         generator=torch.Generator(dev).manual_seed(1),
+                         device=dev)
+    pp = decoding.PagedPrefill(cache=cache, block_table_rows=bt,
+                               slots=torch.arange(R, device=dev))
+    logits, cache = decoding.prefill_batched(params, toks, lengths, cfg,
+                                             plan.cache_len, plan=plan,
+                                             paged=pp)
+    state = {"pos": lengths.long(), "nxt": logits[:, -1].argmax(-1)}
+
+    def step():
+        out, _ = decoding.serve_step(params, cache, state["nxt"][:, None],
+                                     state["pos"], cfg, plan=plan,
+                                     block_table=bt)
+        state["pos"] = state["pos"] + 1
+        state["nxt"] = out[:, -1].argmax(-1)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.device_time_total
+            k[1] += 1
+    n = args.steps
+    busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
+    launches = sum(c for _, c in kernels.values()) / n
+    groups = {}
+    for name, (t, c) in kernels.items():
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += t / 1e3 / n
+        g[1] += c / n
+    print(f"device: {torch.cuda.get_device_name(0)}; qwen2.5-3b, rows {R}, "
+          f"lengths {lengths.tolist()}")
+    print(f"decode step: wall {wall_ms:.3f} ms (host clock), device busy "
+          f"{busy_ms:.3f} ms in {launches:.0f} launches "
+          f"({busy_ms / wall_ms:.1%} busy, traced steps)")
+    for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {g:28s} {t:8.3f} ms/step  {c:7.1f} launches/step")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (t, c) in top:
+        print(f"  {t / 1e3 / n:8.3f} ms/step {c / n:7.1f}x  {name[:90]}")
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "rows": R,
+        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+        "launches_per_step": launches,
+        "groups_ms_per_step": {g: t for g, (t, _) in groups.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

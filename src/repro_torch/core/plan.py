@@ -1,0 +1,183 @@
+"""ServePlan: every serving dispatch decision resolved once, passed explicitly.
+
+The port's counterpart of ``repro.core.plan``. It carries the same dispatch
+fields and route queries, so a plan resolved by the reference
+(``plan.as_dict()``) loads here through :meth:`ServePlan.from_dict` and routes
+every call identically. Two things differ on purpose:
+
+* the plan is an argument of whatever reads it (``layers.mlp``,
+  ``kernels.ops``, the scheduler), never a context variable;
+* the Eyexam decision records and their roofline text are not carried.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+from repro_torch.core import dataflow
+
+
+def _fused_m_max(d_ff: int, n_out: int, gated: bool) -> Optional[int]:
+    """Largest M routed 'fused' by ``dataflow.mlp_path``: None when even
+    bm=512 fits (fused at every M), 0 when even bm=8 does not."""
+    best = 0
+    bm = dataflow.SUBLANE
+    while bm <= 512:
+        if dataflow.fused_mlp_scratch_bytes(bm, d_ff, n_out, gated) \
+                <= dataflow.FUSED_MLP_VMEM_BUDGET:
+            best = bm
+        bm *= 2
+    return None if best == 512 else best
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """The reference's dispatch fields; route queries are table lookups."""
+    arch: str
+    rows: int
+    cache_len: int
+    sync_every: int
+    gemv_m_max: int
+    gemv_bm: int
+    mlp_fused_m_max: Optional[int]       # None = fused at every M; 0 = never
+    mlp_pack_dense_density: float
+    bcsc_chunk: int
+    attn_path: str
+    page_size: int
+    max_pages: int
+    num_pages: int
+    share_prefix: bool
+    kv_quant: str
+    prefill_exact: bool
+    prefill_tiers: Tuple[int, ...]
+    degrade: Tuple[str, ...] = ()
+    num_pages_int8: int = 0
+    spec_k: int = 0
+    tp: int = 1
+    ep: int = 1
+
+    # ------------------------------------------------------- route queries
+    def matmul_route(self, M: int) -> str:
+        return "gemv" if M <= self.gemv_m_max else "gemm"
+
+    def bcsc_bm(self, M: int) -> int:
+        if self.matmul_route(M) == "gemv":
+            return self.gemv_bm
+        return min(512, max(dataflow.SUBLANE,
+                            1 << (max(M, 1) - 1).bit_length()))
+
+    def mlp_route(self, M: int) -> str:
+        if self.mlp_fused_m_max is None or M <= self.mlp_fused_m_max:
+            return "fused"
+        return "two_call"
+
+    def tier(self, plen: int) -> int:
+        if self.prefill_exact:
+            return plen
+        for t in self.prefill_tiers:
+            if t >= plen:
+                return t
+        return self.cache_len
+
+    @property
+    def paged(self) -> bool:
+        return self.attn_path == "paged"
+
+    # ------------------------------------------------------- serialization
+    def as_dict(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "ServePlan":
+        """Build from a plan dict, the reference's ``as_dict()`` included:
+        its ``decisions`` records are dropped, sequences become tuples."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in names}
+        for k in ("prefill_tiers", "degrade"):
+            if k in kw:
+                kw[k] = tuple(kw[k])
+        return cls(**kw)
+
+
+def _pow2_tiers(cache_len: int) -> Tuple[int, ...]:
+    tiers = []
+    t = 1
+    while t < cache_len:
+        tiers.append(t)
+        t <<= 1
+    tiers.append(cache_len)
+    return tuple(tiers)
+
+
+def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
+                       num_pages: int = 0, attn_path: Optional[str] = None,
+                       share_prefix: Optional[bool] = None,
+                       kv_quant: Optional[str] = None,
+                       sync_every: int = 8) -> ServePlan:
+    """The streaming scheduler's plan from explicit geometry: the same
+    dispatch fields the reference's ``plan_for_scheduler`` resolves, for
+    the single-device, non-speculative case (``spec_k`` = 0, tp = ep = 1)."""
+    from repro_torch.models import transformer as tfm
+
+    kinds = {k for k, _ in tfm.slot_kinds(cfg)}
+    recurrent = bool(kinds & {"ssm", "rglru"})
+    has_global = "global" in kinds
+    ps = page_size or min(dataflow.PAGE_SIZE, cache_len)
+    max_pages = dataflow.pages_for(cache_len, ps)
+    mean_len = cache_len / 2
+
+    ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
+    fused_max = _fused_m_max(ff, cfg.d_model, cfg.mlp_gated)
+
+    rule_attn = dataflow.attn_path(cache_len, mean_len, ps) \
+        if has_global else "contiguous"
+    if attn_path is None:
+        attn_path = rule_attn
+    if attn_path not in ("paged", "contiguous"):
+        raise ValueError(f"attn_path must be paged|contiguous, got {attn_path}")
+    paged = has_global and attn_path == "paged"
+    np_ = (num_pages or rows * max_pages) if paged else 0
+
+    if share_prefix is None:
+        share_prefix = cfg.num_codebooks == 1
+    share_prefix = bool(paged and share_prefix and cfg.num_codebooks == 1)
+
+    rule_kv = dataflow.kv_quant_path(rows, cache_len, ps) if paged else "fp"
+    if kv_quant is None:
+        kv_quant = rule_kv
+    if kv_quant not in dataflow.KV_QUANT_DTYPES:
+        raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
+    kv_quant = kv_quant if paged else "fp"
+
+    ladder = []
+    np_int8 = 0
+    if paged:
+        n_glob = num_global_layers(cfg)
+        fp_b = dataflow.paged_kv_bytes(1, ps, cfg.num_kv_heads, cfg.head_dim,
+                                       n_glob, "fp")
+        i8_b = dataflow.paged_kv_bytes(1, ps, cfg.num_kv_heads, cfg.head_dim,
+                                       n_glob, "int8")
+        if kv_quant == "fp":
+            np_int8 = min(int(np_ * fp_b // max(i8_b, 1)), rows * max_pages)
+            if np_int8 > np_:
+                ladder.append("int8_kv")
+        ladder += ["clamp_max_new", "shed"]
+
+    return ServePlan(
+        arch=getattr(cfg, "name", type(cfg).__name__), rows=rows,
+        cache_len=cache_len, sync_every=sync_every,
+        gemv_m_max=dataflow.GEMV_M_MAX, gemv_bm=dataflow.GEMV_BM,
+        mlp_fused_m_max=fused_max,
+        mlp_pack_dense_density=dataflow.DENSE_BLOCK_DENSITY,
+        bcsc_chunk=dataflow.BCSC_CHUNK,
+        attn_path="paged" if paged else "contiguous", page_size=ps,
+        max_pages=max_pages, num_pages=np_, share_prefix=share_prefix,
+        kv_quant=kv_quant, prefill_exact=recurrent,
+        prefill_tiers=() if recurrent else _pow2_tiers(cache_len),
+        degrade=tuple(ladder), num_pages_int8=np_int8)
+
+
+def num_global_layers(cfg) -> int:
+    """Global-attention layers: the ones a paged pool holds."""
+    return sum(1 for i in range(cfg.num_layers)
+               if cfg.layer_kind(i) == "global")

@@ -1,0 +1,137 @@
+"""Block-CSC sparse matmuls: the GEMM (prefill) and GEMV (decode) arms.
+
+Counterpart of ``repro.kernels.bcsc_matmul``. A packed weight is the BCSC
+encoding of a (K, N) matrix in 16 x 16 blocks: ``blocks (nnzb, bk, bn)``,
+``row_ids (nnzb,)`` and non-decreasing ``col_ids (nnzb,)``; pads at the end
+repeat the last (row, col) with a zero payload. The kernels walk each output
+block-column's segment, whose bounds ``col_ptr`` come from ``col_ids``.
+
+The plain versions decode the weight to dense and take one fp32-accumulated
+product; the CUDA wrappers launch ``csrc/bcsc_matmul.cu``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import sparsity as sp
+from repro_torch.kernels import _build
+from repro_torch.kernels.epilogue import act_code, fused_epilogue
+
+
+def expand_col_ptr(col_ptr: torch.Tensor) -> torch.Tensor:
+    """CSC address vector -> per-block column ids, int32."""
+    counts = (col_ptr[1:] - col_ptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(counts.numel(), dtype=torch.int32,
+                     device=col_ptr.device), counts)
+
+
+def ensure_nonempty_cols(m: sp.BCSCMatrix) -> sp.BCSCMatrix:
+    """Insert one explicit zero block (block-row 0) into every empty
+    block-column, the paper's repeated-address convention, so that every
+    output tile is visited at least once."""
+    counts = (m.col_ptr[1:] - m.col_ptr[:-1]).long()
+    if bool((counts > 0).all()):
+        return m
+    new_counts = counts.clamp_min(1)
+    new_ptr = torch.zeros_like(m.col_ptr)
+    new_ptr[1:] = torch.cumsum(new_counts, 0).to(m.col_ptr.dtype)
+    cols = expand_col_ptr(m.col_ptr).long()
+    # old block i of column c moves to new_ptr[c] + (i - col_ptr[c])
+    dst = new_ptr[cols].long() + torch.arange(
+        cols.numel(), device=cols.device) - m.col_ptr[cols].long()
+    n = int(new_ptr[-1])
+    blocks = m.blocks.new_zeros((n,) + tuple(m.blocks.shape[1:]))
+    row_ids = m.row_ids.new_zeros((n,))
+    blocks[dst] = m.blocks
+    row_ids[dst] = m.row_ids
+    return sp.BCSCMatrix(blocks, row_ids, new_ptr, m.shape, m.block)
+
+
+def _dense_weight(blocks, row_ids, col_ids, K: int, n_out: int):
+    """Dense (K, n_out) of a (possibly padded) pack. Accumulating makes the
+    zero-payload pads, which repeat the last real position, add nothing."""
+    _, bk, bn = blocks.shape
+    tiles = torch.zeros(n_out // bn, K // bk, bk, bn, dtype=torch.float32,
+                        device=blocks.device)
+    tiles.index_put_((col_ids.long(), row_ids.long()), blocks.float(),
+                     accumulate=True)
+    return tiles.permute(1, 2, 0, 3).reshape(K, n_out)
+
+
+def bcsc_matmul_plain(x, blocks, row_ids, col_ids, *, n_out: int):
+    """x (M, K) · BCSC(K, n_out) -> (M, n_out) fp32."""
+    w = _dense_weight(blocks, row_ids, col_ids, x.shape[1], n_out)
+    return x.float() @ w
+
+
+def bcsc_gemv_plain(x, blocks, row_ids, col_ids, *, n_out: int, bias=None,
+                    activation: Optional[str] = None):
+    """The GEMV arm: the product, then the fused epilogue, fp32."""
+    return fused_epilogue(
+        bcsc_matmul_plain(x, blocks, row_ids, col_ids, n_out=n_out), bias,
+        activation)
+
+
+def _check(name, t, dtype):
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor, "
+                         f"got {t.dtype} on {t.device}")
+
+
+def _check_pack(x, blocks, row_ids, col_ptr, n_out):
+    _check("x", x, torch.bfloat16)
+    _check("blocks", blocks, torch.bfloat16)
+    _check("row_ids", row_ids, torch.int32)
+    _check("col_ptr", col_ptr, torch.int32)
+    if tuple(blocks.shape[1:]) != (16, 16):
+        raise ValueError(f"kernels take 16 x 16 blocks, got "
+                         f"{tuple(blocks.shape[1:])}")
+    if x.shape[1] % 16 or n_out % 16 or col_ptr.numel() != n_out // 16 + 1:
+        raise ValueError(f"x {tuple(x.shape)}, n_out {n_out}, col_ptr "
+                         f"{tuple(col_ptr.shape)} do not tile by 16")
+    if x.data_ptr() % 32 or blocks.data_ptr() % 32:
+        raise ValueError("x and blocks must be 32-byte aligned")
+
+
+def bcsc_matmul_cuda(x, blocks, row_ids, col_ptr, *, n_out: int):
+    """GEMM arm on the card: x (M, K) bf16 with M % 16 == 0 -> fp32."""
+    _check_pack(x, blocks, row_ids, col_ptr, n_out)
+    M, K = x.shape
+    if M % 16:
+        raise ValueError(f"GEMM rows must be a multiple of 16, got {M}")
+    out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
+    code = _build.library().repro_bcsc_gemm(
+        x.data_ptr(), M, K, blocks.data_ptr(), row_ids.data_ptr(),
+        col_ptr.data_ptr(), out.data_ptr(), n_out, _build.stream_of(x))
+    _build.check(code, "bcsc_matmul")
+    bcsc_matmul_cuda.launches += 1
+    return out
+
+
+def bcsc_gemv_cuda(x, blocks, row_ids, col_ptr, *, n_out: int, bias=None,
+                   activation: Optional[str] = None):
+    """GEMV arm on the card: x (8, K) bf16 -> (8, n_out) fp32, bias
+    (n_out,) fp32 and the activation fused into the flush."""
+    _check_pack(x, blocks, row_ids, col_ptr, n_out)
+    M, K = x.shape
+    if M != 8:
+        raise ValueError(f"the GEMV kernel takes 8 rows, got {M}")
+    if bias is not None:
+        _check("bias", bias, torch.float32)
+        if bias.numel() != n_out:
+            raise ValueError(f"bias must have {n_out} entries")
+    out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
+    code = _build.library().repro_bcsc_gemv(
+        x.data_ptr(), K, blocks.data_ptr(), row_ids.data_ptr(),
+        col_ptr.data_ptr(), _build.ptr(bias), act_code(activation),
+        out.data_ptr(), n_out, _build.stream_of(x))
+    _build.check(code, "bcsc_gemv")
+    bcsc_gemv_cuda.launches += 1
+    return out
+
+
+bcsc_matmul_cuda.launches = 0
+bcsc_gemv_cuda.launches = 0

@@ -10,6 +10,10 @@ def pytest_configure(config):
         "markers",
         "chaos: seeded fault-injection suite for the serving guard "
         "(run explicitly in CI via `-m chaos`; part of the default run too)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the repro_torch kernels); skips without "
+        "one (run on the card via `-m gpu`)")
 
 
 @pytest.fixture

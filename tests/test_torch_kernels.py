@@ -1,0 +1,308 @@
+"""The port's kernels against the reference's Pallas kernels.
+
+Every case makes its inputs with numpy from a seed, hands identical bf16
+values to ``repro.kernels.ops`` (Pallas in interpret mode off TPU) and to
+``repro_torch.kernels.ops`` (the plain PyTorch version, since the tensors lie
+on the CPU), and compares. The ``gpu``-marked tests hold each CUDA kernel
+against its plain version and skip where there is no card; they need
+neither JAX nor the reference package, which the other tests import through
+the ``ref`` fixture, so ``-m gpu`` runs on a machine without JAX.
+"""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge
+from repro_torch.configs import get_config
+from repro_torch.core import plan as pplan
+from repro_torch.kernels import epilogue as pepi
+from repro_torch.kernels import ops as pops
+from repro_torch.kernels import paged_attention as ppa
+from repro_torch.serve import sparse as psparse
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference package's pieces these tests compare against."""
+    import jax.numpy as jnp
+    from repro.configs import get_config as get_cfg
+    from repro.core import dataflow, plan
+    from repro.core.sparsity import block_magnitude_prune
+    from repro.kernels import epilogue, ops
+    from repro.serve import sparse
+    return types.SimpleNamespace(
+        jnp=jnp, get_config=get_cfg, dataflow=dataflow, plan=plan,
+        prune=block_magnitude_prune, epilogue=epilogue, ops=ops,
+        sparse=sparse)
+
+
+def _bf16(rng, shape, scale=1.0):
+    """bf16 values as fp32 numpy (exactly representable in both packages)."""
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale)
+    return x.bfloat16().float().numpy()
+
+
+def _plan(ref=None):
+    """The reduced qwen plan: resolved by the reference and loaded here, or
+    (``ref`` None) resolved by the port."""
+    if ref is None:
+        return pplan.plan_for_scheduler(get_config("qwen2.5-3b-reduced"),
+                                        rows=2, cache_len=64, page_size=8,
+                                        share_prefix=False)
+    plan = ref.plan.plan_for_scheduler(ref.get_config("qwen2.5-3b-reduced"),
+                                       rows=2, cache_len=64, page_size=8,
+                                       share_prefix=False)
+    return pplan.ServePlan.from_dict(plan.as_dict())
+
+
+def _paged_case(lengths, ps, KV=2, R=4, D=16, seed=0, int8=False):
+    """Pools, a permuted block table (-1 past each row's pages), lengths."""
+    rng = np.random.default_rng(seed)
+    B = len(lengths)
+    MP = max(-(-n // ps) for n in lengths) + 1       # a never-touched column
+    P = sum(-(-n // ps) for n in lengths) + 2
+    q = _bf16(rng, (B, 1, KV * R, D))
+    if int8:
+        kp = rng.integers(-127, 128, (P, ps, KV, D)).astype(np.int8)
+        vp = rng.integers(-127, 128, (P, ps, KV, D)).astype(np.int8)
+        scales = (rng.random((2, P, KV)) * 3).astype(np.float32)
+    else:
+        kp, vp = _bf16(rng, (P, ps, KV, D)), _bf16(rng, (P, ps, KV, D))
+        scales = None
+    bt = np.full((B, MP), -1, np.int32)
+    perm = rng.permutation(P)
+    i = 0
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // ps)):
+            bt[b, j] = perm[i]
+            i += 1
+    return q, kp, vp, bt, np.asarray(lengths, np.int32), scales
+
+
+# ------------------------------------------------------------ paged attention
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_attention_matches_reference(ref, int8, softcap):
+    """fp32 online softmax (reference) vs one masked softmax (port) on the
+    same bf16 / int8 inputs: only the summation order differs, so 1e-5."""
+    ps = 8
+    q, kp, vp, bt, lens, sc = _paged_case([ps, ps + 1, 3 * ps - 1, 2], ps,
+                                          int8=int8)
+    jnp = ref.jnp
+    pool_dt = jnp.int8 if int8 else jnp.bfloat16
+    rkw = {} if sc is None else dict(k_scale=jnp.asarray(sc[0]),
+                                     v_scale=jnp.asarray(sc[1]))
+    want = ref.ops.paged_attention(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(kp, pool_dt),
+        jnp.asarray(vp, pool_dt), jnp.asarray(bt), jnp.asarray(lens),
+        softcap=softcap, **rkw)
+    tdt = torch.int8 if int8 else torch.bfloat16
+    pkw = {} if sc is None else dict(k_scale=torch.from_numpy(sc[0]),
+                                     v_scale=torch.from_numpy(sc[1]))
+    got = pops.paged_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kp).to(tdt),
+        torch.from_numpy(vp).to(tdt), torch.from_numpy(bt),
+        torch.from_numpy(lens), softcap=softcap, **pkw)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_paged_attention_reads_nothing_past_length():
+    """Garbage (NaN) in every slot past a row's length, in its unused table
+    pages and in never-referenced pool pages never reaches the output."""
+    ps = 4
+    q, kp, vp, bt, lens, _ = _paged_case([5, 9], ps, seed=2)
+    clean = pops.paged_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kp).bfloat16(),
+        torch.from_numpy(vp).bfloat16(), torch.from_numpy(bt),
+        torch.from_numpy(lens))
+    kd, vd = kp.copy(), vp.copy()
+    used = np.zeros(kp.shape[:2], bool)
+    for b, n in enumerate(lens):
+        for t in range(n):
+            used[bt[b, t // ps], t % ps] = True
+    kd[~used] = np.nan
+    vd[~used] = np.nan
+    dirty = pops.paged_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kd).bfloat16(),
+        torch.from_numpy(vd).bfloat16(), torch.from_numpy(bt),
+        torch.from_numpy(lens))
+    assert torch.equal(clean, dirty)
+
+
+def test_work_steps_count_only_occupied_pages():
+    assert ppa.row_work_steps(9, 4) == 3
+    assert ppa.work_steps([1, 4, 5, 0], 4) == 1 + 1 + 2 + 0
+
+
+# ----------------------------------------------------------------- BCSC packs
+def _packed_pair(ref, K, N, sparsity, seed, capacity=None):
+    """A weight pruned and packed by the reference, and the same pack
+    bridged into the port (optionally padded to ``capacity`` blocks)."""
+    rng = np.random.default_rng(seed)
+    jnp = ref.jnp
+    w = np.asarray(ref.prune(jnp.asarray(rng.standard_normal((K, N)),
+                                         jnp.float32), sparsity, 16, 16))
+    packed = ref.sparse.pack_weight(w, 16, 16, jnp.bfloat16)
+    if capacity is not None:
+        packed = ref.sparse.pad_packed(packed, capacity)
+    return packed, bridge.params_from_numpy(
+        {k: np.asarray(v) for k, v in packed.items()})
+
+
+def _port_pack(K, N, sparsity, seed, device):
+    """A weight pruned and packed by the port alone."""
+    from repro_torch.core import sparsity as sp
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn(K, N, generator=g) / K ** 0.5
+    packed = psparse.pack_weight(sp.block_magnitude_prune(w, sparsity, 16,
+                                                          16), 16, 16,
+                                 torch.bfloat16)
+    return {k: v.to(device) for k, v in packed.items()}
+
+
+@pytest.mark.parametrize("M", [3, 8, 24, 40])
+@pytest.mark.parametrize("act", [None, "silu", "gelu"])
+def test_bcsc_apply_packed_both_arms(ref, M, act):
+    """M <= 8 takes the GEMV arm (bias + activation fused into the flush),
+    M > 8 the GEMM arm (epilogue as a post-op), in both packages. fp32 sums
+    of identical bf16 products in another order: 1e-5 of max |out|."""
+    rng = np.random.default_rng(M)
+    rpack, port = _packed_pair(ref, 64, 128, 0.5, seed=M)
+    x = _bf16(rng, (M, 64))
+    bias = rng.standard_normal(128).astype(np.float32)
+    plan = _plan(ref)
+    assert plan.matmul_route(M) == ("gemv" if M <= 8 else "gemm")
+    jnp = ref.jnp
+    want = np.asarray(ref.ops.bcsc_apply_packed(
+        jnp.asarray(x, jnp.bfloat16), rpack, n_out=128,
+        bias=jnp.asarray(bias), activation=act))
+    got = pops.bcsc_apply_packed(
+        torch.from_numpy(x).bfloat16(), port, n_out=128, plan=plan,
+        bias=torch.from_numpy(bias), activation=act)
+    assert got.dtype == torch.float32 and got.shape == (M, 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M", [1, 8, 20])
+def test_bcsc_mlp_packed_padded_counts(ref, M):
+    """The fused MLP over packs padded past their real block count, with a
+    real ``counts``. The hidden is rounded to bf16 in both; a last-bit
+    difference in its fp32 sum can flip one such rounding, so 2e-3 of
+    max |out| (one bf16 step is 2^-8 of a hidden value)."""
+    rng = np.random.default_rng(10 + M)
+    packs = [_packed_pair(ref, K, N, 0.6, seed=s, capacity=cap)
+             for K, N, s, cap in ((64, 128, 1, 24), (64, 128, 2, 24),
+                                  (128, 64, 3, 32))]
+    counts = np.asarray([int(r["nnzb"]) for r, _ in packs], np.int32)
+    assert all(counts < np.asarray([24, 24, 32]))
+    x = _bf16(rng, (M, 64))
+    jnp = ref.jnp
+    want = np.asarray(ref.ops.bcsc_mlp_packed(
+        jnp.asarray(x, jnp.bfloat16), *(r for r, _ in packs), d_ff=128,
+        n_out=64, activation="silu", counts=jnp.asarray(counts)))
+    got = pops.bcsc_mlp_packed(
+        torch.from_numpy(x).bfloat16(), *(p for _, p in packs), d_ff=128,
+        n_out=64, plan=_plan(ref), activation="silu",
+        counts=torch.from_numpy(counts))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("act", [None, "none", "relu", "silu", "gelu"])
+def test_fused_epilogue_every_activation(ref, act):
+    """Bias then activation in fp32, both packages: 1e-6."""
+    rng = np.random.default_rng(3)
+    acc = rng.standard_normal((4, 32)).astype(np.float32) * 4
+    bias = rng.standard_normal(32).astype(np.float32)
+    want = np.asarray(ref.epilogue.fused_epilogue(
+        ref.jnp.asarray(acc), ref.jnp.asarray(bias), act))
+    got = pepi.fused_epilogue(torch.from_numpy(acc), torch.from_numpy(bias),
+                              act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_dispatch_refuses_unknown_impl_and_device():
+    x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    port = _port_pack(64, 128, 0.5, 0, "cpu")
+    with pytest.raises(ValueError, match="impl"):
+        pops.bcsc_apply_packed(x, port, n_out=128, plan=_plan(),
+                               impl="fast")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        pops._use_kernel(x.to("meta"), None)
+
+
+def test_plan_routes_match_reference_dataflow(ref):
+    """The port's plan queries give the reference's routes at every M."""
+    plan = pplan.plan_for_scheduler(get_config("qwen2.5-3b"), rows=8,
+                                    cache_len=1024)
+    rdf = ref.dataflow
+    for M in (1, 7, 8, 9, 16, 63, 64, 65, 512, 4096):
+        assert plan.matmul_route(M) == rdf.matmul_path(M)
+        assert plan.bcsc_bm(M) == rdf.bcsc_tile_m(M)
+        assert plan.mlp_route(M) == rdf.mlp_path(M, 11008, 2048)
+    assert plan.mlp_fused_m_max == 64
+    cfg = get_config("qwen2.5-3b")
+    assert cfg.vocab_padded == 152064 and cfg.param_count() > 3.0e9
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "for sm_90a and run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_matches_plain(cuda):
+    for int8 in (False, True):
+        q, kp, vp, bt, lens, sc = _paged_case([64, 65, 1, 130], 64, R=8,
+                                              D=128, int8=int8)
+        dt = torch.int8 if int8 else torch.bfloat16
+        args = (torch.from_numpy(q).bfloat16().to(cuda),
+                torch.from_numpy(kp).to(dt).to(cuda),
+                torch.from_numpy(vp).to(dt).to(cuda),
+                torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda))
+        kw = {} if sc is None else dict(
+            k_scale=torch.from_numpy(sc[0]).to(cuda),
+            v_scale=torch.from_numpy(sc[1]).to(cuda))
+        got = pops.paged_attention(*args, softcap=30.0, **kw)
+        want = pops.paged_attention(*args, softcap=30.0, impl="plain", **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 40])
+def test_cuda_bcsc_apply_matches_plain(cuda, M):
+    """GEMV (M <= 8) and GEMM (M > 8) kernels against the plain product."""
+    port = _port_pack(256, 512, 0.75, M, cuda)
+    x = torch.randn(M, 256, device=cuda).bfloat16()
+    bias = torch.randn(512, device=cuda)
+    plan = _plan()
+    got = pops.bcsc_apply_packed(x, port, n_out=512, plan=plan, bias=bias,
+                                 activation="silu")
+    want = pops.bcsc_apply_packed(x, port, n_out=512, plan=plan, bias=bias,
+                                  activation="silu", impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 64])
+def test_cuda_bcsc_mlp_matches_plain(cuda, M):
+    packs = [_port_pack(K, N, 0.75, s, cuda) for K, N, s
+             in ((256, 1024, 1), (256, 1024, 2), (1024, 256, 3))]
+    x = torch.randn(M, 256, device=cuda).bfloat16()
+    kw = dict(d_ff=1024, n_out=256, plan=_plan(), activation="silu")
+    got = pops.bcsc_mlp_packed(x, *packs, **kw)
+    want = pops.bcsc_mlp_packed(x, *packs, impl="plain", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
