@@ -9,21 +9,30 @@ Phases, each of which must pass:
    limit as ``nvidia-smi`` reports them;
 2. build: compile the port's CUDA kernels from the sources in this checkout
    (one nvcc per source, all started together);
-3. kernels: hold each kernel against its plain PyTorch version at full-width
-   qwen2.5-3b shapes, with the tolerance stated beside each, and time the
-   kernel, the plain version and, where one exists, the single PyTorch call
-   that computes the same function (CUDA events, L2 flushed before each
-   launch);
-4. serve: full-width, full-depth qwen2.5-3b with random weights from a seed,
-   MLPs packed at 0.75 block sparsity. First the first prefill and decode
-   logits of the kernel path are held against the plain path; then 12
-   requests go through ``LLM.stream`` on paged fp KV (launch counts zeroed
-   just before, read just after: paged attention, the fused MLP and the
-   GEMM must have run), then 4 requests on int8 KV pages with the two-call
-   MLP route (the GEMV and GEMM arms); every request must return its budget
-   of in-vocabulary tokens;
-5. report: prefill and decode tokens/s, one JSON line describing every
-   kernel, the card's name and power limit, then the contract line.
+3. kernels: hold each of the six kernels against its plain PyTorch version
+   at the shapes the main paths give it (qwen2.5-3b and gemma2-2b widths),
+   with the tolerance stated beside each, and time the kernel, the plain
+   version and, where one exists, the single PyTorch call that computes the
+   same function (CUDA events, L2 flushed before each launch);
+4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
+   packed at 0.75 block sparsity. First the first prefill and decode logits
+   of the kernel path are held against the plain path; then 12 requests go
+   through ``LLM.stream`` on paged fp KV (launch counts zeroed just before,
+   read just after: sliding-window attention, paged attention, the fused MLP
+   and the GEMM must have run), then 4 requests on int8 KV pages with the
+   two-call MLP route (the GEMV and GEMM arms);
+5. serve gemma2-2b: full width and depth (26 layers alternating local and
+   global attention, softcaps), the same checks, then 6 requests of up to
+   6000 prompt tokens through ``LLM.stream`` on paged fp KV: prefill runs
+   the sliding-window kernel in window mode in the local layers, decode
+   past position 4096 wraps the local rings; every request must return its
+   budget of in-vocabulary tokens;
+6. report: prefill and decode tokens/s, the wall time of each phase, one
+   JSON line describing every kernel, the card's name and power limit, then
+   the contract line.
+
+``rs_matmul`` is on no model path (as in the reference), so it launches only
+in the kernel phase and reports 0 launches on the main path.
 
 Exits non-zero, printing no result, when there is no CUDA device or when run
 outside a checkout of the repository.
@@ -44,8 +53,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
 SEED = 0
 ARCH = "qwen2.5-3b"
-# the serve phase's device and model; a CPU rehearsal of its control flow
-# sets DEVICE = "cpu" and ARCH = "qwen2.5-3b-reduced" before phase_serve
+GEMMA = "gemma2-2b"
+# the gemma2 pass: plan geometry, prompt lengths (three arrive at step 0,
+# three at step 8), the two prompts of the logits check, tokens per request
+GEMMA_PLAN = dict(rows=4, cache_len=8192, page_size=64)
+GEMMA_LENS = (7, 300, 1500, 4100, 4700, 6000)
+GEMMA_CHECK = (300, 4700)
+GEMMA_NEW = 24
+# the serve phases' device; a CPU rehearsal of their control flow sets
+# DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
 BLOCK_BYTES = 16 * 16 * 2 + 4      # one packed bf16 block and its row id
 
@@ -58,6 +74,11 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "src/repro/kernels/bcsc_matmul.py:93"),
     ("bcsc_gemv", "src/repro_torch/kernels/csrc/bcsc_matmul.cu",
      "src/repro/kernels/bcsc_matmul.py:160"),
+    ("sliding_window_attention",
+     "src/repro_torch/kernels/csrc/local_attention.cu",
+     "src/repro/kernels/local_attention.py:82"),
+    ("rs_matmul", "src/repro_torch/kernels/csrc/rs_matmul.cu",
+     "src/repro/kernels/rs_matmul.py:52"),
 )
 
 
@@ -347,16 +368,109 @@ def phase_kernels(flush, judge, records):
                 shape=f"M 8, {d} -> {ff}, bias + silu, {nnz} blocks")
 
 
-def _check_logits(llm, judge):
-    """The first prefill (two prompts at tier 64: M 128, the GEMM arm) and
-    decode (M 2: the fused MLP, paged attention) logits of the kernel path
-    against ``impl="plain"`` on the same weights and tokens."""
+def band_pairs(S: int, window: int) -> int:
+    """(query, key) pairs of a causal window over S positions."""
+    w = min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def phase_kernels_dense(flush, judge, records):
+    """Sliding-window attention at gemma2-2b local and qwen2.5-3b causal
+    prefill shapes, and rs_matmul at the GeGLU up-projection's widths."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import local_attention as swa
+    from repro_torch.kernels import rs_matmul as rs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    log("kernels: sliding-window attention and rs_matmul")
+    for tag, (B, S, H, KV, D, window, cap) in {
+            "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 50.0),
+            "qwen2.5-3b causal": (2, 512, 16, 2, 128, 512, 0.0)}.items():
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+
+        def cu():
+            return swa.sliding_window_attention_cuda(q, k, v, window=window,
+                                                     softcap=cap)
+
+        def plain():
+            return swa.sliding_window_attention_plain(q, k, v, window=window,
+                                                      softcap=cap)
+        abs_err, rel = errors(cu(), plain())
+        judge(f"sliding_window_attention[{tag}]", rel, 2e-3,
+              "relative to max |out|: keys walked in another order than "
+              "flash's, tensor-core sums in their own; a flipped bf16 "
+              "rounding of p moves a term by 2^-8")
+        pairs = band_pairs(S, window)
+        n_bytes = 2 * B * S * H * D + 2 * 2 * B * S * KV * D + 4 * B * S * H * D
+        rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
+                   plain_ms=time_ms(plain, flush),
+                   bound=bound(n_bytes, 4 * B * pairs * H * D),
+                   shape=f"{tag}: B {B}, S {S}, H {H}, KV {KV}, D {D}, "
+                         f"window {window}, softcap {cap}, {pairs} pairs "
+                         "per head")
+        # library yardstick: SDPA with a boolean band mask over K/V
+        # repeated to every head; SDPA cannot take the softcap
+        pos = torch.arange(S, device=dev)
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[:, None] - pos[None, :] < window)
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(H // KV, 1)
+        vt = v.transpose(1, 2).repeat_interleave(H // KV, 1)
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band), flush)
+        ms, by = rec["bound"]
+        log(f"  {rec['shape']}: {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, SDPA (no softcap) "
+            f"{rec['library_ms']:.4f} ms, bound {ms:.4f} ms ({by})")
+        if tag.startswith("gemma2"):
+            records["sliding_window_attention"] = rec
+        del q, k, v, qt, kt, vt, band
+
+    K, N = 2304, 9216
+    w = (torch.randn(K, N, generator=gen, device=dev) / K ** 0.5).bfloat16()
+    bias = torch.randn(N, generator=gen, device=dev)
+    for M in (512, 8):
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+
+        def cu():
+            return rs.rs_matmul_cuda(x, w, bias=bias, activation="gelu")
+
+        def plain():
+            return rs.rs_matmul_plain(x, w, bias=bias, activation="gelu")
+        abs_err, rel = errors(cu(), plain())
+        judge(f"rs_matmul[M={M}]", rel, 1e-3,
+              "relative to max |out|: fp32 tensor-core accumulation of the "
+              "same bf16 products in another order")
+        rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
+                   plain_ms=time_ms(plain, flush),
+                   library_ms=time_ms(lambda: F.gelu(torch.addmm(
+                       bias.bfloat16(), x, w), approximate="tanh"), flush),
+                   bound=bound(2 * M * K + 2 * K * N + 4 * N + 4 * M * N,
+                               2 * M * K * N),
+                   shape=f"M {M}, {K} -> {N}, bias + tanh-gelu")
+        ms, by = rec["bound"]
+        log(f"  rs_matmul {rec['shape']}: {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, addmm+gelu {rec['library_ms']:.4f} "
+            f"ms, bound {ms:.4f} ms ({by})")
+        if M == 512:
+            records["rs_matmul"] = rec
+
+
+def _check_logits(llm, judge, lengths=(37, 64), tier=64):
+    """The first prefill (two prompts at ``tier``: the GEMM arm, prefill
+    attention) and decode (M 2: the fused MLP, paged attention, local
+    rings) logits of the kernel path against ``impl="plain"`` on the same
+    weights and tokens."""
     import torch
     from repro_torch.models import decoding
     cfg, plan, dev = llm.cfg, llm.plan, llm.device
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    lengths = torch.tensor([37, 64], dtype=torch.int32, device=dev)
-    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, tier), generator=gen,
                          device=dev)
     MP = plan.max_pages
     bt = torch.arange(2 * MP, dtype=torch.int32, device=dev).reshape(2, MP)
@@ -380,14 +494,17 @@ def _check_logits(llm, judge):
         got, want = out[None][i], out["plain"][i]
         ok = bool(torch.isfinite(got).all())
         judge.check(f"{what} logits finite", ok, f"{tuple(got.shape)}")
-        judge(f"{what} logits, kernels vs plain", errors(got, want)[1], 5e-2,
-              "relative to max |logit| after 36 layers: sums in another "
-              "order flip bf16 roundings, which the layers carry forward")
+        judge(f"{cfg.name} {what} logits, kernels vs plain",
+              errors(got, want)[1], 5e-2,
+              f"relative to max |logit| after {cfg.num_layers} layers: sums "
+              "in another order flip bf16 roundings, which the layers carry "
+              "forward")
 
 
 def _serve(llm, requests, judge, tag, max_new, must_launch):
     """One ``LLM.stream`` run with the launch counts zeroed just before and
-    read just after; checks every request's tokens."""
+    read just after; checks every request's tokens. Returns (launch counts,
+    phase stats, wall seconds)."""
     from repro_torch.kernels import ops
     vocab = llm.cfg.vocab_size
     sync()
@@ -407,69 +524,129 @@ def _serve(llm, requests, judge, tag, max_new, must_launch):
         judge.check(f"{tag}: {name} launched", counts[name] > 0,
                     f"{counts[name]} launches")
     generated = sum(len(r.out) for r in done)
+    steps = max(st["decode_steps"], 1)
     log(f"  {tag}: wall {wall:.2f} s; prefill {st['prefill_real_tokens']} "
         f"tokens in {st['prefill_batches']} batches, "
         f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
         f"tokens/s; decode {generated} tokens in {st['decode_steps']} steps,"
         f" {generated / max(st['decode_s'], 1e-9):.1f} tokens/s; "
-        f"preemptions {st['preemptions']}; launches {counts}; "
-        f"per decode step {counts['paged_attention'] / max(st['decode_steps'], 1):.1f}"
-        " paged-attention launches")
-    return counts
+        f"preemptions {st['preemptions']}; launches {counts}; per decode "
+        f"step {counts['paged_attention'] / steps:.1f} paged-attention and "
+        f"{counts['bcsc_mlp'] / steps:.1f} fused-MLP launches; per prefill "
+        f"batch {counts['sliding_window_attention'] / max(st['prefill_batches'], 1):.1f}"
+        " sliding-window launches")
+    return counts, st, wall
 
 
-def phase_serve(judge):
-    """Full-width, full-depth qwen2.5-3b through ``LLM.stream``."""
+def _requests(cfg, lengths, max_new, arrivals):
+    import torch
+    from repro_torch.serve import StreamRequest
+    gen_cpu = torch.Generator().manual_seed(SEED)
+    return [StreamRequest(i, torch.randint(0, cfg.vocab_size, (n,),
+                                           generator=gen_cpu).tolist(),
+                          max_new, arrival=float(a))
+            for i, (n, a) in enumerate(zip(lengths, arrivals))]
+
+
+def _load(arch, plan_kw):
+    """Full-width random weights from SEED, MLPs packed at 0.75, on the
+    device behind ``LLM`` with a paged fp plan."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.plan import plan_for_scheduler
     from repro_torch.models import transformer as tfm
-    from repro_torch.serve import LLM, StreamRequest
+    from repro_torch.serve import LLM
     from repro_torch.serve.sparse import sparsify_mlp_params
 
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, gen, DEVICE)
     packed, stats = sparsify_mlp_params(params, cfg, sparsity=0.75)
     del params
-    plan = plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
-                              attn_path="paged", share_prefix=False,
-                              kv_quant="fp", sync_every=8)
+    plan = plan_for_scheduler(cfg, attn_path="paged", share_prefix=False,
+                              kv_quant="fp", sync_every=8, **plan_kw)
     llm = LLM(cfg, packed, plan, eos_id=-1, device=DEVICE)
     del packed
     sync()
-    log(f"serve: {ARCH}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"d_ff {cfg.d_ff}; MLPs packed at block density "
-        f"{stats['block_density']:.3f} ({stats['kept_blocks']} blocks); "
-        f"loaded in {time.perf_counter() - t0:.1f} s; "
+    log(f"serve: {arch}, {cfg.num_layers} layers {cfg.attn_pattern}, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, head_dim {cfg.head_dim}; "
+        f"MLPs packed at block density {stats['block_density']:.3f} "
+        f"({stats['kept_blocks']} blocks); loaded in "
+        f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30 if DEVICE == 'cuda' else 0:.2f}"
         " GiB on the card; "
         f"plan rows {plan.rows}, cache {plan.cache_len}, page "
         f"{plan.page_size}, {plan.num_pages} pages, fused MLP up to M "
         f"{plan.mlp_fused_m_max}")
+    return llm
+
+
+def phase_serve(judge):
+    """Full-width, full-depth qwen2.5-3b through ``LLM.stream``: a paged fp
+    pass on the default plan, then an int8 pass on the two-call MLP route.
+    Returns the summed launch counts."""
+    from repro_torch.core.plan import plan_for_scheduler
+    from repro_torch.serve import LLM
+
+    llm = _load(ARCH, dict(rows=8, cache_len=1024, page_size=64))
+    cfg = llm.cfg
     _check_logits(llm, judge)
-
-    gen_cpu = torch.Generator().manual_seed(SEED)
     lens = [5, 37, 64, 130, 300, 511] * 2
-
-    def requests(lengths, max_new, spacing):
-        return [StreamRequest(i, torch.randint(0, cfg.vocab_size, (n,),
-                                               generator=gen_cpu).tolist(),
-                              max_new, arrival=float(spacing * (i // 4)))
-                for i, n in enumerate(lengths)]
-    launches = _serve(llm, requests(lens, 32, 8), judge, "fp pass", 32,
-                      ("paged_attention", "bcsc_mlp", "bcsc_matmul"))
+    launches, _, _ = _serve(
+        llm, _requests(cfg, lens, 32, [8 * (i // 4) for i in range(12)]),
+        judge, "qwen fp pass", 32,
+        ("sliding_window_attention", "paged_attention", "bcsc_mlp",
+         "bcsc_matmul"))
     plan8 = dataclasses.replace(
         plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
                            attn_path="paged", share_prefix=False,
                            kv_quant="int8", sync_every=8),
         mlp_fused_m_max=0)
     llm8 = LLM(cfg, llm.params, plan8, eos_id=-1, device=DEVICE)
-    counts8 = _serve(llm8, requests([5, 130, 300, 511], 8, 0), judge,
-                     "int8 pass", 8,
-                     ("paged_attention", "bcsc_gemv", "bcsc_matmul"))
+    counts8, _, _ = _serve(llm8, _requests(cfg, [5, 130, 300, 511], 8,
+                                           [0] * 4),
+                           judge, "qwen int8 pass", 8,
+                           ("paged_attention", "bcsc_gemv", "bcsc_matmul"))
     return {k: launches[k] + counts8[k] for k in launches}
+
+
+def phase_serve_gemma(judge):
+    """Full-width, full-depth gemma2-2b through ``LLM.stream``: long prompts
+    (window-mode prefill in the local layers), decode past the window (the
+    local rings wrap). Returns (launch counts, tokens/s line)."""
+    llm = _load(GEMMA, GEMMA_PLAN)
+    cfg, plan = llm.cfg, llm.plan
+    _check_logits(llm, judge, GEMMA_CHECK, plan.tier(max(GEMMA_CHECK)))
+    arrivals = [0, 0, 0, 8, 8, 8]
+    counts, st, wall = _serve(
+        llm, _requests(cfg, GEMMA_LENS, GEMMA_NEW, arrivals), judge,
+        "gemma2 pass", GEMMA_NEW,
+        ("sliding_window_attention", "paged_attention", "bcsc_mlp",
+         "bcsc_matmul"))
+    layers, n_global = cfg.num_layers, cfg.num_layers // 2
+    judge.check("gemma2 pass: sliding-window launches per prefill batch",
+                counts["sliding_window_attention"]
+                == layers * st["prefill_batches"],
+                f"{counts['sliding_window_attention']} = {layers} x "
+                f"{st['prefill_batches']} batches")
+    judge.check("gemma2 pass: paged-attention launches per decode step",
+                counts["paged_attention"] == n_global * st["decode_steps"],
+                f"{counts['paged_attention']} = {n_global} x "
+                f"{st['decode_steps']} steps")
+    judge.check("gemma2 pass: fused-MLP launches per decode step",
+                counts["bcsc_mlp"] >= layers * st["decode_steps"],
+                f"{counts['bcsc_mlp']} >= {layers} x {st['decode_steps']} "
+                "steps (plus short prefills)")
+    generated = len(GEMMA_LENS) * GEMMA_NEW
+    rates = (f"gemma2-2b: prefill "
+             f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
+             f"tokens/s ({st['prefill_real_tokens']} tokens, "
+             f"{st['prefill_s']:.2f} s), decode "
+             f"{generated / max(st['decode_s'], 1e-9):.1f} tokens/s "
+             f"({generated} tokens, {st['decode_s']:.2f} s), wall "
+             f"{wall:.2f} s")
+    return counts, rates
 
 
 def main() -> int:
@@ -478,20 +655,34 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
     try:
         import torch
-        card = phase_device()
-        phase_build()
+        card = timed("device", phase_device)
+        timed("build", phase_build)
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         judge, records = Judge(), {}
-        phase_kernels(flush, judge, records)
+        timed("kernels", phase_kernels, flush, judge, records)
+        timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
         del flush
-        launches = phase_serve(judge)
+        launches = timed("serve qwen2.5-3b", phase_serve, judge)
+        torch.cuda.empty_cache()
+        g_counts, rates = timed("serve gemma2-2b", phase_serve_gemma, judge)
+        launches = {k: launches[k] + g_counts[k] for k in launches}
         if judge.failures:
             raise SmokeFailure(f"checks failed: {judge.failures}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    log(rates)
+    log("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in walls.items()))
     kernels = []
     for name, source, replaces in KERNELS:
         rec = records[name]

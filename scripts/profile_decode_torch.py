@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch/CUDA port spends its time, on one GPU.
 
-    python3 scripts/profile_decode_torch.py [--rows 8] [--steps 8]
+    python3 scripts/profile_decode_torch.py [--arch qwen2.5-3b] [--rows R]
+                                            [--steps 8]
 
-Builds full-width qwen2.5-3b as ``chip_smoke.py`` does (random weights from
+Builds a full-width model as ``chip_smoke.py`` does (random weights from
 seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
-ragged length (5 to 900 tokens) into a paged fp pool, then runs decode steps
+ragged length into a paged fp pool (qwen2.5-3b: 8 rows of 5 to 900 tokens
+in a 1024-token cache; gemma2-2b: 4 rows of 7 to 6000 tokens in an
+8192-token cache, so its local rings have wrapped), then runs decode steps
 (``decoding.serve_step`` through the block table) and reports:
 
 * host wall time per step, synchronised at the end of the steps;
@@ -24,9 +27,12 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LENGTHS = (5, 37, 64, 130, 300, 511, 700, 900)
+# arch -> (cache_len, prompt lengths of the rows, in turn)
+SETUPS = {"qwen2.5-3b": (1024, (5, 37, 64, 130, 300, 511, 700, 900)),
+          "gemma2-2b": (8192, (7, 1500, 4700, 6000))}
 GROUPS = (   # kernel-name fragment -> group, first match wins
     ("paged_attention", "paged attention (port)"),
+    ("swa_kernel", "sliding-window attention (port)"),
     ("bcsc_mlp", "fused BCSC MLP (port)"),
     ("bcsc_g", "BCSC GEMM/GEMV (port)"),
     ("gemm", "dense matmul (cuBLAS)"), ("gemv", "dense matmul (cuBLAS)"),
@@ -47,7 +53,9 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--arch", choices=sorted(SETUPS), default="qwen2.5-3b")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="default: one row per prompt length of the arch")
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -65,21 +73,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
-    cfg = get_config("qwen2.5-3b")
-    R = args.rows
+    cfg = get_config(args.arch)
+    cache_len, lens = SETUPS[args.arch]
+    R = args.rows or len(lens)
     params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     packed, _ = sparsify_mlp_params(params, cfg, sparsity=0.75)
     del params
     params = tfm.compute_copy(packed)
     del packed
-    plan = plan_for_scheduler(cfg, rows=R, cache_len=1024, page_size=64,
+    plan = plan_for_scheduler(cfg, rows=R, cache_len=cache_len, page_size=64,
                               attn_path="paged", share_prefix=False,
                               kv_quant="fp", sync_every=8)
     MP = plan.max_pages
     cache = decoding.init_paged_cache(cfg, R, plan.cache_len, R * MP,
                                       plan.page_size, "fp", device=dev)
     bt = torch.arange(R * MP, dtype=torch.int32, device=dev).reshape(R, MP)
-    lengths = torch.tensor([LENGTHS[i % len(LENGTHS)] for i in range(R)],
+    lengths = torch.tensor([lens[i % len(lens)] for i in range(R)],
                            dtype=torch.int32, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (R, plan.tier(int(lengths.max()))),
                          generator=torch.Generator(dev).manual_seed(1),
@@ -126,7 +135,7 @@ def main() -> int:
         g = groups.setdefault(group_of(name), [0.0, 0])
         g[0] += t / 1e3 / n
         g[1] += c / n
-    print(f"device: {torch.cuda.get_device_name(0)}; qwen2.5-3b, rows {R}, "
+    print(f"device: {torch.cuda.get_device_name(0)}; {args.arch}, rows {R}, "
           f"lengths {lengths.tolist()}")
     print(f"decode step: wall {wall_ms:.3f} ms (host clock), device busy "
           f"{busy_ms:.3f} ms in {launches:.0f} launches "
@@ -137,7 +146,8 @@ def main() -> int:
     for name, (t, c) in top:
         print(f"  {t / 1e3 / n:8.3f} ms/step {c / n:7.1f}x  {name[:90]}")
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "rows": R,
+        "device": torch.cuda.get_device_name(0), "arch": args.arch,
+        "rows": R,
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "launches_per_step": launches,
         "groups_ms_per_step": {g: t for g, (t, _) in groups.items()}}))

@@ -1,4 +1,5 @@
-"""Architecture config registry of the port (``qwen2.5-3b`` so far)."""
+"""Architecture config registry of the port (``qwen2.5-3b`` and
+``gemma2-2b`` so far)."""
 from __future__ import annotations
 
 import importlib
@@ -8,6 +9,7 @@ from repro_torch.configs.base import ArchConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "gemma2-2b": "gemma2_2b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

@@ -20,7 +20,8 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("paged_attention.cu", "bcsc_matmul.cu", "bcsc_mlp.cu")
+SOURCES = ("paged_attention.cu", "bcsc_matmul.cu", "bcsc_mlp.cu",
+           "local_attention.cu", "rs_matmul.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +40,10 @@ SIGNATURES = {
     # x, Mp, K, g_blk, g_rows, g_ptr, u_blk, u_rows, u_ptr, d_blk, d_rows,
     # d_ptr, counts, act, d_ff, n_out, hidden, out, barrier, stream
     "repro_bcsc_mlp": [P, I, I] + [P] * 10 + [I, I, I, P, P, P, P],
+    # q, k, v, out, B, S, H, KV, D, window, sm_scale, softcap, stream
+    "repro_sliding_window_attention": [P] * 4 + [I] * 6 + [F, F, P],
+    # x, w, bias, act, out, out_bf16, M, K, N, stream
+    "repro_rs_matmul": [P, P, P, I, P, I, I, I, I, P],
 }
 
 

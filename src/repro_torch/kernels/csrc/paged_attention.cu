@@ -10,7 +10,8 @@
 //
 // Design: one thread block per (row, KV head) holds the R query heads of that
 // KV group (R x D fp32 in shared memory) and walks the row's pages in order,
-// only j < ceil(len / ps), and skips table entries that name no page (-1).
+// only j < ceil(len / ps), and clamps each table entry into [0, P - 1] as the
+// reference does (an entry of -1 inside the occupancy reads page 0).
 // Per page: each warp scores a strided subset of the page's tokens for all R
 // heads at once (one K read serves R heads), the page's fp32 online-softmax
 // update (m, l, corr) runs one warp per head, and each thread then owns head
@@ -74,8 +75,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_kernel(
   if (n_pages > MP) n_pages = MP;
 
   for (int j = 0; j < n_pages; ++j) {
-    const int page = block_table[(long)b * MP + j];
-    if (page < 0 || page >= P) continue;  // never-touched entry
+    const int page = min(max(block_table[(long)b * MP + j], 0), P - 1);
     const int valid = min(ps, len - j * ps);
     const float ksc = kQuantized ? k_scale[page * KV + g] * (1.0f / 127.0f)
                                  : 1.0f;

@@ -19,7 +19,9 @@ import torch.nn.functional as F
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import bcsc_matmul as _bcsc
 from repro_torch.kernels import bcsc_mlp as _bmlp
+from repro_torch.kernels import local_attention as _swa
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import rs_matmul as _rs
 from repro_torch.kernels.epilogue import fused_epilogue
 
 # every CUDA kernel wrapper of the port, by name; each counts its launches
@@ -28,6 +30,8 @@ KERNELS = {
     "bcsc_mlp": _bmlp.bcsc_mlp_cuda,
     "bcsc_matmul": _bcsc.bcsc_matmul_cuda,
     "bcsc_gemv": _bcsc.bcsc_gemv_cuda,
+    "sliding_window_attention": _swa.sliding_window_attention_cuda,
+    "rs_matmul": _rs.rs_matmul_cuda,
 }
 
 
@@ -165,3 +169,33 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
         out = _paged.paged_attention_plain(qr, k_pool, v_pool, block_table,
                                            lengths, **kw)
     return out.reshape(B, 1, H, D)
+
+
+def sliding_window_attention(q, k, v, *, window: int, softcap: float = 0.0,
+                             impl: Optional[str] = None):
+    """Causal sliding-window GQA attention. q (B,S,H,D) bf16; k, v
+    (B,S,KV,D) bf16. Returns (B,S,H,D) fp32; ``window >= S`` is causal."""
+    if _use_kernel(q, impl):
+        return _swa.sliding_window_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), window=window,
+            softcap=softcap)
+    return _swa.sliding_window_attention_plain(q, k, v, window=window,
+                                               softcap=softcap)
+
+
+def flash_attention(q, k, v, *, softcap: float = 0.0,
+                    impl: Optional[str] = None):
+    """Full causal attention: the sliding window with window = S."""
+    return sliding_window_attention(q, k, v, window=q.shape[1],
+                                    softcap=softcap, impl=impl)
+
+
+def rs_matmul(x, w, *, bias=None, activation: Optional[str] = None,
+              out_dtype=torch.float32, impl: Optional[str] = None):
+    """Dense (M, K) · (K, N), any M, K, N, with bias (N,) and the activation
+    fused into the accumulator flush. On the card x and w must be bf16."""
+    if _use_kernel(x, impl):
+        return _rs.rs_matmul_cuda(x, w, bias=bias, activation=activation,
+                                  out_dtype=out_dtype)
+    return _rs.rs_matmul_plain(x, w, bias=bias,
+                               activation=activation).to(out_dtype)

@@ -8,9 +8,10 @@ without the history ever being gathered into a contiguous buffer.
 
 ``paged_attention_plain`` is the function in plain PyTorch (it gathers, then
 takes one masked softmax); ``paged_attention_cuda`` launches the hand-written
-kernel in ``csrc/paged_attention.cu``. Both read a table entry that names no
-page (-1) as never touched, and neither reads a token at or past a row's
-length.
+kernel in ``csrc/paged_attention.cu``. As in the reference, both clamp every
+table entry into ``[0, P - 1]`` and read the page it names, so an entry of -1
+inside a row's occupancy reads page 0; neither reads a token at or past a
+row's length.
 """
 from __future__ import annotations
 
@@ -53,15 +54,13 @@ def _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale):
 def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
                           k_scale=None, v_scale=None, softcap: float = 0.0):
     """q (B,KV,R,D); pools (P,ps,KV,D) bf16, or int8 with (P,KV) fp32
-    scales (value = q · scale / 127); block_table (B,MP) int32, -1 for no
-    page; lengths (B,) int32. Returns (B,KV,R,D) fp32."""
+    scales (value = q · scale / 127); block_table (B,MP) int32, entries
+    clamped into [0, P - 1]; lengths (B,) int32. Returns (B,KV,R,D) fp32."""
     _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
     B, KV, R, D = q.shape
     P, ps = k_pool.shape[:2]
     MP = block_table.shape[1]
-    bt = block_table.long()
-    page_ok = (bt >= 0) & (bt < P)
-    bt = bt.clamp(0, P - 1)
+    bt = block_table.long().clamp(0, P - 1)
     kd = k_pool[bt].reshape(B, MP * ps, KV, D).float()
     vd = v_pool[bt].reshape(B, MP * ps, KV, D).float()
     if k_scale is not None:
@@ -73,8 +72,7 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
     if softcap and softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     tpos = torch.arange(MP * ps, device=q.device)
-    valid = (tpos[None, :] < lengths.long()[:, None]) \
-        & page_ok.repeat_interleave(ps, dim=1)
+    valid = tpos[None, :] < lengths.long()[:, None]
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), torch.zeros_like(s))

@@ -1,10 +1,16 @@
-"""KV caches, single-token decode and batched prefill, global attention
-(counterpart of ``repro.models.decoding``).
+"""KV caches, single-token decode and batched prefill for global and
+sliding-window (local) attention layers (counterpart of
+``repro.models.decoding``).
 
 Caches keep the reference's layout: entries of the stacked layers sit on a
-leading layer axis (``cache["blocks"]["slot0"]``), and a paged entry holds
-``(layers, num_pages, page_size, KV, D)`` pools (``pk``, ``pv``) plus, in the
-int8 format, ``(layers, num_pages, KV)`` fp32 amax scales.
+leading period axis (``cache["blocks"]["slot{j}"]``, one per slot of the
+layer pattern). A global entry is either a contiguous ``(periods, rows,
+cache_len, KV, D)`` K/V or a paged one, ``(periods, num_pages, page_size,
+KV, D)`` pools (``pk``, ``pv``) plus, in the int8 format, ``(periods,
+num_pages, KV)`` fp32 amax scales. A local entry is a per-row bf16 ring of
+``min(window, cache_len)`` slots in both layouts: slot ``i`` holds the token
+at the largest position ``p = i (mod cap)`` with ``p <= pos``, and validity
+is recomputed from ``pos`` at every step.
 
 Unlike the reference, which returns new caches, every function here writes
 the cache it is given in place and returns it: the pools are the largest
@@ -28,36 +34,54 @@ from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
 
 
 # ------------------------------------------------------------------ caches
-def init_cache(cfg, batch: int, cache_len: int, device=None) -> Dict:
-    """Contiguous (layers, batch, cache_len, KV, D) bf16 K/V."""
-    tfm.check_supported(cfg)
-    shape = (tfm.num_scan_periods(cfg), batch, cache_len, cfg.num_kv_heads,
+def _attn_cache_capacity(cfg, kind: str, cache_len: int) -> int:
+    return min(cfg.window_size, cache_len) if kind == "local" else cache_len
+
+
+def _init_entry(cfg, kind: str, rows: int, cache_len: int, device):
+    """Per-row (periods, rows, cap, KV, D) bf16 K/V of one slot."""
+    shape = (tfm.num_scan_periods(cfg), rows,
+             _attn_cache_capacity(cfg, kind, cache_len), cfg.num_kv_heads,
              cfg.head_dim)
-    return {"blocks": {"slot0": {
-        "k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-        "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}}}
+    return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+
+
+def init_cache(cfg, batch: int, cache_len: int, device=None) -> Dict:
+    """Contiguous K/V for global slots, rings for local ones."""
+    tfm.check_supported(cfg)
+    return {"blocks": {name: _init_entry(cfg, kind, batch, cache_len, device)
+                       for name, kind in tfm.slot_names(cfg)}}
+
+
+def _init_paged_entry(cfg, num_pages: int, page_size: int, kv_quant: str,
+                      device):
+    L = tfm.num_scan_periods(cfg)
+    shape = (L, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quant == "int8":
+        sshape = (L, num_pages, cfg.num_kv_heads)
+        return {"pk": torch.zeros(shape, dtype=torch.int8, device=device),
+                "pv": torch.zeros(shape, dtype=torch.int8, device=device),
+                "pk_scale": torch.zeros(sshape, device=device),
+                "pv_scale": torch.zeros(sshape, device=device)}
+    return {"pk": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            "pv": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
 
 
 def init_paged_cache(cfg, rows: int, cache_len: int, num_pages: int,
                      page_size: int, kv_quant: str = "fp",
                      device=None) -> Dict:
-    """Global-attention K/V as (layers, num_pages, page_size, KV, D) pools,
-    bf16 or int8 with per-(page, KV head) fp32 scales."""
+    """Global slots as (periods, num_pages, page_size, KV, D) pools, bf16
+    or int8 with per-(page, KV head) fp32 scales; local slots keep their
+    per-row rings, whose memory never grows with the context."""
     tfm.check_supported(cfg)
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
-    L = tfm.num_scan_periods(cfg)
-    shape = (L, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    if kv_quant == "int8":
-        sshape = (L, num_pages, cfg.num_kv_heads)
-        entry = {"pk": torch.zeros(shape, dtype=torch.int8, device=device),
-                 "pv": torch.zeros(shape, dtype=torch.int8, device=device),
-                 "pk_scale": torch.zeros(sshape, device=device),
-                 "pv_scale": torch.zeros(sshape, device=device)}
-    else:
-        entry = {"pk": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
-                 "pv": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
-    return {"blocks": {"slot0": entry}}
+    return {"blocks": {
+        name: _init_paged_entry(cfg, num_pages, page_size, kv_quant, device)
+        if kind == "global" else _init_entry(cfg, kind, rows, cache_len,
+                                             device)
+        for name, kind in tfm.slot_names(cfg)}}
 
 
 def is_paged_entry(entry) -> bool:
@@ -206,12 +230,17 @@ def _paged_append(entry, k_tok, v_tok, block_table, posv):
 
 
 def _valid_mask(cfg, kind: str, cap: int, pos):
-    """Global kind: slot i is valid when i <= pos. pos scalar or (B,)."""
-    if kind != "global":
-        raise NotImplementedError(f"{kind} layers are not ported yet")
-    p = torch.as_tensor(pos)
+    """Slots of a contiguous entry that hold a token at time ``pos`` (scalar
+    or (B,)): ``i <= pos`` for a global entry; for a ring, the slots whose
+    position ``pos - ((pos - i) mod cap)`` is not negative."""
+    p = torch.as_tensor(pos)[..., None]
     i = torch.arange(cap, device=p.device)
-    m = i <= p[..., None]
+    if kind == "global":
+        m = i <= p
+    elif kind == "local":
+        m = p - torch.remainder(p - i, cap) >= 0
+    else:
+        raise NotImplementedError(f"{kind} layers are not ported yet")
     return m if m.dim() == 2 else m[None, :]
 
 
@@ -228,8 +257,9 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = layers.rope(q, posv[:, None], cfg.rope_theta)
-    k = layers.rope(k, posv[:, None], cfg.rope_theta)
+    theta = tfm._rope_theta_for(cfg, kind)
+    q = layers.rope(q, posv[:, None], theta)
+    k = layers.rope(k, posv[:, None], theta)
     if is_paged_entry(entry):
         if block_table is None:
             raise ValueError("a paged cache entry needs a block table")
@@ -245,13 +275,35 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
     cap = entry["k"].shape[1]
     B = x.shape[0]
     rows = torch.arange(B, device=x.device)
-    idx = posv.clamp(max=cap - 1)
+    # a ring writes slot pos mod cap; a global entry clamps at its end
+    idx = posv % cap if kind != "global" else posv.clamp(max=cap - 1)
     entry["k"][rows, idx] = k[:, 0]
     entry["v"][rows, idx] = v[:, 0]
     mask = _valid_mask(cfg, kind, cap, posv)
     ctx = layers.decode_attention(q, entry["k"], entry["v"],
                                   mask.expand(B, cap), cfg)
     return layers.attn_out(p, ctx)
+
+
+def _residual(x, y, p, post: str, cfg):
+    """x + y, y first through gemma2's post-norm when the config has one."""
+    if cfg.use_post_norm:
+        y = rms_norm(y, p[post], cfg.norm_eps)
+    return x + y
+
+
+def _mlp_residual(p, x, cfg, plan, impl):
+    h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
+    return _residual(x, layers.mlp(p["mlp"], h, cfg, plan, impl=impl), p,
+                     "post_norm_mlp", cfg)
+
+
+def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl):
+    """One layer: pre-norm attention, then the MLP."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table, impl)
+    return _mlp_residual(p, _residual(x, y, p, "post_norm", cfg), cfg, plan,
+                         impl)
 
 
 def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
@@ -264,14 +316,12 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
     x = tfm.embed_tokens(params, tokens, cfg)
     B = x.shape[0]
     posv = _positions(pos, B, x.device)
-    blocks, cblocks = params["blocks"]["slot0"], cache["blocks"]["slot0"]
+    slots = tfm.slot_names(cfg)
     for i in range(tfm.num_scan_periods(cfg)):
-        p, entry = tfm.layer(blocks, i), tfm.layer(cblocks, i)
-        h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-        x = x + _attn_decode(p["attn"], h, "global", entry, posv, cfg,
-                             block_table, impl)
-        h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h, cfg, plan, impl=impl)
+        for name, kind in slots:
+            x = _block_decode(tfm.layer(params["blocks"][name], i), x, kind,
+                              tfm.layer(cache["blocks"][name], i), posv, cfg,
+                              plan, block_table, impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return tfm.lm_logits(params, x, cfg), cache
 
@@ -280,36 +330,77 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
 @dataclasses.dataclass
 class PagedPrefill:
     """Page-native prefill: global K/V written straight into the pools of
-    ``cache`` through per-row block tables as each layer produces it.
-    ``write_start`` (B,) skips writes before each row's shared-prefix
-    boundary; None writes from token 0."""
+    ``cache`` through per-row block tables as each layer produces it, and
+    every per-row entry (a local layer's ring) merged into its device row
+    at ``slots``. ``write_start`` (B,) skips writes before each row's
+    shared-prefix boundary; None writes from token 0."""
     cache: Dict
     block_table_rows: torch.Tensor      # (B, max_pages) physical page ids
     slots: torch.Tensor                 # (B,) device rows being refilled
     write_start: Optional[torch.Tensor] = None
 
 
-def _attn_prefill(p, x, positions, cfg, cache_len: int, lengths,
-                  entry=None, paged: Optional[PagedPrefill] = None):
+def _gather_ring_ragged(full, m: int, lengths):
+    """Per-row ring of m slots from (B,S,...) K or V: row b's slots hold its
+    own last positions at pos = lengths[b] - 1, so pad tokens past a row's
+    length never enter; slots that would map to negative positions clip to
+    0 (garbage the decode-side validity mask hides)."""
+    S = full.shape[1]
+    i = torch.arange(m, device=full.device)
+    last = (lengths.long() - 1)[:, None]
+    p = (last - torch.remainder(last - i[None, :], m)).clamp(0, S - 1)
+    idx = p.reshape(p.shape + (1,) * (full.dim() - 2)).expand(
+        p.shape + full.shape[2:])
+    return torch.gather(full, 1, idx)
+
+
+def _merge_rows(entry, row_entry, slots) -> None:
+    """Write B prefilled rows into a full-width per-row entry at ``slots``."""
+    for key, t in entry.items():
+        t[slots] = row_entry[key].to(t.dtype)
+
+
+def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
+                  entry=None, paged: Optional[PagedPrefill] = None,
+                  impl: Optional[str] = None):
     q, k, v = layers.attn_qkv(p, x, cfg)
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = layers.rope(q, positions, cfg.rope_theta)
-    k = layers.rope(k, positions, cfg.rope_theta)
-    ctx = layers.full_causal_attention(q, k, v, cfg)
-    if paged is not None:
+    theta = tfm._rope_theta_for(cfg, kind)
+    q = layers.rope(q, positions, theta)
+    k = layers.rope(k, positions, theta)
+    if kind == "local":
+        ctx = layers.local_attention(q, k, v, cfg, impl)
+    else:
+        ctx = layers.full_causal_attention(q, k, v, cfg, impl)
+    cap = _attn_cache_capacity(cfg, kind, cache_len)
+    if paged is not None and is_paged_entry(entry):
         paged_prefill_write(entry, k, v, paged.block_table_rows, lengths,
                             paged.write_start)
-        out_entry = entry
-    else:
+        return layers.attn_out(p, ctx), entry
+    if kind == "global":
         # rows keep pad K/V past their length; decode's validity mask
         # never exposes it and decode overwrites it in order
-        pad = cache_len - k.shape[1]
-        out_entry = {
-            "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+        pad = cap - k.shape[1]
+        out_entry = {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
+                     "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}
+    else:
+        out_entry = {"k": _gather_ring_ragged(k, cap, lengths),
+                     "v": _gather_ring_ragged(v, cap, lengths)}
+    if paged is not None:
+        _merge_rows(entry, out_entry, paged.slots)
+        out_entry = entry
     return layers.attn_out(p, ctx), out_entry
+
+
+def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
+                   paged, plan, impl):
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    y, e = _attn_prefill(p["attn"], h, kind, positions, cfg, cache_len,
+                         lengths, entry, paged, impl)
+    return _mlp_residual(p, _residual(x, y, p, "post_norm", cfg), cfg, plan,
+                         impl), e
 
 
 def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
@@ -318,26 +409,24 @@ def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
     x = tfm.embed_tokens(params, tokens, cfg)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    blocks = params["blocks"]["slot0"]
-    cblocks = paged.cache["blocks"]["slot0"] if paged is not None else None
-    entries = []
+    slots = tfm.slot_names(cfg)
+    entries = {name: [] for name, _ in slots}
     for i in range(tfm.num_scan_periods(cfg)):
-        p = tfm.layer(blocks, i)
-        h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-        y, e = _attn_prefill(p["attn"], h, positions, cfg, cache_len, lengths,
-                             tfm.layer(cblocks, i) if paged is not None
-                             else None, paged)
-        entries.append(e)
-        x = x + y
-        h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
-        x = x + layers.mlp(p["mlp"], h, cfg, plan, impl=impl)
+        for name, kind in slots:
+            entry = tfm.layer(paged.cache["blocks"][name], i) \
+                if paged is not None else None
+            x, e = _block_prefill(tfm.layer(params["blocks"][name], i), x,
+                                  kind, positions, cfg, cache_len, lengths,
+                                  entry, paged, plan, impl)
+            entries[name].append(e)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
     logits = tfm.lm_logits(params, torch.gather(x, 1, idx), cfg)
     if paged is not None:
         return logits, paged.cache
-    return logits, {"blocks": {"slot0": {
-        k: torch.stack([e[k] for e in entries]) for k in ("k", "v")}}}
+    return logits, {"blocks": {
+        name: {k: torch.stack([e[k] for e in es]) for k in ("k", "v")}
+        for name, es in entries.items()}}
 
 
 def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
@@ -347,8 +436,10 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
 
     tokens (B, S) padded to a common tier S; lengths (B,) the real prompt
     lengths. Returns (per-row last-real-position logits (B,1,Vp), cache).
-    Without ``paged`` the cache is a fresh contiguous (layers, B, cache_len,
-    KV, D) one; with it, K/V land in ``paged.cache``'s pools (in place).
+    Without ``paged`` the cache is a fresh contiguous one (global slots
+    (periods, B, cache_len, KV, D), local slots per-row rings); with it,
+    global K/V land in ``paged.cache``'s pools and rings in its rows at
+    ``paged.slots`` (in place).
     ``impl`` is passed on to ``kernels.ops`` (None: by device)."""
     tfm.check_supported(cfg)
     lengths = torch.as_tensor(lengths, dtype=torch.int32,

@@ -97,48 +97,24 @@ def attn_out(params, ctx):
                   wo.reshape(H * D, d), out_dtype=COMPUTE_DTYPE)
 
 
-def full_causal_attention(q, k, v, cfg):
-    """Causal prefill attention, plain PyTorch with the reference flash
-    forward's numerics (``models/flash.py``): kv blocks of up to 512
-    tokens merged by an fp32 online softmax, fp32 scores, p cast to bf16
-    for the PV product with fp32 accumulation, bf16 out.
+def full_causal_attention(q, k, v, cfg, impl: Optional[str] = None):
+    """Causal prefill attention through ``ops.flash_attention`` (the
+    reference's ``_flash_call`` onto ``models/flash.py``): the CUDA kernel
+    on the card, its plain version (flash's numerics and block schedule) on
+    the CPU. q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D) bf16."""
+    return ops.flash_attention(q, k, v, softcap=cfg.attn_logit_softcap,
+                               impl=impl).to(COMPUTE_DTYPE)
 
-    q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D) bf16.
-    """
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    R = H // KV
-    blk = 512
-    while blk > S:
-        blk //= 2
-    blk = max(blk, 16)
-    nk = -(-S // blk)
-    qf = q.float().reshape(B, S, KV, R, D).permute(0, 2, 3, 1, 4)
-    kf = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, nk * blk - S))
-    vf = F.pad(cast_compute(v).float().permute(0, 2, 1, 3),
-               (0, 0, 0, nk * blk - S))
-    scale = 1.0 / math.sqrt(D)
-    qpos = torch.arange(S, device=q.device)
-    m = torch.full((B, KV, R, S), NEG_INF, device=q.device)
-    l = torch.zeros((B, KV, R, S), device=q.device)
-    acc = torch.zeros((B, KV, R, S, D), device=q.device)
-    for j in range(nk):
-        kpos = j * blk + torch.arange(blk, device=q.device)
-        s = torch.einsum("bgrqd,bgkd->bgrqk", qf,
-                         kf[:, :, j * blk:(j + 1) * blk]) * scale
-        s = softcap(s, cfg.attn_logit_softcap)
-        msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S)
-        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]),
-                        torch.zeros_like(s))
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(
-            p.to(COMPUTE_DTYPE).float(), vf[:, :, None, j * blk:(j + 1) * blk])
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(COMPUTE_DTYPE)
+
+def local_attention(q, k, v, cfg, impl: Optional[str] = None):
+    """Sliding-window causal attention with window ``cfg.window_size``;
+    causal when the sequence fits in the window, as in the reference."""
+    w = cfg.window_size
+    if q.shape[1] <= w:
+        return full_causal_attention(q, k, v, cfg, impl)
+    return ops.sliding_window_attention(
+        q, k, v, window=w, softcap=cfg.attn_logit_softcap,
+        impl=impl).to(COMPUTE_DTYPE)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, cfg):

@@ -1,9 +1,10 @@
 """Decoder LM layout, embedding, head and init (counterpart of
 ``repro.models.transformer``).
 
-Parameters keep the reference's stacked layout: ``params["blocks"]["slot0"]``
-holds every layer of a pattern slot on a leading layer axis, which the port
-walks with a Python loop where the reference scans.
+Parameters keep the reference's stacked layout: ``params["blocks"]["slot{j}"]``
+holds slot ``j`` of every pattern period on a leading period axis (gemma2:
+``slot0`` its local layers, ``slot1`` its global ones), which the port walks
+with a Python loop where the reference scans.
 """
 from __future__ import annotations
 
@@ -38,14 +39,28 @@ def slot_kinds(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port serves all-global-attention dense decoders so far."""
+    """The port serves dense decoders of global and sliding-window (local)
+    attention layers, with rope and one codebook, so far."""
     kinds = {k for k, _ in slot_kinds(cfg)}
-    if kinds != {"global"} or cfg.moe or cfg.num_codebooks != 1 \
-            or cfg.frontend != "none" or cfg.cross_attn_cond \
-            or cfg.pos_embed != "rope" or cfg.remainder_layers:
+    if not kinds <= {"global", "local"} or cfg.moe \
+            or cfg.num_codebooks != 1 or cfg.frontend != "none" \
+            or cfg.cross_attn_cond or cfg.pos_embed != "rope" \
+            or cfg.remainder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs all-global-attention dense decoders "
-            "with rope and one codebook so far")
+            f"{cfg.name}: the port runs dense decoders of global and local "
+            "attention layers with rope and one codebook so far")
+
+
+def slot_names(cfg):
+    """``[(f"slot{j}", kind), ...]`` for the slots of a period."""
+    return [(f"slot{j}", k) for j, (k, _) in enumerate(slot_kinds(cfg))]
+
+
+def _rope_theta_for(cfg, kind: str) -> float:
+    """Local layers take ``local_rope_theta`` when the config sets one."""
+    if kind == "local" and cfg.local_rope_theta > 0:
+        return cfg.local_rope_theta
+    return cfg.rope_theta
 
 
 def layer(tree, i: int):
@@ -75,24 +90,31 @@ def init_params(cfg, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
-    attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
-            "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
-    if cfg.qkv_bias:
-        attn.update(bq=zeros(L, H, D), bk=zeros(L, KV, D), bv=zeros(L, KV, D))
-    if cfg.qk_norm:
-        attn.update(q_norm=zeros(L, D), k_norm=zeros(L, D))
-    if cfg.mlp_gated:
-        mlp = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
-               "wd": dense((ff, d), ff)}
-    else:
-        mlp = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
+    def block():
+        attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
+                "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(L, H, D), bk=zeros(L, KV, D),
+                        bv=zeros(L, KV, D))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros(L, D), k_norm=zeros(L, D))
+        if cfg.mlp_gated:
+            mlp = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
+                   "wd": dense((ff, d), ff)}
+        else:
+            mlp = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
+        p = {"pre_norm": zeros(L, d), "pre_norm_mlp": zeros(L, d),
+             "attn": attn, "mlp": mlp}
+        if cfg.use_post_norm:
+            p.update(post_norm=zeros(L, d), post_norm_mlp=zeros(L, d))
+        return p
+
+    blocks = {name: block() for name, _ in slot_names(cfg)}
     params = {
         "embed": torch.randn((cfg.vocab_padded, d), generator=generator,
                              device=dev),
         "final_norm": zeros(d),
-        "blocks": {"slot0": {"pre_norm": zeros(L, d),
-                             "pre_norm_mlp": zeros(L, d),
-                             "attn": attn, "mlp": mlp}},
+        "blocks": blocks,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = torch.randn((d, cfg.vocab_padded),

@@ -78,16 +78,19 @@ def check_plan(plan) -> None:
 
 class ContinuousBatchingScheduler:
     """Streaming continuous batching for one model on one device; every
-    dispatch decision is read from ``plan`` (a ``core.plan.ServePlan``)."""
+    dispatch decision is read from ``plan`` (a ``core.plan.ServePlan``).
+    ``device`` defaults to the card, as ``LLM``'s does, and construction
+    raises without one unless ``device="cpu"`` is passed."""
 
     def __init__(self, cfg, params, plan, *, eos_id: int = 1,
                  temperature: float = 0.0, device=None):
+        from repro_torch.serve.facade import resolve_device
         check_plan(plan)
         tfm.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.plan = plan
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.rows = plan.rows
         self.cache_len = plan.cache_len
         self.sync_every = max(1, plan.sync_every)
@@ -137,9 +140,9 @@ class ContinuousBatchingScheduler:
             logits, rows = decoding.prefill_batched(
                 self.params, toks, lengths, self.cfg, self.cache_len,
                 plan=self.plan)
-            entry, new = cache["blocks"]["slot0"], rows["blocks"]["slot0"]
-            for k in ("k", "v"):
-                entry[k][:, slots] = new[k]
+            for name, entry in cache["blocks"].items():
+                for k, t in entry.items():
+                    t[:, slots] = rows["blocks"][name][k]
         last[slots] = logits[:, -1]
         pos[slots] = lengths.long()
         live[slots] = True

@@ -52,3 +52,16 @@ def test_llm_defaults_to_the_card(monkeypatch):
         LLM(cfg, {}, plan)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLM(cfg, {}, plan, device="cuda")
+
+
+def test_scheduler_defaults_to_the_card(monkeypatch):
+    """The scheduler, an entry point too, resolves its device as ``LLM``
+    does: the card by default, raising without one."""
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2.5-3b-reduced")
+    plan = plan_for_scheduler(cfg, rows=1, cache_len=32, share_prefix=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatchingScheduler(cfg, {}, plan)
+    sch = ContinuousBatchingScheduler(cfg, {}, plan, device="cpu")
+    assert sch.device.type == "cpu"

@@ -18,8 +18,10 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import plan as pplan
 from repro_torch.kernels import epilogue as pepi
+from repro_torch.kernels import local_attention as pswa
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import paged_attention as ppa
+from repro_torch.kernels import rs_matmul as prs
 from repro_torch.serve import sparse as psparse
 
 
@@ -31,11 +33,13 @@ def ref():
     from repro.core import dataflow, plan
     from repro.core.sparsity import block_magnitude_prune
     from repro.kernels import epilogue, ops
+    from repro.kernels import ref as oracles
+    from repro.models import flash
     from repro.serve import sparse
     return types.SimpleNamespace(
         jnp=jnp, get_config=get_cfg, dataflow=dataflow, plan=plan,
         prune=block_magnitude_prune, epilogue=epilogue, ops=ops,
-        sparse=sparse)
+        sparse=sparse, oracles=oracles, flash=flash)
 
 
 def _bf16(rng, shape, scale=1.0):
@@ -131,6 +135,46 @@ def test_paged_attention_reads_nothing_past_length():
         torch.from_numpy(vd).bfloat16(), torch.from_numpy(bt),
         torch.from_numpy(lens))
     assert torch.equal(clean, dirty)
+
+
+def _hole_case():
+    """A table with a -1 inside row 0's occupancy (its second page) and a
+    -1 past row 1's; page 0 holds real data."""
+    q, kp, vp, bt, lens, _ = _paged_case([20, 9], 8, seed=5)
+    bt[0, 1] = -1
+    return q, kp, vp, bt, lens
+
+
+def test_paged_attention_hole_in_table_reads_page_zero(ref):
+    """As the reference does, an entry of -1 inside a row's occupancy is
+    clamped to page 0 and that page is read: the plain version against
+    ``ref.paged_attention_ref`` and the Pallas kernel in interpret mode,
+    1e-5 (fp32 sums in another order)."""
+    q, kp, vp, bt, lens = _hole_case()
+    jnp = ref.jnp
+    B, _, H, D = q.shape
+    KV = kp.shape[2]
+    rq = jnp.asarray(q, jnp.bfloat16)
+    rk, rv = jnp.asarray(kp, jnp.bfloat16), jnp.asarray(vp, jnp.bfloat16)
+    want_oracle = np.asarray(ref.oracles.paged_attention_ref(
+        rq.reshape(B, KV, H // KV, D), rk, rv, jnp.asarray(bt),
+        jnp.asarray(lens))).reshape(q.shape)
+    want_kernel = np.asarray(ref.ops.paged_attention(
+        rq, rk, rv, jnp.asarray(bt), jnp.asarray(lens)))
+    got = pops.paged_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kp).bfloat16(),
+        torch.from_numpy(vp).bfloat16(), torch.from_numpy(bt),
+        torch.from_numpy(lens)).numpy()
+    for want in (want_oracle, want_kernel):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the hole really read page 0: naming another page changes row 0
+    fixed = bt.copy()
+    fixed[0, 1] = kp.shape[0] - 1
+    other = pops.paged_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(kp).bfloat16(),
+        torch.from_numpy(vp).bfloat16(), torch.from_numpy(fixed),
+        torch.from_numpy(lens)).numpy()
+    assert not np.allclose(other[0], got[0])
 
 
 def test_work_steps_count_only_occupied_pages():
@@ -250,6 +294,117 @@ def test_plan_routes_match_reference_dataflow(ref):
     assert cfg.vocab_padded == 152064 and cfg.param_count() > 3.0e9
 
 
+# --------------------------------------------- sliding-window attention
+def _swa_case(S, B=2, KV=2, R=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng, (B, S, KV * R, D)), _bf16(rng, (B, S, KV, D)),
+            _bf16(rng, (B, S, KV, D)))
+
+
+def _flash_fp32(ref, q, k, v, window, softcap):
+    """``models.flash``'s forward in fp32 (before its bf16 cast), in the
+    mode and block size that ``models.layers._flash_call`` picks."""
+    jnp = ref.jnp
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    blk = pswa.block_size(S)
+    mode = "causal" if window >= S else "window"
+    qf = jnp.asarray(q, jnp.bfloat16).reshape(B, S, KV, H // KV, D) \
+        .transpose(0, 2, 3, 1, 4)
+    kf = jnp.asarray(k, jnp.bfloat16).transpose(0, 2, 1, 3)
+    vf = jnp.asarray(v, jnp.bfloat16).transpose(0, 2, 1, 3)
+    out, _ = ref.flash._fwd_impl(qf, kf, vf, jnp.arange(S, dtype=jnp.int32),
+                                 mode, window if mode == "window" else S,
+                                 softcap, blk, blk)
+    return np.asarray(out).transpose(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+def _port_swa(q, k, v, window, softcap, **kw):
+    return pops.sliding_window_attention(
+        torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
+        torch.from_numpy(v).bfloat16(), window=window, softcap=softcap,
+        **kw)
+
+
+@pytest.mark.parametrize("S,window", [(40, 40), (40, 12), (100, 100),
+                                      (100, 33), (300, 300), (300, 70),
+                                      (1100, 600)])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_sliding_window_plain_matches_flash(ref, S, window, softcap):
+    """The plain version is ``models/flash.py``'s forward: the same block
+    schedule (ragged S, several blocks, causal and window modes, blocks
+    skipped), the same fp32 online softmax and bf16 PV. XLA's exp and tanh
+    differ from torch's in the last fp32 bit, which now and then flips the
+    bf16 rounding of a p (one bf16 step, 2^-8 of it): so 99 % of the
+    outputs within 1e-5, and all within 2e-3 of max |out|."""
+    q, k, v = _swa_case(S, D=16 if S < 1000 else 8, seed=S + window)
+    got = _port_swa(q, k, v, window, softcap)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = _flash_fp32(ref, q, k, v, window, softcap)
+    diff = np.abs(got.numpy() - want)
+    assert (diff <= 1e-5).mean() >= 0.99
+    assert diff.max() <= 2e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("S,window,softcap", [(40, 12, 0.0), (40, 40, 50.0),
+                                              (100, 33, 50.0)])
+def test_sliding_window_plain_matches_pallas_and_oracle(ref, S, window,
+                                                        softcap):
+    """Against the Pallas band kernel in interpret mode and the exact
+    oracle, both of which keep p in fp32 where flash (and the port) round
+    it to bf16 for the PV product: 2e-2 of max |out|."""
+    jnp = ref.jnp
+    q, k, v = _swa_case(S, seed=7)
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    got = _port_swa(q, k, v, window, softcap).numpy()
+    for want in (ref.ops.sliding_window_attention(*args, window=window,
+                                                  softcap=softcap),
+                 ref.oracles.sliding_window_attention_ref(
+                     *args, window, softcap=softcap)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-2 * np.abs(want).max())
+
+
+def test_flash_attention_entry_is_causal_window(ref):
+    q, k, v = _swa_case(24, seed=3)
+    got = pops.flash_attention(*(torch.from_numpy(a).bfloat16()
+                                 for a in (q, k, v)), softcap=30.0)
+    assert torch.equal(got, _port_swa(q, k, v, 24, 30.0))
+
+
+# -------------------------------------------------------------- rs_matmul
+@pytest.mark.parametrize("M,K,N", [(8, 16, 8), (48, 100, 72), (129, 257, 65)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+def test_rs_matmul_plain_matches_reference(ref, M, K, N, dtype, act):
+    """Against the Pallas row-stationary kernel in interpret mode, with bias
+    and each activation, on outputs of order 1: 1e-5 in fp32 (sums in
+    another order), 5e-2 in bf16 (the reference's own tolerance for its
+    kernel, tests/test_kernels.py)."""
+    jnp = ref.jnp
+    rng = np.random.default_rng(M + K + N)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    bias = rng.standard_normal(N).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(ref.ops.rs_matmul(
+        jnp.asarray(x, jdt), jnp.asarray(w, jdt), bias=jnp.asarray(bias),
+        activation=act))
+    got = pops.rs_matmul(torch.from_numpy(x).to(tdt),
+                         torch.from_numpy(w).to(tdt),
+                         bias=torch.from_numpy(bias), activation=act)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    half = pops.rs_matmul(torch.from_numpy(x).to(tdt),
+                          torch.from_numpy(w).to(tdt),
+                          bias=torch.from_numpy(bias), activation=act,
+                          out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16 and torch.equal(half,
+                                                        got.bfloat16())
+
+
 # ------------------------------------------------------------ on the card
 @pytest.fixture
 def cuda():
@@ -306,3 +461,47 @@ def test_cuda_bcsc_mlp_matches_plain(cuda, M):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_hole_reads_page_zero(cuda):
+    q, kp, vp, bt, lens = _hole_case()
+    args = (torch.from_numpy(q).bfloat16().to(cuda),
+            torch.from_numpy(kp).bfloat16().to(cuda),
+            torch.from_numpy(vp).bfloat16().to(cuda),
+            torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda))
+    got = pops.paged_attention(*args)
+    want = pops.paged_attention(*args, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window,R,D", [(300, 300, 2, 256), (300, 70, 2, 256),
+                                          (200, 200, 8, 128), (130, 40, 1, 64)])
+def test_cuda_sliding_window_matches_plain(cuda, S, window, R, D):
+    """The kernel walks keys in another order than flash's schedule and
+    sums its tensor-core products in its own: 1e-3 of max |out|."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, KV=2, R=R, D=D, seed=S))
+    got = pops.sliding_window_attention(q, k, v, window=window, softcap=50.0)
+    want = pops.sliding_window_attention(q, k, v, window=window,
+                                         softcap=50.0, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8, 2304, 9216), (100, 300, 70)])
+def test_cuda_rs_matmul_matches_plain(cuda, M, K, N):
+    x = torch.randn(M, K, device=cuda).bfloat16()
+    w = (torch.randn(K, N, device=cuda) / K ** 0.5).bfloat16()
+    bias = torch.randn(N, device=cuda)
+    got = pops.rs_matmul(x, w, bias=bias, activation="gelu")
+    want = pops.rs_matmul(x, w, bias=bias, activation="gelu", impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="bf16"):
+        pops.rs_matmul(x.float(), w.float())

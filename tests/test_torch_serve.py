@@ -134,6 +134,12 @@ def test_stream_int8_kv_matches_reference(weights):
     (ARCH, 2, 64, dict(attn_path="contiguous")),
     ("qwen2.5-3b", 8, 1024, dict(page_size=64)),
     ("qwen2.5-3b", 8, 1024, dict()),
+    ("gemma2-2b-reduced", 2, 96, dict(page_size=8)),
+    ("gemma2-2b-reduced", 3, 96, dict(page_size=8, num_pages=16,
+                                      kv_quant="int8")),
+    ("gemma2-2b", 4, 8192, dict(page_size=64)),
+    ("gemma2-2b", 4, 8192, dict(page_size=64, attn_path="paged",
+                                kv_quant="fp")),
 ])
 def test_plan_for_scheduler_matches_reference(arch, rows, cache_len, kw):
     """Every dispatch field of the port's plan equals the reference's."""
