@@ -80,7 +80,7 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long ld,
 __global__ void __launch_bounds__(kSwaThreads) swa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, float* __restrict__ out, int S, int H, int KV,
-    int D, int window, float sm_scale, float softcap) {
+    int D, int window, float score_mult, float softcap) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dp = D + 8, Dq = D + 4;
@@ -149,8 +149,8 @@ __global__ void __launch_bounds__(kSwaThreads) swa_kernel(
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
         const int kpos = key0 + c;
-        float sc = ss[row * kSwaSPad + c] * sm_scale;
-        if (softcap > 0.0f) sc = tanhf(sc / softcap) * softcap;
+        float sc = ss[row * kSwaSPad + c] * score_mult;
+        if (softcap > 0.0f) sc = tanhf(sc) * softcap;
         const bool ok = kpos <= qpos && qpos - kpos < window && kpos < S &&
                         qpos < S;
         sv[h] = ok ? sc : kSwaNegInf;
@@ -214,10 +214,13 @@ __global__ void __launch_bounds__(kSwaThreads) swa_kernel(
 }  // namespace repro
 
 // q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32. H / KV
-// must divide 64, D a multiple of 16 up to 256, 1 <= window <= S.
+// must divide 64, D a multiple of 16 up to 256, 1 <= window <= S. Scores
+// are q.k * score_mult, then tanh(.) * softcap when softcap > 0: the caller
+// passes 1/sqrt(D), or with a softcap the fp32 (1/sqrt(D)) / softcap, the
+// one multiply XLA makes of the reference's q.k * scale / softcap.
 extern "C" int repro_sliding_window_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,
-    int H, int KV, int D, int window, float sm_scale, float softcap,
+    int H, int KV, int D, int window, float score_mult, float softcap,
     void* stream) {
   using namespace repro;
   if (KV < 1 || H % KV || kSwaRows % (H / KV) || D % 16 || D > 256 ||
@@ -233,6 +236,6 @@ extern "C" int repro_sliding_window_attention(
   dim3 grid((S + per_tile - 1) / per_tile, KV, B);
   swa_kernel<<<grid, kSwaThreads, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)out, S, H, KV,
-      D, window, sm_scale, softcap);
+      D, window, score_mult, softcap);
   return (int)cudaGetLastError();
 }

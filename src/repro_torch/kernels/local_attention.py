@@ -8,11 +8,12 @@ kernel serves the local layers of gemma2 and every global layer's prefill.
 
 ``sliding_window_attention_plain`` repeats ``flash._fwd_impl``'s numerics and
 block schedule: blocks of ``block_size(S)`` tokens, fp32 scores scaled by
-``1/sqrt(D)`` and optionally tanh-capped, an fp32 online softmax (NEG_INF =
--2e38, p = exp(s - m) only where s > NEG_INF / 2, out = acc / max(l, 1e-30))
-and p and v rounded to bf16 for the PV product with fp32 accumulation. kv
-blocks are visited in flash's order (ascending in causal mode, descending
-from the diagonal in window mode), so its fp32 sums are the reference's.
+``1/sqrt(D)`` and optionally tanh-capped (``_score_mult``), an fp32 online
+softmax (NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2,
+out = acc / max(l, 1e-30)) and p and v rounded to bf16 for the PV product
+with fp32 accumulation. kv blocks are visited in flash's order (ascending in
+causal mode, descending from the diagonal in window mode), so its fp32 sums
+are the reference's.
 Blocks that the mask empties entirely are skipped: they leave (m, l, acc)
 exactly as they were. ``sliding_window_attention_cuda`` launches the
 hand-written kernel in ``csrc/local_attention.cu``.
@@ -47,6 +48,17 @@ def _check_shapes(q, k, v):
         raise ValueError(f"q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
 
 
+def _score_mult(D: int, softcap: float) -> float:
+    """What q.k is multiplied by before the cap's tanh: 1/sqrt(D), or with a
+    softcap the fp32 quotient (1/sqrt(D)) / softcap, the one multiply XLA
+    folds flash's ``s * scale / softcap`` into (so the capped scores are the
+    reference's)."""
+    scale = 1.0 / math.sqrt(D)
+    if not softcap or softcap <= 0.0:
+        return scale
+    return (torch.tensor(scale) / softcap).item()
+
+
 def sliding_window_attention_plain(q, k, v, *, window: int,
                                    softcap: float = 0.0):
     """q (B,S,H,D); k, v (B,S,KV,D), head h reading KV head h // (H // KV).
@@ -66,7 +78,8 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
     kf = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, pad))
     vf = F.pad(v.to(torch.bfloat16).float().permute(0, 2, 1, 3),
                (0, 0, 0, pad))                           # (B,KV,Sp,D)
-    scale = 1.0 / math.sqrt(D)
+    capped = bool(softcap) and softcap > 0.0
+    mult = _score_mult(D, softcap)
     out = torch.empty((B, KV, R, nb * blk, D), device=dev)
     ar = torch.arange(blk, device=dev)
     for i in range(nb):
@@ -84,9 +97,9 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
                 continue
             kpos = lo + ar
             s = torch.einsum("bgrqd,bgkd->bgrqk", qi,
-                             kf[:, :, lo:lo + blk]) * scale
-            if softcap and softcap > 0.0:
-                s = torch.tanh(s / softcap) * softcap
+                             kf[:, :, lo:lo + blk]) * mult
+            if capped:
+                s = torch.tanh(s) * softcap
             msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S) \
                 & (qpos[:, None] < S)
             if not causal:
@@ -125,8 +138,8 @@ def sliding_window_attention_cuda(q, k, v, *, window: int,
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     code = _build.library().repro_sliding_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KV, D, min(window, S), 1.0 / math.sqrt(D), float(softcap or 0.0),
-        _build.stream_of(q))
+        KV, D, min(window, S), _score_mult(D, softcap),
+        float(softcap or 0.0), _build.stream_of(q))
     _build.check(code, "sliding_window_attention")
     sliding_window_attention_cuda.launches += 1
     return out

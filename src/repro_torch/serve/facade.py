@@ -19,18 +19,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
-                                         StreamRequest)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device``, defaulting to the card; raises when CUDA is asked for
-    (explicitly or by default) and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch serves on the GPU; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    return dev
+                                         StreamRequest, resolve_device)
 
 
 class LLM:

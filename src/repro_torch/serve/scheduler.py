@@ -76,6 +76,17 @@ def check_plan(plan) -> None:
         raise ValueError(f"rows must be >= 1, got {plan.rows}")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, defaulting to the card; raises when CUDA is asked for
+    (explicitly or by default) and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch serves on the GPU; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU")
+    return dev
+
+
 class ContinuousBatchingScheduler:
     """Streaming continuous batching for one model on one device; every
     dispatch decision is read from ``plan`` (a ``core.plan.ServePlan``).
@@ -84,7 +95,6 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, cfg, params, plan, *, eos_id: int = 1,
                  temperature: float = 0.0, device=None):
-        from repro_torch.serve.facade import resolve_device
         check_plan(plan)
         tfm.check_supported(cfg)
         self.cfg = cfg
