@@ -13,7 +13,11 @@ Phases, each of which must pass:
    at the shapes the main paths give it (qwen2.5-3b and gemma2-2b widths),
    with the tolerance stated beside each, and time the kernel, the plain
    version and, where one exists, the single PyTorch call that computes the
-   same function (CUDA events, L2 flushed before each launch);
+   same function (CUDA events around the device's work, L2 flushed before
+   each launch; paged attention against SDPA over gathered pages at both
+   models' shapes); print each attention kernel's launch configuration
+   (paged attention's split, the sliding window's blocks, stages and
+   shared memory) beside the compiler's registers and spills;
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
    packed at 0.75 block sparsity. First the first prefill and decode logits
    of the kernel path are held against the plain path; then 12 requests go
@@ -42,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +56,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_PER_S = 989e12           # H100 SXM dense bf16 tensor cores
+SLEEP_CYCLES = 2_000_000           # ~1 ms of device time ahead of each timed call
 SEED = 0
 ARCH = "qwen2.5-3b"
 GEMMA = "gemma2-2b"
@@ -95,7 +101,10 @@ def time_ms(fn, flush, reps: int = 10) -> float:
     """Mean device time of ``fn`` over ``reps`` launches, each after the L2
     cache was flushed (on the serving path every layer streams other
     weights and pages in between, so a kernel finds its inputs cold).
-    Warmed up first; CUDA events."""
+    Warmed up first; CUDA events. The card is held busy (``_sleep``) while
+    the host enqueues the call, so that the events time the device's work
+    and not the host's launch overhead, which a call shorter than that
+    overhead would otherwise measure."""
     import torch
     for _ in range(2):
         fn()
@@ -103,6 +112,7 @@ def time_ms(fn, flush, reps: int = 10) -> float:
     total = 0.0
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -186,9 +196,25 @@ def phase_build():
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     log_path = lib.with_suffix(".log")
     if log_path.exists():
+        # one line per kernel: its name and template arguments, registers,
+        # stack and spills (nvcc -Xptxas -v)
+        name = spill = ""
         for line in log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line or "==" in line:
-                log(f"  ptxas: {line.strip()}")
+            if line.startswith("=="):
+                log(f"  ptxas: {line}")
+            elif "Function properties for" in line:
+                mangled = line.rsplit(" ", 1)[-1]
+                rest = mangled.split("repro", 1)[-1]
+                n = re.match(r"\d+", rest)   # the name's length prefix
+                base = rest[n.end():n.end() + int(n.group())] if n else rest
+                args = re.findall(r"L[ib](\d+)E", mangled)
+                name = base + (f"<{', '.join(args)}>" if args else "")
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                log(f"  ptxas: {name}: {regs.group(1) if regs else '?'} "
+                    f"registers; {spill}")
 
 
 def _packed_weight(K, N, sparsity, gen):
@@ -198,6 +224,38 @@ def _packed_weight(K, N, sparsity, gen):
     w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
     return pack_weight(sp.block_magnitude_prune(w, sparsity, 16, 16), 16, 16,
                        torch.bfloat16)
+
+
+def _split_line(B, KV, MP):
+    """The paged-attention kernel's split of a call on this card."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pages, n_split = pa.split_plan(B, KV, MP, n_sm)
+    return (f"paged_attention split: B {B} x KV {KV} x n_split {n_split} = "
+            f"{B * KV * n_split} blocks on {n_sm} SMs, pages_per_split "
+            f"{pages} (table of {MP} pages), then one combine block per "
+            "(row, KV head)")
+
+
+def _sdpa_over_pages(q, k_pool, v_pool, bt, lengths):
+    """Library yardstick for paged attention: the pages gathered to dense
+    K/V once, outside the timing, then one SDPA call with a length mask and
+    no softcap (SDPA cannot take one). Returns the call to time."""
+    import torch
+    import torch.nn.functional as F
+    B, KV, R, D = q.shape
+    ps, MP = k_pool.shape[1], bt.shape[1]
+    T = MP * ps
+    pages = bt.clamp_min(0).long()
+    kd = k_pool[pages].reshape(B, T, KV, D).permute(0, 2, 1, 3)
+    vd = v_pool[pages].reshape(B, T, KV, D).permute(0, 2, 1, 3)
+    kd = kd.repeat_interleave(R, 1).contiguous()
+    vd = vd.repeat_interleave(R, 1).contiguous()
+    qd = q.reshape(B, KV * R, 1, D)
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
 
 def phase_kernels(flush, judge, records):
@@ -253,24 +311,14 @@ def phase_kernels(flush, judge, records):
               "masked softmax, sums in another order")
         if mode != "fp":
             continue
-        # library yardstick: SDPA over the pages gathered to dense K/V
-        T = MP * ps
-        pages = bt.clamp_min(0).long()
-        kd = kw["k_pool"][pages].reshape(B, T, KV, D).permute(0, 2, 1, 3)
-        vd = kw["v_pool"][pages].reshape(B, T, KV, D).permute(0, 2, 1, 3)
-        kd = kd.repeat_interleave(R, 1).contiguous()
-        vd = vd.repeat_interleave(R, 1).contiguous()
-        qd = q.reshape(B, KV * R, 1, D)
-        mask = (torch.arange(T, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
         n_bytes = (q.numel() * 2 + 2 * tokens * KV * D * 2 + bt.numel() * 4
                    + B * 4 + B * KV * R * D * 4)
+        log("  " + _split_line(B, KV, MP))
         records["paged_attention"] = dict(
             max_abs_err=abs_err,
             ms=time_ms(lambda: pa.paged_attention_cuda(*args), flush),
             plain_ms=time_ms(lambda: pa.paged_attention_plain(*args), flush),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask), flush),
+            library_ms=time_ms(_sdpa_over_pages(*args), flush),
             bound=bound(n_bytes, 4 * tokens * KV * R * D),
             shape=f"B {B}, KV {KV}, R {R}, D {D}, ps {ps}, {tokens} tokens")
 
@@ -409,6 +457,7 @@ def phase_kernels_gemma(flush, judge):
     vp = torch.randn(P, ps, KV, D, generator=gen, device=dev).bfloat16()
     args = (q, kp, vp, bt, lengths)
     cap = cfg.attn_logit_softcap
+    log("  " + _split_line(B, KV, MP))
 
     def cu():
         return pa.paged_attention_cuda(*args, softcap=cap)
@@ -423,11 +472,14 @@ def phase_kernels_gemma(flush, judge):
     tokens = int(lengths.sum())
     ms, by = bound(q.numel() * 2 + 2 * tokens * KV * D * 2 + bt.numel() * 4
                    + B * 4 + B * KV * R * D * 4, 4 * tokens * KV * R * D)
+    sdpa = _sdpa_over_pages(q, kp, vp, bt, lengths)
     lines.append(f"paged_attention (gemma2: B {B}, KV {KV}, R {R}, D {D}, "
                  f"softcap {cap:g}, {tokens} tokens): "
                  f"{time_ms(cu, flush):.4f} ms, plain "
-                 f"{time_ms(plain, flush):.4f} ms, bound {ms:.4f} ms ({by})")
-    del kp, vp
+                 f"{time_ms(plain, flush):.4f} ms, SDPA over gathered pages "
+                 f"(no softcap) {time_ms(sdpa, flush):.4f} ms, bound "
+                 f"{ms:.4f} ms ({by})")
+    del kp, vp, sdpa
 
     # ---- fused MLP (decode, M 4, and short prefill, M 64), tanh-gelu
     wg = _packed_weight(d, ff, 0.75, gen)
@@ -510,6 +562,11 @@ def phase_kernels_dense(flush, judge, records):
         q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+        lc = swa.launch_config(B, S, H, KV, D)
+        log(f"  sliding_window_attention launch ({tag}): {lc['blocks']} "
+            f"blocks of {lc['threads']} threads (two 64-row warpgroups), "
+            f"{lc['stages']} K/V stages of {lc['key_tile']} keys, "
+            f"{lc['smem_bytes']} bytes of shared memory")
 
         def cu(window=window):
             return swa.sliding_window_attention_cuda(q, k, v, window=window,

@@ -1,7 +1,7 @@
 """Causal sliding-window GQA attention, the port's prefill attention.
 
-Counterpart of ``repro.kernels.local_attention`` (the Pallas band kernel)
-and of the prefill forward of ``repro.models.flash``, which compute the same
+Counterpart of ``repro.kernels.local_attention`` (the Pallas band kernel
+``sliding_window_attention_raw``, body ``_swa_kernel``) and of the prefill forward of ``repro.models.flash``, which compute the same
 function: a query at position p attends to the keys at positions t with
 ``0 <= p - t < window``. ``window >= S`` is plain causal attention, so one
 kernel serves the local layers of gemma2 and every global layer's prefill.
@@ -17,6 +17,16 @@ are the reference's.
 Blocks that the mask empties entirely are skipped: they leave (m, l, acc)
 exactly as they were. ``sliding_window_attention_cuda`` launches the
 hand-written kernel in ``csrc/local_attention.cu``.
+
+On the card the function is bound by operations (4·D flops per (query, key)
+pair and head), which only ``wgmma`` reaches: the kernel runs one warpgroup
+per 64-row tile of (position, head) rows, two per block sharing K/V tiles
+fed by a two-stage cp.async ring under mbarriers, S = QKᵀ and O += PV on
+wgmma with the scores, p and the 64 x D fp32 accumulator in registers, the
+softmax in log2 units, the mask only on the band's edge tiles, and the
+longest q tiles launched first. What still holds it back: the softmax's
+per-element work (tanhf above all) on the CUDA cores, no producer warp,
+and at D 256 one block per SM (``launch_config``).
 """
 from __future__ import annotations
 
@@ -28,7 +38,23 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 NEG_INF = -2.0e38
-TILE_ROWS = 64          # (position, head) rows of one thread block
+TILE_ROWS = 64          # (position, head) rows of one warpgroup
+WARPGROUPS = 2          # q tiles of one thread block, sharing its K/V tiles
+KEY_TILE = 64           # keys per staged K/V tile
+STAGES = 2              # K/V tiles in flight
+
+
+def launch_config(B: int, S: int, H: int, KV: int, D: int) -> dict:
+    """The kernel's grid for these shapes, as ``csrc/local_attention.cu``
+    computes it: one block of WARPGROUPS x 128 threads per (WARPGROUPS q
+    tiles, KV head, batch row), and its shared memory (a Q tile per
+    warpgroup plus STAGES K and V tiles, D padded to a multiple of 64, and
+    1 KB to align the 128-byte swizzle atoms)."""
+    per_block = WARPGROUPS * (TILE_ROWS // (H // KV))
+    nb = -(-D // 64)
+    return dict(blocks=-(-S // per_block) * B * KV, threads=128 * WARPGROUPS,
+                stages=STAGES, key_tile=KEY_TILE,
+                smem_bytes=(WARPGROUPS + 2 * STAGES) * nb * 64 * 128 + 1024)
 
 
 def block_size(S: int) -> int:

@@ -8,6 +8,7 @@ against its plain version and skip where there is no card; they need
 neither JAX nor the reference package, which the other tests import through
 the ``ref`` fixture, so ``-m gpu`` runs on a machine without JAX.
 """
+import math
 import types
 
 import numpy as np
@@ -181,6 +182,146 @@ def test_paged_attention_hole_in_table_reads_page_zero(ref):
 def test_work_steps_count_only_occupied_pages():
     assert ppa.row_work_steps(9, 4) == 3
     assert ppa.work_steps([1, 4, 5, 0], 4) == 1 + 1 + 2 + 0
+
+
+H100_SMS = 132
+
+
+def split_runs(length, page_size, MP, pages_per_split):
+    """The page runs [lo, hi) of a row's table that the CUDA kernel's splits
+    read, in split order (csrc/paged_attention.cu): split s reads entries
+    s * pages_per_split onward, cut at the row's occupancy
+    min(ceil(len / page_size), MP); a split that starts at or past it
+    returns without reading and is left out."""
+    n = min(int(ppa.row_work_steps(max(int(length), 0), page_size)), MP)
+    return [(lo, min(lo + pages_per_split, n))
+            for lo in range(0, n, pages_per_split)]
+
+
+@pytest.mark.parametrize("B,KV,MP", [(8, 2, 16), (4, 4, 128), (1, 1, 1),
+                                     (1, 2, 300), (64, 8, 4), (3, 1, 7),
+                                     (264, 1, 512)])
+def test_split_plan_fills_the_card(B, KV, MP):
+    """Shapes only: at least 2 blocks per SM of an H100, or one page per
+    split (every page of a row its own block); the splits cover the table.
+    (8, 2, 16) and (4, 4, 128) are qwen2.5-3b's and gemma2-2b's decode."""
+    pages, n_split = ppa.split_plan(B, KV, MP, H100_SMS)
+    assert 1 <= pages <= ppa.MAX_RUN
+    assert n_split * pages >= MP > (n_split - 1) * pages
+    assert B * KV * n_split >= 2 * H100_SMS or pages == 1
+    if (B, KV, MP) == (4, 4, 128):     # gemma2-2b: 94-page rows split 14 ways
+        assert (pages, n_split) == (7, 19)
+
+
+@pytest.mark.parametrize("ps,MP,pages", [(64, 16, 1), (64, 128, 7),
+                                         (8, 20, 3), (16, 5, 5)])
+def test_split_runs_count_work_steps(ps, MP, pages):
+    """The pages the splits read below each row's occupancy sum to the
+    reference's structural count ``work_steps`` (``row_work_steps`` per
+    row), each page once and in table order, at lengths that are not
+    multiples of the run, of one token, of exactly one run, and of 0."""
+    rng = np.random.default_rng(ps + MP)
+    lengths = [n for n in (0, 1, ps * pages, ps * pages + 1, ps - 1,
+                           *rng.integers(1, MP * ps + 1, 6)) if n <= MP * ps]
+    covered = 0
+    for n in lengths:
+        runs = split_runs(n, ps, MP, pages)
+        flat = [j for lo, hi in runs for j in range(lo, hi)]
+        assert flat == list(range(ppa.row_work_steps(n, ps)))
+        assert all(lo == s * pages for s, (lo, _) in enumerate(runs))
+        assert len(runs) <= -(-MP // pages)
+        covered += len(flat)
+    assert covered == ppa.work_steps(lengths, ps)
+    assert split_runs(0, ps, MP, pages) == []
+    assert split_runs(ps * pages, ps, MP, pages) == [(0, pages)]
+    # a length past the table reads its MP pages, as the plain version does
+    assert split_runs(MP * ps + 5, ps, MP, pages)[-1][1] == MP
+
+
+def _split_combine_model(q, k_pool, v_pool, block_table, lengths, *,
+                         k_scale=None, v_scale=None, softcap=0.0,
+                         pages_per_split=2, tile=64):
+    """The CUDA kernels' arithmetic in torch: each split's fp32 online
+    softmax over tiles of ``tile`` tokens into a workspace that starts as
+    NaN (as ``torch.empty`` may), then the combine over the splits below
+    each row's occupancy, in split order."""
+    B, KV, R, D = q.shape
+    P, ps = k_pool.shape[:2]
+    MP = block_table.shape[1]
+    n_split = -(-MP // pages_per_split)
+    neg = ppa.NEG_INF
+    ws_acc = torch.full((B, KV, n_split, R, D), float("nan"))
+    ws_m = torch.full((B, KV, n_split, R), float("nan"))
+    ws_l = torch.full((B, KV, n_split, R), float("nan"))
+    qf = q.float()
+    for b in range(B):
+        n = int(lengths[b])
+        for s, (j0, j1) in enumerate(split_runs(n, ps, MP,
+                                                    pages_per_split)):
+            toks = torch.arange(j0 * ps, min(j1 * ps, n))
+            pages = block_table[b, toks // ps].long().clamp(0, P - 1)
+            kd = k_pool[pages, toks % ps].float()             # (T, KV, D)
+            vd = v_pool[pages, toks % ps].float()
+            if k_scale is not None:
+                kd = kd * (k_scale[pages] * (1.0 / 127.0))[..., None]
+                vd = vd * (v_scale[pages] * (1.0 / 127.0))[..., None]
+            m = torch.full((KV, R), neg)
+            l = torch.zeros(KV, R)
+            acc = torch.zeros(KV, R, D)
+            for t0 in range(0, len(toks), tile):
+                kt, vt = kd[t0:t0 + tile], vd[t0:t0 + tile]
+                sc = torch.einsum("grd,tgd->grt", qf[b], kt) \
+                    * (1.0 / math.sqrt(D))
+                if softcap > 0:
+                    sc = torch.tanh(sc / softcap) * softcap
+                m_new = torch.maximum(m, sc.amax(-1))
+                p = torch.where(sc > neg / 2, torch.exp(sc - m_new[..., None]),
+                                torch.zeros_like(sc))
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + torch.einsum("grt,tgd->grd", p,
+                                                           vt)
+                m = m_new
+            ws_acc[b, :, s], ws_m[b, :, s], ws_l[b, :, s] = acc, m, l
+    out = torch.empty(B, KV, R, D)
+    for b in range(B):
+        used = len(split_runs(int(lengths[b]), ps, MP, pages_per_split))
+        ms = ws_m[b, :, :used]                                 # (KV, S, R)
+        m = ms.amax(1, keepdim=True) if used else torch.full((KV, 1, R), neg)
+        w = torch.where(ms > neg / 2, torch.exp(ms - m), torch.zeros_like(ms))
+        lsum = (ws_l[b, :, :used] * w).sum(1)
+        asum = (ws_acc[b, :, :used] * w[..., None]).sum(1)
+        out[b] = asum / lsum.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("pages_per_split,tile", [(1, 8), (2, 3), (3, 64)])
+def test_split_combine_model_matches_plain(int8, softcap, pages_per_split,
+                                           tile):
+    """Split-and-combine equals one masked softmax within 1e-5: rows of 0
+    and 1 tokens, of exactly one split, not a multiple of the split, a -1
+    hole inside the occupancy, splits past the occupancy left unwritten
+    (NaN) and never read."""
+    ps = 8
+    lens = [0, 1, ps * pages_per_split, 5 * ps + 3, 2 * ps - 1]
+    q, kp, vp, bt, lens, sc = _paged_case(lens, ps, KV=2, R=3, D=16,
+                                          seed=11, int8=int8)
+    bt[3, 1] = -1                                   # reads page 0
+    dt = torch.int8 if int8 else torch.bfloat16
+    args = (torch.from_numpy(q).bfloat16().reshape(len(lens), 2, 3, 16),
+            torch.from_numpy(kp).to(dt), torch.from_numpy(vp).to(dt),
+            torch.from_numpy(bt), torch.from_numpy(lens))
+    kw = {} if sc is None else dict(k_scale=torch.from_numpy(sc[0]),
+                                    v_scale=torch.from_numpy(sc[1]))
+    want = ppa.paged_attention_plain(*args, softcap=softcap, **kw)
+    got = _split_combine_model(*args, softcap=softcap,
+                               pages_per_split=pages_per_split, tile=tile,
+                               **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
 # ----------------------------------------------------------------- BCSC packs
@@ -451,6 +592,57 @@ def test_cuda_paged_attention_matches_plain(cuda, KV, R, D, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 2, 8, 16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_cuda_paged_attention_split_edges(cuda, R, D, int8, softcap):
+    """The split kernel and its combine at the edges of ``split_plan``'s
+    runs: rows of 0 and 1 tokens, of exactly one run, of a page count that
+    is not a multiple of the run, one of 94 pages (gemma2-2b's longest) with
+    a -1 hole inside its occupancy (reads page 0). 1e-4 absolute."""
+    ps, KV, B, MP = 64, 2, 5, 96
+    pages, _ = ppa.split_plan(B, KV, MP, ppa._sm_count(cuda.index or 0))
+    assert pages > 1
+    lengths = [0, 1, pages * ps, (2 * pages + 1) * ps - 3, 6000]
+    q, kp, vp, bt, lens, sc = _paged_case(lengths, ps, KV=KV, R=R, D=D,
+                                          int8=int8)
+    table = np.full((B, MP), -1, np.int32)
+    table[:, :bt.shape[1]] = bt
+    table[4, 3] = -1
+    dt = torch.int8 if int8 else torch.bfloat16
+    args = (torch.from_numpy(q).bfloat16().to(cuda),
+            torch.from_numpy(kp).to(dt).to(cuda),
+            torch.from_numpy(vp).to(dt).to(cuda),
+            torch.from_numpy(table).to(cuda), torch.from_numpy(lens).to(cuda))
+    kw = {} if sc is None else dict(
+        k_scale=torch.from_numpy(sc[0]).to(cuda),
+        v_scale=torch.from_numpy(sc[1]).to(cuda))
+    got = pops.paged_attention(*args, softcap=softcap, **kw)
+    want = pops.paged_attention(*args, softcap=softcap, impl="plain", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_refuses_what_it_cannot_take(cuda):
+    q, kp, vp, bt, lens, _ = _paged_case([5], 8, KV=1, R=17, D=16)
+    args = [torch.from_numpy(a).to(cuda) for a in (kp, vp, bt, lens)]
+    qt = torch.from_numpy(q).bfloat16().to(cuda).reshape(1, 1, 17, 16)
+    with pytest.raises(ValueError, match="16 query heads"):
+        ppa.paged_attention_cuda(qt, args[0].bfloat16(), args[1].bfloat16(),
+                                 *args[2:])
+    q, kp, vp, bt, lens, _ = _paged_case([5], 8, KV=1, R=1, D=48)
+    with pytest.raises(ValueError, match="head_dim"):
+        ppa.paged_attention_cuda(
+            torch.from_numpy(q).bfloat16().to(cuda).reshape(1, 1, 1, 48),
+            torch.from_numpy(kp).bfloat16().to(cuda),
+            torch.from_numpy(vp).bfloat16().to(cuda),
+            torch.from_numpy(bt).to(cuda), torch.from_numpy(lens).to(cuda))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 8, 40])
 def test_cuda_bcsc_apply_matches_plain(cuda, M):
     """GEMV (M <= 8) and GEMM (M > 8) kernels against the plain product."""
@@ -506,6 +698,29 @@ def test_cuda_sliding_window_matches_plain(cuda, S, window, R, D):
     got = pops.sliding_window_attention(q, k, v, window=window, softcap=50.0)
     want = pops.sliding_window_attention(q, k, v, window=window,
                                          softcap=50.0, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(300, 70), (300, 300), (130, 40),
+                                      (4097, 4096)])
+@pytest.mark.parametrize("R", [1, 2, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_cuda_sliding_window_tile_edges(cuda, S, window, R, D, softcap):
+    """S and window not multiples of the 64-key tile (ragged last q and key
+    tiles, the band's far edge inside a tile, masked and unmasked tiles),
+    4097 with a 4096 window (one key past the window, the global causal
+    shape's long walk): 1e-3 of max |out|."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, B=1 if S > 1000 else 2, KV=2, R=R, D=D,
+                                  seed=S + window + R))
+    got = pops.sliding_window_attention(q, k, v, window=window,
+                                        softcap=softcap)
+    want = pops.sliding_window_attention(q, k, v, window=window,
+                                         softcap=softcap, impl="plain")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))
