@@ -15,7 +15,12 @@ Phases, each of which must pass:
    version and, where one exists, the single PyTorch call that computes the
    same function (CUDA events around the device's work, L2 flushed before
    each launch; paged attention against SDPA over gathered pages at both
-   models' shapes); print each attention kernel's launch configuration
+   models' shapes, the BCSC GEMM against ``torch.matmul`` on the dense bf16
+   weight at qwen2.5-3b's up and down projections and gemma2-2b's, with
+   its plan and its bound in bytes and in operations; the GEMM is also
+   held against its plain version at the edges of its tiles: 16 and 48
+   rows, an odd number of block-columns, pads, columns with no block, a
+   K split); print each attention kernel's launch configuration
    (paged attention's split, the sliding window's blocks, stages and
    shared memory) beside the compiler's registers and spills;
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
@@ -217,13 +222,58 @@ def phase_build():
                     f"registers; {spill}")
 
 
-def _packed_weight(K, N, sparsity, gen):
+def _packed_weight(K, N, sparsity, gen, empty=(), pad=0):
+    """A random (K, N) weight block-pruned and packed as the serving path
+    packs it. ``empty``: block-columns zeroed and left with no block at all
+    (``pack_weight`` would give each an explicit zero block); ``pad``: zero
+    blocks appended that repeat the last (row, col), as ``pad_packed``
+    makes them."""
     import torch
     from repro_torch.core import sparsity as sp
-    from repro_torch.serve.sparse import pack_weight
+    from repro_torch.kernels import bcsc_matmul as bm
+    from repro_torch.serve.sparse import pack_weight, pad_packed
     w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
-    return pack_weight(sp.block_magnitude_prune(w, sparsity, 16, 16), 16, 16,
-                       torch.bfloat16)
+    w = sp.block_magnitude_prune(w, sparsity, 16, 16)
+    if not empty:
+        packed = pack_weight(w, 16, 16, torch.bfloat16)
+    else:
+        for c in empty:
+            w[:, 16 * c:16 * (c + 1)] = 0
+        m = sp.bcsc_encode(w, 16, 16)
+        packed = {"blocks": m.blocks.bfloat16(), "row_ids": m.row_ids,
+                  "col_ids": bm.expand_col_ptr(m.col_ptr),
+                  "col_ptr": m.col_ptr,
+                  "nnzb": torch.tensor(m.blocks.shape[0], dtype=torch.int32,
+                                       device=w.device)}
+    return pad_packed(packed, packed["blocks"].shape[0] + pad)
+
+
+def _gemm_line(tag, x, w, N, cu, plain, flush):
+    """Time the GEMM, its plain version and ``torch.matmul`` on the dense
+    bf16 weight at one shape; returns (record, log line)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bcsc_matmul as bm
+    M, K = x.shape
+    nnz = int(w["nnzb"])
+    wdense = bm._dense_weight(w["blocks"], w["row_ids"], w["col_ids"], K,
+                              N).bfloat16()
+    n_bytes = x.numel() * 2 + nnz * BLOCK_BYTES + M * N * 4
+    n_flops = 2 * M * 256 * nnz
+    rec = dict(ms=time_ms(cu, flush), plain_ms=time_ms(plain, flush),
+               library_ms=time_ms(lambda: torch.matmul(x, wdense), flush),
+               bound=bound(n_bytes, n_flops),
+               shape=f"M {M}, {K} -> {N}, {nnz} blocks")
+    bm_, split = bm.gemm_plan(M, K, N, _build.sm_count(0))
+    grid = (-(-(N // 16) // bm.GEMM_GROUP), -(-M // bm_), split)
+    ms, by = rec["bound"]
+    line = (f"bcsc_matmul ({tag}: {rec['shape']}; plan bm {bm_}, split "
+            f"{split}, grid {grid[0]} x {grid[1]} x {grid[2]}): "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"torch.matmul (dense bf16) {rec['library_ms']:.4f} ms, bound "
+            f"{ms:.4f} ms ({by}; bytes {bound(n_bytes, 0)[0]:.4f}, "
+            f"operations {bound(0, n_flops)[0]:.4f})")
+    return rec, line
 
 
 def _split_line(B, KV, MP):
@@ -367,9 +417,21 @@ def phase_kernels(flush, judge, records):
                             2 * M * 256 * n_real),
                 shape=f"M {M}, {d} -> {ff} -> {d}, {n_real} real blocks")
 
-    # ---- GEMM (prefill, M 512) and GEMV (decode, M 1 and 8)
-    for name, (K, N, w) in {"up": (d, ff, wg), "down": (ff, d, wd)}.items():
-        x = torch.randn(512, K, generator=gen, device=dev).bfloat16()
+    # ---- GEMM (prefill, M 512: up and down), then its edges: tiles past
+    # M, an odd number of block-columns, pads, columns with no block
+    why = ("relative to max |out|: tensor-core fp32 accumulation of the "
+           "same bf16 products in another order")
+    lines = []
+    edges = {"M 16": (16, d, ff, {}), "M 48": (48, d, d, {}),
+             "N / 16 odd": (64, d, ff + 16, {}),
+             "padded pack": (512, d, d, dict(pad=40)),
+             "empty columns": (128, d, d, dict(empty=(0, 77, d // 16 - 1))),
+             "split K, M 16": (16, ff, d, dict(pad=3))}
+    cases = [("up", 512, d, ff, wg), ("down", 512, ff, d, wd)] + [
+        (tag, M, K, N, _packed_weight(K, N, 0.75, gen, **kw))
+        for tag, (M, K, N, kw) in edges.items()]
+    for name, M, K, N, w in cases:
+        x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
 
         def cu():
             return bm.bcsc_matmul_cuda(x, w["blocks"], w["row_ids"],
@@ -378,20 +440,21 @@ def phase_kernels(flush, judge, records):
         def plain():
             return bm.bcsc_matmul_plain(x, w["blocks"], w["row_ids"],
                                         w["col_ids"], n_out=N)
-        abs_err, rel = errors(cu(), plain())
-        judge(f"bcsc_matmul[512x{K}->{N}]", rel, 1e-3,
-              "relative to max |out|: tensor-core fp32 accumulation of the "
-              "same bf16 products in another order")
-        if name == "up":
-            nnz = int(w["nnzb"])
-            wdense = bm._dense_weight(*trip(w, "col_ids"), K, N).bfloat16()
-            records["bcsc_matmul"] = dict(
-                max_abs_err=abs_err, ms=time_ms(cu, flush),
-                plain_ms=time_ms(plain, flush),
-                library_ms=time_ms(lambda: torch.matmul(x, wdense), flush),
-                bound=bound(x.numel() * 2 + nnz * BLOCK_BYTES + 512 * N * 4,
-                            2 * 512 * 256 * nnz),
-                shape=f"M 512, {K} -> {N}, {nnz} blocks")
+        got = cu()
+        abs_err, rel = errors(got, plain())
+        torch.cuda.synchronize()
+        judge(f"bcsc_matmul[{name}: {M}x{K}->{N}]", rel, 1e-3, why)
+        if name in ("up", "down"):
+            judge.check(f"bcsc_matmul[{name}]: the same bits on a second run",
+                        bool(torch.equal(got, cu())), "fixed sum order")
+            rec, line = _gemm_line(f"qwen2.5-3b {name}", x, w, N, cu, plain,
+                                   flush)
+            lines.append(line)
+            if name == "up":    # the JSON line keeps PR 13's shape
+                records["bcsc_matmul"] = dict(rec, max_abs_err=abs_err)
+        del x, got
+    for line in lines:
+        log(f"  {line}")
     bias = torch.randn(ff, generator=gen, device=dev)
     for M, act, b in ((1, None, None), (8, "silu", bias)):
         x = torch.zeros(8, d, device=dev, dtype=torch.bfloat16)
@@ -517,7 +580,7 @@ def phase_kernels_gemma(flush, judge):
                          f"{time_ms(plain, flush):.4f} ms")
 
     # ---- GEMM at the prefill's M: one 8192-token prompt
-    for K, N, w in ((d, ff, wg), (ff, d, wd)):
+    for name, K, N, w in (("up", d, ff, wg), ("down", ff, d, wd)):
         x = torch.randn(8192, K, generator=gen, device=dev).bfloat16()
 
         def cu():
@@ -530,9 +593,9 @@ def phase_kernels_gemma(flush, judge):
         judge(f"bcsc_matmul[gemma2: 8192x{K}->{N}]", errors(cu(), plain())[1],
               1e-3, "relative to max |out|: tensor-core fp32 accumulation "
               "of the same bf16 products in another order")
-        lines.append(f"bcsc_matmul (gemma2: M 8192, {K} -> {N}, "
-                     f"{int(w['nnzb'])} blocks): {time_ms(cu, flush):.4f} ms,"
-                     f" plain {time_ms(plain, flush):.4f} ms")
+        lines.append(_gemm_line(f"gemma2-2b {name}", x, w, N, cu, plain,
+                                flush)[1])
+        del x
     for line in lines:
         log(f"  {line}")
     return lines

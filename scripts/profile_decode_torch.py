@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Where a decode step of the PyTorch/CUDA port spends its time, on one GPU.
+"""Where a decode step, or a prefill, of the PyTorch/CUDA port spends its
+time, on one GPU.
 
     python3 scripts/profile_decode_torch.py [--arch qwen2.5-3b] [--rows R]
                                             [--steps 8]
+    python3 scripts/profile_decode_torch.py --arch gemma2-2b --prefill 8192
+                                            [--gemm-source OLD.cu]
 
 Builds a full-width model as ``chip_smoke.py`` does (random weights from
 seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
@@ -16,13 +19,28 @@ in a 1024-token cache; gemma2-2b: 4 rows of 7 to 6000 tokens in an
   kernel name and by group, kernel launches per step, and the share of the
   step the device was busy (the rest is the host issuing work).
 
+With ``--prefill N`` it profiles instead one prefill of a single N-token
+prompt (``decoding.prefill_batched`` into the paged pool) and splits its
+device time by kernel group: the BCSC GEMM, the fp32 epilogue and gate
+around it (the device time between the start and the end of each MLP call,
+from CUDA events, less the GEMM's), sliding-window attention, cuBLAS, and
+the rest. ``--gemm-source`` names a ``bcsc_matmul.cu`` of an earlier design
+with PR 13's C interface (``repro_bcsc_gemm(x, M, K, blocks, row_ids,
+col_ptr, out, N, stream)``); it is built with nvcc into its own library
+(namespace ``repro_variant``) and the prefill is profiled with it and with
+the tree's GEMM in turns (variant, tree, tree, variant), in one process on
+one card.
+
 The last line is a JSON object with the same numbers.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -36,6 +54,7 @@ GROUPS = (   # kernel-name fragment -> group, first match wins
     ("bcsc_mlp", "fused BCSC MLP (port)"),
     ("bcsc_g", "BCSC GEMM/GEMV (port)"),
     ("gemm", "dense matmul (cuBLAS)"), ("gemv", "dense matmul (cuBLAS)"),
+    ("nvjet", "dense matmul (cuBLAS)"),
     ("xmma", "dense matmul (cuBLAS)"), ("cutlass", "dense matmul (cuBLAS)"),
     ("reduce", "reductions"), ("index", "gather/scatter"),
     ("scatter", "gather/scatter"), ("gather", "gather/scatter"),
@@ -51,13 +70,75 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def kernel_times(prof) -> dict:
+    """Device time (us) and launches of a profile, by kernel name."""
+    import torch
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(ev.name, [0.0, 0])
+            k[0] += ev.device_time_total
+            k[1] += 1
+    return kernels
+
+
+def by_group(kernels: dict, n: int) -> dict:
+    """{group: [ms, launches]} per ``n`` repetitions."""
+    groups = {}
+    for name, (t, c) in kernels.items():
+        g = groups.setdefault(group_of(name), [0.0, 0])
+        g[0] += t / 1e3 / n
+        g[1] += c / n
+    return groups
+
+
+def variant_gemm(source: str):
+    """A ``bcsc_matmul_cuda`` that launches the GEMM of ``source`` (PR 13's C
+    interface), built into ``build/`` under the namespace repro_variant."""
+    import torch
+    from repro_torch.kernels import _build
+    src = os.path.abspath(source)
+    digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    lib_path = os.path.join(_build.BUILD_DIR, f"variant-{digest}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        built = subprocess.run(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared",
+             "-Drepro=repro_variant", src, "-o", lib_path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if built.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{built.stdout}")
+    lib = ctypes.CDLL(lib_path)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.repro_bcsc_gemm.argtypes = [P, I, I, P, P, P, P, I, P]
+    lib.repro_bcsc_gemm.restype = I
+
+    def gemm(x, blocks, row_ids, col_ptr, *, n_out):
+        M, K = x.shape
+        out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
+        code = lib.repro_bcsc_gemm(x.data_ptr(), M, K, blocks.data_ptr(),
+                                   row_ids.data_ptr(), col_ptr.data_ptr(),
+                                   out.data_ptr(), n_out, _build.stream_of(x))
+        if code:
+            raise RuntimeError(f"variant GEMM: CUDA error {code}")
+        return out
+    return gemm
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=sorted(SETUPS), default="qwen2.5-3b")
     ap.add_argument("--rows", type=int, default=None,
                     help="default: one row per prompt length of the arch")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--prefill", type=int, default=0, metavar="N",
+                    help="profile one prefill of an N-token prompt instead")
+    ap.add_argument("--gemm-source", default=None,
+                    help="with --prefill: also profile the GEMM of this "
+                         "bcsc_matmul.cu (PR 13's C interface), in turns")
     args = ap.parse_args()
+    if args.gemm_source and not args.prefill:
+        ap.error("--gemm-source needs --prefill")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -75,7 +156,11 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
     cache_len, lens = SETUPS[args.arch]
-    R = args.rows or len(lens)
+    if args.prefill:
+        if args.prefill > cache_len:
+            ap.error(f"--prefill {args.prefill} > the cache of {cache_len}")
+        lens = (args.prefill,)
+    R = 1 if args.prefill else (args.rows or len(lens))
     params = tfm.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     packed, _ = sparsify_mlp_params(params, cfg, sparsity=0.75)
     del params
@@ -95,9 +180,13 @@ def main() -> int:
                          device=dev)
     pp = decoding.PagedPrefill(cache=cache, block_table_rows=bt,
                                slots=torch.arange(R, device=dev))
-    logits, cache = decoding.prefill_batched(params, toks, lengths, cfg,
-                                             plan.cache_len, plan=plan,
-                                             paged=pp)
+
+    def prefill():
+        return decoding.prefill_batched(params, toks, lengths, cfg,
+                                        plan.cache_len, plan=plan, paged=pp)
+    if args.prefill:
+        return profile_prefill(args, cfg, prefill, toks.shape[1])
+    logits, cache = prefill()
     state = {"pos": lengths.long(), "nxt": logits[:, -1].argmax(-1)}
 
     def step():
@@ -121,20 +210,11 @@ def main() -> int:
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += ev.device_time_total
-            k[1] += 1
+    kernels = kernel_times(prof)
     n = args.steps
     busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
     launches = sum(c for _, c in kernels.values()) / n
-    groups = {}
-    for name, (t, c) in kernels.items():
-        g = groups.setdefault(group_of(name), [0.0, 0])
-        g[0] += t / 1e3 / n
-        g[1] += c / n
+    groups = by_group(kernels, n)
     print(f"device: {torch.cuda.get_device_name(0)}; {args.arch}, rows {R}, "
           f"lengths {lengths.tolist()}")
     print(f"decode step: wall {wall_ms:.3f} ms (host clock), device busy "
@@ -151,6 +231,79 @@ def main() -> int:
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
         "launches_per_step": launches,
         "groups_ms_per_step": {g: t for g, (t, _) in groups.items()}}))
+    return 0
+
+
+def profile_prefill(args, cfg, prefill, tier: int) -> int:
+    """Profile ``prefill`` (one row, ``args.prefill`` real tokens padded to
+    ``tier``) with the tree's GEMM, and in turns with ``--gemm-source``'s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import bcsc_matmul as bm
+    from repro_torch.models import layers
+    gemms = {"tree": bm.bcsc_matmul_cuda}
+    order = ["tree"]
+    if args.gemm_source:
+        gemms["variant"] = variant_gemm(args.gemm_source)
+        order = ["variant", "tree", "tree", "variant"]
+    mlp, spans = layers.mlp, []
+
+    def timed_mlp(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = mlp(*a, **kw)
+        end.record()
+        spans.append((start, end))
+        return y
+    print(f"device: {torch.cuda.get_device_name(0)}; {args.arch}, one "
+          f"prefill of {args.prefill} tokens (tier {tier})")
+    results = []
+    try:
+        for label in order:
+            bm.bcsc_matmul_cuda = gemms[label]
+            prefill()                           # warm-up (builds, caches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            layers.mlp = timed_mlp
+            spans.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                prefill()
+                torch.cuda.synchronize()
+            layers.mlp = mlp
+            mlp_ms = sum(s.elapsed_time(e) for s, e in spans)
+            kernels = kernel_times(prof)
+            groups = by_group(kernels, 1)
+            gemm_ms = groups.get("BCSC GEMM/GEMV (port)", [0.0, 0])[0]
+            busy_ms = sum(t for t, _ in kernels.values()) / 1e3
+            split = {"BCSC GEMM (port)": gemm_ms,
+                     "fp32 epilogue and gate (MLP span less the GEMM)":
+                         mlp_ms - gemm_ms}
+            for g in ("sliding-window attention (port)",
+                      "dense matmul (cuBLAS)"):
+                split[g] = groups.get(g, [0.0, 0])[0]
+            split["other"] = busy_ms - sum(split.values())
+            print(f"[{label}] prefill: wall {wall_ms:.3f} ms (host clock, "
+                  f"untraced), device busy {busy_ms:.3f} ms in "
+                  f"{sum(c for _, c in kernels.values())} launches, "
+                  f"{args.prefill / wall_ms * 1e3:.1f} tokens/s")
+            for g, t in split.items():
+                print(f"  {g:48s} {t:9.3f} ms  {t / busy_ms:6.1%}")
+            for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+                print(f"    by name: {g:28s} {t:9.3f} ms  {c:5.0f} launches")
+            results.append({"gemm": label, "wall_ms": wall_ms,
+                            "device_busy_ms": busy_ms, "mlp_span_ms": mlp_ms,
+                            "split_ms": split})
+    finally:
+        bm.bcsc_matmul_cuda = gemms["tree"]
+        layers.mlp = mlp
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "arch": args.arch, "prefill_tokens": args.prefill,
+                      "runs": results}))
     return 0
 
 

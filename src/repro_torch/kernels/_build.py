@@ -34,8 +34,8 @@ SIGNATURES = {
     # B, KV, R, D, P, ps, MP, pages_per_split, n_split, sm_scale, softcap,
     # stream
     "repro_paged_attention": [P] * 9 + [I] * 9 + [F, F, P],
-    # x, M, K, blocks, row_ids, col_ptr, out, N, stream
-    "repro_bcsc_gemm": [P, I, I, P, P, P, P, I, P],
+    # x, M, K, blocks, row_ids, col_ptr, out, ws, N, bm, split, stream
+    "repro_bcsc_gemm": [P, I, I, P, P, P, P, P, I, I, I, P],
     # x, K, blocks, row_ids, col_ptr, bias, act, out, N, stream
     "repro_bcsc_gemv": [P, I, P, P, P, P, I, P, I, P],
     # x, Mp, K, g_blk, g_rows, g_ptr, u_blk, u_rows, u_ptr, d_blk, d_rows,
@@ -121,6 +121,15 @@ def check(code: int, what: str) -> None:
     if code:
         msg = library().repro_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the planners
+    (``paged_attention.split_plan``, ``bcsc_matmul.gemm_plan``) size their
+    grids to it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -7,7 +7,12 @@ repeat the last (row, col) with a zero payload. The kernels walk each output
 block-column's segment, whose bounds ``col_ptr`` come from ``col_ids``.
 
 The plain versions decode the weight to dense and take one fp32-accumulated
-product; the CUDA wrappers launch ``csrc/bcsc_matmul.cu``.
+product; the CUDA wrappers launch ``csrc/bcsc_matmul.cu``. The GEMM's thread
+block owns a tile of ``bm`` rows by ``GEMM_GROUP`` block-columns and walks
+the k-tiles (``GEMM_TILE_ROWS`` block-rows, 128 columns of x) in which its
+columns hold blocks; ``gemm_plan`` picks ``bm`` and how many ways K is split
+from shapes alone, never from the pack's contents (reading them on the host
+would sync every prefill layer).
 """
 from __future__ import annotations
 
@@ -96,18 +101,61 @@ def _check_pack(x, blocks, row_ids, col_ptr, n_out):
         raise ValueError("x and blocks must be 32-byte aligned")
 
 
+GEMM_GROUP = 16          # block-columns of a GEMM thread block (kGemmGroup)
+GEMM_TILE_ROWS = 8       # block-rows of a k-tile, 128 columns of x
+GEMM_CHUNK = 256         # block-rows the kernel indexes at a time (kGemmChunk)
+MIN_SPLIT_ROWS = 32      # fewest block-rows a K split walks
+
+
+def split_rows(K: int, split: int) -> int:
+    """Block-rows each of ``split`` K splits walks: whole k-tiles."""
+    rows = -(-(K // 16) // split)
+    return -(-rows // GEMM_TILE_ROWS) * GEMM_TILE_ROWS
+
+
+def gemm_plan(M: int, K: int, N: int, n_sm: int) -> tuple:
+    """(bm, split) of the GEMM for x (M, K) and N output columns on a card
+    of ``n_sm`` SMs. bm is 128 rows (64 at M <= 64). The grid has
+    ceil(M / bm) x ceil(N / 16 / GEMM_GROUP) tiles, one thread block per SM
+    each; K is split (in powers of two, each split at least MIN_SPLIT_ROWS
+    block-rows) while the tiles times the splits still fit in one wave, so
+    that few tiles (qwen2.5-3b's down projection at M 512 makes 32) still
+    fill the card. Shapes only."""
+    bm = 64 if M <= 64 else 128
+    tiles = -(-M // bm) * -(-(N // 16) // GEMM_GROUP)
+    split = 1
+    while (2 * split * tiles <= n_sm
+           and (K // 16) // (2 * split) >= MIN_SPLIT_ROWS):
+        split *= 2
+    return bm, split
+
+
 def bcsc_matmul_cuda(x, blocks, row_ids, col_ptr, *, n_out: int):
     """GEMM arm on the card: x (M, K) bf16 with M % 16 == 0 -> fp32."""
     _check_pack(x, blocks, row_ids, col_ptr, n_out)
     M, K = x.shape
     if M % 16:
         raise ValueError(f"GEMM rows must be a multiple of 16, got {M}")
+    bm, split = gemm_plan(M, K, n_out, _build.sm_count(x.device.index or 0))
+    out = gemm_launch(x, blocks, row_ids, col_ptr, n_out, bm, split)
+    bcsc_matmul_cuda.launches += 1
+    return out
+
+
+def gemm_launch(x, blocks, row_ids, col_ptr, n_out: int, bm: int,
+                split: int):
+    """One GEMM on a plan of the caller's choice (``bcsc_matmul_cuda`` takes
+    ``gemm_plan``'s; the tests walk others). Arguments as checked there."""
+    M, K = x.shape
     out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
+    # partials of splits 1.. (split 0 writes out); summed in split order
+    ws = torch.empty((split - 1) * M * n_out, dtype=torch.float32,
+                     device=x.device) if split > 1 else None
     code = _build.library().repro_bcsc_gemm(
         x.data_ptr(), M, K, blocks.data_ptr(), row_ids.data_ptr(),
-        col_ptr.data_ptr(), out.data_ptr(), n_out, _build.stream_of(x))
+        col_ptr.data_ptr(), out.data_ptr(), _build.ptr(ws), n_out, bm, split,
+        _build.stream_of(x))
     _build.check(code, "bcsc_matmul")
-    bcsc_matmul_cuda.launches += 1
     return out
 
 

@@ -7,53 +7,470 @@
 //
 // The TPU kernels walk one grid step per non-zero block and revisit-
 // accumulate each output tile along its column segment, which needs the
-// sequential grid. Here one thread block owns an output block-column (and,
-// for the GEMM, an m-tile) and walks that column's segment of the
-// column-major payload in order: no cross-block reduction, no atomics, the
-// same sum order on every run. Segment starts come from col_ptr, derived
-// from the non-decreasing col_ids. Pad blocks repeat the last (row, col)
-// with a zero payload and add nothing.
+// sequential grid. Here a thread block owns output columns (one
+// block-column for the GEMV, a group of 16 and an m-tile for the GEMM) and
+// walks their segments of the column-major payload in ascending block-row
+// order: no atomics, the same sum order on every run. Segment starts come
+// from col_ptr, derived from the non-decreasing col_ids. Pad blocks repeat
+// the last (row, col) with a zero payload and add nothing.
 //
-// GEMM (prefill, M > 8). Bound: operations at large M (each weight block is
-// reused by M/16 warps), bytes below. Each warp holds one 16 x 16 fp32
-// accumulator and issues one 16x16x16 bf16 tensor-core product (WMMA,
-// mma.sync underneath) per block, reading A straight from x. 16 x 16 blocks
-// are small for Hopper's tensor cores; wgmma/TMA tiles over several blocks
-// are later work.
+// GEMM (prefill, M > 8). At 0.25 block density a 16-column block of the
+// output meets a quarter of the block-rows, so a kernel that feeds each
+// product its own operands (PR 11's one 16x16x16 WMMA per block, A fetched
+// from global memory by every 16-row warp) moves ~1 KB from L2 per 8 KFLOP
+// and is bound by that traffic. Design:
+// * Output tiles over column groups. A thread block owns a BM x 256 tile of
+//   out (BM = 128, or 64 at M <= 64): kGemmGroup = 16 adjacent
+//   block-columns, one warp each, fp32 accumulators in registers.
+// * A merged walk down K. The block indexes its group's segments once per
+//   chunk of kGemmChunk block-rows (all its threads scan the group's
+//   contiguous payload; each (row, column) keeps the first block of a run
+//   of equal rows, so a zero pad that repeats the last real pair adds
+//   nothing and never displaces the real block), then walks, in ascending
+//   order, the k-tiles of 8 block-rows (128 columns of x) in which its
+//   columns hold a block. Per k-tile the BM x 128 tile of x is staged in
+//   shared memory once and every present block multiplies its 16 columns:
+//   x is read N / 256 times in all instead of once per block, each weight
+//   block M / BM times instead of M / 16 times. Presence depends on the
+//   weight alone, and only present blocks are multiplied (a dense B over
+//   the group would redo the 4x work of a dense product).
+// * The ring: kGemmStages k-tiles in shared memory, the next one in flight
+//   while the warps multiply this one. The x tile comes by TMA (two boxes
+//   of 64 columns, 128-byte swizzle; rows past M and columns past K read as
+//   zero), issued by one thread once every warp has released the stage
+//   ("empty" mbarrier) and completing on the "full" mbarrier by its byte
+//   count. Each warp copies its own column's blocks of the k-tile by 16-byte
+//   cp.async (32-byte swizzle) and waits for them itself, so only the x tile
+//   needs block-wide barriers.
+// * Tensor cores: mma.sync m16n8k16 (bf16 in, fp32 accumulate) from ldmatrix
+//   fragments. Warp j loops over the rows at which its column has a block:
+//   one B fragment load, the BM x 16 A fragments of that block-row, 2 BM / 16
+//   independent products into its own accumulators. The accumulators are
+//   fixed per warp, so the data-dependent part is a loop count, not a
+//   branch between products.
+// * How it got here (variants timed on the card): 8 warps of 32 x 128
+//   accumulators each, branching per present block, waited on fragment
+//   loads for most of each k-tile (a dense walk of 4x the products took no
+//   longer) and spent as long again issuing copies; wgmma m64n16k16 per
+//   present block is serialised by the compiler inside the presence
+//   branches and costs the dense price when predicated; single-block TMA
+//   copies are slow to issue; sharing each x tile between the two blocks of
+//   a cluster by TMA multicast (half the L2 traffic) and persistent blocks
+//   were slower, since per-step synchronisation, not L2 bandwidth, bounds
+//   the walk.
+// * A fixed sum order: each column's blocks in ascending block-row order,
+//   no atomics. When the tiles alone do not fill the card (qwen2.5-3b's
+//   down projection at M 512 makes 32), kernels/bcsc_matmul.py::gemm_plan
+//   splits K; split s > 0 writes its partial to a workspace and a second
+//   kernel adds the partials to split 0's in split order.
+// * Edges: rows past M are zero-filled and not stored; the last group's
+//   block-columns past N / 16 have empty segments and are not stored.
+// What still holds it back: the per-k-tile synchronisation of 16 warps,
+// a large share of the time even when nothing is copied or multiplied;
+// each warp re-reads the A fragments of every block-row it multiplies from
+// shared memory; the index of a chunk is built and the ring drained before
+// its walk, and the fp32 tile written after it, with one block per SM.
 //
 // GEMV (decode, M <= 8, rows padded to 8). Bound: bytes of the weight
 // stream. 16 groups of 16 threads split a column's blocks, each thread
 // keeps 8 row accumulators for its output column, partials are summed in a
 // fixed order, and the fused bias + activation epilogue runs at the flush.
-#include <mma.h>
+#include <cuda.h>
 
 #include "common.cuh"
 
 namespace repro {
 
-constexpr int kGemmWarps = 4;  // 64 rows of x per thread block
+constexpr int kGemmGroup = 16;         // block-columns of a thread block
+constexpr int kGemmTileRows = 8;       // block-rows of a k-tile: 128 columns
+constexpr int kGemmStages = 2;         // k-tiles in the ring
+constexpr int kGemmChunk = 256;        // block-rows indexed at a time
+constexpr int kGemmTabStride = kGemmGroup + 1;   // ints per indexed row
+constexpr int kGemmSlots = kGemmTileRows * kGemmGroup;   // blocks a stage holds
 
-__global__ void __launch_bounds__(kGemmWarps * 32) bcsc_gemm_kernel(
-    const bf16* __restrict__ x, int M, int K, const bf16* __restrict__ blocks,
-    const int* __restrict__ row_ids, const int* __restrict__ col_ptr,
-    float* __restrict__ out, int N) {
-  using namespace nvcuda;
-  const int c = blockIdx.x;
-  const int m0 = (blockIdx.y * kGemmWarps + (threadIdx.x >> 5)) * 16;
-  if (m0 >= M) return;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-  wmma::fill_fragment(acc, 0.0f);
-  const int lo = col_ptr[c], hi = col_ptr[c + 1];
-  const bf16* xm = x + (long)m0 * K;
-  for (int i = lo; i < hi; ++i) {
-    wmma::load_matrix_sync(a, xm + (long)row_ids[i] * 16, K);
-    wmma::load_matrix_sync(b, blocks + (long)i * 256, 16);
-    wmma::mma_sync(acc, a, b, acc);
+// Threads of a thread block: one warp per block-column of the group.
+constexpr int kGemmThreads = 32 * kGemmGroup;
+
+// Dynamic shared memory of a thread block of BM = 64 kWg rows: the ring's x
+// tiles and block slots, the chunk index (tab, rmask, tiles), and slack to
+// align the x tiles to the 1024-byte swizzle atom.
+template <int kWg>
+constexpr size_t gemm_smem_bytes() {
+  return (size_t)kGemmStages * (kWg * 64 * 256 + kGemmSlots * 512) +
+         (size_t)kGemmChunk * (kGemmTabStride + 1) * 4 +
+         (size_t)(kGemmChunk / kGemmTileRows) * 4 + 1024;
+}
+
+// Byte offset of 16-byte chunk ``c`` (0..7) of row ``r`` in an x tile of
+// 128-byte rows (64 bf16 columns), as TMA's 128-byte swizzle lays it out:
+// chunk c sits at c ^ (r % 8), so the 8 rows an ldmatrix reads hit 32
+// distinct banks.
+__device__ __forceinline__ int swz128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// Byte offset of 16-byte half ``h`` of row ``r`` in a 16 x 16 weight block
+// ([k][n], 32-byte rows): the halves swap on every other group of four
+// rows, so the 8 rows an ldmatrix reads hit 32 distinct banks.
+__device__ __forceinline__ int swz32(int r, int h) {
+  return r * 32 + ((h ^ ((r >> 2) & 1)) << 4);
+}
+
+// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i: the A fragment of a 16 x 16 operand.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p))
+      : "memory");
+}
+
+// The same, transposed: each thread gets a column pair, the B fragments of
+// a [k][n] block.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p))
+      : "memory");
+}
+
+// d (16 x 8 fp32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col).
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A 16-byte cp.async global -> shared copy, if ``on``.
+__device__ __forceinline__ void cp_async16_if(void* dst, const void* src,
+                                              bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+      "@p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(dst)),
+      "l"(src), "r"((int)on)
+      : "memory");
+}
+
+// One arrival on ``bar`` that also expects ``bytes`` of asynchronous copies.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box of ``map`` at (column c0, row c1) into shared memory,
+// completing its bytes on ``bar``.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"((unsigned)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+
+// Grid (column groups, m-tiles, K splits). Split z walks block-rows
+// [z * rows_per_split, (z + 1) * rows_per_split) (rows_per_split a multiple
+// of kGemmTileRows) and writes out (z = 0) or ws[z - 1] (M x N each).
+// tm_x: x as (M rows, K columns) in boxes of 64 columns x BM rows, 128-byte
+// swizzle. BM = 64 kWg.
+template <int kWg>
+__global__ void __launch_bounds__(kGemmThreads, 1) bcsc_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_x, int M, int K,
+    const bf16* __restrict__ blocks, const int* __restrict__ row_ids,
+    const int* __restrict__ col_ptr, float* __restrict__ out,
+    float* __restrict__ ws, int N, int rows_per_split) {
+  constexpr int kThreads = kGemmThreads;
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kBM = 64 * kWg;
+  constexpr int kXBytes = kBM * 256;    // one x tile: two kBM x 64 halves
+  extern __shared__ unsigned char smem_raw[];
+  // the x tiles' 128-byte swizzle repeats every 1024 bytes
+  unsigned char* smem = smem_raw + ((1024 - ((unsigned)__cvta_generic_to_shared(
+                                                 smem_raw) & 1023)) & 1023);
+  unsigned char* xs = smem;                           // [stage][x tile]
+  unsigned char* wsm = xs + kGemmStages * kXBytes;    // [stage][q][col][blk]
+  int* tab = reinterpret_cast<int*>(wsm + kGemmStages * kGemmSlots * 512);
+  unsigned* rmask =
+      reinterpret_cast<unsigned*>(tab + kGemmChunk * kGemmTabStride);
+  int* tiles = reinterpret_cast<int*>(rmask + kGemmChunk);
+  __shared__ uint64_t full[kGemmStages], empty[kGemmStages];
+  __shared__ int seg[kGemmGroup + 1];
+  __shared__ int warp_n[kWarps];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int NB = N / 16, KB = K / 16;
+  const int c0 = blockIdx.x * kGemmGroup, m0 = blockIdx.y * kBM;
+  const int kb_lo = blockIdx.z * rows_per_split;
+  const int kb_hi = min(KB, kb_lo + rows_per_split);
+  // segment bounds of the group's columns; columns past NB are empty
+  if (tid <= kGemmGroup) seg[tid] = col_ptr[min(c0 + tid, NB)];
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kGemmStages; ++i) {
+      // full: thread 0's expect_tx for the x tile; empty: one per warp
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  wmma::store_matrix_sync(out + (long)m0 * N + c * 16, acc, N,
-                          wmma::mem_row_major);
+
+  // warp j owns block-column c0 + j: the tile's kMT m16 row tiles x its 16
+  // columns (two 8-column halves)
+  constexpr int kMT = 4 * kWg;
+  float acc[kMT][2][4];
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.0f;
+  // ldmatrix: this lane's row within a 16-row operand, and its 16-byte half
+  const int lr = (lane & 7) + ((lane >> 3) & 1) * 8, lh = lane >> 4;
+  int gstep = 0;   // ring steps of earlier chunks (the barriers' phases)
+
+  for (int r0 = kb_lo; r0 < kb_hi; r0 += kGemmChunk) {
+    const int r1 = min(r0 + kGemmChunk, kb_hi);
+    __syncthreads();   // the previous chunk's index is no longer read
+    for (int e = tid; e < kGemmChunk * kGemmTabStride; e += kThreads)
+      tab[e] = -1;
+    __syncthreads();
+    // index every block of the group's segments (one contiguous range of
+    // the payload) whose block-row lies in [r0, r1)
+    for (int i = seg[0] + tid; i < seg[kGemmGroup]; i += kThreads) {
+      const int row = row_ids[i];
+      if (row < r0 || row >= r1) continue;
+      int j = 0;   // the column: the last j with seg[j] <= i
+#pragma unroll
+      for (int s = kGemmGroup / 2; s > 0; s >>= 1)
+        if (seg[j + s] <= i) j += s;
+      if (i > seg[j] && row_ids[i - 1] == row) continue;   // a repeat
+      tab[(row - r0) * kGemmTabStride + j] = i;
+    }
+    __syncthreads();
+    // presence mask of each block-row over the group's 16 columns
+    for (int r = tid; r < kGemmChunk; r += kThreads) {
+      unsigned m = 0;
+      if (r < r1 - r0) {
+#pragma unroll
+        for (int j = 0; j < kGemmGroup; ++j)
+          m |= (unsigned)(tab[r * kGemmTabStride + j] >= 0) << j;
+      }
+      rmask[r] = m;
+    }
+    __syncthreads();
+    // the walk: the chunk's k-tiles in which any column of the group holds
+    // a block, in ascending order
+    const int n_tiles = (r1 - r0 + kGemmTileRows - 1) / kGemmTileRows;
+    static_assert(kGemmChunk / kGemmTileRows <= 128, "a thread per k-tile");
+    bool held = false;
+    if (tid < n_tiles) {
+#pragma unroll
+      for (int q = 0; q < kGemmTileRows; ++q)
+        held |= rmask[tid * kGemmTileRows + q] != 0;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, held);
+    if (lane == 0) warp_n[warp] = __popc(bal);
+    __syncthreads();
+    int n_steps = 0, pos = __popc(bal & ((1u << lane) - 1));
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) pos += warp_n[w];
+      n_steps += warp_n[w];
+    }
+    if (held) tiles[pos] = tid;
+    __syncthreads();
+
+    // step s: the x tile of k-tile tiles[s], by two TMA copies of 64 columns
+    // (thread 0, once every warp has released the stage), and each warp's
+    // own blocks of it, by 16-byte cp.async (a lane a chunk), into stage
+    // (gstep + s) % kGemmStages, kGemmStages - 1 steps ahead of the step
+    // multiplied. A warp reads only the blocks it copied, so only the x
+    // tile needs the block-wide mbarriers.
+    auto issue = [&](int s) {
+      const int g = gstep + s, st = g % kGemmStages;
+      const int rl0 = tiles[s] * kGemmTileRows;
+      if (tid == 0) {
+        if (g >= kGemmStages)   // step g - kGemmStages has left the stage
+          mbar_wait(&empty[st], (g / kGemmStages - 1) & 1);
+        mbar_arrive_expect(&full[st], kXBytes);
+        tma_load_2d(xs + st * kXBytes, &tm_x, (r0 + rl0) * 16, m0, &full[st]);
+        tma_load_2d(xs + st * kXBytes + kXBytes / 2, &tm_x,
+                    (r0 + rl0) * 16 + 64, m0, &full[st]);
+      }
+      unsigned char* wd = wsm + st * kGemmSlots * 512;
+#pragma unroll
+      for (int q = 0; q < kGemmTileRows; ++q) {
+        const long i = max(tab[(rl0 + q) * kGemmTabStride + warp], 0);
+        cp_async16_if(wd + (q * kGemmGroup + warp) * 512 +
+                          swz32(lane >> 1, lane & 1),
+                      blocks + i * 256 + (lane >> 1) * 16 + (lane & 1) * 8,
+                      (rmask[rl0 + q] >> warp) & 1u);
+      }
+    };
+    // one cp.async group per step, empty past the walk's end
+    for (int s = 0; s < kGemmStages - 1; ++s) {
+      if (s < n_steps) issue(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < n_steps; ++s) {
+      if (s + kGemmStages - 1 < n_steps) issue(s + kGemmStages - 1);
+      cp_async_commit();
+      const int g = gstep + s, st = g % kGemmStages;
+      cp_async_wait<kGemmStages - 1>();   // this thread's blocks of step s
+      __syncwarp();                        // and its warp's
+      mbar_wait(&full[st], (g / kGemmStages) & 1);   // the x tile
+      {
+        const int rl0 = tiles[s] * kGemmTileRows;
+        const unsigned char* xq = xs + st * kXBytes;
+        unsigned rows = 0;   // tile rows at which this column has a block
+#pragma unroll
+        for (int q = 0; q < kGemmTileRows; ++q)
+          rows |= ((rmask[rl0 + q] >> warp) & 1u) << q;
+        for (; rows; rows &= rows - 1) {
+          const int q = __ffs(rows) - 1;
+          uint32_t b[4];   // n 0-7: b[0], b[1]; n 8-15: b[2], b[3]
+          ldmatrix_x4_trans(
+              b, wsm + (st * kGemmSlots + q * kGemmGroup + warp) * 512 +
+                     swz32(lr, lh));
+          uint32_t a[kMT][4];
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi)
+            ldmatrix_x4(a[mi], xq + (q >> 2) * (kXBytes / 2) +
+                                   swz128(16 * mi + lr, 2 * (q & 3) + lh));
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            mma_16816(acc[mi][0], a[mi], b[0], b[1]);
+            mma_16816(acc[mi][1], a[mi], b[2], b[3]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);   // this warp is done with it
+    }
+    cp_async_wait<0>();
+    gstep += n_steps;
+  }
+
+  // accumulator fragment: rows g and g + 8 of each m16 tile, columns 2t and
+  // 2t + 1 of each 8-column half of the warp's block-column
+  const int cb = c0 + warp;
+  if (cb >= NB) return;
+  float* dst = blockIdx.z == 0 ? out : ws + (long)(blockIdx.z - 1) * M * N;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < kMT; ++mi) {
+    const int row = m0 + 16 * mi + g;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float* p = dst + (long)row * N + cb * 16 + nt * 8 + 2 * t;
+      if (row < M)
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[mi][nt][0], acc[mi][nt][1]);
+      if (row + 8 < M)
+        *reinterpret_cast<float2*>(p + 8 * (long)N) =
+            make_float2(acc[mi][nt][2], acc[mi][nt][3]);
+    }
+  }
+}
+
+// out += ws[0] + ws[1] + ... (n4 float4s each), in split order: one fixed
+// sum order for a given plan.
+__global__ void bcsc_gemm_combine_kernel(float4* __restrict__ out,
+                                         const float4* __restrict__ ws,
+                                         long n4, int parts) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (long)gridDim.x * blockDim.x) {
+    float4 v = out[i];
+    for (int s = 0; s < parts; ++s) {
+      const float4 w = ws[(long)s * n4 + i];
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    out[i] = v;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A TMA map of a row-major bf16 matrix (rows x cols) read in boxes of
+// box_rows x box_cols; elements outside the matrix read as zero. The
+// driver's encoder is reached through the runtime, so the library needs no
+// link to libcuda.
+static cudaError_t tensor_map(CUtensorMap* map, const void* base,
+                              uint64_t rows, uint64_t cols, uint32_t box_rows,
+                              uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kWg>
+int launch_gemm(const void* x, int M, int K, const void* blocks,
+                const void* row_ids, const void* col_ptr, void* out, void* ws,
+                int N, int split, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bcsc_gemm_kernel<kWg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)gemm_smem_bytes<kWg>());
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tm_x;
+  cudaError_t e = tensor_map(&tm_x, x, M, K, 64 * kWg, 64,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return (int)e;
+  // block-rows per split, whole k-tiles
+  const int rows = ((K / 16 + split - 1) / split + kGemmTileRows - 1) /
+                   kGemmTileRows * kGemmTileRows;
+  const dim3 grid((N / 16 + kGemmGroup - 1) / kGemmGroup,
+                  (M + 64 * kWg - 1) / (64 * kWg), split);
+  bcsc_gemm_kernel<kWg><<<grid, kGemmThreads, gemm_smem_bytes<kWg>(),
+                          st>>>(tm_x, M, K, (const bf16*)blocks,
+                                (const int*)row_ids,
+                                (const int*)col_ptr, (float*)out, (float*)ws,
+                                N, rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || split == 1) return (int)e;
+  const long n4 = (long)M * N / 4;
+  const long n_blocks = (n4 + 255) / 256;
+  bcsc_gemm_combine_kernel<<<(unsigned)(n_blocks < 4096 ? n_blocks : 4096),
+                             256, 0, st>>>((float4*)out, (const float4*)ws,
+                                           n4, split - 1);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kWalkThreads) bcsc_gemv_kernel(
@@ -78,18 +495,30 @@ extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// x (M, K) with M a multiple of 16; out (M, N) fp32.
+// x (M, K) bf16 with M a multiple of 16; blocks (nnzb, 16, 16) bf16; out
+// (M, N) fp32; ws holds (split - 1) * M * N fp32 partials when split > 1
+// (else it may be null). bm (64 or 128) and split come from
+// kernels/bcsc_matmul.py::gemm_plan.
 extern "C" int repro_bcsc_gemm(const void* x, int M, int K,
                                const void* blocks, const void* row_ids,
-                               const void* col_ptr, void* out, int N,
-                               void* stream) {
+                               const void* col_ptr, void* out, void* ws,
+                               int N, int bm, int split, void* stream) {
   using namespace repro;
-  if (M % 16 || K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  dim3 grid(N / 16, (M + 16 * kGemmWarps - 1) / (16 * kGemmWarps));
-  bcsc_gemm_kernel<<<grid, kGemmWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, M, K, (const bf16*)blocks, (const int*)row_ids,
-      (const int*)col_ptr, (float*)out, N);
-  return (int)cudaGetLastError();
+  if (M < 16 || M % 16 || K < 16 || K % 16 || N < 16 || N % 16 ||
+      split < 1 || split > K / 16 ||
+      (split > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (bm) {
+    case 64:
+      return launch_gemm<1>(x, M, K, blocks, row_ids, col_ptr, out, ws, N,
+                            split, st);
+    case 128:
+      return launch_gemm<2>(x, M, K, blocks, row_ids, col_ptr, out, ws, N,
+                            split, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // x (8, K); bias (N,) fp32 or null; out (8, N) fp32.

@@ -1,6 +1,7 @@
 // Shared device code of the port's Hopper kernels: the fused bias+activation
-// epilogue (counterpart of kernels/epilogue.py::fused_epilogue) and the
-// column-segment walk that the BCSC GEMV and the fused MLP share.
+// epilogue (counterpart of kernels/epilogue.py::fused_epilogue), cp.async
+// copies and the mbarriers that guard their stages, and the column-segment
+// walk that the BCSC GEMV and the fused MLP share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,6 +70,42 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers in shared memory (addresses as 32-bit shared-window offsets),
+// the stage guards of the cp.async rings of the sliding-window attention
+// and the BCSC GEMM.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+// One arrival on ``bar`` once all of this thread's earlier cp.async copies
+// have landed.
+__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(bar))
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of parity ``parity``.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // Threads and rows of one segment walk: 256 threads = 16 output columns of a

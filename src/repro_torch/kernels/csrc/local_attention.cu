@@ -163,40 +163,6 @@ __device__ __forceinline__ float fast_ex2(float x) {
   return y;
 }
 
-// mbarriers in shared memory (addresses as 32-bit shared-window offsets)
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          (unsigned)__cvta_generic_to_shared(bar))
-      : "memory");
-}
-// One arrival on ``bar`` once all of this thread's earlier cp.async copies
-// have landed.
-__device__ __forceinline__ void mbar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(bar))
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of parity ``parity``.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 template <int kNb>   // D padded to 64 * kNb
 __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,

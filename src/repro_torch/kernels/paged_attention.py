@@ -28,7 +28,6 @@ page.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -50,11 +49,6 @@ def split_plan(B: int, KV: int, MP: int, n_sm: int) -> tuple:
     want = -(-TARGET_BLOCKS_PER_SM * n_sm // max(B * KV, 1))
     pages = min(max(1, MP // want), MAX_RUN)
     return pages, -(-MP // pages)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def row_work_steps(length, page_size: int):
@@ -140,7 +134,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
         raise ValueError(f"at most 16 query heads per KV head, got {R}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {D}")
-    pages, n_split = split_plan(B, KV, MP, _sm_count(q.device.index or 0))
+    pages, n_split = split_plan(B, KV, MP,
+                                 _build.sm_count(q.device.index or 0))
     out = torch.empty((B, KV, R, D), dtype=torch.float32, device=q.device)
     ws = torch.empty(B * KV * n_split * R * (D + 2), dtype=torch.float32,
                      device=q.device)

@@ -18,6 +18,8 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import plan as pplan
+from repro_torch.kernels import _build
+from repro_torch.kernels import bcsc_matmul as pbm
 from repro_torch.kernels import epilogue as pepi
 from repro_torch.kernels import local_attention as pswa
 from repro_torch.kernels import ops as pops
@@ -399,6 +401,177 @@ def test_bcsc_mlp_packed_padded_counts(ref, M):
                                atol=2e-3 * np.abs(want).max())
 
 
+# ------------------------------------------------------- the GEMM's walk
+def _pack_with_empty_cols(K, N, sparsity, seed, empty, device="cpu"):
+    """A port pack whose block-columns ``empty`` hold no block at all (not
+    even the explicit zero block ``pack_weight`` puts there), padded past
+    its real count with blocks that repeat the last (row, col)."""
+    from repro_torch.core import sparsity as sp
+    g = torch.Generator().manual_seed(seed)
+    w = sp.block_magnitude_prune(torch.randn(K, N, generator=g) / K ** 0.5,
+                                 sparsity, 16, 16)
+    for c in empty:
+        w[:, 16 * c:16 * (c + 1)] = 0
+    m = sp.bcsc_encode(w, 16, 16)
+    packed = {"blocks": m.blocks.bfloat16(), "row_ids": m.row_ids,
+              "col_ids": pbm.expand_col_ptr(m.col_ptr), "col_ptr": m.col_ptr,
+              "nnzb": torch.tensor(m.blocks.shape[0], dtype=torch.int32)}
+    packed = psparse.pad_packed(packed, m.blocks.shape[0] + 5)
+    return {k: v.to(device) for k, v in packed.items()}
+
+
+def _gemm_walk_model(x, blocks, row_ids, col_ptr, n_out, bm, split):
+    """The GEMM walk of csrc/bcsc_matmul.cu in plain torch, fp32.
+
+    Tile (column group g of GEMM_GROUP block-columns, m-tile of bm rows, K
+    split z of ``split_rows`` block-rows): per chunk of GEMM_CHUNK
+    block-rows, index each (row, column) of the group's segments by the
+    first block of its run of equal rows, walk in ascending order the
+    k-tiles (GEMM_TILE_ROWS block-rows) in which the group holds an indexed
+    block, stage each one's x tile once and multiply every present block
+    with its 16 columns.
+    Split 0's partial then takes the others in split order. Returns (out,
+    tiles, reads): x tiles staged per (g, m-tile, z), and how often each
+    payload block was staged."""
+    M, K = x.shape
+    NB, KB, G = n_out // 16, K // 16, pbm.GEMM_GROUP
+    T = pbm.GEMM_TILE_ROWS
+    rows = pbm.split_rows(K, split)
+    cp, rid = col_ptr.tolist(), row_ids.tolist()
+    xf, bf = x.float(), blocks.float()
+    parts = [torch.zeros(M, n_out) for _ in range(split)]
+    staged, reads = {}, [0] * len(rid)
+
+    def index(g, r0, r1):
+        """{(row, column in group): first block of the run}."""
+        seg = [cp[min(g * G + j, NB)] for j in range(G + 1)]
+        tab = {}
+        for i in range(seg[0], seg[G]):
+            row = rid[i]
+            if not r0 <= row < r1:
+                continue
+            j = max(jj for jj in range(G) if seg[jj] <= i)
+            if i > seg[j] and rid[i - 1] == row:
+                continue                  # a repeat (a pad)
+            tab[(row, j)] = i
+        return tab
+
+    for g in range(-(-NB // G)):
+        for z in range(split):
+            lo, hi = z * rows, min(KB, (z + 1) * rows)
+            for mt in range(-(-M // bm)):
+                staged[(g, mt, z)] = 0
+            for r0 in range(lo, hi, pbm.GEMM_CHUNK):
+                r1 = min(r0 + pbm.GEMM_CHUNK, hi)
+                tab = index(g, r0, r1)
+                walk = sorted({row // T for row, _ in tab})
+                for mt in range(-(-M // bm)):
+                    m0 = mt * bm
+                    staged[(g, mt, z)] += len(walk)
+                    for t in walk:
+                        for row in range(T * t, T * (t + 1)):
+                            strip = xf[m0:m0 + bm, 16 * row:16 * (row + 1)]
+                            for j in range(G):
+                                i = tab.get((row, j))
+                                if i is None:
+                                    continue
+                                reads[i] += 1
+                                c = g * G + j
+                                parts[z][m0:m0 + bm, 16 * c:16 * (c + 1)] \
+                                    += strip @ bf[i]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out, staged, reads
+
+
+GEMM_WALK_CASES = {    # M, K, N, how the pack is made
+    "M 16": (16, 256, 512, "port"),
+    "M 48, N / 16 odd": (48, 256, 528, "port"),
+    "padded pack": (80, 512, 256, "padded"),
+    "empty columns": (48, 256, 528, "empty"),
+    "K past one chunk": (16, 8448, 32, "port"),
+}
+
+
+def _walk_case(name, device="cpu"):
+    M, K, N, how = GEMM_WALK_CASES[name]
+    seed = len(name)
+    if how == "empty":
+        pack = _pack_with_empty_cols(K, N, 0.6, seed, (0, 7, 32), device)
+    else:
+        pack = _port_pack(K, N, 0.75 if how == "port" else 0.6, seed, device)
+        if how == "padded":
+            pack = psparse.pad_packed(pack, pack["blocks"].shape[0] + 21)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(M, K, generator=g).bfloat16().to(device)
+    return x, pack, N
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_WALK_CASES))
+@pytest.mark.parametrize("bm,split", [(64, 1), (128, 1), (128, 3)])
+def test_gemm_walk_model_matches_plain(case, bm, split):
+    """The kernel's walk (column groups, the merged block-row union, first-
+    of-run indexing that lets no zero pad displace the real block, empty
+    columns, edge rows and columns, a K split combined in order) computes
+    the plain product: fp32 sums of the same bf16 products in another
+    order, 1e-5 of max |out|."""
+    x, p, N = _walk_case(case)
+    got, _, _ = _gemm_walk_model(x, p["blocks"], p["row_ids"], p["col_ptr"],
+                                 N, bm, split)
+    want = pbm.bcsc_matmul_plain(x, p["blocks"], p["row_ids"], p["col_ids"],
+                                 n_out=N)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("case", sorted(GEMM_WALK_CASES))
+def test_gemm_walk_stages_each_strip_and_block_once_per_tile(case):
+    """Structural count of the walk at the planner's plan on an H100: each
+    tile stages one x tile per k-tile in which its group holds a block
+    within its split (the union of its columns' block-rows, in k-tiles),
+    and each real block once per m-tile, ceil(M / bm) times, while its
+    repeats (the pads) are never staged."""
+    x, p, N = _walk_case(case)
+    M, K = x.shape
+    bm, split = pbm.gemm_plan(M, K, N, H100_SMS)
+    _, staged, reads = _gemm_walk_model(x, p["blocks"], p["row_ids"],
+                                        p["col_ptr"], N, bm, split)
+    G, KB, rows = pbm.GEMM_GROUP, K // 16, pbm.split_rows(K, split)
+    NB = N // 16
+    cp, rid = p["col_ptr"].tolist(), p["row_ids"].tolist()
+    for (g, mt, z), n in staged.items():
+        lo, hi = cp[g * G], cp[min((g + 1) * G, NB)]
+        union = {r // pbm.GEMM_TILE_ROWS for r in rid[lo:hi]
+                 if z * rows <= r < min(KB, (z + 1) * rows)}
+        assert n == len(union)
+    cols = pbm.expand_col_ptr(p["col_ptr"]).tolist()
+    for i, n in enumerate(reads):
+        repeat = i > 0 and cols[i - 1] == cols[i] and rid[i - 1] == rid[i]
+        assert n == (0 if repeat else -(-M // bm))
+    assert len(staged) == (-(-NB // G)) * (-(-M // bm)) * split
+
+
+@pytest.mark.parametrize("M,K,N,plan", [
+    (512, 2048, 11008, (128, 1)),     # qwen2.5-3b up/gate at M 512
+    (512, 11008, 2048, (128, 4)),     # qwen2.5-3b down: 32 tiles, split 4
+    (8192, 2304, 9216, (128, 1)),     # gemma2-2b up/gate, one 8192 prompt
+    (8192, 9216, 2304, (128, 1)),     # gemma2-2b down
+    (128, 2048, 11008, (128, 2)),     # qwen2.5-3b, the shortest GEMM tier
+    (16, 256, 512, (64, 1)),          # too little K to split
+    (16, 4096, 256, (64, 8)),
+])
+def test_gemm_plan_at_served_shapes(M, K, N, plan):
+    """The planner's choices on an H100 (132 SMs): 128-row tiles past
+    M 64, K split only while the grid stays within one wave and each split
+    keeps MIN_SPLIT_ROWS block-rows."""
+    bm, split = pbm.gemm_plan(M, K, N, H100_SMS)
+    assert (bm, split) == plan
+    tiles = -(-M // bm) * -(-(N // 16) // pbm.GEMM_GROUP)
+    assert split == 1 or tiles * split <= H100_SMS
+    assert (K // 16) // split >= min(pbm.MIN_SPLIT_ROWS, K // 16)
+
+
 @pytest.mark.parametrize("act", [None, "none", "relu", "silu", "gelu"])
 def test_fused_epilogue_every_activation(ref, act):
     """Bias then activation in fp32, both packages: 1e-6."""
@@ -602,7 +775,7 @@ def test_cuda_paged_attention_split_edges(cuda, R, D, int8, softcap):
     is not a multiple of the run, one of 94 pages (gemma2-2b's longest) with
     a -1 hole inside its occupancy (reads page 0). 1e-4 absolute."""
     ps, KV, B, MP = 64, 2, 5, 96
-    pages, _ = ppa.split_plan(B, KV, MP, ppa._sm_count(cuda.index or 0))
+    pages, _ = ppa.split_plan(B, KV, MP, _build.sm_count(cuda.index or 0))
     assert pages > 1
     lengths = [0, 1, pages * ps, (2 * pages + 1) * ps - 3, 6000]
     q, kp, vp, bt, lens, sc = _paged_case(lengths, ps, KV=KV, R=R, D=D,
@@ -656,6 +829,29 @@ def test_cuda_bcsc_apply_matches_plain(cuda, M):
                                   activation="silu", impl="plain")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GEMM_WALK_CASES))
+def test_cuda_bcsc_gemm_edges(cuda, case):
+    """The GEMM kernel against the plain product at the walk's edges (M 16
+    and 48 in 64- and 128-row tiles, N / 16 odd, pads, empty columns, K past
+    one indexed chunk), on the planner's plan and on others, including a
+    K split: 1e-3 of max |out| (tensor-core fp32 sums of the same bf16
+    products in another order). Two runs agree bit for bit."""
+    x, p, N = _walk_case(case, cuda)
+    want = pbm.bcsc_matmul_plain(x, p["blocks"], p["row_ids"], p["col_ids"],
+                                 n_out=N)
+    args = (x, p["blocks"], p["row_ids"], p["col_ptr"])
+    got = [pbm.bcsc_matmul_cuda(*args, n_out=N)]
+    got += [pbm.gemm_launch(*args, N, bm, split)
+            for bm, split in ((64, 1), (128, 1), (128, 3))]
+    again = pbm.bcsc_matmul_cuda(*args, n_out=N)
+    torch.cuda.synchronize()
+    for g in got:
+        torch.testing.assert_close(g, want, rtol=0,
+                                   atol=1e-3 * float(want.abs().max()))
+    assert torch.equal(got[0], again)
 
 
 @pytest.mark.gpu
