@@ -20,9 +20,13 @@ Phases, each of which must pass:
    its plan and its bound in bytes and in operations; the GEMM is also
    held against its plain version at the edges of its tiles: 16 and 48
    rows, an odd number of block-columns, pads, columns with no block, a
-   K split); print each attention kernel's launch configuration
-   (paged attention's split, the sliding window's blocks, stages and
-   shared memory) beside the compiler's registers and spills;
+   K split); the fused MLP at qwen2.5-3b's M 8 and 64 and gemma2-2b's M 4
+   and 64, and rs_matmul at M 512 and 8, each also checked for equal bits
+   on a second call, against the dense bf16 MLP through cuBLAS and
+   ``addmm`` + gelu; print each kernel's launch configuration (paged
+   attention's split, the sliding window's blocks, stages and shared
+   memory, the fused MLP's grid, rings and phase-2 split, rs_matmul's arm
+   and units) beside the compiler's registers and spills;
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
    packed at 0.75 block sparsity. First the first prefill and decode logits
    of the kernel path are held against the plain path; then 12 requests go
@@ -308,6 +312,71 @@ def _sdpa_over_pages(q, k_pool, v_pool, bt, lengths):
     return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
 
+def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
+    """Hold the fused MLP against its plain version on x (rows M, zero rows
+    past M to the kernel's multiple of 8), check that two calls give equal
+    bits, and time the kernel, the plain version and the dense bf16 MLP
+    through cuBLAS on the decoded weights; returns (record, log line)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bcsc_matmul as bm
+    from repro_torch.kernels import bcsc_mlp as bmlp
+    wg, wu, wd = packs
+    Mp, d = x.shape
+    n_real = int(counts.sum())
+
+    def trip(p, key):
+        return (p["blocks"], p["row_ids"], p[key])
+
+    def cu():
+        return bmlp.bcsc_mlp_cuda(
+            x, trip(wg, "col_ptr"), trip(wu, "col_ptr"), trip(wd, "col_ptr"),
+            counts, d_ff=ff, n_out=d, activation=act)
+
+    def plain():
+        return bmlp.bcsc_mlp_plain(
+            x, trip(wg, "col_ids"), trip(wu, "col_ids"), trip(wd, "col_ids"),
+            counts, d_ff=ff, n_out=d, activation=act)
+    got = cu()
+    abs_err, rel = errors(got[:M], plain()[:M])
+    judge(f"bcsc_mlp[{tag}: M={M}, {act}]", rel, 2e-3,
+          "relative to max |out|: an fp32 sum in another order can flip "
+          "the bf16 rounding of a hidden value, 2^-8 of it")
+    judge.check(f"bcsc_mlp[{tag}: M={M}]: the same bits on a second run",
+                bool(torch.equal(got, cu())), "fixed sum order")
+    wdense = torch.cat([bm._dense_weight(*trip(p, "col_ids"), d, ff)
+                        for p in (wg, wu)], 1).bfloat16()
+    wdown = bm._dense_weight(*trip(wd, "col_ids"), ff, d).bfloat16()
+    xm = x[:M]
+
+    def act_fn(v):
+        return F.silu(v) if act == "silu" else F.gelu(v, approximate="tanh")
+
+    def library():
+        gu = torch.matmul(xm, wdense)
+        return torch.matmul(act_fn(gu[:, :ff]) * gu[:, ff:], wdown)
+    rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
+               plain_ms=time_ms(plain, flush),
+               library_ms=time_ms(library, flush),
+               bound=bound(M * d * 2 + n_real * BLOCK_BYTES + M * d * 4,
+                           2 * M * 256 * n_real),
+               shape=f"{tag}: M {M}, {d} -> {ff} -> {d}, {act}, {n_real} "
+                     "real blocks")
+    lc = bmlp.launch_config(Mp, ff, d, _build.sm_count(0))
+    ms, by = rec["bound"]
+    line = (f"bcsc_mlp ({rec['shape']}; launch {lc['grid']} blocks x "
+            f"{lc['threads']} threads, {lc['row_tiles']} row tiles of 8, "
+            f"{lc['stages']}-slot rings, {lc['smem_bytes']} bytes of shared "
+            f"memory a block; phase 1 {lc['phase1_columns']} hidden columns "
+            f"over {lc['phase1_pairs']} warp pairs, phase 2 "
+            f"{lc['phase2_tasks']} parts, split {lc['split']}): "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, dense bf16 "
+            f"MLP (cuBLAS) {rec['library_ms']:.4f} ms, bound {ms:.4f} ms "
+            f"({by})")
+    return rec, line
+
+
 def phase_kernels(flush, judge, records):
     """Each kernel against its plain version at the shapes the main path
     gives it; fills ``records[name]``."""
@@ -315,7 +384,6 @@ def phase_kernels(flush, judge, records):
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import bcsc_matmul as bm
-    from repro_torch.kernels import bcsc_mlp as bmlp
     from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -372,50 +440,19 @@ def phase_kernels(flush, judge, records):
             bound=bound(n_bytes, 4 * tokens * KV * R * D),
             shape=f"B {B}, KV {KV}, R {R}, D {D}, ps {ps}, {tokens} tokens")
 
-    # ---- fused MLP: M 8 and 64, K 2048, d_ff 11008, sparsity 0.75
+    # ---- fused MLP: M 8 (the decode step at rows 8) and 64 (the largest
+    # prefill batch it takes), K 2048, d_ff 11008, sparsity 0.75
     wg = _packed_weight(d, ff, 0.75, gen)
     wu = _packed_weight(d, ff, 0.75, gen)
     wd = _packed_weight(ff, d, 0.75, gen)
     counts = torch.stack([wg["nnzb"], wu["nnzb"], wd["nnzb"]])
-    n_real = int(counts.sum())
-
-    def trip(p, key):
-        return (p["blocks"], p["row_ids"], p[key])
-
     for M in (8, 64):
         x = torch.randn(M, d, generator=gen, device=dev).bfloat16()
-
-        def cu():
-            return bmlp.bcsc_mlp_cuda(
-                x, trip(wg, "col_ptr"), trip(wu, "col_ptr"),
-                trip(wd, "col_ptr"), counts, d_ff=ff, n_out=d,
-                activation="silu")
-
-        def plain():
-            return bmlp.bcsc_mlp_plain(
-                x, trip(wg, "col_ids"), trip(wu, "col_ids"),
-                trip(wd, "col_ids"), counts, d_ff=ff, n_out=d,
-                activation="silu")
-        abs_err, rel = errors(cu(), plain())
-        judge(f"bcsc_mlp[M={M}]", rel, 2e-3,
-              "relative to max |out|: an fp32 sum in another order can flip "
-              "the bf16 rounding of a hidden value, 2^-8 of it")
-        if M == 8:          # the decode shape at rows 8
-            wdense = torch.cat([bm._dense_weight(*trip(p, "col_ids"), k, n)
-                                for p, k, n in ((wg, d, ff), (wu, d, ff))],
-                               1).bfloat16()
-            wdown = bm._dense_weight(*trip(wd, "col_ids"), ff, d).bfloat16()
-
-            def library():
-                gu = torch.matmul(x, wdense)
-                return torch.matmul(F.silu(gu[:, :ff]) * gu[:, ff:], wdown)
-            records["bcsc_mlp"] = dict(
-                max_abs_err=abs_err, ms=time_ms(cu, flush),
-                plain_ms=time_ms(plain, flush),
-                library_ms=time_ms(library, flush),
-                bound=bound(x.numel() * 2 + n_real * BLOCK_BYTES + M * d * 4,
-                            2 * M * 256 * n_real),
-                shape=f"M {M}, {d} -> {ff} -> {d}, {n_real} real blocks")
+        rec, line = _mlp_line("qwen2.5-3b", x, M, (wg, wu, wd), counts, ff,
+                              "silu", flush, judge)
+        log(f"  {line}")
+        if M == 8:          # the JSON line keeps the decode shape
+            records["bcsc_mlp"] = rec
 
     # ---- GEMM (prefill, M 512: up and down), then its edges: tiles past
     # M, an odd number of block-columns, pads, columns with no block
@@ -455,6 +492,9 @@ def phase_kernels(flush, judge, records):
         del x, got
     for line in lines:
         log(f"  {line}")
+    def trip(p, key):
+        return (p["blocks"], p["row_ids"], p[key])
+
     bias = torch.randn(ff, generator=gen, device=dev)
     for M, act, b in ((1, None, None), (8, "silu", bias)):
         x = torch.zeros(8, d, device=dev, dtype=torch.bfloat16)
@@ -495,7 +535,6 @@ def phase_kernels_gemma(flush, judge):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import bcsc_matmul as bm
-    from repro_torch.kernels import bcsc_mlp as bmlp
     from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -549,35 +588,13 @@ def phase_kernels_gemma(flush, judge):
     wu = _packed_weight(d, ff, 0.75, gen)
     wd = _packed_weight(ff, d, 0.75, gen)
     counts = torch.stack([wg["nnzb"], wu["nnzb"], wd["nnzb"]])
-
-    def trip(p, key):
-        return (p["blocks"], p["row_ids"], p[key])
     for M in (4, 64):
         # the kernel takes rows in eights: the decode step's 4 rows come
         # zero-padded, as kernels.ops pads them
         x = torch.zeros(-(-M // 8) * 8, d, device=dev, dtype=torch.bfloat16)
         x[:M] = torch.randn(M, d, generator=gen, device=dev).bfloat16()
-
-        def cu():
-            return bmlp.bcsc_mlp_cuda(
-                x, trip(wg, "col_ptr"), trip(wu, "col_ptr"),
-                trip(wd, "col_ptr"), counts, d_ff=ff, n_out=d,
-                activation="gelu")
-
-        def plain():
-            return bmlp.bcsc_mlp_plain(
-                x, trip(wg, "col_ids"), trip(wu, "col_ids"),
-                trip(wd, "col_ids"), counts, d_ff=ff, n_out=d,
-                activation="gelu")
-        judge(f"bcsc_mlp[gemma2: M={M}, gelu]",
-              errors(cu()[:M], plain()[:M])[1],
-              2e-3, "relative to max |out|: an fp32 sum in another order "
-              "can flip the bf16 rounding of a hidden value, 2^-8 of it")
-        if M == 4:
-            lines.append(f"bcsc_mlp (gemma2: M 4, {d} -> {ff} -> {d}, gelu, "
-                         f"{int(counts.sum())} real blocks): "
-                         f"{time_ms(cu, flush):.4f} ms, plain "
-                         f"{time_ms(plain, flush):.4f} ms")
+        lines.append(_mlp_line("gemma2-2b", x, M, (wg, wu, wd), counts, ff,
+                               "gelu", flush, judge)[1])
 
     # ---- GEMM at the prefill's M: one 8192-token prompt
     for name, K, N, w in (("up", d, ff, wg), ("down", ff, d, wd)):
@@ -612,6 +629,7 @@ def phase_kernels_dense(flush, judge, records):
     prefill shapes, and rs_matmul at the GeGLU up-projection's widths."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import local_attention as swa
     from repro_torch.kernels import rs_matmul as rs
 
@@ -689,10 +707,23 @@ def phase_kernels_dense(flush, judge, records):
 
         def plain():
             return rs.rs_matmul_plain(x, w, bias=bias, activation="gelu")
-        abs_err, rel = errors(cu(), plain())
+        got = cu()
+        abs_err, rel = errors(got, plain())
         judge(f"rs_matmul[M={M}]", rel, 1e-3,
               "relative to max |out|: fp32 tensor-core accumulation of the "
               "same bf16 products in another order")
+        judge.check(f"rs_matmul[M={M}]: the same bits on a second run",
+                    bool(torch.equal(got, cu())), "fixed sum order")
+        lc = rs.launch_config(M, K, N, _build.sm_count(0))
+        log(f"  rs_matmul launch (M {M}): {lc['arm']} arm, {lc['units']} "
+            f"units of {lc['unit']} over {lc['grid']} persistent blocks of "
+            f"{lc['threads']} threads, {lc['stages']}-stage TMA ring, "
+            f"{lc['smem_bytes']} bytes of shared memory"
+            + (f", then {lc['k_parts']} K parts added in order by a second "
+               "kernel" if lc["k_parts"] > 1 else "")
+            + (f", the last round's {lc['split_tiles']} tiles split in K into "
+               f"{lc['split_parts']} parts added in order by a second kernel"
+               if lc.get("split_parts", 1) > 1 else ""))
         rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
                    plain_ms=time_ms(plain, flush),
                    library_ms=time_ms(lambda: F.gelu(torch.addmm(

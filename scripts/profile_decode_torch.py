@@ -3,7 +3,7 @@
 time, on one GPU.
 
     python3 scripts/profile_decode_torch.py [--arch qwen2.5-3b] [--rows R]
-                                            [--steps 8]
+                                            [--steps 8] [--mlp-source OLD.cu]
     python3 scripts/profile_decode_torch.py --arch gemma2-2b --prefill 8192
                                             [--gemm-source OLD.cu]
 
@@ -30,6 +30,14 @@ col_ptr, out, N, stream)``); it is built with nvcc into its own library
 (namespace ``repro_variant``) and the prefill is profiled with it and with
 the tree's GEMM in turns (variant, tree, tree, variant), in one process on
 one card.
+
+``--mlp-source`` (decode) names a ``bcsc_mlp.cu`` of an earlier design with
+the C interface ``repro_bcsc_mlp(x, Mp, K, gate, up, down triples, counts,
+act, d_ff, n_out, hidden, out, barrier, stream)``, the barrier one zeroed
+word a call; it is built like ``--gemm-source``'s (namespace
+``repro_variant_mlp``) and the decode step is profiled with it and with the
+tree's fused MLP in turns (variant, tree, tree, variant). Each turn runs
+its own steps, so the contexts grow by a few tokens from one to the next.
 
 The last line is a JSON object with the same numbers.
 """
@@ -92,37 +100,80 @@ def by_group(kernels: dict, n: int) -> dict:
     return groups
 
 
-def variant_gemm(source: str):
-    """A ``bcsc_matmul_cuda`` that launches the GEMM of ``source`` (PR 13's C
-    interface), built into ``build/`` under the namespace repro_variant."""
-    import torch
+def variant_library(source: str, namespace: str, fn: str, argtypes):
+    """``fn`` of ``source`` built with nvcc into ``build/`` under
+    ``namespace`` (so its template symbols do not resolve to the tree's)."""
     from repro_torch.kernels import _build
     src = os.path.abspath(source)
     digest = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
-    lib_path = os.path.join(_build.BUILD_DIR, f"variant-{digest}.so")
+    lib_path = os.path.join(_build.BUILD_DIR, f"{namespace}-{digest}.so")
     if not os.path.exists(lib_path):
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
         built = subprocess.run(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared",
-             "-Drepro=repro_variant", src, "-o", lib_path],
+             f"-Drepro={namespace}", src, "-o", lib_path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if built.returncode:
             raise RuntimeError(f"nvcc failed on {src}:\n{built.stdout}")
     lib = ctypes.CDLL(lib_path)
+    f = getattr(lib, fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def variant_gemm(source: str):
+    """A ``bcsc_matmul_cuda`` that launches the GEMM of ``source`` (the C
+    interface without a workspace or plan: ``repro_bcsc_gemm(x, M, K,
+    blocks, row_ids, col_ptr, out, N, stream)``), built into ``build/``
+    under the namespace repro_variant."""
+    import torch
+    from repro_torch.kernels import _build
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.repro_bcsc_gemm.argtypes = [P, I, I, P, P, P, P, I, P]
-    lib.repro_bcsc_gemm.restype = I
+    fn = variant_library(source, "repro_variant", "repro_bcsc_gemm",
+                         [P, I, I, P, P, P, P, I, P])
 
     def gemm(x, blocks, row_ids, col_ptr, *, n_out):
         M, K = x.shape
         out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
-        code = lib.repro_bcsc_gemm(x.data_ptr(), M, K, blocks.data_ptr(),
-                                   row_ids.data_ptr(), col_ptr.data_ptr(),
-                                   out.data_ptr(), n_out, _build.stream_of(x))
+        code = fn(x.data_ptr(), M, K, blocks.data_ptr(), row_ids.data_ptr(),
+                  col_ptr.data_ptr(), out.data_ptr(), n_out,
+                  _build.stream_of(x))
         if code:
             raise RuntimeError(f"variant GEMM: CUDA error {code}")
         return out
     return gemm
+
+
+def variant_mlp(source: str):
+    """A ``bcsc_mlp_cuda`` that launches the fused MLP of ``source`` (the C
+    interface with a zeroed barrier word a call, see the module docstring;
+    the hidden and out allocated here), built into ``build/`` under the
+    namespace repro_variant_mlp."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.epilogue import act_code
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = variant_library(source, "repro_variant_mlp", "repro_bcsc_mlp",
+                         [P, I, I] + [P] * 10 + [I, I, I, P, P, P, P])
+
+    def mlp(x, gate, up, down, counts, *, d_ff, n_out, activation=None):
+        Mp, K = x.shape
+        ptrs = []
+        for pack in (gate, up, down):
+            ptrs += [None] * 3 if pack is None else [t.data_ptr()
+                                                    for t in pack]
+        hidden = torch.empty((Mp, d_ff), dtype=torch.bfloat16,
+                             device=x.device)
+        out = torch.empty((Mp, n_out), dtype=torch.float32, device=x.device)
+        barrier = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        code = fn(x.data_ptr(), Mp, K, *ptrs, counts.data_ptr(),
+                  act_code(activation), d_ff, n_out, hidden.data_ptr(),
+                  out.data_ptr(), barrier.data_ptr(), _build.stream_of(x))
+        if code:
+            raise RuntimeError(f"variant fused MLP: CUDA error {code}")
+        return out
+    return mlp
 
 
 def main() -> int:
@@ -136,12 +187,17 @@ def main() -> int:
     ap.add_argument("--gemm-source", default=None,
                     help="with --prefill: also profile the GEMM of this "
                          "bcsc_matmul.cu (PR 13's C interface), in turns")
+    ap.add_argument("--mlp-source", default=None,
+                    help="decode: also profile the fused MLP of this "
+                         "bcsc_mlp.cu (the barrier-word C interface), in "
+                         "turns")
     args = ap.parse_args()
     if args.gemm_source and not args.prefill:
         ap.error("--gemm-source needs --prefill")
+    if args.mlp_source and args.prefill:
+        ap.error("--mlp-source profiles the decode step, not --prefill")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("profile_decode_torch: no CUDA device", file=sys.stderr)
         return 1
@@ -196,42 +252,64 @@ def main() -> int:
         state["pos"] = state["pos"] + 1
         state["nxt"] = out[:, -1].argmax(-1)
 
+    from repro_torch.kernels import bcsc_mlp as bmlp
+    mlps = {"tree": bmlp.bcsc_mlp_cuda}
+    order = ["tree"]
+    if args.mlp_source:
+        mlps["variant"] = variant_mlp(args.mlp_source)
+        order = ["variant", "tree", "tree", "variant"]
+    print(f"device: {torch.cuda.get_device_name(0)}; {args.arch}, rows {R}, "
+          f"lengths {lengths.tolist()}")
+    runs = []
+    try:
+        for label in order:
+            bmlp.bcsc_mlp_cuda = mlps[label]
+            runs.append(profile_steps(step, args.steps, label))
+    finally:
+        bmlp.bcsc_mlp_cuda = mlps["tree"]
+    last = runs[-1] if len(runs) == 1 else runs[1]   # the tree's first turn
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "arch": args.arch,
+        "rows": R, "wall_ms_per_step": last["wall_ms"],
+        "device_busy_ms_per_step": last["busy_ms"],
+        "launches_per_step": last["launches"],
+        "groups_ms_per_step": last["groups_ms"], "runs": runs}))
+    return 0
+
+
+def profile_steps(step, n: int, label: str) -> dict:
+    """Wall time of ``n`` decode steps after 3 warm-up steps, then a
+    profile of ``n`` more: device time by kernel group and launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(n):
         step()
     torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.steps):
+        for _ in range(n):
             step()
         torch.cuda.synchronize()
     kernels = kernel_times(prof)
-    n = args.steps
     busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
     launches = sum(c for _, c in kernels.values()) / n
     groups = by_group(kernels, n)
-    print(f"device: {torch.cuda.get_device_name(0)}; {args.arch}, rows {R}, "
-          f"lengths {lengths.tolist()}")
-    print(f"decode step: wall {wall_ms:.3f} ms (host clock), device busy "
-          f"{busy_ms:.3f} ms in {launches:.0f} launches "
+    print(f"[{label} fused MLP] decode step: wall {wall_ms:.3f} ms (host "
+          f"clock), device busy {busy_ms:.3f} ms in {launches:.0f} launches "
           f"({busy_ms / wall_ms:.1%} busy, traced steps)")
     for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {g:28s} {t:8.3f} ms/step  {c:7.1f} launches/step")
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, c) in top:
         print(f"  {t / 1e3 / n:8.3f} ms/step {c / n:7.1f}x  {name[:90]}")
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "arch": args.arch,
-        "rows": R,
-        "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-        "launches_per_step": launches,
-        "groups_ms_per_step": {g: t for g, (t, _) in groups.items()}}))
-    return 0
+    return {"mlp": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "launches": launches,
+            "groups_ms": {g: t for g, (t, _) in groups.items()}}
 
 
 def profile_prefill(args, cfg, prefill, tier: int) -> int:

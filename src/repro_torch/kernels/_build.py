@@ -39,12 +39,14 @@ SIGNATURES = {
     # x, K, blocks, row_ids, col_ptr, bias, act, out, N, stream
     "repro_bcsc_gemv": [P, I, P, P, P, P, I, P, I, P],
     # x, Mp, K, g_blk, g_rows, g_ptr, u_blk, u_rows, u_ptr, d_blk, d_rows,
-    # d_ptr, counts, act, d_ff, n_out, hidden, out, barrier, stream
-    "repro_bcsc_mlp": [P, I, I] + [P] * 10 + [I, I, I, P, P, P, P],
+    # d_ptr, counts, act, d_ff, n_out, hidden, out, ws, words, grid, split,
+    # stream
+    "repro_bcsc_mlp": [P, I, I] + [P] * 10 + [I, I, I] + [P] * 4
+                      + [I, I, P],
     # q, k, v, out, B, S, H, KV, D, window, sm_scale, softcap, stream
     "repro_sliding_window_attention": [P] * 4 + [I] * 6 + [F, F, P],
-    # x, w, bias, act, out, out_bf16, M, K, N, stream
-    "repro_rs_matmul": [P, P, P, I, P, I, I, I, I, P],
+    # x, ldx, w, ldw, bias, act, out, out_bf16, M, K, N, ws, stream
+    "repro_rs_matmul": [P, I, P, I, P, I, P, I, I, I, I, P, P],
 }
 
 
@@ -130,6 +132,27 @@ def sm_count(index: int) -> int:
     grids to it."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_SYNC_WORDS = {}
+
+
+def sync_words(t, n: int, stream: int):
+    """At least ``n`` int32 words on ``t``'s device for the kernels
+    launched on its current stream to count arrivals in: words 0 and 1 a
+    grid barrier's arrival count and generation, the rest the counters of
+    a fixed-order combine (``bcsc_mlp``). Allocated zeroed once
+    per device and stream (grown when a call needs more) and never filled
+    again: every kernel leaves its counters at zero, and a barrier's
+    generation only counts up. Calls on one stream run in order, so they
+    can share the words. ``stream`` is ``stream_of(t)``."""
+    import torch
+    key = (t.device.index, stream)
+    words = _SYNC_WORDS.get(key)
+    if words is None or words.numel() < n:
+        words = torch.zeros(max(n, 256), dtype=torch.int32, device=t.device)
+        _SYNC_WORDS[key] = words
+    return words
 
 
 def stream_of(t) -> int:

@@ -75,8 +75,6 @@
 // stream. 16 groups of 16 threads split a column's blocks, each thread
 // keeps 8 row accumulators for its output column, partials are summed in a
 // fixed order, and the fused bias + activation epilogue runs at the flush.
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace repro {
@@ -101,54 +99,6 @@ constexpr size_t gemm_smem_bytes() {
          (size_t)(kGemmChunk / kGemmTileRows) * 4 + 1024;
 }
 
-// Byte offset of 16-byte chunk ``c`` (0..7) of row ``r`` in an x tile of
-// 128-byte rows (64 bf16 columns), as TMA's 128-byte swizzle lays it out:
-// chunk c sits at c ^ (r % 8), so the 8 rows an ldmatrix reads hit 32
-// distinct banks.
-__device__ __forceinline__ int swz128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// Byte offset of 16-byte half ``h`` of row ``r`` in a 16 x 16 weight block
-// ([k][n], 32-byte rows): the halves swap on every other group of four
-// rows, so the 8 rows an ldmatrix reads hit 32 distinct banks.
-__device__ __forceinline__ int swz32(int r, int h) {
-  return r * 32 + ((h ^ ((r >> 2) & 1)) << 4);
-}
-
-// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i: the A fragment of a 16 x 16 operand.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((unsigned)__cvta_generic_to_shared(p))
-      : "memory");
-}
-
-// The same, transposed: each thread gets a column pair, the B fragments of
-// a [k][n] block.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"((unsigned)__cvta_generic_to_shared(p))
-      : "memory");
-}
-
-// d (16 x 8 fp32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, col).
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A 16-byte cp.async global -> shared copy, if ``on``.
 __device__ __forceinline__ void cp_async16_if(void* dst, const void* src,
                                               bool on) {
@@ -157,29 +107,6 @@ __device__ __forceinline__ void cp_async16_if(void* dst, const void* src,
       "@p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(
           (unsigned)__cvta_generic_to_shared(dst)),
       "l"(src), "r"((int)on)
-      : "memory");
-}
-
-// One arrival on ``bar`` that also expects ``bytes`` of asynchronous copies.
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
-                                                   unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          (unsigned)__cvta_generic_to_shared(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// TMA: the box of ``map`` at (column c0, row c1) into shared memory,
-// completing its bytes on ``bar``.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          (unsigned)__cvta_generic_to_shared(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"((unsigned)__cvta_generic_to_shared(bar))
       : "memory");
 }
 
@@ -406,41 +333,6 @@ __global__ void bcsc_gemm_combine_kernel(float4* __restrict__ out,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// A TMA map of a row-major bf16 matrix (rows x cols) read in boxes of
-// box_rows x box_cols; elements outside the matrix read as zero. The
-// driver's encoder is reached through the runtime, so the library needs no
-// link to libcuda.
-static cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                              uint64_t rows, uint64_t cols, uint32_t box_rows,
-                              uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    encode = (EncodeTiled)fn;
-  }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int kWg>
 int launch_gemm(const void* x, int M, int K, const void* blocks,
                 const void* row_ids, const void* col_ptr, void* out, void* ws,
@@ -450,7 +342,7 @@ int launch_gemm(const void* x, int M, int K, const void* blocks,
       (int)gemm_smem_bytes<kWg>());
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tm_x;
-  cudaError_t e = tensor_map(&tm_x, x, M, K, 64 * kWg, 64,
+  cudaError_t e = tensor_map(&tm_x, x, M, K, K, 64 * kWg, 64,
                              CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return (int)e;
   // block-rows per split, whole k-tiles

@@ -5,131 +5,447 @@
 // _mlp_kernel and _mlp_kernel_unrolled; the unrolled variant is a TPU
 // compile artefact and the port computes the one function).
 //
-// Bound on Hopper: bytes of the three packed weight streams (each block read
-// once per 8 activation rows), at decode widths M <= 64.
+// Bound on Hopper: bytes of the three packed weight streams (each real
+// block read once per call), at the decode and short-prefill widths it is
+// called at (Mp <= 64 rows per launch).
 //
-// Design: the TPU kernel keeps the (bm, d_ff) fp32 hidden in VMEM; at
-// bm = 64, d_ff = 11008 gate plus up is 5.6 MB, far beyond one SM's 227 KB of
-// shared memory. What keeps the point of that kernel (one launch, the hidden
-// never making a round trip through device memory) is one cooperative launch
-// with a grid-wide barrier, the hidden kept in a bf16 device workspace that
-// stays in the 50 MB L2:
-//   phase 1: each block owns a hidden block-column c; column-major BCSC keeps
-//            its gate and up blocks contiguous; it computes
-//            act(x Wg[:, c]) * (x Wu[:, c]) in fp32 and stores it as bf16;
-//   barrier;
-//   phase 2: each block owns an output block-column and walks its
-//            down-projection segment in order over the hidden.
-// Blocks at or past the layer's counts[i] are pads and are skipped. Sums run
-// in a fixed order with no atomics, so the result is deterministic.
+// The TPU kernel keeps the (bm, d_ff) fp32 hidden in VMEM; at bm = 64,
+// d_ff = 11008 gate plus up is 5.6 MB, far beyond one SM's 227 KB of shared
+// memory. What keeps the point of that kernel (one launch, the hidden never
+// making a round trip through device memory) is one cooperative launch with
+// a grid-wide barrier, the hidden kept in a bf16 device workspace that stays
+// in the 50 MB L2. Design:
+// * Tensor cores with the rows as the MMA's N (swap-AB). mma.sync m16n8k16
+//   takes A = a weight block transposed (16 output columns x 16 k, by
+//   ldmatrix .trans from shared memory) and B = 8 rows of x x 16 k; the
+//   NT = Mp / 8 products of a block share its A fragment, so every real
+//   block is read from device memory once per call at every Mp <= 64.
+//   (wgmma would serialise inside this data-dependent walk.)
+// * A warp-private cp.async ring. Each warp streams its blocks through a
+//   ring of its own in shared memory: per block one 16-byte copy a lane
+//   (512 bytes) and the block-row's 16-column slice of x (Mp x 32 bytes,
+//   rows past Mp zero-filled), kStages blocks ahead of the one it
+//   multiplies; the ring is about 12 KB a warp, 16 warps an SM, as one
+//   block (the grid barrier then meets 132 blocks, not 264). Row ids come 32
+//   at a time, one batch ahead, so no copy waits on an index load.
+//   Copies are .cg: they read L2 only, which phase 2 needs (the hidden was
+//   written by other SMs).
+// * Phase 1 (gate and up): pair p of warps owns hidden block-columns p,
+//   p + pairs, ...; pairs are numbered across thread blocks first, so the
+//   columns spread over every SM. The column's items (its gate segment,
+//   then its up segment) are cut in two halves, one a warp, each walked into
+//   two register accumulators; the second half's sums are added to the
+//   first's through shared memory, and act(g) * u is taken in fp32 and
+//   rounded once to the bf16 hidden. (With one warp a column, phase 1 was
+//   bound by the longest columns' serial walks, most warps idle.)
+// * Grid barrier, re-armed by a generation count in a word the wrapper
+//   allocates once per device and stream (no fill launch per call).
+// * Phase 2 (down): output block-column c's segment is cut into ``split``
+//   parts of equal block counts (kernels/bcsc_mlp.py::mlp_plan picks split
+//   from shapes so that columns x split fill the grid's warps), one part a
+//   warp. A warp issues its part's first down blocks before the barrier
+//   (they do not depend on phase 1), so they load while phase 1 finishes.
+//   Each part's fp32 partial goes to a workspace; the warp that arrives
+//   last at the column's counter (which it then re-zeroes) adds the
+//   partials in split order and stores the column. No float atomics: two
+//   calls give equal bits.
+// Blocks at or past the layer's counts[i] are pads and are skipped; empty
+// segments give zero sums.
+// What still holds it back (scripts/ablate_kernels_torch.py, parts removed;
+// PERF.md has the times): the launch, the index loads and the grid barrier
+// take a quarter of a call at 8 rows; neither a ring of half the depth nor
+// slots of two blocks changes the walks' time, so they are bound neither
+// by bytes in flight nor by the per-slot copy and wait work; at 64 rows
+// the last part's in-order sum of the partials is a chain of round trips
+// to L2.
 #include "common.cuh"
 
 namespace repro {
 
-// One-shot grid barrier on a zeroed counter. The cooperative launch
-// guarantees that every block of the grid is resident.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    while (*(volatile unsigned int*)counter < gridDim.x) __nanosleep(64);
-    __threadfence();
-  }
-  __syncthreads();
-}
+constexpr int kMlpWarps = 16;                 // warps of a thread block
+constexpr int kMlpThreads = 32 * kMlpWarps;
+constexpr int kMlpBlocksPerSm = 1;            // kernels/bcsc_mlp.py plans for it
 
+// The ring of one warp for NT 8-row tiles of x: slots of one weight block
+// (512 bytes) and its x slice (NT * 8 rows of 32 bytes); about 12 KB.
+template <int NT>
+struct MlpRing {
+  static constexpr int kSlot = 512 + NT * 8 * 32;
+  static constexpr int kStages = NT == 1 ? 16 : NT == 2 ? 12 : NT == 4 ? 8 : 4;
+  static constexpr int kWarpBytes = kSlot * kStages;
+  static constexpr int kSmem = kWarpBytes * kMlpWarps;
+};
+
+// Segment [lo, hi) of block-column c, cut at the real block count.
 __device__ __forceinline__ void segment(const int* ptr, int c, int count,
                                         int* lo, int* hi) {
   *hi = min(ptr[c + 1], count);
   *lo = min(ptr[c], *hi);
 }
 
-__global__ void __launch_bounds__(kWalkThreads) bcsc_mlp_kernel(
-    const bf16* __restrict__ x, int Mp, int K, const bf16* __restrict__ g_blk,
-    const int* __restrict__ g_rows, const int* __restrict__ g_ptr,
-    const bf16* __restrict__ u_blk, const int* __restrict__ u_rows,
-    const int* __restrict__ u_ptr, const bf16* __restrict__ d_blk,
-    const int* __restrict__ d_rows, const int* __restrict__ d_ptr,
-    const int* __restrict__ counts, int act, int d_ff, int n_out,
-    bf16* __restrict__ hidden, float* __restrict__ out,
-    unsigned int* __restrict__ barrier) {
-  __shared__ float red[kWalkGroups * kWalkRows * 16];
-  const bool gated = u_blk != nullptr;
-  const int tid = threadIdx.x;
-  const int n_g = counts[0], n_u = counts[1], n_d = counts[2];
+// Barrier ``id`` (1..15) of ``threads`` threads of the block.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
-  // phase 1: hidden block-columns
-  for (int c = blockIdx.x; c < d_ff / 16; c += gridDim.x) {
+// Grid barrier over words[0] (arrivals, back to 0 at every release) and
+// words[1] (a generation count). The cooperative launch guarantees that
+// every block of the grid is resident.
+__device__ __forceinline__ void grid_barrier(unsigned* words) {
+  volatile unsigned* gen = words + 1;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(words, 1u) == gridDim.x - 1) {
+      atomicExch(words, 0u);
+      __threadfence();
+      atomicAdd(words + 1, 1u);
+    } else {
+      // a grid that is not all resident never meets: trap after seconds
+      for (unsigned n = 0; *gen == g; ++n) {
+        __nanosleep(64);
+        if (n == (1u << 26)) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// One warp's walk: the sum over the blocks of two column segments (items
+// 0..n0-1: blocks lo0.. of pack 0 into acc0; items n0..n-1: blocks lo1.. of
+// pack 1 into acc1) of src's block-row slice times the block, with the
+// rows as the MMA's N: acc[t] holds output columns g and g + 8 (g = lane /
+// 4) of rows 8t + 2 (lane % 4) and the next one. Item j goes through ring
+// slot j % kStages as one cp.async group: the block, then src's slice of
+// its block-row (rows [0, mp), ``ld`` elements a row). prefetch_blocks()
+// may issue the first slots' blocks before src is ready, as groups of
+// their own; run() then adds their slices as groups of their own, so the
+// groups still complete in item order and one wait_group serves both.
+template <int NT>
+struct WarpWalk {
+  static constexpr int S = MlpRing<NT>::kStages;
+  const bf16* b0;
+  const int* r0;
+  int lo0, n0;
+  const bf16* b1;
+  const int* r1;
+  int lo1, n;
+  unsigned char* ring;
+  int lane, cur, nxt;   // block-rows of items base + lane, a batch ahead
+
+  __device__ WarpWalk(const bf16* b0_, const int* r0_, int lo0_, int n0_,
+                      const bf16* b1_, const int* r1_, int lo1_, int n1_,
+                      unsigned char* ring_)
+      : b0(b0_), r0(r0_), lo0(lo0_), n0(n0_), b1(b1_), r1(r1_), lo1(lo1_),
+        n(n0_ + n1_), ring(ring_), lane(threadIdx.x & 31) {
+    cur = rows(0);
+    nxt = rows(32);
+  }
+  __device__ int rows(int base) const {
+    const int j = base + lane;
+    if (j < n0) return __ldg(r0 + lo0 + j);
+    if (j < n) return __ldg(r1 + lo1 + j - n0);
+    return 0;
+  }
+  __device__ unsigned char* slot(int j) const {
+    return ring + (j % S) * MlpRing<NT>::kSlot;
+  }
+  __device__ void copy_block(int j) const {   // 16 bytes a lane
+    const bf16* blk = j < n0 ? b0 + (long)(lo0 + j) * 256
+                             : b1 + (long)(lo1 + j - n0) * 256;
+    cp_async16(slot(j) + swz32(lane >> 1, lane & 1), blk + lane * 8, true);
+  }
+  // src's slice of item j's block-row; all lanes, j in increasing order
+  __device__ void copy_src(int j, const bf16* src, long ld, int mp) {
+    if (j > 0 && (j & 31) == 0) {
+      cur = nxt;
+      nxt = rows(j + 32);
+    }
+    const int row = __shfl_sync(0xffffffffu, cur, j & 31);
+#pragma unroll
+    for (int e = lane; e < NT * 16; e += 32) {   // (row m, 16-byte half h)
+      const int m = e >> 1, h = e & 1;
+      const bool ok = m < mp;
+      cp_async16(slot(j) + 512 + swz32(m, h),
+                 ok ? src + m * ld + row * 16 + h * 8 : src, ok);
+    }
+  }
+  __device__ void prefetch_blocks() const {
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n) copy_block(j);
+      cp_async_commit();
+    }
+  }
+  __device__ void run(const bf16* src, long ld, int mp, bool prefetched,
+                      float (&acc0)[NT][4], float (&acc1)[NT][4]) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc0[t][e] = acc1[t][e] = 0.0f;
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n) {
+        if (!prefetched) copy_block(j);
+        copy_src(j, src, ld, mp);
+      }
+      cp_async_commit();
+    }
+    for (int j = 0; j < n; ++j) {
+      if (j + S - 1 < n) {
+        copy_block(j + S - 1);
+        copy_src(j + S - 1, src, ld, mp);
+      }
+      cp_async_commit();
+      cp_async_wait<S - 1>();   // this lane's copies of item j
+      __syncwarp();             // and the warp's
+      const unsigned char* sl = slot(j);
+      // A = block^T: matrices (k 0-7 | 8-15) x (n 0-7 | 8-15), a0..a3
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, sl + swz32((lane & 7) + ((lane >> 4) << 3),
+                                      (lane >> 3) & 1));
+      uint32_t b[NT][2];
+      if (NT == 1) {
+        uint32_t r[2];
+        ldmatrix_x2(r, sl + 512 + swz32(lane & 7, (lane >> 3) & 1));
+        b[0][0] = r[0];
+        b[0][1] = r[1];
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4(r, sl + 512 + swz32(16 * p + (lane & 7) +
+                                              ((lane >> 4) << 3),
+                                          (lane >> 3) & 1));
+          b[2 * p][0] = r[0];
+          b[2 * p][1] = r[1];
+          b[2 * p + 1][0] = r[2];
+          b[2 * p + 1][1] = r[3];
+        }
+      }
+      if (j < n0) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) mma_16816(acc0[t], a, b[t][0], b[t][1]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) mma_16816(acc1[t], a, b[t][0], b[t][1]);
+      }
+      __syncwarp();   // the slot is refilled by the next copies
+    }
+    cp_async_wait<0>();
+  }
+};
+
+// The walk of phase-2 task ``task`` (output block-column task / split, part
+// task % split of its segment, cut at equal block counts); empty past the
+// last task.
+template <int NT>
+__device__ WarpWalk<NT> down_walk(const bf16* d_blk, const int* d_rows,
+                                  const int* d_ptr, int n_d, int task,
+                                  int tasks, int split, unsigned char* ring) {
+  int lo = 0, hi = 0;
+  if (task < tasks) {
+    const int c = task / split, s = task % split;
+    int dlo, dhi;
+    segment(d_ptr, c, n_d, &dlo, &dhi);
+    const long nd = dhi - dlo;
+    lo = dlo + (int)(nd * s / split);
+    hi = dlo + (int)(nd * (s + 1) / split);
+  }
+  return WarpWalk<NT>(d_blk, d_rows, lo, hi - lo, nullptr, nullptr, 0, 0,
+                      ring);
+}
+
+// words: [0, 2) the grid barrier, [2, 2 + n_out / 16) the phase-2 column
+// counters (zero at entry, left zero). ws: (n_out / 16) * split * NT * 128
+// fp32 partials when split > 1.
+template <int NT>
+__global__ void __launch_bounds__(kMlpThreads, kMlpBlocksPerSm)
+    bcsc_mlp_kernel(const bf16* __restrict__ x, int Mp, int K,
+                    const bf16* __restrict__ g_blk,
+                    const int* __restrict__ g_rows,
+                    const int* __restrict__ g_ptr,
+                    const bf16* __restrict__ u_blk,
+                    const int* __restrict__ u_rows,
+                    const int* __restrict__ u_ptr,
+                    const bf16* __restrict__ d_blk,
+                    const int* __restrict__ d_rows,
+                    const int* __restrict__ d_ptr,
+                    const int* __restrict__ counts, int act, int d_ff,
+                    int n_out, bf16* hidden, float* __restrict__ out,
+                    float4* ws, unsigned* words, int split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char* ring = smem + warp * MlpRing<NT>::kWarpBytes;
+  const int n_warps = gridDim.x * kMlpWarps;
+  const int gw = warp * gridDim.x + blockIdx.x;   // across blocks first
+  const bool gated = u_blk != nullptr;
+  const int n_g = counts[0], n_u = counts[1], n_d = counts[2];
+  const int g = lane >> 2, t4 = lane & 3;
+  float acc0[NT][4], acc1[NT][4];
+
+  // phase 1: hidden block-columns, one a pair of warps (2p, 2p + 1 of a
+  // block; pairs numbered across blocks first). The column's items, its
+  // gate blocks then its up blocks, are cut in two halves, half h walked by
+  // warp 2p + h; the second half's sums meet the first's in shared memory
+  // (warp 2p + 1's ring, free by then) and are added after them.
+  const int half = warp & 1, pair_bar = 1 + (warp >> 1);
+  const int n_pairs = gridDim.x * (kMlpWarps / 2);
+  float4* xch = reinterpret_cast<float4*>(
+      smem + (warp | 1) * MlpRing<NT>::kWarpBytes);
+  for (int c = (warp >> 1) * gridDim.x + blockIdx.x; c < d_ff / 16;
+       c += n_pairs) {
     int glo, ghi, ulo = 0, uhi = 0;
     segment(g_ptr, c, n_g, &glo, &ghi);
     if (gated) segment(u_ptr, c, n_u, &ulo, &uhi);
-    for (int m0 = 0; m0 < Mp; m0 += kWalkRows) {
-      const bf16* xm = x + (long)m0 * K;
-      const float gv =
-          segment_walk8<false>(xm, K, g_blk, g_rows, glo, ghi, red);
-      const float uv =
-          gated ? segment_walk8<false>(xm, K, u_blk, u_rows, ulo, uhi, red)
-                : 1.0f;
-      if (tid < kWalkRows * 16) {
-        float h = epilogue(gv, 0.0f, act);
-        if (gated) h *= uv;
-        hidden[(long)(m0 + (tid >> 4)) * d_ff + c * 16 + (tid & 15)] =
-            __float2bfloat16(h);
+    const int ng = ghi - glo, n = ng + uhi - ulo;
+    const int a = half ? n / 2 : 0, b = half ? n : n / 2;   // items [a, b)
+    const int ga = min(a, ng), gb = min(b, ng);
+    const int ua = max(a, ng) - ng, ub = max(b, ng) - ng;
+    WarpWalk<NT>(g_blk, g_rows, glo + ga, gb - ga, u_blk, u_rows, ulo + ua,
+                 ub - ua, ring)
+        .run(x, K, Mp, false, acc0, acc1);
+    if (half) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        xch[(2 * t) * 32 + lane] =
+            make_float4(acc0[t][0], acc0[t][1], acc0[t][2], acc0[t][3]);
+        xch[(2 * t + 1) * 32 + lane] =
+            make_float4(acc1[t][0], acc1[t][1], acc1[t][2], acc1[t][3]);
       }
     }
+    named_barrier(pair_bar, 64);
+    if (!half) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float4 gv = xch[(2 * t) * 32 + lane];
+        const float4 uv = xch[(2 * t + 1) * 32 + lane];
+        const float gs[4] = {acc0[t][0] + gv.x, acc0[t][1] + gv.y,
+                             acc0[t][2] + gv.z, acc0[t][3] + gv.w};
+        const float us[4] = {acc1[t][0] + uv.x, acc1[t][1] + uv.y,
+                             acc1[t][2] + uv.z, acc1[t][3] + uv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = 8 * t + 2 * t4 + (e & 1), col = g + 8 * (e >> 1);
+          float h = epilogue(gs[e], 0.0f, act);
+          if (gated) h *= us[e];
+          if (m < Mp)
+            hidden[(long)m * d_ff + c * 16 + col] = __float2bfloat16(h);
+        }
+      }
+    }
+    named_barrier(pair_bar, 64);   // warp 2p + 1's ring is free again
   }
 
-  grid_barrier(barrier);
+  // phase 2: (output block-column, split part) tasks over the hidden. The
+  // down blocks of this warp's first task do not depend on phase 1: they
+  // are in flight across the barrier.
+  const int n_cols = n_out / 16, tasks = n_cols * split;
+  unsigned* cnt = words + 2;
+  WarpWalk<NT> walk =
+      down_walk<NT>(d_blk, d_rows, d_ptr, n_d, gw, tasks, split, ring);
+  walk.prefetch_blocks();
 
-  // phase 2: output block-columns over the (L2-resident) hidden
-  for (int c = blockIdx.x; c < n_out / 16; c += gridDim.x) {
-    int dlo, dhi;
-    segment(d_ptr, c, n_d, &dlo, &dhi);
-    for (int m0 = 0; m0 < Mp; m0 += kWalkRows) {
-      const float o = segment_walk8<true>(hidden + (long)m0 * d_ff, d_ff,
-                                          d_blk, d_rows, dlo, dhi, red);
-      if (tid < kWalkRows * 16)
-        out[(long)(m0 + (tid >> 4)) * n_out + c * 16 + (tid & 15)] = o;
+  grid_barrier(words);
+
+  for (int task = gw; task < tasks; task += n_warps) {
+    const int c = task / split;
+    if (task != gw)
+      walk = down_walk<NT>(d_blk, d_rows, d_ptr, n_d, task, tasks, split,
+                           ring);
+    walk.run(hidden, d_ff, Mp, task == gw, acc0, acc1);
+    if (split > 1) {
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+        __stcg(ws + ((long)task * NT + t) * 32 + lane,
+               make_float4(acc0[t][0], acc0[t][1], acc0[t][2], acc0[t][3]));
+      __threadfence();
+      __syncwarp();
+      unsigned last = 0;
+      if (lane == 0) last = atomicAdd(cnt + c, 1u) == (unsigned)split - 1;
+      if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+      // the column's last part: every partial, in split order
+      __threadfence();
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc0[t][e] = 0.0f;
+      for (int s2 = 0; s2 < split; ++s2) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          const float4 v =
+              __ldcg(ws + ((long)(c * split + s2) * NT + t) * 32 + lane);
+          acc0[t][0] += v.x;
+          acc0[t][1] += v.y;
+          acc0[t][2] += v.z;
+          acc0[t][3] += v.w;
+        }
+      }
+      if (lane == 0) cnt[c] = 0;
     }
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * t + 2 * t4 + (e & 1), col = g + 8 * (e >> 1);
+        if (m < Mp) out[(long)m * n_out + c * 16 + col] = acc0[t][e];
+      }
   }
 }
 
-}  // namespace repro
-
-// x (Mp, K) bf16 with Mp a multiple of 8; u_* null for an ungated MLP;
-// counts (3,) int32 [n_g, n_u, n_d]; hidden (Mp, d_ff) bf16 workspace;
-// out (Mp, n_out) fp32; barrier one zeroed uint32.
-extern "C" int repro_bcsc_mlp(
-    const void* x, int Mp, int K, const void* g_blk, const void* g_rows,
-    const void* g_ptr, const void* u_blk, const void* u_rows,
-    const void* u_ptr, const void* d_blk, const void* d_rows,
-    const void* d_ptr, const void* counts, int act, int d_ff, int n_out,
-    void* hidden, void* out, void* barrier, void* stream) {
-  using namespace repro;
-  if (Mp % kWalkRows || K % 16 || d_ff % 16 || n_out % 16)
-    return (int)cudaErrorInvalidValue;
+template <int NT>
+int launch_mlp(void** args, int grid, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bcsc_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MlpRing<NT>::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bcsc_mlp_kernel, kWalkThreads, 0);
+      &per_sm, bcsc_mlp_kernel<NT>, kMlpThreads, MlpRing<NT>::kSmem);
   if (e != cudaSuccess) return (int)e;
-  int want = max(d_ff, n_out) / 16;
-  int grid = min(want, per_sm * sms);
-  if (grid < 1) return (int)cudaErrorInvalidConfiguration;
+  // the whole grid must be resident for the barrier
+  if (grid < 1 || grid > per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  e = cudaLaunchCooperativeKernel((const void*)bcsc_mlp_kernel<NT>,
+                                  dim3(grid), dim3(kMlpThreads), args,
+                                  MlpRing<NT>::kSmem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace repro
+
+// x (Mp, K) bf16 with Mp a multiple of 8 up to 64; u_* null for an ungated
+// MLP; counts (3,) int32 [n_g, n_u, n_d]; hidden (Mp, d_ff) bf16 workspace;
+// out (Mp, n_out) fp32; ws the phase-2 partials (see bcsc_mlp_kernel);
+// words >= 2 + n_out / 16 uint32, zero but for the barrier's generation;
+// grid thread blocks (all resident) and split from
+// kernels/bcsc_mlp.py::mlp_plan.
+extern "C" int repro_bcsc_mlp(
+    const void* x, int Mp, int K, const void* g_blk, const void* g_rows,
+    const void* g_ptr, const void* u_blk, const void* u_rows,
+    const void* u_ptr, const void* d_blk, const void* d_rows,
+    const void* d_ptr, const void* counts, int act, int d_ff, int n_out,
+    void* hidden, void* out, void* ws, void* words, int grid, int split,
+    void* stream) {
+  using namespace repro;
+  if (Mp < 8 || Mp > 64 || Mp % 8 || K % 16 || d_ff % 16 || n_out % 16 ||
+      split < 1 || (split > 1 && ws == nullptr) || words == nullptr)
+    return (int)cudaErrorInvalidValue;
   void* args[] = {(void*)&x,      (void*)&Mp,     (void*)&K,
                   (void*)&g_blk,  (void*)&g_rows, (void*)&g_ptr,
                   (void*)&u_blk,  (void*)&u_rows, (void*)&u_ptr,
                   (void*)&d_blk,  (void*)&d_rows, (void*)&d_ptr,
                   (void*)&counts, (void*)&act,    (void*)&d_ff,
                   (void*)&n_out,  (void*)&hidden, (void*)&out,
-                  (void*)&barrier};
-  e = cudaLaunchCooperativeKernel((const void*)bcsc_mlp_kernel, dim3(grid),
-                                  dim3(kWalkThreads), args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+                  (void*)&ws,     (void*)&words,  (void*)&split};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Mp <= 8) return launch_mlp<1>(args, grid, st);
+  if (Mp <= 16) return launch_mlp<2>(args, grid, st);
+  if (Mp <= 32) return launch_mlp<4>(args, grid, st);
+  return launch_mlp<8>(args, grid, st);
 }

@@ -79,23 +79,6 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return (ch >> 3) * kSwaBlock + row * 128 + (((ch & 7) ^ (row & 7)) << 4);
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo,
-                                               unsigned sbo) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products.
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {

@@ -15,8 +15,10 @@ from repro_torch.core.plan import plan_for_scheduler
 from repro_torch.serve import LLM
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_decode_torch.py"]
+PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FILES = PORT + [ROOT / "chip_smoke.py",
+                ROOT / "scripts" / "profile_decode_torch.py",
+                ROOT / "scripts" / "ablate_kernels_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,7 +39,7 @@ def test_no_jax_and_no_reference_imports(path):
 
 def test_port_files_exist():
     names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
-             for p in FILES[:-2]}
+             for p in PORT}
     for need in ("bridge.py", "serve/facade.py", "serve/scheduler.py",
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py"):
         assert need in names

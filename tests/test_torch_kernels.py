@@ -9,6 +9,7 @@ neither JAX nor the reference package, which the other tests import through
 the ``ref`` fixture, so ``-m gpu`` runs on a machine without JAX.
 """
 import math
+import pathlib
 import types
 
 import numpy as np
@@ -20,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import plan as pplan
 from repro_torch.kernels import _build
 from repro_torch.kernels import bcsc_matmul as pbm
+from repro_torch.kernels import bcsc_mlp as pmlp
 from repro_torch.kernels import epilogue as pepi
 from repro_torch.kernels import local_attention as pswa
 from repro_torch.kernels import ops as pops
@@ -572,6 +574,168 @@ def test_gemm_plan_at_served_shapes(M, K, N, plan):
     assert (K // 16) // split >= min(pbm.MIN_SPLIT_ROWS, K // 16)
 
 
+# ---------------------------------------------------- the fused MLP's schedule
+CSRC = pathlib.Path(_build.__file__).resolve().with_name("csrc")
+
+
+def _mlp_packs(K, d_ff, n_out, gated, seed, device="cpu"):
+    """gate [, up], down packs (pads past the real counts, an empty hidden
+    block-column and an empty output block-column) and their counts."""
+    gate = _pack_with_empty_cols(K, d_ff, 0.6, seed, (1,), device)
+    up = _pack_with_empty_cols(K, d_ff, 0.6, seed + 1, (), device) \
+        if gated else None
+    down = _pack_with_empty_cols(d_ff, n_out, 0.6, seed + 2, (0,), device)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    counts = torch.stack([gate["nnzb"], up["nnzb"] if gated else zero,
+                          down["nnzb"]]).to(torch.int32)
+    return gate, up, down, counts
+
+
+def _trip(p, key):
+    return None if p is None else (p["blocks"], p["row_ids"], p[key])
+
+
+@pytest.mark.parametrize("Mp", [8, 16, 64])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_mlp_schedule_model_matches_plain(Mp, gated, n_sm):
+    """The kernel's schedule (pairs of warps owning hidden columns, each
+    column's blocks cut in halves; the down projection's segments cut into
+    mlp_plan's split, partials added in split order) computes the plain
+    MLP over packs with pads past their counts and empty columns, on a
+    one-SM grid (pairs own several columns, split 2) and an H100's. The
+    hidden is rounded to bf16 in both, and an fp32 sum in another order
+    can flip one such rounding: 2e-3 of max |out|."""
+    K, d_ff, n_out = 64, 256, 64
+    gate, up, down, counts = _mlp_packs(K, d_ff, n_out, gated, Mp)
+    x = torch.randn(Mp, K, generator=torch.Generator().manual_seed(Mp)
+                    ).bfloat16()
+    got, _ = pmlp.schedule_model(
+        x, _trip(gate, "col_ptr"), _trip(up, "col_ptr"),
+        _trip(down, "col_ptr"), counts, d_ff=d_ff, n_out=n_out,
+        activation="silu", n_sm=n_sm)
+    want = pmlp.bcsc_mlp_plain(
+        x, _trip(gate, "col_ids"), _trip(up, "col_ids"),
+        _trip(down, "col_ids"), counts, d_ff=d_ff, n_out=n_out,
+        activation="silu")
+    if n_sm == 1:
+        assert pmlp.mlp_plan(d_ff, n_out, n_sm)["split"] == 2
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("Mp", [8, 16, 24, 32, 64])
+def test_mlp_schedule_reads_each_real_block_once(Mp):
+    """Structural count of the schedule: every real block of the three packs
+    is read exactly once per call at every Mp <= 64 (its x or hidden slice
+    feeds all Mp / 8 products of its A fragment), pads never; every hidden
+    column has one owner pair and every (output column, part) one warp."""
+    K, d_ff, n_out = 64, 256, 64
+    gate, up, down, counts = _mlp_packs(K, d_ff, n_out, True, Mp)
+    x = torch.randn(Mp, K, generator=torch.Generator().manual_seed(1)
+                    ).bfloat16()
+    _, trace = pmlp.schedule_model(
+        x, _trip(gate, "col_ptr"), _trip(up, "col_ptr"),
+        _trip(down, "col_ptr"), counts, d_ff=d_ff, n_out=n_out, n_sm=1)
+    for name, n in zip(("gate", "up", "down"), counts.tolist()):
+        reads = trace["reads"][name]
+        assert reads[:n] == [1] * n and not any(reads[n:])
+    assert sorted(trace["owner"]) == list(range(d_ff // 16))
+    split = pmlp.mlp_plan(d_ff, n_out, 1)["split"]
+    parts = sorted(t for ts in trace["tasks"].values() for t in ts)
+    assert parts == [(c, s) for c in range(n_out // 16) for s in range(split)]
+
+
+@pytest.mark.parametrize("d_ff,n_out,split", [(11008, 2048, 16),
+                                              (9216, 2304, 14)])
+def test_mlp_split_plan_fills_the_card(d_ff, n_out, split):
+    """Shapes only, on an H100 (qwen2.5-3b's and gemma2-2b's widths): the
+    phase-2 parts give each warp at most one part and leave idle fewer warps
+    than one output column has parts, every thread block (so every SM) has
+    both hidden columns and parts to walk, and each part keeps
+    MIN_SPLIT_ROWS hidden block-rows on average."""
+    plan = pmlp.mlp_plan(d_ff, n_out, H100_SMS)
+    grid, warps = plan["grid"], plan["warps"]
+    assert (grid, warps, plan["split"]) == (H100_SMS, 2112, split)
+    tasks = (n_out // 16) * split
+    assert warps - n_out // 16 < tasks <= warps
+    # grid-wide warp t is warp t // grid of thread block t % grid
+    assert {t % grid for t in range(tasks)} == set(range(grid))
+    pairs = warps // 2
+    owners = {c % pairs for c in range(d_ff // 16)}
+    assert {p % grid for p in owners} == set(range(grid))
+    assert (d_ff // 16) / split >= pmlp.MIN_SPLIT_ROWS
+
+
+def test_mlp_and_rs_constants_match_the_kernels():
+    """The planners' copies of the kernels' constants (the launch of
+    bcsc_mlp.cu, the arms and units of rs_matmul.cu) agree with the
+    sources, and the fused MLP's resident blocks fit an SM's shared
+    memory."""
+    mlp = (CSRC / "bcsc_mlp.cu").read_text()
+    assert f"kMlpWarps = {pmlp.MLP_WARPS};" in mlp
+    assert f"kMlpBlocksPerSm = {pmlp.MLP_BLOCKS_PER_SM};" in mlp
+    stages = " : ".join(f"NT == {nt} ? {pmlp.ring_stages(nt)}"
+                        for nt in (1, 2, 4)) + f" : {pmlp.ring_stages(8)};"
+    assert stages in mlp
+    for Mp in (8, 16, 24, 32, 64):
+        lc = pmlp.launch_config(Mp, 11008, 2048, H100_SMS)
+        assert lc["row_tiles"] * 8 >= Mp
+        assert pmlp.MLP_BLOCKS_PER_SM * (lc["smem_bytes"] + 1024) <= 232448
+    rs = (CSRC / "rs_matmul.cu").read_text()
+    assert f"kSkMaxRows = {prs.STREAM_M_MAX};" in rs
+    assert f"kSkN = {prs.STREAM_N};" in rs and f"kSkK = {prs.STREAM_K};" in rs
+    assert f"kRsBM = {prs.TILE}, kRsBN = {prs.TILE}," in rs
+
+
+@pytest.mark.parametrize("M,K,N,arm,units,grid", [
+    (512, 2304, 9216, "wgmma", 288, 132),    # three rounds of 128 x 128
+    (8, 2304, 9216, "stream", 1296, 132),    # 144 column tiles x 9 k parts
+    (16, 300, 70, "stream", 4, 4),
+    (17, 300, 70, "wgmma", 1, 1),
+])
+def test_rs_matmul_launch_config(M, K, N, arm, units, grid):
+    """The arm and work units rs_matmul launches on an H100: the
+    weight-streaming arm (64 columns x 256 k a unit, K parts added in
+    order) up to 16 rows, 128 x 128 wgmma tiles above."""
+    lc = prs.launch_config(M, K, N, H100_SMS)
+    assert (lc["arm"], lc["units"], lc["grid"]) == (arm, units, grid)
+    assert lc["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("M,K,N,plan", [
+    (512, 2304, 9216, (288, 132, 24, 5)),   # 2 full rounds + 24 tiles in K
+    (1100, 300, 2000, (144, 132, 12, 5)),   # parts capped by K's 5 k-tiles
+    (128, 2304, 9216, (72, 72, 0, 1)),      # one round: nothing split
+    (4096, 4096, 4096, (1024, 132, 0, 1)),  # a nearly full last round
+])
+def test_rs_matmul_wgmma_plan(M, K, N, plan):
+    """Shapes only, on an H100: the tensor-core arm splits the last, partial
+    round of tiles in K (one part a block, at most one part a k-tile) when
+    that leaves every block at least two parts' worth of the round, so the
+    busiest block does about the average work."""
+    got = prs.wgmma_plan(M, K, N, H100_SMS)
+    assert (got["tiles"], got["grid"], got["split"], got["parts"]) == plan
+    if got["split"]:
+        assert got["split"] * got["parts"] <= got["grid"]
+
+
+def test_rs_matmul_reads_tma_ready_operands_in_place():
+    """A contiguous bf16 operand whose rows are a multiple of 16 bytes is
+    passed as it is (the same tensor: no copy); one whose rows are not gets
+    a copy padded to 8 columns, the padding zero."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(300, 72, generator=g).bfloat16()
+    assert prs._tma_ready(w) is w
+    odd = torch.randn(300, 70, generator=g).bfloat16()
+    padded = prs._tma_ready(odd)
+    assert padded.shape == (300, 72) and padded.is_contiguous()
+    assert torch.equal(padded[:, :70], odd)
+    assert not padded[:, 70:].any()
+    view = w[:, :64]
+    assert prs._tma_ready(view).is_contiguous()
+
+
 @pytest.mark.parametrize("act", [None, "none", "relu", "silu", "gelu"])
 def test_fused_epilogue_every_activation(ref, act):
     """Bias then activation in fp32, both packages: 1e-6."""
@@ -935,3 +1099,103 @@ def test_cuda_rs_matmul_matches_plain(cuda, M, K, N):
                                atol=1e-4 * float(want.abs().max()))
     with pytest.raises(ValueError, match="bf16"):
         pops.rs_matmul(x.float(), w.float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Mp", [8, 16, 24, 64])
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("act", [None, "relu", "silu", "gelu"])
+def test_cuda_bcsc_mlp_edges(cuda, Mp, gated, act):
+    """The fused MLP kernel at every row-tile count it instantiates, gated
+    and ungated, each activation, over packs with pads past their counts
+    and an empty hidden and output block-column: 2e-3 of max |out| (an
+    fp32 sum in another order can flip one bf16 rounding of the hidden).
+    Two calls give equal bits (fixed sum order, no atomics on floats)."""
+    K, d_ff, n_out = 256, 1024, 256
+    gate, up, down, counts = _mlp_packs(K, d_ff, n_out, gated, Mp, cuda)
+    x = torch.randn(Mp, K, device=cuda).bfloat16()
+    kw = dict(d_ff=d_ff, n_out=n_out, activation=act)
+    got = pmlp.bcsc_mlp_cuda(x, _trip(gate, "col_ptr"), _trip(up, "col_ptr"),
+                             _trip(down, "col_ptr"), counts, **kw)
+    again = pmlp.bcsc_mlp_cuda(x, _trip(gate, "col_ptr"),
+                               _trip(up, "col_ptr"), _trip(down, "col_ptr"),
+                               counts, **kw)
+    want = pmlp.bcsc_mlp_plain(x, _trip(gate, "col_ids"),
+                               _trip(up, "col_ids"), _trip(down, "col_ids"),
+                               counts, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
+    assert torch.equal(got, again)
+    assert not got[:, :16].any()          # the empty output block-column
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 16, 100, 512])
+@pytest.mark.parametrize("act,bias,out_dtype", [
+    (None, False, "float32"), ("relu", True, "float32"),
+    ("silu", True, "bfloat16"), ("gelu", True, "float32")])
+def test_cuda_rs_matmul_edges(cuda, M, act, bias, out_dtype):
+    """Both arms (weight streaming up to 16 rows, wgmma tiles above) at
+    ragged K 300 and N 70 (TMA reads past the edges as zeros, stores are
+    predicated), with and without bias, each activation, fp32 and bf16
+    out: 1e-4 of max |out| in fp32 (sums of the same bf16 products in
+    another order), and in bf16 one rounding of the output (2^-8 of it)
+    on top. Two calls give equal bits."""
+    K, N = 300, 70
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(K, N, generator=g, device=cuda) / K ** 0.5).bfloat16()
+    b = torch.randn(N, generator=g, device=cuda) if bias else None
+    dt = getattr(torch, out_dtype)
+    got = prs.rs_matmul_cuda(x, w, bias=b, activation=act, out_dtype=dt)
+    again = prs.rs_matmul_cuda(x, w, bias=b, activation=act, out_dtype=dt)
+    want = prs.rs_matmul_plain(x, w, bias=b, activation=act)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want.to(dt).float(),
+                               rtol=2 ** -8 if dt == torch.bfloat16 else 0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(512, 2304, 9216), (1100, 300, 2000)])
+def test_cuda_rs_matmul_split_last_round(cuda, M, K, N):
+    """Shapes whose last round of tiles is split in K (wgmma_plan): the
+    parts' raw partials added in part order by the second kernel, then the
+    epilogue: 1e-4 of max |out|, equal bits on a second call."""
+    assert prs.wgmma_plan(M, K, N, _build.sm_count(cuda.index or 0))[
+        "parts"] > 1
+    g = torch.Generator(device=cuda).manual_seed(K)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(K, N, generator=g, device=cuda) / K ** 0.5).bfloat16()
+    b = torch.randn(N, generator=g, device=cuda)
+    got = prs.rs_matmul_cuda(x, w, bias=b, activation="gelu")
+    again = prs.rs_matmul_cuda(x, w, bias=b, activation="gelu")
+    want = prs.rs_matmul_plain(x, w, bias=b, activation="gelu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 512])
+def test_cuda_rs_matmul_copies_nothing(cuda, M):
+    """On contiguous bf16 operands the wrapper passes x and w as they are:
+    the call allocates its output and the partials of parts split in K,
+    but nothing of w's size."""
+    K, N = 2304, 9216
+    x = torch.randn(M, K, device=cuda).bfloat16()
+    w = (torch.randn(K, N, device=cuda) / K ** 0.5).bfloat16()
+    b = torch.randn(N, device=cuda)
+    prs.rs_matmul_cuda(x, w, bias=b, activation="gelu")   # built, warm
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = prs.rs_matmul_cuda(x, w, bias=b, activation="gelu")
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(cuda) - before
+    assert grew < w.numel() * w.element_size()
+    assert grew >= out.numel() * out.element_size()
