@@ -23,10 +23,15 @@ Phases, each of which must pass:
    K split); the fused MLP at qwen2.5-3b's M 8 and 64 and gemma2-2b's M 4
    and 64, and rs_matmul at M 512 and 8, each also checked for equal bits
    on a second call, against the dense bf16 MLP through cuBLAS and
-   ``addmm`` + gelu; print each kernel's launch configuration (paged
+   ``addmm`` + gelu; the GEMV at qwen2.5-3b's up (bias + silu) and down
+   projections against ``addmm`` + silu and ``torch.matmul``, also with
+   equal bits on a second call; the sliding window also at head ratios 5,
+   6 and 10 (llama4, internvl2-26b and recurrentgemma-2b heads), causal and
+   in window mode; print each kernel's launch configuration (paged
    attention's split, the sliding window's blocks, stages and shared
-   memory, the fused MLP's grid, rings and phase-2 split, rs_matmul's arm
-   and units) beside the compiler's registers and spills;
+   memory, the fused MLP's grid, rings and phase-2 split, the GEMV's grid,
+   split and rings, rs_matmul's arm and units) beside the compiler's
+   registers and spills;
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
    packed at 0.75 block sparsity. First the first prefill and decode logits
    of the kernel path are held against the plain path; then 12 requests go
@@ -197,6 +202,9 @@ def phase_device():
     return card
 
 
+PTXAS = {}   # kernel name -> (registers, spill line), from the build log
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -222,8 +230,8 @@ def phase_build():
                 spill = line.strip()
             elif "registers" in line:
                 regs = re.search(r"Used (\d+) registers", line)
-                log(f"  ptxas: {name}: {regs.group(1) if regs else '?'} "
-                    f"registers; {spill}")
+                PTXAS[name] = (regs.group(1) if regs else "?", spill)
+                log(f"  ptxas: {name}: {PTXAS[name][0]} registers; {spill}")
 
 
 def _packed_weight(K, N, sparsity, gen, empty=(), pad=0):
@@ -377,11 +385,68 @@ def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
     return rec, line
 
 
+def _gemv_line(tag, x, M, w, N, act, bias, flush, judge):
+    """Hold the GEMV against its plain version on x (8 rows, zero past M),
+    check that two calls give equal bits, and at M 8 time the kernel, its
+    plain version and one library call (``addmm`` + the activation, or
+    ``torch.matmul``, on the dense bf16 weight); returns (record or None,
+    log line)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bcsc_matmul as bm
+    K = x.shape[1]
+
+    def cu():
+        return bm.bcsc_gemv_cuda(x, w["blocks"], w["row_ids"], w["col_ptr"],
+                                 n_out=N, bias=bias, activation=act)
+
+    def plain():
+        return bm.bcsc_gemv_plain(x, w["blocks"], w["row_ids"], w["col_ids"],
+                                  n_out=N, bias=bias, activation=act)
+    got = cu()
+    abs_err, rel = errors(got[:M], plain()[:M])
+    what = f"bcsc_gemv[{tag}: M={M}, {act or 'no activation'}]"
+    judge(what, rel, 1e-4, "relative to max |out|: fp32 sums of the same "
+          "bf16 products in another order")
+    judge.check(f"{what}: the same bits on a second run",
+                bool(torch.equal(got, cu())), "fixed sum order")
+    if M != 8:
+        return None, ""
+    nnz = int(w["nnzb"])
+    wdense = bm._dense_weight(w["blocks"], w["row_ids"], w["col_ids"], K,
+                              N).bfloat16()
+    if act is None:
+        library, lib_name = (lambda: torch.matmul(x, wdense)), "torch.matmul"
+    else:
+        library, lib_name = (lambda: F.silu(torch.addmm(
+            bias.bfloat16(), x, wdense))), "addmm + silu"
+    rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
+               plain_ms=time_ms(plain, flush),
+               library_ms=time_ms(library, flush),
+               bound=bound(x.numel() * 2 + nnz * BLOCK_BYTES
+                           + (0 if bias is None else N * 4) + 8 * N * 4,
+                           2 * 8 * 256 * nnz),
+               shape=f"{tag}: M 8, {K} -> {N}, "
+                     f"{'bias + ' + act if act else 'no bias or activation'}"
+                     f", {nnz} blocks")
+    plan = bm.gemv_plan(K, N, _build.sm_count(0))
+    regs, spill = PTXAS.get("bcsc_gemv_kernel", ("?", "not in the log"))
+    ms, by = rec["bound"]
+    line = (f"bcsc_gemv ({rec['shape']}; launch {plan['grid']} blocks x "
+            f"{plan['threads']} threads, split {plan['split']} "
+            f"({plan['tasks']} parts, one a warp), {plan['stages']}-slot "
+            f"rings, {plan['smem_bytes']} bytes of shared memory a block; "
+            f"ptxas {regs} registers, {spill}): {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, {lib_name} (dense bf16) "
+            f"{rec['library_ms']:.4f} ms, bound {ms:.4f} ms ({by})")
+    return rec, line
+
+
 def phase_kernels(flush, judge, records):
     """Each kernel against its plain version at the shapes the main path
     gives it; fills ``records[name]``."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import bcsc_matmul as bm
     from repro_torch.kernels import paged_attention as pa
@@ -492,38 +557,21 @@ def phase_kernels(flush, judge, records):
         del x, got
     for line in lines:
         log(f"  {line}")
-    def trip(p, key):
-        return (p["blocks"], p["row_ids"], p[key])
-
+    # ---- GEMV (the int8 pass's two-call MLP at decode): the up projection
+    # with bias + silu (M 1 and 8), the down projection bare (M 8)
     bias = torch.randn(ff, generator=gen, device=dev)
-    for M, act, b in ((1, None, None), (8, "silu", bias)):
-        x = torch.zeros(8, d, device=dev, dtype=torch.bfloat16)
-        x[:M] = torch.randn(M, d, generator=gen, device=dev).bfloat16()
-
-        def cu():
-            return bm.bcsc_gemv_cuda(x, wg["blocks"], wg["row_ids"],
-                                     wg["col_ptr"], n_out=ff, bias=b,
-                                     activation=act)
-
-        def plain():
-            return bm.bcsc_gemv_plain(x, wg["blocks"], wg["row_ids"],
-                                      wg["col_ids"], n_out=ff, bias=b,
-                                      activation=act)
-        abs_err, rel = errors(cu()[:M], plain()[:M])
-        judge(f"bcsc_gemv[M={M}]", rel, 1e-4,
-              "relative to max |out|: fp32 FMA of the same bf16 products in "
-              "another order")
-        if M == 8:
-            nnz = int(wg["nnzb"])
-            wdense = bm._dense_weight(*trip(wg, "col_ids"), d, ff).bfloat16()
-            records["bcsc_gemv"] = dict(
-                max_abs_err=abs_err, ms=time_ms(cu, flush),
-                plain_ms=time_ms(plain, flush),
-                library_ms=time_ms(lambda: F.silu(torch.addmm(
-                    bias.bfloat16(), x, wdense)), flush),
-                bound=bound(x.numel() * 2 + nnz * BLOCK_BYTES + ff * 4
-                            + 8 * ff * 4, 2 * 8 * 256 * nnz),
-                shape=f"M 8, {d} -> {ff}, bias + silu, {nnz} blocks")
+    for name, M, K, N, w, act, b in (
+            ("up", 1, d, ff, wg, None, None),
+            ("up", 8, d, ff, wg, "silu", bias),
+            ("down", 8, ff, d, wd, None, None)):
+        x = torch.zeros(8, K, device=dev, dtype=torch.bfloat16)
+        x[:M] = torch.randn(M, K, generator=gen, device=dev).bfloat16()
+        rec, line = _gemv_line(f"qwen2.5-3b {name}", x, M, w, N, act, b,
+                               flush, judge)
+        if rec is not None:
+            log(f"  {line}")
+            if name == "up":    # the JSON line keeps the up projection
+                records["bcsc_gemv"] = rec
 
 
 def phase_kernels_gemma(flush, judge):
@@ -624,6 +672,49 @@ def band_pairs(S: int, window: int) -> int:
     return w * (w + 1) // 2 + (S - w) * w
 
 
+# head ratios R = H / KV that do not divide the kernel's 64-row tile, at the
+# head counts and head dims of the reference's configs: (H, KV, D)
+SWA_RATIOS = {"llama4 40/8": (40, 8, 128), "internvl2-26b 48/8": (48, 8, 128),
+              "recurrentgemma-2b 10/1": (10, 1, 256)}
+
+
+def _swa_ratios(flush, judge):
+    """The sliding-window kernel at R 5, 6 and 10 (tiles with dead rows),
+    causal and in window mode, S and the window not multiples of the
+    64-key tile, against its plain version; times the kernel."""
+    import torch
+    from repro_torch.kernels import local_attention as swa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    B, S = 1, 2000
+    for tag, (H, KV, D) in SWA_RATIOS.items():
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+        lc = swa.launch_config(B, S, H, KV, D)
+        for window, cap in ((S, 0.0), (1000, 50.0)):
+            def cu(window=window, cap=cap):
+                return swa.sliding_window_attention_cuda(
+                    q, k, v, window=window, softcap=cap)
+            want = swa.sliding_window_attention_plain(q, k, v, window=window,
+                                                      softcap=cap)
+            mode = "causal" if window >= S else f"window {window}"
+            judge(f"sliding_window_attention[{tag}, R {H // KV}, {mode}, "
+                  f"softcap {cap:g}]", errors(cu(), want)[1], 1e-3,
+                  "relative to max |out|: keys walked in another order than "
+                  "flash's, tensor-core sums in their own")
+            pairs = band_pairs(S, window)
+            ms, by = bound(2 * B * S * H * D + 2 * 2 * B * S * KV * D
+                           + 4 * B * S * H * D, 4 * B * pairs * H * D)
+            log(f"  sliding_window_attention ({tag}: B {B}, S {S}, H {H}, "
+                f"KV {KV}, D {D}, {mode}, softcap {cap:g}; {lc['blocks']} "
+                f"blocks, tiles of {lc['per_tile']} positions x {H // KV} "
+                f"heads, {lc['dead_rows']} dead rows of 64): "
+                f"{time_ms(cu, flush):.4f} ms, bound {ms:.4f} ms ({by})")
+            del want
+        del q, k, v
+
+
 def phase_kernels_dense(flush, judge, records):
     """Sliding-window attention at gemma2-2b local and qwen2.5-3b causal
     prefill shapes, and rs_matmul at the GeGLU up-projection's widths."""
@@ -635,7 +726,8 @@ def phase_kernels_dense(flush, judge, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    log("kernels: sliding-window attention and rs_matmul")
+    log("kernels: sliding-window attention (R 2 and 8 as served, R 5, 6 "
+        "and 10 as the reference's other configs need) and rs_matmul")
     for tag, (B, S, H, KV, D, window, cap) in {
             "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 50.0),
             "gemma2-2b global": (1, 8192, 8, 4, 256, 8192, 50.0),
@@ -695,6 +787,8 @@ def phase_kernels_dense(flush, judge, records):
         if tag == "gemma2-2b local":
             records["sliding_window_attention"] = rec
         del q, k, v, qt, kt, vt, band
+
+    _swa_ratios(flush, judge)
 
     K, N = 2304, 9216
     w = (torch.randn(K, N, generator=gen, device=dev) / K ** 0.5).bfloat16()

@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""What holds the fused BCSC MLP and rs_matmul back, by ablation on one GPU.
+"""What holds the BCSC GEMV, the fused BCSC MLP and rs_matmul back, by
+ablation on one GPU, and the tree's kernels against an earlier tree's.
 
-    python3 scripts/ablate_kernels_torch.py [--reps 10]
+    python3 scripts/ablate_kernels_torch.py [--reps 10] [--parent DIR]
 
-Each variant is the tree's ``csrc/bcsc_mlp.cu`` or ``csrc/rs_matmul.cu``
-with a part removed or changed (a named text edit of the source), built by
-nvcc into a library of its own (``-Drepro=repro_ablate_<n>``, so that no
-variant resolves another's template symbols), all builds started together.
-Every variant is timed beside the unchanged kernel in one process, at the
-shapes ``chip_smoke.py`` times (the fused MLP at qwen2.5-3b's M 8 and 64 and
-gemma2-2b's M 8; rs_matmul at 512 x 2304 -> 9216 with bias + tanh-gelu, its
-streaming arm at M 8), with ``chip_smoke.time_ms``: device time, L2 flushed
-before each launch, the card held busy while the host enqueues. A variant
-that removes work computes a wrong result; only the unchanged kernel is
-held against its plain version. The last line is a JSON object.
+Each variant is the tree's ``csrc/bcsc_matmul.cu``, ``csrc/bcsc_mlp.cu`` or
+``csrc/rs_matmul.cu`` with a part removed or changed (named text edits of
+the source or of its copy of ``common.cuh``), built by nvcc into a library
+of its own (``-Drepro=repro_ablate_<n>``, so that no variant resolves
+another's template symbols), all builds started together. Every variant is
+timed beside the unchanged kernel in one process, at the shapes
+``chip_smoke.py`` times (the GEMV at qwen2.5-3b's up projection with bias +
+silu and its down projection, M 8; the fused MLP at qwen2.5-3b's M 8 and
+64 and gemma2-2b's M 8; rs_matmul at 512 x 2304 -> 9216 with bias +
+tanh-gelu, its streaming arm at M 8), with ``chip_smoke.time_ms``: device
+time, L2 flushed before each launch, the card held busy while the host
+enqueues. A variant that removes work computes a wrong result; only the
+unchanged kernel is held against its plain version.
+
+``--parent DIR``: an earlier tree unpacked into DIR (``git archive``); its
+GEMV, fused MLP and sliding-window sources are built the same way and timed
+in turns with the tree's (parent, tree, tree, parent), the sliding window
+at gemma2-2b's local and qwen2.5-3b's causal prefill shapes. The last line
+is a JSON object.
 """
 from __future__ import annotations
 
@@ -21,7 +30,6 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
 import subprocess
 import sys
 
@@ -81,6 +89,37 @@ RS_VARIANTS = {
                  "      for (int row = kRsBM; row < kRsBM; "
                  "row += kRsEpiWarps)")],
 }
+_NO_WALK = ("  walk.prefetch_blocks();   // the blocks need no row id\n"
+            "  walk.run(x, K, kGemvRows, true, acc, unused);\n",
+            "  acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = 0.0f;\n"
+            "  (void)walk;\n  (void)unused;\n")
+_NO_ADD = ("    for (int s2 = 1; s2 < split; ++s2) {",
+           "    for (int s2 = split; s2 < split; ++s2) {")
+GEMV_VARIANTS = {
+    "tree": [],
+    "the launch only (every thread returns at once)": [
+        ("  extern __shared__ __align__(128) unsigned char smem[];\n"
+         "  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;\n",
+         "  extern __shared__ __align__(128) unsigned char smem[];\n"
+         "  if (K > 0) return;\n"
+         "  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;\n")],
+    "no walk (launch, x prefetch, bias loads, combine, stores)": [_NO_WALK],
+    "partials not added (part 0 stores its own)": [_NO_ADD],
+    "no prefetch of x into L2": [
+        ("  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < x_lines;",
+         "  for (int i = x_lines; i < x_lines;")],
+    "rings of 2 slots (4 in the tree)": [
+        ("constexpr int kGemvStages = 4;", "constexpr int kGemvStages = 2;")],
+    "rings of 8 slots (4 in the tree)": [
+        ("constexpr int kGemvStages = 4;", "constexpr int kGemvStages = 8;")],
+}
+# the GEMV variants that still compute the function
+GEMV_CORRECT = ("tree", "no prefetch of x into L2",
+                "rings of 2 slots (4 in the tree)",
+                "rings of 8 slots (4 in the tree)")
+# the parent tree's C interface of the GEMV: no workspace, words or split
+PARENT_GEMV_ARGS = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
 RS_STREAM_VARIANTS = {
     "tree": [],
     "no combine kernel (the K parts are not added)": [
@@ -90,21 +129,29 @@ RS_STREAM_VARIANTS = {
 
 
 def build(jobs):
-    """{key: (name of the source, edits)} -> {key: loaded library}."""
+    """{key: (path of the source, edits)} -> {key: loaded library}. Each
+    variant is built in a directory of its own beside a copy of the
+    source's ``common.cuh``; an edit applies to whichever of the two holds
+    its target."""
     from repro_torch.kernels import _build
-    os.makedirs(OUT, exist_ok=True)
-    shutil.copy(os.path.join(CSRC, "common.cuh"), OUT)
     procs = {}
     for i, (key, (source, edits)) in enumerate(jobs.items()):
-        text = open(os.path.join(CSRC, source)).read()
+        files = {"src": open(source).read(),
+                 "common.cuh": open(os.path.join(os.path.dirname(source),
+                                                 "common.cuh")).read()}
         for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{key}: edit target not in {source}: "
-                                   f"{old[:60]!r}")
-            text = text.replace(old, new)
-        path = os.path.join(OUT, f"v{i}.cu")
+            where = [k for k, text in files.items() if old in text]
+            if not where:
+                raise RuntimeError(f"{key}: edit target not in {source} or "
+                                   f"its common.cuh: {old[:60]!r}")
+            files[where[0]] = files[where[0]].replace(old, new)
+        vdir = os.path.join(OUT, f"v{i}")
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "common.cuh"), "w") as f:
+            f.write(files["common.cuh"])
+        path = os.path.join(vdir, "kernel.cu")
         with open(path, "w") as f:
-            f.write(text)
+            f.write(files["src"])
         procs[key] = (path, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared",
              f"-Drepro=repro_ablate_{i}", path, "-o", path[:-3] + ".so"],
@@ -129,6 +176,9 @@ def c_function(lib, name):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent", default=None,
+                    help="an earlier tree, unpacked: its GEMV, fused MLP and "
+                         "sliding window are timed in turns with the tree's")
     args = ap.parse_args()
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
     import torch
@@ -137,16 +187,29 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bcsc_matmul as bm
     from repro_torch.kernels import bcsc_mlp as bmlp
+    from repro_torch.kernels import local_attention as swa
     from repro_torch.kernels import rs_matmul as rs
     from repro_torch.kernels.epilogue import act_code
 
-    jobs = {("mlp", k): ("bcsc_mlp.cu", e) for k, (e, _) in
-            MLP_VARIANTS.items()}
-    jobs.update({("rs", k): ("rs_matmul.cu", e)
+    def src(name):
+        return os.path.join(CSRC, name)
+    jobs = {("gemv", k): (src("bcsc_matmul.cu"), e)
+            for k, e in GEMV_VARIANTS.items()}
+    jobs.update({("mlp", k): (src("bcsc_mlp.cu"), e) for k, (e, _) in
+                 MLP_VARIANTS.items()})
+    jobs.update({("rs", k): (src("rs_matmul.cu"), e)
                  for k, e in RS_VARIANTS.items()})
-    jobs.update({("stream", k): ("rs_matmul.cu", e)
+    jobs.update({("stream", k): (src("rs_matmul.cu"), e)
                  for k, e in RS_STREAM_VARIANTS.items() if k != "tree"})
+    if args.parent:
+        pdir = os.path.join(os.path.abspath(args.parent), "src",
+                            "repro_torch", "kernels", "csrc")
+        for key, name in (("gemv", "bcsc_matmul.cu"), ("mlp", "bcsc_mlp.cu"),
+                          ("swa", "local_attention.cu")):
+            jobs[("parent", key)] = (os.path.join(pdir, name), [])
+        jobs[("swa", "tree")] = (src("local_attention.cu"), [])
     libs = build(jobs)
     dev = torch.device("cuda")
     n_sm = _build.sm_count(0)
@@ -157,10 +220,94 @@ def main() -> int:
                           text=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; {card}")
     result = {"device": torch.cuda.get_device_name(0), "card": card,
-              "bcsc_mlp": {}, "rs_matmul": {}}
+              "bcsc_gemv": {}, "bcsc_mlp": {}, "rs_matmul": {},
+              "sliding_window_attention": {}}
 
     def timed(fn):
         return cs.time_ms(fn, flush, reps=args.reps)
+
+    class ReadFlush:
+        """A flush that reads the buffer: L2 is left full of clean lines
+        (chip_smoke's zeroing leaves it full of dirty ones, whose
+        write-backs a kernel that brings lines into L2 pays)."""
+        def zero_(self):
+            flush.view(torch.int32).sum()
+
+    def timed_clean(fn):
+        return cs.time_ms(fn, ReadFlush(), reps=args.reps)
+
+    def show(kernel, tag, row):
+        print(f"{kernel} {tag}:")
+        for name, v in row.items():
+            print(f"  {name:58s} {v:.4f}" + (" ms" if "error" not in name
+                                             else " of max |out|"))
+
+    # ---- the GEMV: variants of the tree's, the tree's at split 1 (one
+    # warp a column), and the parent's, at the int8 pass's two shapes
+    gen_v = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    for tag, K, N, act in (("qwen2.5-3b up, bias + silu", 2048, 11008,
+                            "silu"),
+                           ("qwen2.5-3b down", 11008, 2048, None)):
+        w = cs._packed_weight(K, N, 0.75, gen_v)
+        x = torch.randn(8, K, generator=gen_v, device=dev).bfloat16()
+        bias = torch.randn(N, generator=gen_v, device=dev) if act else None
+        out = torch.empty(8, N, device=dev)
+        split = bm.gemv_plan(K, N, n_sm)["split"]
+        want = bm.bcsc_gemv_plain(x, w["blocks"], w["row_ids"], w["col_ids"],
+                                  n_out=N, bias=bias, activation=act)
+        pack = (w["blocks"].data_ptr(), w["row_ids"].data_ptr(),
+                w["col_ptr"].data_ptr())
+        runs = [(k, libs[("gemv", k)], split) for k in GEMV_VARIANTS]
+        for other in sorted({1, max(1, split // 2),
+                             min(bm.GEMV_MAX_SPLIT, 2 * split)} - {split}):
+            runs.insert(1, (f"tree at split {other} ({split} planned)",
+                            libs[("gemv", "tree")], other))
+        if args.parent:
+            runs = [("parent", libs[("parent", "gemv")], 0)] + runs + [
+                ("parent, again", libs[("parent", "gemv")], 0)]
+        row = {}
+        for name, lib, sp in runs:
+            if sp == 0:
+                fn = getattr(lib, "repro_bcsc_gemv")
+                fn.argtypes, fn.restype = PARENT_GEMV_ARGS, ctypes.c_int
+
+                def call(fn=fn):
+                    _build.check(fn(
+                        x.data_ptr(), K, *pack, _build.ptr(bias),
+                        act_code(act), out.data_ptr(), N,
+                        _build.stream_of(x)), f"bcsc_gemv {name}")
+            else:
+                fn = c_function(lib, "repro_bcsc_gemv")
+
+                def call(fn=fn, sp=sp):
+                    _build.check(fn(
+                        x.data_ptr(), K, *pack, _build.ptr(bias),
+                        act_code(act), out.data_ptr(), N, sp,
+                        _build.stream_of(x)), f"bcsc_gemv {name}")
+            row[name] = timed(call)
+            if name in GEMV_CORRECT or name not in GEMV_VARIANTS:
+                call()
+                row[f"{name}: error"] = cs.errors(out, want)[1]
+            if name in ("tree", "parent"):
+                row[f"{name}, L2 flushed by reading"] = timed_clean(call)
+        wdense = bm._dense_weight(w["blocks"], w["row_ids"], w["col_ids"], K,
+                                  N).bfloat16()
+        if act:
+            def library():
+                torch.nn.functional.silu(torch.addmm(bias.bfloat16(), x,
+                                                     wdense))
+        else:
+            def library():
+                torch.matmul(x, wdense)
+        row["library (addmm + silu, or matmul)"] = timed(library)
+        row["library, L2 flushed by reading"] = timed_clean(library)
+        nnz = int(w["nnzb"])
+        row["bound"] = cs.bound(x.numel() * 2 + nnz * cs.BLOCK_BYTES
+                                + (4 * N if act else 0) + 32 * N,
+                                2 * 8 * 256 * nnz)[0]
+        result["bcsc_gemv"][tag] = row
+        show("bcsc_gemv", f"{tag} (M 8, {K} -> {N}, {nnz} blocks, split "
+             f"{split})", row)
 
     for arch, K, ff, Ms, act in (("qwen2.5-3b", 2048, 11008, (8, 64), "silu"),
                                  ("gemma2-2b", 2304, 9216, (8,), "gelu")):
@@ -177,8 +324,13 @@ def main() -> int:
             ws = torch.empty((K // 16) * plan["split"] * bmlp.row_tiles(M)
                              * 128, device=dev)
             row = {}
-            for name, (_, per_sm) in MLP_VARIANTS.items():
-                fn = c_function(libs[("mlp", name)], "repro_bcsc_mlp")
+            runs = [(name, libs[("mlp", name)], per_sm)
+                    for name, (_, per_sm) in MLP_VARIANTS.items()]
+            if args.parent:
+                runs = [("parent", libs[("parent", "mlp")], 1)] + runs + [
+                    ("parent, again", libs[("parent", "mlp")], 1)]
+            for name, lib, per_sm in runs:
+                fn = c_function(lib, "repro_bcsc_mlp")
                 words = torch.zeros(2 + K // 16, dtype=torch.int32,
                                     device=dev)
 
@@ -236,6 +388,37 @@ def main() -> int:
         for name, ms in row.items():
             if name != "tree error":
                 print(f"  {name:58s} {ms:.4f} ms")
+
+    # ---- the sliding window, parent and tree in turns, at the served
+    # ratios (gemma2-2b local R 2, qwen2.5-3b causal R 8)
+    if args.parent:
+        for tag, (B, S, H, KV, D, window, cap) in {
+                "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 50.0),
+                "qwen2.5-3b causal": (2, 512, 16, 2, 128, 512, 0.0)}.items():
+            q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+            k = torch.randn(B, S, KV, D, generator=gen,
+                            device=dev).bfloat16()
+            v = torch.randn(B, S, KV, D, generator=gen,
+                            device=dev).bfloat16()
+            out = torch.empty(B, S, H, D, device=dev)
+            row = {}
+            for name, key in (("parent", "parent"), ("tree", "tree"),
+                              ("tree, again", "tree"),
+                              ("parent, again", "parent")):
+                fn = c_function(libs[(key, "swa")] if key == "parent"
+                                else libs[("swa", "tree")],
+                                "repro_sliding_window_attention")
+
+                def call(fn=fn):
+                    _build.check(fn(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), B, S, H, KV, D, window,
+                        swa._score_mult(D, cap), cap, _build.stream_of(q)),
+                        "sliding_window_attention")
+                row[name] = timed(call)
+            result["sliding_window_attention"][tag] = row
+            show("sliding_window_attention", tag, row)
+            del q, k, v, out
     print(json.dumps(result))
     return 0
 

@@ -36,8 +36,8 @@ SIGNATURES = {
     "repro_paged_attention": [P] * 9 + [I] * 9 + [F, F, P],
     # x, M, K, blocks, row_ids, col_ptr, out, ws, N, bm, split, stream
     "repro_bcsc_gemm": [P, I, I, P, P, P, P, P, I, I, I, P],
-    # x, K, blocks, row_ids, col_ptr, bias, act, out, N, stream
-    "repro_bcsc_gemv": [P, I, P, P, P, P, I, P, I, P],
+    # x, K, blocks, row_ids, col_ptr, bias, act, out, N, split, stream
+    "repro_bcsc_gemv": [P, I, P, P, P, P, I, P, I, I, P],
     # x, Mp, K, g_blk, g_rows, g_ptr, u_blk, u_rows, u_ptr, d_blk, d_rows,
     # d_ptr, counts, act, d_ff, n_out, hidden, out, ws, words, grid, split,
     # stream

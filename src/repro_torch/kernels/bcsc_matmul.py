@@ -12,7 +12,13 @@ block owns a tile of ``bm`` rows by ``GEMM_GROUP`` block-columns and walks
 the k-tiles (``GEMM_TILE_ROWS`` block-rows, 128 columns of x) in which its
 columns hold blocks; ``gemm_plan`` picks ``bm`` and how many ways K is split
 from shapes alone, never from the pack's contents (reading them on the host
-would sync every prefill layer).
+would sync every prefill layer). The GEMV cuts each output block-column's
+segment into ``gemv_plan``'s split parts, one a warp, each streamed through
+a cp.async ring onto ``mma.sync`` with the 8 rows as the MMA's N; a
+column's parts are the warps of one thread block, whose first warp adds
+their partials in split order, then bias and activation.
+``gemv_schedule_model`` computes the same schedule in plain torch for the
+CPU tests.
 """
 from __future__ import annotations
 
@@ -159,23 +165,83 @@ def gemm_launch(x, blocks, row_ids, col_ptr, n_out: int, bm: int,
     return out
 
 
+GEMV_ROWS = 8            # rows of x, the MMA's N (kGemvRows)
+GEMV_MAX_SPLIT = 16      # parts of a block-column, at most (kGemvMaxWarps)
+GEMV_WARPS_PER_SM = 16   # warps an SM the split aims to fill
+GEMV_STAGES = 4          # ring slots a warp (kGemvStages)
+GEMV_SLOT = 512 + GEMV_ROWS * 32   # a block and its x slice, bytes
+MIN_PART_ROWS = 8        # block-rows of K a GEMV part covers at least
+
+
+def gemv_plan(K: int, N: int, n_sm: int) -> dict:
+    """The GEMV's launch for x (8, K) and N output columns on a card of
+    ``n_sm`` SMs, from shapes alone: ``split``, the most parts a block-column
+    is cut into that still give every part its own warp among
+    GEMV_WARPS_PER_SM an SM, at most GEMV_MAX_SPLIT, each part at least
+    MIN_PART_ROWS block-rows of K on average. One thread block a column,
+    one warp a part."""
+    n_cols = N // 16
+    split = max(1, min(n_sm * GEMV_WARPS_PER_SM // n_cols,
+                       (K // 16) // MIN_PART_ROWS, GEMV_MAX_SPLIT))
+    return {"split": split, "tasks": n_cols * split,
+            "warps": n_sm * GEMV_WARPS_PER_SM, "grid": n_cols,
+            "threads": 32 * split, "stages": GEMV_STAGES,
+            "smem_bytes": split * GEMV_STAGES * GEMV_SLOT}
+
+
+def gemv_schedule_model(x, blocks, row_ids, col_ptr, *, n_out: int,
+                        bias=None, activation: Optional[str] = None,
+                        n_sm: int = 132):
+    """The GEMV's schedule in plain torch, fp32: x (8, K). Part s of
+    block-column c (its segment cut into ``split`` parts of equal block
+    counts) goes to warp s of thread block c and sums its blocks'
+    products; at split > 1 the column's partials are added in split order;
+    then bias and the activation. Returns (out, trace): ``trace`` holds how
+    often each payload block was read, the parts of each column in the
+    order they were added, and the (thread block, warp) of each part."""
+    split = gemv_plan(x.shape[1], n_out, n_sm)["split"]
+    cp, rid = col_ptr.tolist(), row_ids.long()
+    xf, bf = x.float(), blocks.float()
+    reads = [0] * blocks.shape[0]
+    order, warp = {}, {}
+    out = torch.zeros(x.shape[0], n_out, device=x.device)
+    for c in range(n_out // 16):
+        lo, n = cp[c], cp[c + 1] - cp[c]
+        total = None
+        for s in range(split):              # split order
+            a, b = lo + n * s // split, lo + n * (s + 1) // split
+            warp[(c, s)] = (c, s)
+            for i in range(a, b):
+                reads[i] += 1
+            # x's slice of each block-row times its block, summed
+            xs = xf.reshape(x.shape[0], -1, 16)[:, rid[a:b]]
+            part = torch.einsum("mbk,bkn->mn", xs, bf[a:b])
+            total = part if total is None else total + part
+            order.setdefault(c, []).append(s)
+        out[:, 16 * c:16 * (c + 1)] = total
+    return fused_epilogue(out, bias, activation), {
+        "reads": reads, "order": order, "warp": warp, "split": split}
+
+
 def bcsc_gemv_cuda(x, blocks, row_ids, col_ptr, *, n_out: int, bias=None,
                    activation: Optional[str] = None):
     """GEMV arm on the card: x (8, K) bf16 -> (8, n_out) fp32, bias
     (n_out,) fp32 and the activation fused into the flush."""
     _check_pack(x, blocks, row_ids, col_ptr, n_out)
     M, K = x.shape
-    if M != 8:
-        raise ValueError(f"the GEMV kernel takes 8 rows, got {M}")
+    if M != GEMV_ROWS:
+        raise ValueError(f"the GEMV kernel takes {GEMV_ROWS} rows, got {M}")
     if bias is not None:
         _check("bias", bias, torch.float32)
         if bias.numel() != n_out:
             raise ValueError(f"bias must have {n_out} entries")
+    split = gemv_plan(K, n_out, _build.sm_count(x.device.index or 0))[
+        "split"]
     out = torch.empty((M, n_out), dtype=torch.float32, device=x.device)
     code = _build.library().repro_bcsc_gemv(
         x.data_ptr(), K, blocks.data_ptr(), row_ids.data_ptr(),
         col_ptr.data_ptr(), _build.ptr(bias), act_code(activation),
-        out.data_ptr(), n_out, _build.stream_of(x))
+        out.data_ptr(), n_out, split, _build.stream_of(x))
     _build.check(code, "bcsc_gemv")
     bcsc_gemv_cuda.launches += 1
     return out

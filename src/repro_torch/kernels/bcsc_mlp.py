@@ -39,8 +39,9 @@ def row_tiles(Mp: int) -> int:
 
 
 def ring_stages(nt: int) -> int:
-    """Blocks in flight in a warp's ring (MlpRing::kStages): about 12 KB of
-    ring a warp, slots of 512 weight bytes and nt * 8 rows of 32 bytes."""
+    """Blocks in flight in a warp's ring (``WalkRing<NT>::kStages`` in
+    ``csrc/common.cuh``): about 12 KB of ring a warp, slots of 512 weight
+    bytes and nt * 8 rows of 32 bytes."""
     return {1: 16, 2: 12, 4: 8, 8: 4}[nt]
 
 

@@ -72,9 +72,40 @@
 // its walk, and the fp32 tile written after it, with one block per SM.
 //
 // GEMV (decode, M <= 8, rows padded to 8). Bound: bytes of the weight
-// stream. 16 groups of 16 threads split a column's blocks, each thread
-// keeps 8 row accumulators for its output column, partials are summed in a
-// fixed order, and the fused bias + activation epilogue runs at the flush.
+// stream, each real block read once (22,016 blocks, 11.7 MB at qwen2.5-3b's
+// up projection: 0.0035 ms at 3.35 TB/s). Design, the fused MLP's warp
+// walk carried over:
+// * Work units. Block-column c's segment is cut into ``split`` parts of
+//   equal block counts, one part a warp, a thread block per column;
+//   kernels/bcsc_matmul.py::gemv_plan picks split (at most 16) from shapes
+//   alone so that columns x split fill the card's warps (qwen2.5-3b: 688
+//   columns x 3 at the up projection, 128 x 16 at the down projection,
+//   whose ~162-block columns alone would leave most SMs idle). Small
+//   blocks spread evenly over the SMs (blocks of several columns left a
+//   few SMs with twice the work).
+// * Each warp walks its part with common.cuh's WarpWalk: the blocks (one
+//   16-byte cp.async a lane) and x's 16-column slice of each block-row (8
+//   rows x 32 bytes) through a ring of kGemvStages slots in shared memory,
+//   the part's first blocks issued before its row ids arrive; mma.sync
+//   m16n8k16 with A = the block transposed (ldmatrix .trans) and B = the 8
+//   rows of x, so the 8 rows are the MMA's N; fp32 accumulators in
+//   registers. The grid first asks L2 for all of x and each lane for its
+//   bias, so that neither waits behind the weight stream.
+// * Combine: at split > 1 each part leaves its fp32 partial in its warp's
+//   ring in shared memory, and after one block barrier part 0 adds them
+//   in split order. At split 1 a column is flushed from registers. Bias
+//   and the activation run once, at the flush (epilogue). No atomics: two
+//   calls give equal bits. (Partials in global memory added by the last
+//   part to arrive at a per-column counter, or by a second kernel, timed
+//   slower: each costs round trips to L2.)
+// * Ring depth: 4 slots a warp (a part holds ~11 blocks at qwen2.5-3b's
+//   shapes); a deeper ring, more shared memory a block, timed slower.
+// * Pads (zero blocks repeating the last (row, col)) are walked and add
+//   nothing.
+// What still holds it back (scripts/ablate_kernels_torch.py; PERF.md has
+// the times): the launch of the grid is about 40 % of a call at
+// qwen2.5-3b's shapes, and each part waits on three dependent loads
+// (col_ptr, its row ids, then x's slices) while its blocks stream in.
 #include "common.cuh"
 
 namespace repro {
@@ -88,6 +119,12 @@ constexpr int kGemmSlots = kGemmTileRows * kGemmGroup;   // blocks a stage holds
 
 // Threads of a thread block: one warp per block-column of the group.
 constexpr int kGemmThreads = 32 * kGemmGroup;
+
+constexpr int kGemvRows = 8;          // rows of x: the MMA's N
+constexpr int kGemvMaxWarps = 16;     // parts of a block-column, at most
+constexpr int kGemvStages = 4;        // ring slots a warp
+constexpr int kGemvMaxThreads = 32 * kGemvMaxWarps;
+constexpr int kGemvRingBytes = kGemvStages * WalkRing<1>::kSlot;
 
 // Dynamic shared memory of a thread block of BM = 64 kWg rows: the ring's x
 // tiles and block slots, the chunk index (tab, rmask, tiles), and slack to
@@ -365,20 +402,61 @@ int launch_gemm(const void* x, int M, int K, const void* blocks,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kWalkThreads) bcsc_gemv_kernel(
-    const bf16* __restrict__ x, int K, const bf16* __restrict__ blocks,
-    const int* __restrict__ row_ids, const int* __restrict__ col_ptr,
-    const float* __restrict__ bias, int act, float* __restrict__ out, int N) {
-  __shared__ float red[kWalkGroups * kWalkRows * 16];
-  const int c = blockIdx.x;
-  const float r = segment_walk8<false>(x, K, blocks, row_ids, col_ptr[c],
-                                       col_ptr[c + 1], red);
-  if (threadIdx.x < kWalkRows * 16) {
-    const int m = threadIdx.x >> 4;
-    const int col = c * 16 + (threadIdx.x & 15);
-    out[(long)m * N + col] =
-        epilogue(r, bias != nullptr ? bias[col] : 0.0f, act);
+// A thread block owns block-column blockIdx.x: ``split`` warps, warp s
+// walking part s of its segment, so that the partials meet in shared
+// memory.
+__global__ void __launch_bounds__(kGemvMaxThreads)
+    bcsc_gemv_kernel(const bf16* __restrict__ x, int K,
+                     const bf16* __restrict__ blocks,
+                     const int* __restrict__ row_ids,
+                     const int* __restrict__ col_ptr,
+                     const float* __restrict__ bias, int act,
+                     float* __restrict__ out, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int lane = threadIdx.x & 31, s = threadIdx.x >> 5;
+  const int split = blockDim.x >> 5, c = blockIdx.x;
+  // x into L2 at once, one 128-byte line a thread across the grid: the x
+  // slices wait on the row ids and would otherwise queue behind the weight
+  // stream in device memory
+  const int x_lines = (kGemvRows * K * 2 + 127) / 128;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < x_lines;
+       i += gridDim.x * blockDim.x)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+        reinterpret_cast<const char*>(x) + (long)i * 128));
+  unsigned char* ring = smem + s * kGemvRingBytes;
+  // this lane's output columns (acc[0][e]: row 2 (lane % 4) + (e & 1),
+  // column lane / 4 + 8 (e >> 1)) and their bias, loaded now, used last
+  const int col0 = c * 16 + (lane >> 2);
+  const float b0 = bias != nullptr ? __ldg(bias + col0) : 0.0f;
+  const float b1 = bias != nullptr ? __ldg(bias + col0 + 8) : 0.0f;
+  const int lo = col_ptr[c], n = col_ptr[c + 1] - lo;
+  const int a = lo + (int)((long)n * s / split);
+  const int b = lo + (int)((long)n * (s + 1) / split);
+  float acc[1][4], unused[1][4];
+  WarpWalk<1, kGemvStages> walk(blocks, row_ids, a, b - a, nullptr, nullptr,
+                                0, 0, ring);
+  walk.prefetch_blocks();   // the blocks need no row id
+  walk.run(x, K, kGemvRows, true, acc, unused);
+  if (split > 1) {
+    // each part's partial in its warp's ring (free after the walk); part 0
+    // adds them in split order
+    reinterpret_cast<float4*>(ring)[lane] =
+        make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+    __syncthreads();
+    if (s != 0) return;
+    for (int s2 = 1; s2 < split; ++s2) {
+      const float4 v = reinterpret_cast<const float4*>(
+          smem + s2 * kGemvRingBytes)[lane];
+      acc[0][0] += v.x;
+      acc[0][1] += v.y;
+      acc[0][2] += v.z;
+      acc[0][3] += v.w;
+    }
   }
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    out[(long)(2 * (lane & 3) + (e & 1)) * N + col0 + 8 * (e >> 1)] =
+        epilogue(acc[0][e], e < 2 ? b0 : b1, act);
 }
 
 }  // namespace repro
@@ -413,14 +491,21 @@ extern "C" int repro_bcsc_gemm(const void* x, int M, int K,
   }
 }
 
-// x (8, K); bias (N,) fp32 or null; out (8, N) fp32.
+// x (8, K) bf16; bias (N,) fp32 or null; out (8, N) fp32; split (1 to
+// kGemvMaxWarps parts a block-column) from kernels/bcsc_matmul.py::gemv_plan.
 extern "C" int repro_bcsc_gemv(const void* x, int K, const void* blocks,
                                const void* row_ids, const void* col_ptr,
                                const void* bias, int act, void* out, int N,
-                               void* stream) {
+                               int split, void* stream) {
   using namespace repro;
-  if (K % 16 || N % 16) return (int)cudaErrorInvalidValue;
-  bcsc_gemv_kernel<<<N / 16, kWalkThreads, 0, (cudaStream_t)stream>>>(
+  if (K % 16 || N % 16 || N < 16 || split < 1 || split > kGemvMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      bcsc_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGemvMaxWarps * kGemvRingBytes);
+  if (attr != cudaSuccess) return (int)attr;
+  bcsc_gemv_kernel<<<N / 16, 32 * split, split * kGemvRingBytes,
+                     (cudaStream_t)stream>>>(
       (const bf16*)x, K, (const bf16*)blocks, (const int*)row_ids,
       (const int*)col_ptr, (const float*)bias, act, (float*)out, N);
   return (int)cudaGetLastError();

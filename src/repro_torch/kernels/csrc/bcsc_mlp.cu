@@ -21,10 +21,11 @@
 //   NT = Mp / 8 products of a block share its A fragment, so every real
 //   block is read from device memory once per call at every Mp <= 64.
 //   (wgmma would serialise inside this data-dependent walk.)
-// * A warp-private cp.async ring. Each warp streams its blocks through a
-//   ring of its own in shared memory: per block one 16-byte copy a lane
-//   (512 bytes) and the block-row's 16-column slice of x (Mp x 32 bytes,
-//   rows past Mp zero-filled), kStages blocks ahead of the one it
+// * A warp-private cp.async ring (common.cuh WarpWalk, which the GEMV
+//   walks too). Each warp streams its blocks through a ring of its own in
+//   shared memory: per block one 16-byte copy a lane (512 bytes) and the
+//   block-row's 16-column slice of x (Mp x 32 bytes, rows past Mp
+//   zero-filled), kStages blocks ahead of the one it
 //   multiplies; the ring is about 12 KB a warp, 16 warps an SM, as one
 //   block (the grid barrier then meets 132 blocks, not 264). Row ids come 32
 //   at a time, one batch ahead, so no copy waits on an index load.
@@ -66,15 +67,11 @@ constexpr int kMlpWarps = 16;                 // warps of a thread block
 constexpr int kMlpThreads = 32 * kMlpWarps;
 constexpr int kMlpBlocksPerSm = 1;            // kernels/bcsc_mlp.py plans for it
 
-// The ring of one warp for NT 8-row tiles of x: slots of one weight block
-// (512 bytes) and its x slice (NT * 8 rows of 32 bytes); about 12 KB.
+// Dynamic shared memory of a thread block: one walk ring a warp.
 template <int NT>
-struct MlpRing {
-  static constexpr int kSlot = 512 + NT * 8 * 32;
-  static constexpr int kStages = NT == 1 ? 16 : NT == 2 ? 12 : NT == 4 ? 8 : 4;
-  static constexpr int kWarpBytes = kSlot * kStages;
-  static constexpr int kSmem = kWarpBytes * kMlpWarps;
-};
+constexpr int mlp_smem() {
+  return WalkRing<NT>::kWarpBytes * kMlpWarps;
+}
 
 // Segment [lo, hi) of block-column c, cut at the real block count.
 __device__ __forceinline__ void segment(const int* ptr, int c, int count,
@@ -112,129 +109,6 @@ __device__ __forceinline__ void grid_barrier(unsigned* words) {
   }
   __syncthreads();
 }
-
-// One warp's walk: the sum over the blocks of two column segments (items
-// 0..n0-1: blocks lo0.. of pack 0 into acc0; items n0..n-1: blocks lo1.. of
-// pack 1 into acc1) of src's block-row slice times the block, with the
-// rows as the MMA's N: acc[t] holds output columns g and g + 8 (g = lane /
-// 4) of rows 8t + 2 (lane % 4) and the next one. Item j goes through ring
-// slot j % kStages as one cp.async group: the block, then src's slice of
-// its block-row (rows [0, mp), ``ld`` elements a row). prefetch_blocks()
-// may issue the first slots' blocks before src is ready, as groups of
-// their own; run() then adds their slices as groups of their own, so the
-// groups still complete in item order and one wait_group serves both.
-template <int NT>
-struct WarpWalk {
-  static constexpr int S = MlpRing<NT>::kStages;
-  const bf16* b0;
-  const int* r0;
-  int lo0, n0;
-  const bf16* b1;
-  const int* r1;
-  int lo1, n;
-  unsigned char* ring;
-  int lane, cur, nxt;   // block-rows of items base + lane, a batch ahead
-
-  __device__ WarpWalk(const bf16* b0_, const int* r0_, int lo0_, int n0_,
-                      const bf16* b1_, const int* r1_, int lo1_, int n1_,
-                      unsigned char* ring_)
-      : b0(b0_), r0(r0_), lo0(lo0_), n0(n0_), b1(b1_), r1(r1_), lo1(lo1_),
-        n(n0_ + n1_), ring(ring_), lane(threadIdx.x & 31) {
-    cur = rows(0);
-    nxt = rows(32);
-  }
-  __device__ int rows(int base) const {
-    const int j = base + lane;
-    if (j < n0) return __ldg(r0 + lo0 + j);
-    if (j < n) return __ldg(r1 + lo1 + j - n0);
-    return 0;
-  }
-  __device__ unsigned char* slot(int j) const {
-    return ring + (j % S) * MlpRing<NT>::kSlot;
-  }
-  __device__ void copy_block(int j) const {   // 16 bytes a lane
-    const bf16* blk = j < n0 ? b0 + (long)(lo0 + j) * 256
-                             : b1 + (long)(lo1 + j - n0) * 256;
-    cp_async16(slot(j) + swz32(lane >> 1, lane & 1), blk + lane * 8, true);
-  }
-  // src's slice of item j's block-row; all lanes, j in increasing order
-  __device__ void copy_src(int j, const bf16* src, long ld, int mp) {
-    if (j > 0 && (j & 31) == 0) {
-      cur = nxt;
-      nxt = rows(j + 32);
-    }
-    const int row = __shfl_sync(0xffffffffu, cur, j & 31);
-#pragma unroll
-    for (int e = lane; e < NT * 16; e += 32) {   // (row m, 16-byte half h)
-      const int m = e >> 1, h = e & 1;
-      const bool ok = m < mp;
-      cp_async16(slot(j) + 512 + swz32(m, h),
-                 ok ? src + m * ld + row * 16 + h * 8 : src, ok);
-    }
-  }
-  __device__ void prefetch_blocks() const {
-    for (int j = 0; j < S - 1; ++j) {
-      if (j < n) copy_block(j);
-      cp_async_commit();
-    }
-  }
-  __device__ void run(const bf16* src, long ld, int mp, bool prefetched,
-                      float (&acc0)[NT][4], float (&acc1)[NT][4]) {
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc0[t][e] = acc1[t][e] = 0.0f;
-    for (int j = 0; j < S - 1; ++j) {
-      if (j < n) {
-        if (!prefetched) copy_block(j);
-        copy_src(j, src, ld, mp);
-      }
-      cp_async_commit();
-    }
-    for (int j = 0; j < n; ++j) {
-      if (j + S - 1 < n) {
-        copy_block(j + S - 1);
-        copy_src(j + S - 1, src, ld, mp);
-      }
-      cp_async_commit();
-      cp_async_wait<S - 1>();   // this lane's copies of item j
-      __syncwarp();             // and the warp's
-      const unsigned char* sl = slot(j);
-      // A = block^T: matrices (k 0-7 | 8-15) x (n 0-7 | 8-15), a0..a3
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, sl + swz32((lane & 7) + ((lane >> 4) << 3),
-                                      (lane >> 3) & 1));
-      uint32_t b[NT][2];
-      if (NT == 1) {
-        uint32_t r[2];
-        ldmatrix_x2(r, sl + 512 + swz32(lane & 7, (lane >> 3) & 1));
-        b[0][0] = r[0];
-        b[0][1] = r[1];
-      } else {
-#pragma unroll
-        for (int p = 0; p < NT / 2; ++p) {
-          uint32_t r[4];
-          ldmatrix_x4(r, sl + 512 + swz32(16 * p + (lane & 7) +
-                                              ((lane >> 4) << 3),
-                                          (lane >> 3) & 1));
-          b[2 * p][0] = r[0];
-          b[2 * p][1] = r[1];
-          b[2 * p + 1][0] = r[2];
-          b[2 * p + 1][1] = r[3];
-        }
-      }
-      if (j < n0) {
-#pragma unroll
-        for (int t = 0; t < NT; ++t) mma_16816(acc0[t], a, b[t][0], b[t][1]);
-      } else {
-#pragma unroll
-        for (int t = 0; t < NT; ++t) mma_16816(acc1[t], a, b[t][0], b[t][1]);
-      }
-      __syncwarp();   // the slot is refilled by the next copies
-    }
-    cp_async_wait<0>();
-  }
-};
 
 // The walk of phase-2 task ``task`` (output block-column task / split, part
 // task % split of its segment, cut at equal block counts); empty past the
@@ -276,7 +150,7 @@ __global__ void __launch_bounds__(kMlpThreads, kMlpBlocksPerSm)
                     float4* ws, unsigned* words, int split) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned char* ring = smem + warp * MlpRing<NT>::kWarpBytes;
+  unsigned char* ring = smem + warp * WalkRing<NT>::kWarpBytes;
   const int n_warps = gridDim.x * kMlpWarps;
   const int gw = warp * gridDim.x + blockIdx.x;   // across blocks first
   const bool gated = u_blk != nullptr;
@@ -292,7 +166,7 @@ __global__ void __launch_bounds__(kMlpThreads, kMlpBlocksPerSm)
   const int half = warp & 1, pair_bar = 1 + (warp >> 1);
   const int n_pairs = gridDim.x * (kMlpWarps / 2);
   float4* xch = reinterpret_cast<float4*>(
-      smem + (warp | 1) * MlpRing<NT>::kWarpBytes);
+      smem + (warp | 1) * WalkRing<NT>::kWarpBytes);
   for (int c = (warp >> 1) * gridDim.x + blockIdx.x; c < d_ff / 16;
        c += n_pairs) {
     int glo, ghi, ulo = 0, uhi = 0;
@@ -397,7 +271,7 @@ template <int NT>
 int launch_mlp(void** args, int grid, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       bcsc_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MlpRing<NT>::kSmem);
+      mlp_smem<NT>());
   if (attr != cudaSuccess) return (int)attr;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -405,14 +279,14 @@ int launch_mlp(void** args, int grid, cudaStream_t st) {
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, bcsc_mlp_kernel<NT>, kMlpThreads, MlpRing<NT>::kSmem);
+      &per_sm, bcsc_mlp_kernel<NT>, kMlpThreads, mlp_smem<NT>());
   if (e != cudaSuccess) return (int)e;
   // the whole grid must be resident for the barrier
   if (grid < 1 || grid > per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   e = cudaLaunchCooperativeKernel((const void*)bcsc_mlp_kernel<NT>,
                                   dim3(grid), dim3(kMlpThreads), args,
-                                  MlpRing<NT>::kSmem, st);
+                                  mlp_smem<NT>(), st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 // epilogue (counterpart of kernels/epilogue.py::fused_epilogue), cp.async
 // copies and the mbarriers that guard their stages, TMA maps and loads,
 // ldmatrix / mma.sync fragments, wgmma descriptors and fences, and the
-// column-segment walk of the BCSC GEMV.
+// warp walk of the BCSC fused MLP and GEMV.
 #pragma once
 
 #include <cuda.h>
@@ -281,83 +281,144 @@ __device__ __forceinline__ float4 sum_in_order(const float4* p, long stride,
   return s;
 }
 
-// Threads and rows of one segment walk: 256 threads = 16 output columns of a
-// 16-wide block-column x 16 groups that split the segment's blocks; each
-// walk covers 8 activation rows.
-constexpr int kWalkThreads = 256;
-constexpr int kWalkRows = 8;
-constexpr int kWalkGroups = kWalkThreads / 16;
+// The warp walk of the BCSC kernels (the fused MLP's phases and the GEMV):
+// one warp streams the blocks of its column segment through a ring of its
+// own in shared memory onto mma.sync, with the rows as the MMA's N.
+//
+// The ring of one warp for NT 8-row tiles of x: slots of one weight block
+// (512 bytes) and its x slice (NT * 8 rows of 32 bytes); about 12 KB at
+// the fused MLP's depths.
+template <int NT>
+struct WalkRing {
+  static constexpr int kSlot = 512 + NT * 8 * 32;
+  static constexpr int kStages = NT == 1 ? 16 : NT == 2 ? 12 : NT == 4 ? 8 : 4;
+  static constexpr int kWarpBytes = kSlot * kStages;
+};
 
-// Loads 16 consecutive bf16 values (32 bytes, 16-byte aligned) as floats.
-template <bool kCacheGlobal>
-__device__ __forceinline__ void load16(const bf16* p, float* out) {
-  const uint4* v = reinterpret_cast<const uint4*>(p);
-  uint4 a, b;
-  if (kCacheGlobal) {
-    a = __ldcg(v);
-    b = __ldcg(v + 1);
-  } else {
-    a = v[0];
-    b = v[1];
-  }
-  const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f0 = __bfloat1622float2(h0[i]);
-    float2 f1 = __bfloat1622float2(h1[i]);
-    out[2 * i] = f0.x;
-    out[2 * i + 1] = f0.y;
-    out[8 + 2 * i] = f1.x;
-    out[8 + 2 * i + 1] = f1.y;
-  }
-}
+// One warp's walk: the sum over the blocks of two column segments (items
+// 0..n0-1: blocks lo0.. of pack 0 into acc0; items n0..n-1: blocks lo1.. of
+// pack 1 into acc1) of src's block-row slice times the block, with the
+// rows as the MMA's N: acc[t] holds output columns g and g + 8 (g = lane /
+// 4) of rows 8t + 2 (lane % 4) and the next one. Item j goes through ring
+// slot j % kStages as one cp.async group: the block, then src's slice of
+// its block-row (rows [0, mp), ``ld`` elements a row). prefetch_blocks()
+// may issue the first slots' blocks before src is ready, as groups of
+// their own; run() then adds their slices as groups of their own, so the
+// groups still complete in item order and one wait_group serves both.
+// Copies are .cg: they read L2 only, so src may have been written by
+// other SMs.
+template <int NT, int kS = WalkRing<NT>::kStages>
+struct WarpWalk {
+  static constexpr int S = kS;   // ring slots (a ring of kS * kSlot bytes)
+  const bf16* b0;
+  const int* r0;
+  int lo0, n0;
+  const bf16* b1;
+  const int* r1;
+  int lo1, n;
+  unsigned char* ring;
+  int lane, cur, nxt;   // block-rows of items base + lane, a batch ahead
 
-// One block-column of x (8 rows, leading dimension ldx) times a BCSC column
-// segment [lo, hi): out[m][n] = sum_i sum_k x[m][row_ids[i]*16 + k] * blk_i[k][n].
-// Each of the 16 groups walks every 16th block of the segment and the group
-// partials are summed in a fixed order, so the result is deterministic.
-// Threads 0..127 return element (m = tid / 16, n = tid % 16); the rest return
-// 0. ``red`` is a shared buffer of kWalkGroups * kWalkRows * 16 floats.
-// Must be called by all kWalkThreads threads of the block.
-template <bool kCacheGlobal>
-__device__ float segment_walk8(const bf16* x, long ldx, const bf16* blocks,
-                               const int* row_ids, int lo, int hi,
-                               float* red) {
-  const int n = threadIdx.x & 15;
-  const int g = threadIdx.x >> 4;
-  float acc[kWalkRows];
+  __device__ WarpWalk(const bf16* b0_, const int* r0_, int lo0_, int n0_,
+                      const bf16* b1_, const int* r1_, int lo1_, int n1_,
+                      unsigned char* ring_)
+      : b0(b0_), r0(r0_), lo0(lo0_), n0(n0_), b1(b1_), r1(r1_), lo1(lo1_),
+        n(n0_ + n1_), ring(ring_), lane(threadIdx.x & 31) {
+    cur = rows(0);
+    nxt = rows(32);
+  }
+  __device__ int rows(int base) const {
+    const int j = base + lane;
+    if (j < n0) return __ldg(r0 + lo0 + j);
+    if (j < n) return __ldg(r1 + lo1 + j - n0);
+    return 0;
+  }
+  __device__ unsigned char* slot(int j) const {
+    return ring + (j % S) * WalkRing<NT>::kSlot;
+  }
+  __device__ void copy_block(int j) const {   // 16 bytes a lane
+    const bf16* blk = j < n0 ? b0 + (long)(lo0 + j) * 256
+                             : b1 + (long)(lo1 + j - n0) * 256;
+    cp_async16(slot(j) + swz32(lane >> 1, lane & 1), blk + lane * 8, true);
+  }
+  // src's slice of item j's block-row; all lanes, j in increasing order
+  __device__ void copy_src(int j, const bf16* src, long ld, int mp) {
+    if (j > 0 && (j & 31) == 0) {
+      cur = nxt;
+      nxt = rows(j + 32);
+    }
+    const int row = __shfl_sync(0xffffffffu, cur, j & 31);
 #pragma unroll
-  for (int m = 0; m < kWalkRows; ++m) acc[m] = 0.0f;
-  for (int i = lo + g; i < hi; i += kWalkGroups) {
-    const bf16* blk = blocks + (long)i * 256;
-    float w[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k) w[k] = __bfloat162float(blk[k * 16 + n]);
-    const bf16* xr = x + (long)row_ids[i] * 16;
-#pragma unroll
-    for (int m = 0; m < kWalkRows; ++m) {
-      float xv[16];
-      load16<kCacheGlobal>(xr + m * ldx, xv);
-      float a = acc[m];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) a = fmaf(xv[k], w[k], a);
-      acc[m] = a;
+    for (int e = lane; e < NT * 16; e += 32) {   // (row m, 16-byte half h)
+      const int m = e >> 1, h = e & 1;
+      const bool ok = m < mp;
+      cp_async16(slot(j) + 512 + swz32(m, h),
+                 ok ? src + m * ld + row * 16 + h * 8 : src, ok);
     }
   }
-#pragma unroll
-  for (int m = 0; m < kWalkRows; ++m)
-    red[(g * kWalkRows + m) * 16 + n] = acc[m];
-  __syncthreads();
-  float r = 0.0f;
-  if (threadIdx.x < kWalkRows * 16) {
-    const int m = threadIdx.x >> 4;
-    for (int gg = 0; gg < kWalkGroups; ++gg)
-      r += red[(gg * kWalkRows + m) * 16 + n];
+  __device__ void prefetch_blocks() const {
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n) copy_block(j);
+      cp_async_commit();
+    }
   }
-  __syncthreads();
-  return r;
-}
+  __device__ void run(const bf16* src, long ld, int mp, bool prefetched,
+                      float (&acc0)[NT][4], float (&acc1)[NT][4]) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc0[t][e] = acc1[t][e] = 0.0f;
+    for (int j = 0; j < S - 1; ++j) {
+      if (j < n) {
+        if (!prefetched) copy_block(j);
+        copy_src(j, src, ld, mp);
+      }
+      cp_async_commit();
+    }
+    for (int j = 0; j < n; ++j) {
+      if (j + S - 1 < n) {
+        copy_block(j + S - 1);
+        copy_src(j + S - 1, src, ld, mp);
+      }
+      cp_async_commit();
+      cp_async_wait<S - 1>();   // this lane's copies of item j
+      __syncwarp();             // and the warp's
+      const unsigned char* sl = slot(j);
+      // A = block^T: matrices (k 0-7 | 8-15) x (n 0-7 | 8-15), a0..a3
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, sl + swz32((lane & 7) + ((lane >> 4) << 3),
+                                      (lane >> 3) & 1));
+      uint32_t b[NT][2];
+      if (NT == 1) {
+        uint32_t r[2];
+        ldmatrix_x2(r, sl + 512 + swz32(lane & 7, (lane >> 3) & 1));
+        b[0][0] = r[0];
+        b[0][1] = r[1];
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          uint32_t r[4];
+          ldmatrix_x4(r, sl + 512 + swz32(16 * p + (lane & 7) +
+                                              ((lane >> 4) << 3),
+                                          (lane >> 3) & 1));
+          b[2 * p][0] = r[0];
+          b[2 * p][1] = r[1];
+          b[2 * p + 1][0] = r[2];
+          b[2 * p + 1][1] = r[3];
+        }
+      }
+      if (j < n0) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) mma_16816(acc0[t], a, b[t][0], b[t][1]);
+      } else {
+#pragma unroll
+        for (int t = 0; t < NT; ++t) mma_16816(acc1[t], a, b[t][0], b[t][1]);
+      }
+      __syncwarp();   // the slot is refilled by the next copies
+    }
+    cp_async_wait<0>();
+  }
+};
 
 }  // namespace repro
 

@@ -15,40 +15,45 @@
 // Only wgmma reaches that rate, so the products run on it.
 //
 // Design: one thread block per (pair of q tiles, KV head, batch row), two
-// consumer warpgroups of 128 threads. A warpgroup owns one q tile of 64
-// rows, exactly wgmma's M: (position, query head) pairs, 64 / R positions x
-// the R query heads that share the KV head, so every K and V tile loaded
-// serves all R heads of both tiles. The block walks only the 64-key tiles
-// of its band, [q0 - window + 1, q_last], in ascending order (a warpgroup
-// skips the one tile at either end that only the other needs); keys at or
-// past S are zero-filled, never read. Q (once) and each key tile's K and V
-// are copied by 16-byte cp.async into shared memory in wgmma's 128-byte
-// swizzled layout (64-column blocks of 128-byte rows, 16-byte chunk c of row
-// r at c ^ (r % 8)), into a ring of two stages guarded by mbarriers: "full"
-// completes when every thread's copies of the stage have landed, "empty"
-// when every warp is done reading it. There is no block-wide barrier in the
-// loop, so one warpgroup can run a tile ahead of the other and its products
-// overlap the other's softmax. Per tile and warpgroup: S = Q K^T is wgmma
-// m64n64k16 with both operands from shared memory (K as stored, [key][D],
-// is the K-major B); the fp32 scores stay in registers, where scale, softcap
-// (the library's tanhf, as the plain version's torch.tanh), the mask (only
-// on the band's edge tiles: the diagonal, the window's far edge and keys
-// past S) and the fp32 online softmax run in log2 units (p = 2^(y - m) on
-// the special-function unit; row max and sum by quad shuffles); O is
-// rescaled only when a row's max moved. p is rounded to bf16 as the
-// reference's flash does and becomes the A operand of O += P V, wgmma
-// m64n64k16 with A from registers and V, [key][D], as the MN-major
-// ("transposed") B, one instruction per 64 columns of D. The 64 x D fp32
-// accumulator lives in registers for the block's life (128 a thread at
-// D 256); it leaves them once, divided by max(l, 1e-30), for the fp32
-// output. D is padded to a multiple of 64 with zeros in shared memory.
-// Blocks are launched longest first: q tiles in descending order, since
-// causal tiles have from 1 to S / 64 key tiles. The masking convention is
-// the reference's: NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2,
-// and the output is acc / max(l, 1e-30).
+// consumer warpgroups of 128 threads. A warpgroup owns one q tile of 64 rows,
+// exactly wgmma's M: (position, query head) pairs, per_wg = 64 / R (floored)
+// positions x the R query heads that share the KV head, so every K and V tile
+// loaded serves all R heads of both tiles. Any R up to 64 fits: when R does
+// not divide 64 (5, 6 and 10 in the reference's configs) the tile's last
+// 64 - per_wg * R rows are dead. A dead row's Q is zero-filled, so its scores
+// are 0 or masked on every tile (finite: its softmax never makes a NaN), the
+// warpgroup's band of key tiles is that of its live rows, and it stores
+// nothing. The block walks only the 64-key tiles of its band,
+// [q0 - window + 1, q_last], in ascending order (a warpgroup skips the one
+// tile at either end that only the other needs); keys at or past S are
+// zero-filled, never read. Q (once) and each key tile's K and V are copied by
+// 16-byte cp.async into shared memory in wgmma's 128-byte swizzled layout
+// (64-column blocks of 128-byte rows, 16-byte chunk c of row r at c ^ (r %
+// 8)), into a ring of two stages guarded by mbarriers: "full" completes when
+// every thread's copies of the stage have landed, "empty" when every warp is
+// done reading it. There is no block-wide barrier in the loop, so one
+// warpgroup can run a tile ahead of the other and its products overlap the
+// other's softmax. Per tile and warpgroup: S = Q K^T is wgmma m64n64k16 with
+// both operands from shared memory (K as stored, [key][D], is the K-major B);
+// the fp32 scores stay in registers, where scale, softcap (the library's
+// tanhf, as the plain version's torch.tanh), the mask (only on the band's edge
+// tiles: the diagonal, the window's far edge and keys past S) and the fp32
+// online softmax run in log2 units (p = 2^(y - m) on the special-function
+// unit; row max and sum by quad shuffles); O is rescaled only when a row's max
+// moved. p is rounded to bf16 as the reference's flash does and becomes the A
+// operand of O += P V, wgmma m64n64k16 with A from registers and V, [key][D],
+// as the MN-major ("transposed") B, one instruction per 64 columns of D. The
+// 64 x D fp32 accumulator lives in registers for the block's life (128 a
+// thread at D 256); it leaves them once, divided by max(l, 1e-30), for the
+// fp32 output. D is padded to a multiple of 64 with zeros in shared memory.
+// Blocks are launched longest first: q tiles in descending order, since causal
+// tiles have from 1 to S / 64 key tiles. The masking convention is the
+// reference's: NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2, and
+// the output is acc / max(l, 1e-30).
 //
 // What still holds it back: the softmax's per-element work on the CUDA
-// cores (tanhf above all) is still the largest share of a tile's time, and
+// cores (tanhf above all) is still the largest share of a tile's time
+// (dead rows take their share: 4 of 64 rows at R 5, 6 and 10), and
 // a warpgroup's own softmax does not overlap its own products; no producer
 // warp (all 256 threads issue the copies), and at D 256 the 193 KB of
 // shared memory allow one block per SM; each block holds only 128 / R
@@ -183,16 +188,18 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   const int tw_last = qw_last / kSwaKeys;
   unsigned char* qw = qs + wg * kTile;
 
-  // Q rows, per warpgroup: row = (position - qw0) * R + head-in-group
+  // Q rows of warpgroup w's tile: row r = (position - (q0 + w per_wg)) * R
+  // + head-in-group for r < live; rows past live are dead (zero-filled)
+  const int live = per_wg * R;
   for (int i = tid; i < kSwaWgs * kSwaRows * kChunks; i += kSwaThreads) {
-    const int row = i / kChunks, ch = i % kChunks;
-    const int pos = q0 + row / R;
-    const bool ok = pos < S && ch * 8 < D;
+    const int w = i / (kSwaRows * kChunks);
+    const int r = (i / kChunks) % kSwaRows, ch = i % kChunks;
+    const int pos = q0 + w * per_wg + r / R;
+    const bool ok = r < live && pos < S && ch * 8 < D;
     const bf16* src = ok ? q + (((long)b * S + pos) * H + (long)g * R +
-                                row % R) * D + ch * 8
+                                r % R) * D + ch * 8
                          : q;
-    cp_async16(qs + (row / kSwaRows) * kTile + swz(row % kSwaRows, ch), src,
-               ok);
+    cp_async16(qs + w * kTile + swz(r, ch), src, ok);
   }
   auto load_kv = [&](int tile, int st) {
     const int key0 = tile * kSwaKeys;
@@ -217,7 +224,8 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   mbar_arrive_on_copies(&full[0]);   // the Q copies land with stage 0
 
   // accumulator fragment: this thread's rows r0, r1 = r0 + 8 and, in each
-  // 8-column group j, columns 8j + cq and 8j + cq + 1
+  // 8-column group j, columns 8j + cq and 8j + cq + 1 (a dead row's p is
+  // past its tile's positions; it is never stored)
   const int r0 = 16 * warp + (lane >> 2), r1 = r0 + 8;
   const int p0 = qw0 + r0 / R, p1 = qw0 + r1 / R;
   const int cq = 2 * (lane & 3);
@@ -364,11 +372,11 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     for (int j = 0; j < 8; ++j) {
       const int col = nb * 64 + 8 * j + cq;
       if (col < D) {
-        if (p0 < S)
+        if (r0 < live && p0 < S)
           *reinterpret_cast<float2*>(
               out + (((long)b * S + p0) * H + h0 + r0 % R) * D + col) =
               make_float2(o[nb][4 * j] / d0, o[nb][4 * j + 1] / d0);
-        if (p1 < S)
+        if (r1 < live && p1 < S)
           *reinterpret_cast<float2*>(
               out + (((long)b * S + p1) * H + h0 + r1 % R) * D + col) =
               make_float2(o[nb][4 * j + 2] / d1, o[nb][4 * j + 3] / d1);
@@ -398,7 +406,7 @@ int launch_swa(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace repro
 
 // q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32. H / KV
-// must divide 64, D a multiple of 16 up to 256, 1 <= window <= S. Scores
+// at most 64, D a multiple of 16 up to 256, 1 <= window <= S. Scores
 // are q.k * score_mult, then tanh(.) * softcap when softcap > 0: the caller
 // passes 1/sqrt(D), or with a softcap the fp32 (1/sqrt(D)) / softcap, the
 // one multiply XLA makes of the reference's q.k * scale / softcap.
@@ -407,7 +415,7 @@ extern "C" int repro_sliding_window_attention(
     int H, int KV, int D, int window, float score_mult, float softcap,
     void* stream) {
   using namespace repro;
-  if (KV < 1 || H % KV || kSwaRows % (H / KV) || D % 16 || D > 256 ||
+  if (KV < 1 || H % KV || H / KV > kSwaRows || D % 16 || D > 256 ||
       D < 16 || window < 1 || S < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

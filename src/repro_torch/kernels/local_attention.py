@@ -20,7 +20,8 @@ hand-written kernel in ``csrc/local_attention.cu``.
 
 On the card the function is bound by operations (4·D flops per (query, key)
 pair and head), which only ``wgmma`` reaches: the kernel runs one warpgroup
-per 64-row tile of (position, head) rows, two per block sharing K/V tiles
+per 64-row tile of (position, head) rows (``64 // R`` positions x the R heads
+of a KV head, for any R up to 64), two per block sharing K/V tiles
 fed by a two-stage cp.async ring under mbarriers, S = QKᵀ and O += PV on
 wgmma with the scores, p and the 64 x D fp32 accumulator in registers, the
 softmax in log2 units, the mask only on the band's edge tiles, and the
@@ -49,11 +50,17 @@ def launch_config(B: int, S: int, H: int, KV: int, D: int) -> dict:
     computes it: one block of WARPGROUPS x 128 threads per (WARPGROUPS q
     tiles, KV head, batch row), and its shared memory (a Q tile per
     warpgroup plus STAGES K and V tiles, D padded to a multiple of 64, and
-    1 KB to align the 128-byte swizzle atoms)."""
-    per_block = WARPGROUPS * (TILE_ROWS // (H // KV))
+    1 KB to align the 128-byte swizzle atoms). A q tile holds ``per_tile``
+    positions x the R = H // KV heads of a KV head: its first ``live`` rows;
+    the other ``dead_rows`` (when R does not divide TILE_ROWS) compute
+    nothing that is kept."""
+    R = H // KV
+    per_tile = TILE_ROWS // R
     nb = -(-D // 64)
-    return dict(blocks=-(-S // per_block) * B * KV, threads=128 * WARPGROUPS,
-                stages=STAGES, key_tile=KEY_TILE,
+    return dict(blocks=-(-S // (WARPGROUPS * per_tile)) * B * KV,
+                threads=128 * WARPGROUPS, stages=STAGES, key_tile=KEY_TILE,
+                per_tile=per_tile, live=per_tile * R,
+                dead_rows=TILE_ROWS - per_tile * R,
                 smem_bytes=(WARPGROUPS + 2 * STAGES) * nb * 64 * 128 + 1024)
 
 
@@ -147,20 +154,21 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
 def sliding_window_attention_cuda(q, k, v, *, window: int,
                                   softcap: float = 0.0):
     """The same function through the CUDA kernel: bf16 q, k, v on the card,
-    at most 256 head dimensions (a multiple of 16) and H // KV dividing
-    64. Returns (B,S,H,D) fp32."""
+    at most 256 head dimensions (a multiple of 16) and H // KV at most 64
+    (a ratio that does not divide 64 leaves each tile's last
+    ``TILE_ROWS % (H // KV)`` rows dead). Returns (B,S,H,D) fp32."""
     _check_shapes(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]
+    if H // KV > TILE_ROWS or D % 16 or D > 256 or window < 1:
+        raise ValueError(f"the kernel takes H // KV up to {TILE_ROWS}, "
+                         f"head_dim a multiple of 16 up to 256 and a window "
+                         f">= 1; got H {H}, KV {KV}, D {D}, window {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"bf16 CUDA tensor, got {t.dtype} on {t.device}")
-    if TILE_ROWS % (H // KV) or D % 16 or D > 256 or window < 1:
-        raise ValueError(f"the kernel takes H // KV dividing {TILE_ROWS}, "
-                         f"head_dim a multiple of 16 up to 256 and a window "
-                         f">= 1; got H {H}, KV {KV}, D {D}, window {window}")
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     code = _build.library().repro_sliding_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,

@@ -667,6 +667,111 @@ def test_mlp_split_plan_fills_the_card(d_ff, n_out, split):
     assert (d_ff // 16) / split >= pmlp.MIN_SPLIT_ROWS
 
 
+# ------------------------------------------------------ the GEMV's schedule
+def _gemv_pack(case, device="cpu"):
+    """(x (8, K) with ``m`` real rows, pack, N) of a GEMV schedule case."""
+    from repro_torch.core import sparsity as sp
+    K, N, how = GEMV_CASES[case]
+    seed = len(case)
+    g = torch.Generator().manual_seed(seed)
+    if how == "one block a column":
+        w = torch.zeros(K, N)
+        for c in range(N // 16):
+            r = (5 * c) % (K // 16)
+            w[16 * r:16 * (r + 1), 16 * c:16 * (c + 1)] = torch.randn(
+                16, 16, generator=g)
+        pack = psparse.pack_weight(w, 16, 16, torch.bfloat16)
+    elif how == "emptied columns":
+        # pack_weight gives each emptied column one explicit zero block
+        w = sp.block_magnitude_prune(torch.randn(K, N, generator=g), 0.6, 16,
+                                     16)
+        w[:, :16] = 0
+        w[:, 16 * 9:16 * 11] = 0
+        pack = psparse.pack_weight(w, 16, 16, torch.bfloat16)
+    else:
+        pack = _port_pack(K, N, 0.75, seed, "cpu")
+        if how == "padded":
+            pack = psparse.pad_packed(pack, pack["blocks"].shape[0] + 21)
+    x = torch.randn(8, K, generator=g).bfloat16()
+    return x.to(device), {k: v.to(device) for k, v in pack.items()}, N
+
+
+GEMV_CASES = {    # K, N, how the pack is made
+    "one block a column": (256, 512, "one block a column"),
+    "emptied columns": (256, 528, "emptied columns"),
+    "padded pack": (512, 256, "padded"),
+    "qwen2.5-3b up": (2048, 11008, "port"),
+    "qwen2.5-3b down": (11008, 2048, "port"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEMV_CASES))
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_gemv_schedule_model_matches_plain(case, n_sm):
+    """The GEMV's schedule (each block-column's segment cut into gemv_plan's
+    split parts of equal block counts, one a warp; the parts' partials added
+    in split order; bias and silu at the flush) computes the plain GEMV:
+    every payload block is read exactly once (a pad, zero, adds nothing),
+    each column's parts are added in split order, and the result is the
+    plain one within 1e-5 of max |out| (fp32 sums of the same bf16 products
+    in another order). On a one-SM card the split is smaller than on an
+    H100's."""
+    x, p, N = _gemv_pack(case)
+    bias = torch.randn(N, generator=torch.Generator().manual_seed(N))
+    got, trace = pbm.gemv_schedule_model(
+        x, p["blocks"], p["row_ids"], p["col_ptr"], n_out=N, bias=bias,
+        activation="silu", n_sm=n_sm)
+    want = pbm.bcsc_gemv_plain(x, p["blocks"], p["row_ids"], p["col_ids"],
+                               n_out=N, bias=bias, activation="silu")
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    split = trace["split"]
+    assert split == pbm.gemv_plan(x.shape[1], N, n_sm)["split"]
+    assert trace["reads"] == [1] * p["blocks"].shape[0]
+    assert trace["order"] == {c: list(range(split)) for c in range(N // 16)}
+    # part s of column c: warp s of thread block c
+    assert trace["warp"] == {(c, s): (c, s) for c in range(N // 16)
+                             for s in range(split)}
+    assert pbm.gemv_plan(x.shape[1], N, n_sm)["grid"] == N // 16
+
+
+@pytest.mark.parametrize("K,N,split", [(2048, 11008, 3), (11008, 2048, 16),
+                                       (2304, 9216, 3), (9216, 2304, 14)])
+def test_gemv_plan_fills_the_card(K, N, split):
+    """Shapes only, on an H100 (qwen2.5-3b's up and down projections, and
+    gemma2-2b's widths): one part a warp and one thread block a column,
+    GEMV_WARPS_PER_SM warps an SM with fewer idle than one column has
+    parts, each part at least MIN_PART_ROWS block-rows of K on average; the
+    down projection's ~128 columns are cut 16 ways, not left on 128
+    warps."""
+    plan = pbm.gemv_plan(K, N, H100_SMS)
+    assert plan["split"] == split <= pbm.GEMV_MAX_SPLIT
+    assert plan["warps"] == H100_SMS * pbm.GEMV_WARPS_PER_SM
+    tasks = plan["tasks"]
+    assert tasks == (N // 16) * split
+    assert plan["warps"] - N // 16 < tasks <= plan["warps"]
+    assert plan["grid"] == N // 16 and plan["threads"] == 32 * split
+    assert (K // 16) / split >= pbm.MIN_PART_ROWS
+    # a thread block's rings fit the shared memory a block may take
+    assert plan["smem_bytes"] <= 232448
+
+
+def test_gemv_constants_match_the_kernel():
+    """The planner's copies of the GEMV's launch constants agree with
+    csrc/bcsc_matmul.cu and the walk's ring slot in csrc/common.cuh; the
+    old walk (scalar loads on the CUDA cores) is gone."""
+    gemv = (CSRC / "bcsc_matmul.cu").read_text()
+    assert f"kGemvRows = {pbm.GEMV_ROWS};" in gemv
+    assert f"kGemvMaxWarps = {pbm.GEMV_MAX_SPLIT};" in gemv
+    assert f"kGemvStages = {pbm.GEMV_STAGES};" in gemv
+    assert "WarpWalk<1, kGemvStages>" in gemv
+    common = (CSRC / "common.cuh").read_text()
+    assert "kSlot = 512 + NT * 8 * 32;" in common
+    assert pbm.GEMV_SLOT == 512 + 8 * 32
+    for gone in ("segment_walk8", "load16", "kWalk"):
+        assert gone not in common + gemv
+
+
 def test_mlp_and_rs_constants_match_the_kernels():
     """The planners' copies of the kernels' constants (the launch of
     bcsc_mlp.cu, the arms and units of rs_matmul.cu) agree with the
@@ -675,9 +780,10 @@ def test_mlp_and_rs_constants_match_the_kernels():
     mlp = (CSRC / "bcsc_mlp.cu").read_text()
     assert f"kMlpWarps = {pmlp.MLP_WARPS};" in mlp
     assert f"kMlpBlocksPerSm = {pmlp.MLP_BLOCKS_PER_SM};" in mlp
+    # the warp walk's ring, which the fused MLP shares with the GEMV
     stages = " : ".join(f"NT == {nt} ? {pmlp.ring_stages(nt)}"
                         for nt in (1, 2, 4)) + f" : {pmlp.ring_stages(8)};"
-    assert stages in mlp
+    assert stages in (CSRC / "common.cuh").read_text()
     for Mp in (8, 16, 24, 32, 64):
         lc = pmlp.launch_config(Mp, 11008, 2048, H100_SMS)
         assert lc["row_tiles"] * 8 >= Mp
@@ -805,21 +911,26 @@ def _port_swa(q, k, v, window, softcap, **kw):
         **kw)
 
 
-@pytest.mark.parametrize("S,window", [(40, 40), (40, 12), (100, 100),
-                                      (100, 33), (300, 300), (300, 70),
-                                      (1100, 600)])
+@pytest.mark.parametrize("S,window,R", [(40, 40, 2), (40, 12, 2),
+                                        (100, 100, 2), (100, 33, 2),
+                                        (300, 300, 2), (300, 70, 2),
+                                        (1100, 600, 2), (100, 33, 5),
+                                        (300, 300, 5), (130, 40, 10),
+                                        (300, 70, 10)])
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
-def test_sliding_window_plain_matches_flash(ref, monkeypatch, S, window,
+def test_sliding_window_plain_matches_flash(ref, monkeypatch, S, window, R,
                                             softcap):
     """The plain version is ``models/flash.py``'s forward: the same block
     schedule (ragged S, several blocks, causal and window modes, blocks
-    skipped), the same fp32 online softmax and bf16 PV. With XLA's exp and
-    tanh in place of torch's, every output is within 1e-5. With torch's own,
-    which differ from XLA's in the last fp32 bits, a p now and then rounds
-    to the other bf16 neighbour (2^-8 of it): 99 % of the outputs stay
-    within 1e-5, and each (position, head) row within 2e-3 of its own
-    max |out|."""
-    q, k, v = _swa_case(S, D=16 if S < 1000 else 8, seed=S + window)
+    skipped), the same fp32 online softmax and bf16 PV, at head ratios R 2
+    and, as llama4 (40/8) and recurrentgemma-2b (10/1) have them, 5 and 10.
+    With XLA's exp and tanh in place of torch's, every output is within
+    1e-5. With torch's own, which differ from XLA's in the last fp32 bits, a
+    p now and then rounds to the other bf16 neighbour (2^-8 of it): 99 % of
+    the outputs stay within 1e-5, and each (position, head) row within 2e-3
+    of its own max |out|."""
+    q, k, v = _swa_case(S, R=R, D=16 if S < 1000 else 8,
+                        seed=S + window + 10 * (R - 2))
     want = _flash_fp32(ref, q, k, v, window, softcap)
     got = _port_swa(q, k, v, window, softcap)
     assert got.dtype == torch.float32 and got.shape == q.shape
@@ -853,6 +964,47 @@ def test_sliding_window_plain_matches_pallas_and_oracle(ref, S, window,
         want = np.asarray(want)
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=2e-2 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("R", [1, 2, 5, 6, 8, 10])
+@pytest.mark.parametrize("S", [1, 70, 300])
+def test_sliding_window_row_map_covers_each_row_once(R, S):
+    """A replay of the kernel's row map over ``launch_config``'s grid: q
+    tile w of block (q tile pair, KV head g, batch row b) holds positions
+    q0 + w * per_tile + r // R and heads g * R + r % R in its first ``live``
+    rows r; each (batch row, position, head) is read and written by exactly
+    one row, the ``dead_rows`` (4 of 64 at R 5, 6 and 10) by none. The
+    kernel source computes that map and refuses only R past 64."""
+    B, KV, D = 2, 2, 128
+    H = KV * R
+    lc = pswa.launch_config(B, S, H, KV, D)
+    per_tile, live = lc["per_tile"], lc["live"]
+    assert live + lc["dead_rows"] == pswa.TILE_ROWS
+    assert lc["dead_rows"] == (4 if R in (5, 6, 10) else 0)
+    per_block = pswa.WARPGROUPS * per_tile
+    n_qt = -(-S // per_block)
+    assert lc["blocks"] == n_qt * B * KV
+    seen = {}
+    for block in range(lc["blocks"]):
+        qt = n_qt - 1 - block // (B * KV)          # longest first
+        g, b = (block % (B * KV)) % KV, (block % (B * KV)) // KV
+        for w in range(pswa.WARPGROUPS):
+            for r in range(pswa.TILE_ROWS):
+                pos = qt * per_block + w * per_tile + r // R
+                if r >= live or pos >= S:
+                    continue                       # dead, or past S
+                key = (b, pos, g * R + r % R)
+                seen[key] = seen.get(key, 0) + 1
+    assert seen == {(b, p, h): 1 for b in range(B) for p in range(S)
+                    for h in range(H)}
+    src = (CSRC / "local_attention.cu").read_text()
+    assert "const int pos = q0 + w * per_wg + r / R;" in src
+    assert "const bool ok = r < live && pos < S && ch * 8 < D;" in src
+    assert "H / KV > kSwaRows" in src and "kSwaRows % (H / KV)" not in src
+    q = torch.zeros(1, 4, 65, 16, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 4, 1, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 64"):
+        pswa.sliding_window_attention_cuda(q, kv, kv, window=4)
 
 
 def test_flash_attention_entry_is_causal_window(ref):
@@ -1048,11 +1200,16 @@ def test_cuda_paged_attention_hole_reads_page_zero(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,window,R,D", [(300, 300, 2, 256), (300, 70, 2, 256),
-                                          (200, 200, 8, 128), (130, 40, 1, 64)])
+@pytest.mark.parametrize("S,window,R,D", [
+    (300, 300, 2, 256), (300, 70, 2, 256), (200, 200, 8, 128),
+    (130, 40, 1, 64), (300, 300, 5, 128), (300, 70, 5, 128),
+    (300, 300, 6, 128), (300, 70, 6, 128), (300, 300, 10, 256),
+    (300, 70, 10, 256)])
 def test_cuda_sliding_window_matches_plain(cuda, S, window, R, D):
     """The kernel walks keys in another order than flash's schedule and
-    sums its tensor-core products in its own: 1e-3 of max |out|."""
+    sums its tensor-core products in its own: 1e-3 of max |out|. R 5, 6
+    and 10 (llama4, internvl2-26b, recurrentgemma-2b) leave dead rows in
+    every tile."""
     q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
                for a in _swa_case(S, KV=2, R=R, D=D, seed=S))
     got = pops.sliding_window_attention(q, k, v, window=window, softcap=50.0)
@@ -1066,14 +1223,15 @@ def test_cuda_sliding_window_matches_plain(cuda, S, window, R, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,window", [(300, 70), (300, 300), (130, 40),
                                       (4097, 4096)])
-@pytest.mark.parametrize("R", [1, 2, 8])
+@pytest.mark.parametrize("R", [1, 2, 5, 6, 8, 10])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
 def test_cuda_sliding_window_tile_edges(cuda, S, window, R, D, softcap):
     """S and window not multiples of the 64-key tile (ragged last q and key
     tiles, the band's far edge inside a tile, masked and unmasked tiles),
     4097 with a 4096 window (one key past the window, the global causal
-    shape's long walk): 1e-3 of max |out|."""
+    shape's long walk), at head ratios that divide the 64-row tile and at
+    5, 6 and 10, which leave 4 dead rows in it: 1e-3 of max |out|."""
     q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
                for a in _swa_case(S, B=1 if S > 1000 else 2, KV=2, R=R, D=D,
                                   seed=S + window + R))
@@ -1199,3 +1357,47 @@ def test_cuda_rs_matmul_copies_nothing(cuda, M):
     grew = torch.cuda.max_memory_allocated(cuda) - before
     assert grew < w.numel() * w.element_size()
     assert grew >= out.numel() * out.element_size()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GEMV_CASES) + [
+    "more blocks a part than the ring holds"])
+@pytest.mark.parametrize("M", [1, 8])
+def test_cuda_bcsc_gemv_edges(cuda, case, M):
+    """The GEMV kernel against its plain version on packs with one block a
+    column, emptied columns (one explicit zero block each), pads, both of
+    qwen2.5-3b's shapes and one whose parts hold more blocks than the
+    16-slot ring and than a batch of 32 row ids (split 1, 64 blocks a
+    column), with 1 and 8 real rows, each activation with and without
+    bias: 1e-4 of max |out| (fp32 sums of the same bf16 products in another
+    order). Two calls give equal bits, and so does a call on a second
+    stream."""
+    if case in GEMV_CASES:
+        x, p, N = _gemv_pack(case, cuda)
+    else:
+        K, N = 1024, 16 * 2176     # more columns than warps: split 1
+        assert pbm.gemv_plan(K, N, _build.sm_count(cuda.index or 0))[
+            "split"] == 1
+        x = torch.randn(8, K, device=cuda).bfloat16()
+        p = psparse.pack_weight(torch.randn(K, N, device=cuda) / K ** 0.5,
+                                16, 16, torch.bfloat16)
+    x[M:] = 0
+    args = (x, p["blocks"], p["row_ids"], p["col_ptr"])
+    bias = torch.randn(N, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    for act in (None, "relu", "silu", "gelu"):
+        for b in (None, bias):
+            kw = dict(n_out=N, bias=b, activation=act)
+            got = pbm.bcsc_gemv_cuda(*args, **kw)
+            again = pbm.bcsc_gemv_cuda(*args, **kw)
+            side.wait_stream(torch.cuda.current_stream(cuda))
+            with torch.cuda.stream(side):
+                other = pbm.bcsc_gemv_cuda(*args, **kw)
+            torch.cuda.current_stream(cuda).wait_stream(side)
+            want = pbm.bcsc_gemv_plain(x, p["blocks"], p["row_ids"],
+                                       p["col_ids"], **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got[:M], want[:M], rtol=0,
+                atol=1e-4 * float(want[:M].abs().max()))
+            assert torch.equal(got, again) and torch.equal(got, other)
