@@ -35,16 +35,29 @@ Phases, each of which must pass:
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
    packed at 0.75 block sparsity. First the first prefill and decode logits
    of the kernel path are held against the plain path; then 12 requests go
-   through ``LLM.stream`` on paged fp KV (launch counts zeroed just before,
-   read just after: sliding-window attention, paged attention, the fused MLP
-   and the GEMM must have run), then 4 requests on int8 KV pages with the
-   two-call MLP route (the GEMV and GEMM arms);
+   through ``LLM.stream`` on paged fp KV (sliding-window attention, paged
+   attention, the fused MLP and the GEMM must have run), then 4 requests on
+   int8 KV pages with the two-call MLP route (the GEMV and GEMM arms), then
+   8 requests of 64 new tokens through ``LLM.generate`` on
+   ``plan_for_engine(slots=8, cache_len=1024)`` (the drain engine's
+   contiguous cache);
 5. serve gemma2-2b: full width and depth (26 layers alternating local and
    global attention, softcaps), the same checks, then 6 requests of up to
    6000 prompt tokens through ``LLM.stream`` on paged fp KV: prefill runs
    the sliding-window kernel in window mode in the local layers, decode
    past position 4096 wraps the local rings; every request must return its
    budget of in-vocabulary tokens;
+   every pass of 4 and 5 runs three times in turns (``_turns``): with the
+   decode step captured as a CUDA graph (the first run captures it), with
+   the eager step (``decode_graphs=False``), with the graph again. The
+   three must give equal streams token for token, and the last run (the
+   main path's: launch counts zeroed just before, read just after) the
+   eager run's launch counts exactly, with paged attention once per global
+   layer per decode step and the MLP kernel at least once per layer per
+   step. Each pass prints decode tokens/s in both modes, the graphed step's
+   device time (CUDA events around 16 replays), its kernels' busy time and
+   the three pairs of kernels with the most idle time between them (a
+   profiler trace of 16 more), and the capture time;
 6. report: prefill and decode tokens/s, the wall time of each phase, one
    JSON line describing every kernel, the card's name and power limit, then
    the contract line.
@@ -80,6 +93,9 @@ GEMMA_PLAN = dict(rows=4, cache_len=8192, page_size=64)
 GEMMA_LENS = (7, 300, 1500, 4100, 4700, 6000)
 GEMMA_CHECK = (300, 4700)
 GEMMA_NEW = 24
+# the qwen2.5-3b generate pass (plan_for_engine(slots=8, cache_len=1024))
+GENERATE_LENS = (5, 37, 64, 130, 300, 511, 700, 900)
+GENERATE_NEW = 64
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -994,16 +1010,17 @@ def _layer_errors(llm, judge, lengths=(37, 64), tier=64):
     return lines
 
 
-def _serve(llm, requests, judge, tag, max_new, must_launch):
-    """One ``LLM.stream`` run with the launch counts zeroed just before and
-    read just after; checks every request's tokens. Returns (launch counts,
-    phase stats, wall seconds)."""
+def _serve(llm, requests, judge, tag, max_new, must_launch,
+           entry="stream"):
+    """One ``LLM.stream`` (or ``LLM.generate``) run with the launch counts
+    zeroed just before and read just after; checks every request's tokens.
+    Returns (finished requests, launch counts, phase stats, wall seconds)."""
     from repro_torch.kernels import ops
     vocab = llm.cfg.vocab_size
     sync()
     ops.reset_launches()
     t0 = time.perf_counter()
-    done = llm.stream(requests)
+    done = getattr(llm, entry)(requests)
     sync()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1017,18 +1034,127 @@ def _serve(llm, requests, judge, tag, max_new, must_launch):
         judge.check(f"{tag}: {name} launched", counts[name] > 0,
                     f"{counts[name]} launches")
     generated = sum(len(r.out) for r in done)
-    steps = max(st["decode_steps"], 1)
+    steps = max(_decode_steps(llm, st), 1)
     log(f"  {tag}: wall {wall:.2f} s; prefill {st['prefill_real_tokens']} "
         f"tokens in {st['prefill_batches']} batches, "
         f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
-        f"tokens/s; decode {generated} tokens in {st['decode_steps']} steps,"
-        f" {generated / max(st['decode_s'], 1e-9):.1f} tokens/s; "
-        f"preemptions {st['preemptions']}; launches {counts}; per decode "
-        f"step {counts['paged_attention'] / steps:.1f} paged-attention and "
-        f"{counts['bcsc_mlp'] / steps:.1f} fused-MLP launches; per prefill "
-        f"batch {counts['sliding_window_attention'] / max(st['prefill_batches'], 1):.1f}"
+        f"tokens/s; decode {generated} tokens in {steps} steps "
+        f"({st['decode_chunks']} chunks), "
+        f"{generated / max(st['decode_s'], 1e-9):.1f} tokens/s; "
+        f"preemptions {st.get('preemptions', 0)}; launches {counts}; per "
+        f"decode step {counts['paged_attention'] / steps:.1f} "
+        f"paged-attention and {counts['bcsc_mlp'] / steps:.1f} fused-MLP "
+        f"launches; per prefill batch "
+        f"{counts['sliding_window_attention'] / max(st['prefill_batches'], 1):.1f}"
         " sliding-window launches")
-    return counts, st, wall
+    return done, counts, st, wall
+
+
+def _decode_steps(llm, st) -> int:
+    """Decode steps of a run: the scheduler counts them, the drain engine
+    counts chunks of ``sync_every``."""
+    return st.get("decode_steps", st["decode_chunks"] * llm.plan.sync_every)
+
+
+def _graph_step(graph, n: int = 16):
+    """(device ms, busy ms, idle) per replay of a captured decode step:
+    ``n`` replays back to back, timed by CUDA events around them; then
+    ``n`` more under ``torch.profiler``, whose kernels' device times are
+    summed (None when the trace holds no device time). Tracing lengthens
+    the kernels by a few percent, so a busy time at or just above the step
+    time means the device never idled between the graph's kernels.
+    ``idle`` lists the three pairs of kernels (one, the next) with the
+    most idle time on the device between them, in ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def replays():
+        for _ in range(n):
+            graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    replays()
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replays()
+        torch.cuda.synchronize()
+    kernels = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                     for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+    busy = sum(end_ - start_ for start_, end_, _ in kernels)
+    idle = {}
+    for (_, end0, prev), (start1, _, name) in zip(kernels, kernels[1:]):
+        pair = f"{prev[:60]} -> {name[:60]}"
+        idle[pair] = idle.get(pair, 0.0) + max(start1 - end0, 0.0)
+    top = sorted(idle.items(), key=lambda kv: -kv[1])[:3]
+    return (start.elapsed_time(end) / n,
+            busy / 1e3 / n if busy > 0 else None,
+            [(name, t / 1e3 / n) for name, t in top])
+
+
+def _turns(llm, make_requests, judge, tag, max_new, must_launch,
+           entry="stream"):
+    """A serve pass in both decode modes, in turns on one card: graphed
+    (its first run captures the step graph), eager (``decode_graphs=False``
+    on the same weights), graphed again (the captured graph replayed: the
+    main path's run, whose counts are returned). The three must give equal
+    streams token for token, and the second graphed run the eager run's
+    launch counts exactly. Returns (launch counts, phase stats, wall
+    seconds, a line of rates)."""
+    from repro_torch.serve import LLM
+    eager = LLM(llm.cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+                decode_graphs=False)
+    engine = llm._scheduler if entry == "stream" else None
+    first, _, _, _ = _serve(llm, make_requests(), judge,
+                            f"{tag} [graphed, capturing]", max_new, (),
+                            entry)
+    engine = engine or llm._engine
+    captured = engine.graph
+    runs = {"eager": _serve(eager, make_requests(), judge, f"{tag} [eager]",
+                            max_new, must_launch, entry),
+            "graphed": _serve(llm, make_requests(), judge,
+                              f"{tag} [graphed]", max_new, must_launch,
+                              entry)}
+    streams = [[r.out for r in done] for done in
+               (first, runs["eager"][0], runs["graphed"][0])]
+    judge.check(f"{tag}: graphed and eager streams equal token for token",
+                streams[0] == streams[1] == streams[2],
+                f"{sum(len(o) for o in streams[1])} tokens, three runs")
+    judge.check(f"{tag}: graphed launches equal the eager run's",
+                runs["graphed"][1] == runs["eager"][1],
+                f"{runs['graphed'][1]} vs {runs['eager'][1]}")
+    rate = {}
+    for mode, (done, _, st, _) in runs.items():
+        generated = sum(len(r.out) for r in done)
+        rate[mode] = generated / max(st["decode_s"], 1e-9)
+    line = (f"{tag}: decode {rate['graphed']:.1f} tokens/s graphed, "
+            f"{rate['eager']:.1f} eager ({rate['graphed'] / rate['eager']:.2f}"
+            "x)")
+    graph = engine.graph
+    if DEVICE == "cuda":
+        judge.check(f"{tag}: decode step captured", graph is not None
+                    and graph is captured,
+                    "one step graph, reused by the second graphed run")
+    if graph is not None:
+        step_ms, busy, idle = _graph_step(graph)
+        line += (f"; graphed step {step_ms:.3f} ms on the device "
+                 f"({sum(graph.tally.values())} port-kernel launches in "
+                 "it), kernels busy "
+                 + (f"{busy:.3f} ms of it ({busy / step_ms:.1%}, traced)"
+                    if busy else "not measured (no device time in the "
+                    "trace)")
+                 + f"; capture {graph.capture_s:.2f} s")
+        log(f"  {tag}: most idle time between two kernels, ms per graphed "
+            "step (traced): " + "; ".join(f"{t:.3f} {pair}"
+                                          for pair, t in idle))
+    log(f"  {line}")
+    _, counts, st, wall = runs["graphed"]
+    return counts, st, wall, line
 
 
 def _requests(cfg, lengths, max_new, arrivals):
@@ -1075,47 +1201,92 @@ def _load(arch, plan_kw):
     return llm
 
 
+def _per_step_checks(judge, tag, counts, layers, n_global, steps,
+                     mlp="bcsc_mlp", mlp_per_layer=1):
+    """Launches per decode step of a run: paged attention once per global
+    layer, the MLP kernel at least ``mlp_per_layer`` times per layer (plus
+    short prefills)."""
+    judge.check(f"{tag}: paged-attention launches per decode step",
+                counts["paged_attention"] == n_global * steps,
+                f"{counts['paged_attention']} = {n_global} x {steps} steps")
+    judge.check(f"{tag}: {mlp} launches per decode step",
+                counts[mlp] >= mlp_per_layer * layers * steps,
+                f"{counts[mlp]} >= {mlp_per_layer} x {layers} x {steps} "
+                "steps (plus short prefills)")
+
+
 def phase_serve(judge):
-    """Full-width, full-depth qwen2.5-3b through ``LLM.stream``: a paged fp
-    pass on the default plan, then an int8 pass on the two-call MLP route.
-    Returns the summed launch counts."""
-    from repro_torch.core.plan import plan_for_scheduler
+    """Full-width, full-depth qwen2.5-3b: through ``LLM.stream`` a paged fp
+    pass on the default plan and an int8 pass on the two-call MLP route,
+    then through ``LLM.generate`` a drain pass on ``plan_for_engine``'s
+    contiguous plan; each pass graphed and eager in turns (``_turns``).
+    Returns (the graphed runs' summed launch counts, lines of rates)."""
+    from repro_torch.core.plan import plan_for_engine, plan_for_scheduler
     from repro_torch.serve import LLM
 
     llm = _load(ARCH, dict(rows=8, cache_len=1024, page_size=64))
     cfg = llm.cfg
+    layers = cfg.num_layers
     _check_logits(llm, judge)
     _layer_errors(llm, judge)
     lens = [5, 37, 64, 130, 300, 511] * 2
-    launches, _, _ = _serve(
-        llm, _requests(cfg, lens, 32, [8 * (i // 4) for i in range(12)]),
+    launches, st, _, line = _turns(
+        llm, lambda: _requests(cfg, lens, 32,
+                               [8 * (i // 4) for i in range(12)]),
         judge, "qwen fp pass", 32,
         ("sliding_window_attention", "paged_attention", "bcsc_mlp",
          "bcsc_matmul"))
+    _per_step_checks(judge, "qwen fp pass", launches, layers, layers,
+                     st["decode_steps"])
+    lines = [line]
     plan8 = dataclasses.replace(
         plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
                            attn_path="paged", share_prefix=False,
                            kv_quant="int8", sync_every=8),
         mlp_fused_m_max=0)
     llm8 = LLM(cfg, llm.params, plan8, eos_id=-1, device=DEVICE)
-    counts8, _, _ = _serve(llm8, _requests(cfg, [5, 130, 300, 511], 8,
-                                           [0] * 4),
-                           judge, "qwen int8 pass", 8,
-                           ("paged_attention", "bcsc_gemv", "bcsc_matmul"))
-    return {k: launches[k] + counts8[k] for k in launches}
+    counts8, st8, _, line = _turns(
+        llm8, lambda: _requests(cfg, [5, 130, 300, 511], 8, [0] * 4),
+        judge, "qwen int8 pass", 8,
+        ("paged_attention", "bcsc_gemv", "bcsc_matmul"))
+    _per_step_checks(judge, "qwen int8 pass", counts8, layers, layers,
+                     st8["decode_steps"], mlp="bcsc_gemv", mlp_per_layer=3)
+    lines.append(line)
+    del llm8
+    llm_g = LLM(cfg, llm.params, plan_for_engine(cfg, slots=8,
+                                                 cache_len=1024),
+                eos_id=-1, device=DEVICE)
+    counts_g, st_g, _, line = _turns(
+        llm_g, lambda: _requests(cfg, GENERATE_LENS, GENERATE_NEW,
+                                 [0] * len(GENERATE_LENS)),
+        judge, "qwen generate pass", GENERATE_NEW, ("bcsc_mlp",),
+        entry="generate")
+    eng = llm_g._engine
+    judge.check("qwen generate pass: one host transfer per decode chunk",
+                eng.host_syncs == 2 * st_g["decode_chunks"],
+                f"{eng.host_syncs} transfers over its two runs of "
+                f"{st_g['decode_chunks']} chunks")
+    judge.check("qwen generate pass: fused-MLP launches per decode step",
+                counts_g["bcsc_mlp"] >= layers * _decode_steps(llm_g, st_g),
+                f"{counts_g['bcsc_mlp']} >= {layers} x "
+                f"{_decode_steps(llm_g, st_g)} steps")
+    lines.append(line + f"; host_syncs {st_g['decode_chunks']} a run")
+    total = {k: launches[k] + counts8[k] + counts_g[k] for k in launches}
+    return total, lines
 
 
 def phase_serve_gemma(judge):
     """Full-width, full-depth gemma2-2b through ``LLM.stream``: long prompts
     (window-mode prefill in the local layers), decode past the window (the
-    local rings wrap). Returns (launch counts, tokens/s line)."""
+    local rings wrap), graphed and eager in turns. Returns (the graphed
+    run's launch counts, lines of rates)."""
     llm = _load(GEMMA, GEMMA_PLAN)
     cfg, plan = llm.cfg, llm.plan
     _check_logits(llm, judge, GEMMA_CHECK, plan.tier(max(GEMMA_CHECK)))
     _layer_errors(llm, judge, GEMMA_CHECK, plan.tier(max(GEMMA_CHECK)))
     arrivals = [0, 0, 0, 8, 8, 8]
-    counts, st, wall = _serve(
-        llm, _requests(cfg, GEMMA_LENS, GEMMA_NEW, arrivals), judge,
+    counts, st, wall, line = _turns(
+        llm, lambda: _requests(cfg, GEMMA_LENS, GEMMA_NEW, arrivals), judge,
         "gemma2 pass", GEMMA_NEW,
         ("sliding_window_attention", "paged_attention", "bcsc_mlp",
          "bcsc_matmul"))
@@ -1125,14 +1296,8 @@ def phase_serve_gemma(judge):
                 == layers * st["prefill_batches"],
                 f"{counts['sliding_window_attention']} = {layers} x "
                 f"{st['prefill_batches']} batches")
-    judge.check("gemma2 pass: paged-attention launches per decode step",
-                counts["paged_attention"] == n_global * st["decode_steps"],
-                f"{counts['paged_attention']} = {n_global} x "
-                f"{st['decode_steps']} steps")
-    judge.check("gemma2 pass: fused-MLP launches per decode step",
-                counts["bcsc_mlp"] >= layers * st["decode_steps"],
-                f"{counts['bcsc_mlp']} >= {layers} x {st['decode_steps']} "
-                "steps (plus short prefills)")
+    _per_step_checks(judge, "gemma2 pass", counts, layers, n_global,
+                     st["decode_steps"])
     generated = len(GEMMA_LENS) * GEMMA_NEW
     rates = (f"gemma2-2b: prefill "
              f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
@@ -1140,8 +1305,8 @@ def phase_serve_gemma(judge):
              f"{st['prefill_s']:.2f} s), decode "
              f"{generated / max(st['decode_s'], 1e-9):.1f} tokens/s "
              f"({generated} tokens, {st['decode_s']:.2f} s), wall "
-             f"{wall:.2f} s")
-    return counts, rates
+             f"{wall:.2f} s (the graphed run)")
+    return counts, [line, rates]
 
 
 def main() -> int:
@@ -1167,16 +1332,20 @@ def main() -> int:
         timed("kernels (gemma2 widths)", phase_kernels_gemma, flush, judge)
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
         del flush
-        launches = timed("serve qwen2.5-3b", phase_serve, judge)
+        launches, rates = timed("serve qwen2.5-3b", phase_serve, judge)
         torch.cuda.empty_cache()
-        g_counts, rates = timed("serve gemma2-2b", phase_serve_gemma, judge)
+        g_counts, g_rates = timed("serve gemma2-2b", phase_serve_gemma,
+                                  judge)
+        rates += g_rates
         launches = {k: launches[k] + g_counts[k] for k in launches}
         if judge.failures:
             raise SmokeFailure(f"checks failed: {judge.failures}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    log(rates)
+    log(f"{card}:")
+    for line in rates:
+        log(f"  {line}")
     log("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                          for k, v in walls.items()))
     kernels = []

@@ -12,12 +12,17 @@ seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
 ragged length into a paged fp pool (qwen2.5-3b: 8 rows of 5 to 900 tokens
 in a 1024-token cache; gemma2-2b: 4 rows of 7 to 6000 tokens in an
 8192-token cache, so its local rings have wrapped), then runs decode steps
-(``decoding.serve_step`` through the block table) and reports:
+(the serving path's in-place step, ``serve.engine.DecodeLoop``: greedy
+sampling, the EOS and budget masks and ``decoding.serve_step`` through the
+block table) twice: eager, and as replays of the step captured as a CUDA
+graph (``serve.graphs.StepGraph``), each on its own copy of the rows. For
+each it reports:
 
 * host wall time per step, synchronised at the end of the steps;
 * from a ``torch.profiler`` trace of ``steps`` steps: device time per step by
   kernel name and by group, kernel launches per step, and the share of the
-  step the device was busy (the rest is the host issuing work).
+  step the device was busy (the rest is the host issuing work, or, for the
+  graph, the gaps between its kernel nodes).
 
 With ``--prefill N`` it profiles instead one prefill of a single N-token
 prompt (``decoding.prefill_batched`` into the paged pool) and splits its
@@ -36,8 +41,9 @@ the C interface ``repro_bcsc_mlp(x, Mp, K, gate, up, down triples, counts,
 act, d_ff, n_out, hidden, out, barrier, stream)``, the barrier one zeroed
 word a call; it is built like ``--gemm-source``'s (namespace
 ``repro_variant_mlp``) and the decode step is profiled with it and with the
-tree's fused MLP in turns (variant, tree, tree, variant). Each turn runs
-its own steps, so the contexts grow by a few tokens from one to the next.
+tree's fused MLP in turns (variant, tree, tree, variant), eager; the
+graphed step is the tree's. Each turn runs its own steps, so the contexts
+grow by a few tokens from one to the next.
 
 The last line is a JSON object with the same numbers.
 """
@@ -205,6 +211,7 @@ def main() -> int:
     from repro_torch.core.plan import plan_for_scheduler
     from repro_torch.models import decoding
     from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import DecodeLoop, refill_rows
     from repro_torch.serve.sparse import sparsify_mlp_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,15 +249,20 @@ def main() -> int:
                                         plan.cache_len, plan=plan, paged=pp)
     if args.prefill:
         return profile_prefill(args, cfg, prefill, toks.shape[1])
-    logits, cache = prefill()
-    state = {"pos": lengths.long(), "nxt": logits[:, -1].argmax(-1)}
-
-    def step():
-        out, _ = decoding.serve_step(params, cache, state["nxt"][:, None],
-                                     state["pos"], cfg, plan=plan,
-                                     block_table=bt)
-        state["pos"] = state["pos"] + 1
-        state["nxt"] = out[:, -1].argmax(-1)
+    del cache, pp
+    loops = {}
+    for graphs in (False, True):
+        # each mode on its own rows: the same prompts, prefilled into the
+        # loop's own pool; budgets that outlast the run
+        loop = DecodeLoop(cfg, params, plan, temperature=0.0, eos_id=-1,
+                          device=dev, paged=True, sync_every=args.steps,
+                          graphs=graphs)
+        state = loop.start(0)
+        table = loop.set_block_table(bt.cpu().numpy())
+        refill_rows(params, cfg, plan, state, toks, lengths,
+                    list(range(R)), [cache_len] * R, block_table=table)
+        loops[graphs] = loop
+    torch.cuda.synchronize()
 
     from repro_torch.kernels import bcsc_mlp as bmlp
     mlps = {"tree": bmlp.bcsc_mlp_cuda}
@@ -264,16 +276,24 @@ def main() -> int:
     try:
         for label in order:
             bmlp.bcsc_mlp_cuda = mlps[label]
-            runs.append(profile_steps(step, args.steps, label))
+            runs.append(profile_steps(loops[False].step, args.steps,
+                                      f"eager step, {label} fused MLP"))
     finally:
         bmlp.bcsc_mlp_cuda = mlps["tree"]
+    graph = loops[True].graph
+    print(f"step graph: {sum(graph.tally.values())} kernel launches "
+          f"captured, {graph.capture_s:.2f} s to warm up and capture")
+    graphed = profile_steps(loops[True].step, args.steps,
+                            "graphed step, tree fused MLP")
     last = runs[-1] if len(runs) == 1 else runs[1]   # the tree's first turn
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "arch": args.arch,
         "rows": R, "wall_ms_per_step": last["wall_ms"],
         "device_busy_ms_per_step": last["busy_ms"],
         "launches_per_step": last["launches"],
-        "groups_ms_per_step": last["groups_ms"], "runs": runs}))
+        "groups_ms_per_step": last["groups_ms"],
+        "graphed": dict(graphed, capture_s=graph.capture_s),
+        "runs": runs}))
     return 0
 
 
@@ -299,7 +319,7 @@ def profile_steps(step, n: int, label: str) -> dict:
     busy_ms = sum(t for t, _ in kernels.values()) / 1e3 / n
     launches = sum(c for _, c in kernels.values()) / n
     groups = by_group(kernels, n)
-    print(f"[{label} fused MLP] decode step: wall {wall_ms:.3f} ms (host "
+    print(f"[{label}] decode step: wall {wall_ms:.3f} ms (host "
           f"clock), device busy {busy_ms:.3f} ms in {launches:.0f} launches "
           f"({busy_ms / wall_ms:.1%} busy, traced steps)")
     for g, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -307,7 +327,7 @@ def profile_steps(step, n: int, label: str) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     for name, (t, c) in top:
         print(f"  {t / 1e3 / n:8.3f} ms/step {c / n:7.1f}x  {name[:90]}")
-    return {"mlp": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
+    return {"run": label, "wall_ms": wall_ms, "busy_ms": busy_ms,
             "launches": launches,
             "groups_ms": {g: t for g, (t, _) in groups.items()}}
 

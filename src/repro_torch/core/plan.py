@@ -117,6 +117,29 @@ def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
     """The streaming scheduler's plan from explicit geometry: the same
     dispatch fields the reference's ``plan_for_scheduler`` resolves, for
     the single-device, non-speculative case (``spec_k`` = 0, tp = ep = 1)."""
+    return _resolve(cfg, rows, cache_len, page_size=page_size,
+                    num_pages=num_pages, attn_path=attn_path,
+                    share_prefix=share_prefix, kv_quant=kv_quant,
+                    sync_every=sync_every, drain_only=False)
+
+
+def plan_for_engine(cfg, *, slots: int, cache_len: int,
+                    sync_every: int = 8) -> ServePlan:
+    """The drain engine's single-decision plan (the reference's
+    ``plan_for_engine``): a dense per-slot cache, contiguous attention, no
+    pages, every other dispatch field resolved by the same rules as
+    ``plan_for_scheduler``."""
+    return _resolve(cfg, slots, cache_len, page_size=0, num_pages=0,
+                    attn_path=None, share_prefix=None, kv_quant=None,
+                    sync_every=sync_every, drain_only=True)
+
+
+def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
+             num_pages: int, attn_path: Optional[str],
+             share_prefix: Optional[bool], kv_quant: Optional[str],
+             sync_every: int, drain_only: bool) -> ServePlan:
+    """The reference's ``_resolve`` for one device and no speculation;
+    ``drain_only`` (the drain engine) never pages."""
     from repro_torch.models import transformer as tfm
 
     kinds = {k for k, _ in tfm.slot_kinds(cfg)}
@@ -135,7 +158,7 @@ def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
         attn_path = rule_attn
     if attn_path not in ("paged", "contiguous"):
         raise ValueError(f"attn_path must be paged|contiguous, got {attn_path}")
-    paged = has_global and attn_path == "paged"
+    paged = has_global and attn_path == "paged" and not drain_only
     np_ = (num_pages or rows * max_pages) if paged else 0
 
     if share_prefix is None:

@@ -145,11 +145,22 @@ def sync_words(t, n: int, stream: int):
     per device and stream (grown when a call needs more) and never filled
     again: every kernel leaves its counters at zero, and a barrier's
     generation only counts up. Calls on one stream run in order, so they
-    can share the words. ``stream`` is ``stream_of(t)``."""
+    can share the words. ``stream`` is ``stream_of(t)``.
+
+    Under CUDA graph capture the words must already exist: allocated (and
+    zeroed) inside the capture, they would come from the graph's private
+    pool and their fill would replay with the graph. ``serve.graphs.
+    StepGraph`` warms up on its capture stream first, which allocates them
+    there; a capture that finds none raises."""
     import torch
     key = (t.device.index, stream)
     words = _SYNC_WORDS.get(key)
     if words is None or words.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "sync words first asked for under CUDA graph capture: run "
+                "the captured work once on the capture stream before "
+                "capturing it")
         words = torch.zeros(max(n, 256), dtype=torch.int32, device=t.device)
         _SYNC_WORDS[key] = words
     return words

@@ -16,6 +16,10 @@ barrier, phase 2 cuts each output block-column's down-projection segment
 into ``split`` parts, one a warp, and the last part to finish adds the
 parts' partials in split order. ``schedule_model`` computes the same
 schedule in plain torch for the CPU tests.
+
+The cooperative launch captures into a CUDA graph as it is (the decode
+step's ``serve.graphs.StepGraph``): its occupancy queries run once, at
+capture, and the barrier's words re-arm at every replay as at every call.
 """
 from __future__ import annotations
 

@@ -44,6 +44,20 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def set_launches(counts: Dict[str, int]) -> None:
+    """Put the counters back to ``counts`` (``launch_counts()`` taken before
+    a CUDA graph capture: the wrappers ran, but nothing was launched)."""
+    for name, n in counts.items():
+        KERNELS[name].launches = n
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: its kernels were launched
+    ``tally`` times by the card, without their Python wrappers running."""
+    for name, n in tally.items():
+        KERNELS[name].launches += n
+
+
 def _use_kernel(t: torch.Tensor, impl: Optional[str]) -> bool:
     """True: launch the CUDA kernel. CPU tensors take the plain version."""
     if impl == "plain":

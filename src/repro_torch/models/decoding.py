@@ -446,3 +446,16 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
                               device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
                          paged=paged, impl=impl)
+
+
+def prefill(params, tokens, cfg, cache_len: int, *, plan,
+            impl: Optional[str] = None):
+    """Forward over (B, S) prompts of one length S, building a fresh
+    contiguous cache (global slots (periods, B, cache_len, KV, D), local
+    slots rings at pos = S - 1). Returns (last-position logits fp32
+    (B,1,Vp), cache). The single-length case of ``prefill_batched``."""
+    tfm.check_supported(cfg)
+    B, S = tokens.shape
+    lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
+                         impl=impl)

@@ -58,8 +58,8 @@ def rope(x, positions, theta: float):
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    # a Python base: no host-to-device copy, so a decode step captures
+    freq = torch.pow(float(theta), exps)
     angles = positions[..., :, None].float() * freq
     sin = torch.sin(angles)[..., :, None, :]
     cos = torch.cos(angles)[..., :, None, :]

@@ -1,15 +1,24 @@
 """``repro_torch.serve.LLM``: the port's serving front door.
 
-The counterpart of ``repro.serve.LLM`` with ``stream`` only, as the reference
-serves with ``guard=False`` and ``replicas=1``::
+The counterpart of ``repro.serve.LLM`` as the reference serves with
+``guard=False`` and ``replicas=1``::
 
     llm = LLM(cfg, params, plan)                 # on the card
+    done = llm.generate([(prompt, max_new), ...])          # drain semantics
     done = llm.stream([(prompt, max_new), ...], on_token=callback)
 
-``plan`` is a ``core.plan.ServePlan`` (``plan_for_scheduler``, or the
-reference's ``as_dict()`` through ``ServePlan.from_dict``). The model runs on
-the card unless ``device="cpu"`` is passed; without a CUDA device and without
-that request, construction raises rather than carry on on the CPU.
+``generate`` drains a fixed request list on the dense-slot
+``engine.DecodeEngine``; ``stream`` serves arriving requests with continuous
+batching over the plan's paged (or contiguous) KV layout. Both decode
+through ``engine.DecodeLoop``: on the card every decode step is one replay
+of a captured CUDA graph (``serve.graphs.StepGraph``) unless
+``decode_graphs=False`` asks for the eager step.
+
+``plan`` is a ``core.plan.ServePlan`` (``plan_for_scheduler``,
+``plan_for_engine``, or the reference's ``as_dict()`` through
+``ServePlan.from_dict``). The model runs on the card unless ``device="cpu"``
+is passed; without a CUDA device and without that request, construction
+raises rather than carry on on the CPU.
 """
 from __future__ import annotations
 
@@ -18,8 +27,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.models import transformer as tfm
+from repro_torch.serve.engine import DecodeEngine, Request, resolve_device
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
-                                         StreamRequest, resolve_device)
+                                         StreamRequest)
 
 
 class LLM:
@@ -31,11 +41,14 @@ class LLM:
     dense weight matrix is kept as its bf16 copy, the cast the reference
     repeats on every call. ``guard`` and ``replicas`` exist only to refuse
     what is not ported: the serving guard (outcomes, deadlines, the
-    degradation ladder) and the multi-replica control plane."""
+    degradation ladder) and the multi-replica control plane. The two
+    engines are built lazily and reused across calls, their step graphs
+    with them. ``decode_graphs`` is read only on the card: False runs
+    the eager decode step there."""
 
     def __init__(self, cfg, params, plan, *, eos_id: int = 1,
                  temperature: float = 0.0, device=None, guard: bool = False,
-                 replicas: int = 1):
+                 replicas: int = 1, decode_graphs: bool = True):
         if guard:
             raise NotImplementedError(
                 "the serving guard (request outcomes, deadlines, the "
@@ -54,25 +67,33 @@ class LLM:
                 = False
         self.cfg = cfg
         self.plan = plan
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.decode_graphs = decode_graphs
         self.params = tfm.compute_copy(tfm.to_device(params, self.device))
         self._scheduler = ContinuousBatchingScheduler(
             cfg, self.params, plan, eos_id=eos_id, temperature=temperature,
-            device=self.device)
+            device=self.device, graphs=decode_graphs)
+        self._engine: Optional[DecodeEngine] = None
+        self._last_run = None                # engine behind the last call
 
-    def _normalize(self, requests: Sequence,
-                   on_token: Optional[Callable]) -> List[StreamRequest]:
-        """StreamRequests, dicts or (prompt, max_new) pairs; rids default
-        to the input position."""
+    def _normalize(self, requests: Sequence, cls,
+                   on_token: Optional[Callable] = None) -> List:
+        """``cls`` objects (Request or StreamRequest), dicts or (prompt,
+        max_new) pairs; rids default to the input position."""
         out = []
         for i, r in enumerate(requests):
-            if not isinstance(r, StreamRequest):
-                if isinstance(r, dict):
-                    r = StreamRequest(**{"rid": i, **r})
-                else:
-                    prompt, max_new = r
-                    r = StreamRequest(rid=i, prompt=list(prompt),
-                                      max_new=int(max_new))
-            if on_token is not None and r.on_token is None:
+            if isinstance(r, cls):
+                pass
+            elif isinstance(r, (Request, StreamRequest)):
+                r = cls(rid=r.rid, prompt=list(r.prompt), max_new=r.max_new)
+            elif isinstance(r, dict):
+                r = cls(**{"rid": i, **r})
+            else:
+                prompt, max_new = r
+                r = cls(rid=i, prompt=list(prompt), max_new=int(max_new))
+            if cls is StreamRequest and on_token is not None \
+                    and r.on_token is None:
                 r.on_token = on_token
             out.append(r)
         if len({r.rid for r in out}) != len(out):
@@ -89,16 +110,34 @@ class LLM:
                     f"({self.plan.cache_len})")
         return out
 
+    def generate(self, requests: Sequence, seed: int = 0) -> List[Request]:
+        """Drain ``requests`` to completion on the dense-slot
+        ``DecodeEngine`` (built at the first call, then reused); returns the
+        finished requests ordered by rid, ``r.out`` holding each one's
+        tokens and ``r.outcome`` its ``RequestOutcome``."""
+        reqs = self._normalize(requests, Request)
+        if self._engine is None:
+            self._engine = DecodeEngine(
+                self.cfg, self.params, self.plan, eos_id=self.eos_id,
+                temperature=self.temperature, device=self.device,
+                graphs=self.decode_graphs)
+        self._last_run = self._engine
+        done = self._engine.run(reqs, seed=seed)
+        return sorted(done, key=lambda r: r.rid)
+
     def stream(self, requests: Sequence, on_token: Optional[Callable] = None,
                seed: int = 0) -> List[StreamRequest]:
         """Serve ``requests`` with continuous batching and streaming; returns
         the finished requests ordered by rid (input order for generated
         rids), ``r.out`` holding each one's tokens."""
-        reqs = self._normalize(requests, on_token)
+        reqs = self._normalize(requests, StreamRequest, on_token)
+        self._last_run = self._scheduler
         done = self._scheduler.run(reqs, seed=seed)
         return sorted(done, key=lambda r: r.rid)
 
     @property
     def phase_stats(self) -> Dict:
-        """Prefill/decode split and paging counters of the last run."""
-        return self._scheduler.phase_stats
+        """Phase stats of the most recently run entry point (prefill/decode
+        split, paging counters)."""
+        return self._last_run.phase_stats if self._last_run is not None \
+            else {}

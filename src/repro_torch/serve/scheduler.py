@@ -12,8 +12,11 @@ as the reference runs it with no guard, one replica and no fault injection:
 * admission into freed rows, bucketed into power-of-two length tiers and
   batch-prefilled straight into the pool pages (``decoding.PagedPrefill``);
 * decode in chunks of ``sync_every`` device steps whose sampled tokens reach
-  the host in one transfer per chunk; streaming ``on_token`` callbacks; rows
-  leave at EOS or when their budget is spent, and their pages return at once.
+  the host in one transfer per chunk (``engine.DecodeLoop``: on the card
+  each step is one replay of a captured CUDA graph, captured at the first
+  run and reused by every later one); streaming ``on_token`` callbacks;
+  rows leave at EOS or when their budget is spent, and their pages return
+  at once.
 
 Not ported yet, and refused rather than ignored: copy-on-write prefix sharing,
 speculative decoding, tensor/expert-parallel plans and the serving guard that
@@ -30,9 +33,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import dataflow
-from repro_torch.models import decoding
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.engine import build_tier_batch, make_decode_step
+from repro_torch.serve.engine import (DecodeLoop, build_tier_batch,
+                                      refill_rows, resolve_device,
+                                      synchronize)
+from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kvcache import SlotAllocator
 from repro_torch.serve.paging import PageAllocator
 
@@ -76,25 +81,15 @@ def check_plan(plan) -> None:
         raise ValueError(f"rows must be >= 1, got {plan.rows}")
 
 
-def resolve_device(device=None) -> torch.device:
-    """``device``, defaulting to the card; raises when CUDA is asked for
-    (explicitly or by default) and there is none."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: repro_torch serves on the GPU; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    return dev
-
-
 class ContinuousBatchingScheduler:
     """Streaming continuous batching for one model on one device; every
     dispatch decision is read from ``plan`` (a ``core.plan.ServePlan``).
     ``device`` defaults to the card, as ``LLM``'s does, and construction
-    raises without one unless ``device="cpu"`` is passed."""
+    raises without one unless ``device="cpu"`` is passed. ``graphs=False``
+    runs the eager decode step on the card, for comparison."""
 
     def __init__(self, cfg, params, plan, *, eos_id: int = 1,
-                 temperature: float = 0.0, device=None):
+                 temperature: float = 0.0, device=None, graphs: bool = True):
         check_plan(plan)
         tfm.check_supported(cfg)
         self.cfg = cfg
@@ -111,71 +106,18 @@ class ContinuousBatchingScheduler:
         self.kv_quant = plan.kv_quant
         self.eos_id = eos_id
         self.temperature = temperature
-        self._step = make_decode_step(cfg, plan, temperature, eos_id)
+        self._loop = DecodeLoop(cfg, params, plan, temperature=temperature,
+                                eos_id=eos_id, device=self.device,
+                                paged=self.paged, sync_every=self.sync_every,
+                                graphs=graphs)
         self.pager: Optional[PageAllocator] = None
         self.phase_stats: Dict = {}
 
-    # ------------------------------------------------------ device programs
-    def _init_state(self):
-        cfg, dev = self.cfg, self.device
-        if self.paged:
-            cache = decoding.init_paged_cache(
-                cfg, self.rows, self.cache_len, self.num_pages,
-                self.page_size, self.kv_quant, device=dev)
-        else:
-            cache = decoding.init_cache(cfg, self.rows, self.cache_len,
-                                        device=dev)
-        last = torch.zeros((self.rows, cfg.vocab_padded), device=dev)
-        pos = torch.zeros((self.rows,), dtype=torch.long, device=dev)
-        live = torch.zeros((self.rows,), dtype=torch.bool, device=dev)
-        budget = torch.zeros((self.rows,), dtype=torch.int32, device=dev)
-        return (cache, last, pos, live, budget)
-
-    def _refill(self, state, toks, lengths, slots, budgets, block_table):
-        """Batched prefill of one length tier into rows ``slots`` (updates
-        ``state`` in place)."""
-        cache, last, pos, live, budget = state
-        dev = self.device
-        toks = torch.as_tensor(toks, device=dev)
-        lengths = torch.as_tensor(lengths, device=dev)
-        slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        if self.paged:
-            pp = decoding.PagedPrefill(cache=cache,
-                                       block_table_rows=block_table[slots],
-                                       slots=slots)
-            logits, _ = decoding.prefill_batched(
-                self.params, toks, lengths, self.cfg, self.cache_len,
-                plan=self.plan, paged=pp)
-        else:
-            logits, rows = decoding.prefill_batched(
-                self.params, toks, lengths, self.cfg, self.cache_len,
-                plan=self.plan)
-            for name, entry in cache["blocks"].items():
-                for k, t in entry.items():
-                    t[:, slots] = rows["blocks"][name][k]
-        last[slots] = logits[:, -1]
-        pos[slots] = lengths.long()
-        live[slots] = True
-        budget[slots] = torch.as_tensor(budgets, device=dev)
-
-    def _chunk(self, state, block_table, generator):
-        """``sync_every`` decode steps on the device, then one transfer of
-        the sampled tokens, their emit flags and the live flags."""
-        toks, emits = [], []
-        for _ in range(self.sync_every):
-            state, (nxt, emit) = self._step(self.params, state, generator,
-                                            block_table)
-            toks.append(nxt)
-            emits.append(emit)
-        host = torch.cat([torch.stack(toks), torch.stack(emits).long(),
-                          state[3].long()[None]]).cpu().numpy()
-        T = self.sync_every
-        return state, host[:T], host[T:2 * T].astype(bool), \
-            host[2 * T].astype(bool)
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def graph(self) -> Optional[StepGraph]:
+        """The captured decode step (None on the CPU, with graphs=False,
+        or before the first run)."""
+        return self._loop.graph
 
     # -------------------------------------------------------------- host loop
     def _plen(self, r: StreamRequest) -> int:
@@ -211,7 +153,6 @@ class ContinuousBatchingScheduler:
         """Serve ``requests`` to completion; returns them in finishing order.
         ``seed`` seeds the sampler (unused when greedy)."""
         self._validate(requests)
-        generator = torch.Generator(device=self.device).manual_seed(seed)
         T = self.sync_every
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         waiting: List[StreamRequest] = []
@@ -223,7 +164,7 @@ class ContinuousBatchingScheduler:
         row_pos: Dict[int, int] = {}                   # row -> device pos
         admit_order: List[int] = []                    # rows, oldest first
         row_rids = [-1] * self.rows
-        state = self._init_state()
+        state = self._loop.start(seed)
         clock = 0.0
         t_start = time.perf_counter()
         st = self.phase_stats = {
@@ -278,9 +219,9 @@ class ContinuousBatchingScheduler:
             return True
 
         def block_table():
-            return torch.as_tensor(
-                pager.block_table_rows(row_rids, self.max_pages),
-                device=self.device) if self.paged else None
+            """The rows' tables, copied into the loop's static buffer."""
+            return self._loop.set_block_table(pager.block_table_rows(
+                row_rids, self.max_pages)) if self.paged else None
 
         while pending or waiting or active:
             # ---- arrivals (virtual clock; idle-jump when nothing to do)
@@ -342,12 +283,14 @@ class ContinuousBatchingScheduler:
                         lambda r: r.max_new - len(r.out))
                     for row, r in group:
                         active[row] = r
-                    self._refill(state, toks, lengths, slots, budgets, bt)
+                    refill_rows(self.params, self.cfg, self.plan, state,
+                                toks, lengths, slots, budgets,
+                                block_table=bt)
                     st["prefill_batches"] += 1
                     st["prefill_prompts"] += len(group)
                     st["prefill_real_tokens"] += int(lengths.sum())
                     st["prefill_padded_tokens"] += len(group) * tier
-                self._sync()
+                synchronize(self.device)
                 st["prefill_s"] += time.perf_counter() - t0
 
             if not active:
@@ -361,8 +304,8 @@ class ContinuousBatchingScheduler:
 
             # ---- one decode chunk on the device, one transfer back
             t0 = time.perf_counter()
-            state, toks_h, emits_h, live_h = self._chunk(
-                state, block_table(), generator)
+            block_table()
+            toks_h, emits_h, live_h = self._loop.chunk()
             st["decode_s"] += time.perf_counter() - t0
             st["decode_chunks"] += 1
             st["decode_steps"] += T
