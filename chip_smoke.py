@@ -10,28 +10,33 @@ Phases, each of which must pass:
 2. build: compile the port's CUDA kernels from the sources in this checkout
    (one nvcc per source, all started together);
 3. kernels: hold each of the six kernels against its plain PyTorch version
-   at the shapes the main paths give it (qwen2.5-3b and gemma2-2b widths),
-   with the tolerance stated beside each, and time the kernel, the plain
-   version and, where one exists, the single PyTorch call that computes the
-   same function (CUDA events around the device's work, L2 flushed before
-   each launch; paged attention against SDPA over gathered pages at both
-   models' shapes, the BCSC GEMM against ``torch.matmul`` on the dense bf16
-   weight at qwen2.5-3b's up and down projections and gemma2-2b's, with
-   its plan and its bound in bytes and in operations; the GEMM is also
-   held against its plain version at the edges of its tiles: 16 and 48
-   rows, an odd number of block-columns, pads, columns with no block, a
-   K split); the fused MLP at qwen2.5-3b's M 8 and 64 and gemma2-2b's M 4
-   and 64, and rs_matmul at M 512 and 8, each also checked for equal bits
-   on a second call, against the dense bf16 MLP through cuBLAS and
-   ``addmm`` + gelu; the GEMV at qwen2.5-3b's up (bias + silu) and down
-   projections against ``addmm`` + silu and ``torch.matmul``, also with
-   equal bits on a second call; the sliding window also at head ratios 5,
-   6 and 10 (llama4, internvl2-26b and recurrentgemma-2b heads), causal and
-   in window mode; print each kernel's launch configuration (paged
-   attention's split, the sliding window's blocks, stages and shared
-   memory, the fused MLP's grid, rings and phase-2 split, the GEMV's grid,
-   split and rings, rs_matmul's arm and units) beside the compiler's
-   registers and spills;
+   at the shapes the main paths give it (qwen2.5-3b, gemma2-2b,
+   mistral-nemo-12b and gemma3-12b widths), with the tolerance stated beside
+   each, and time the kernel, the plain version and, where one exists, the
+   single PyTorch call that computes the same function (CUDA events around
+   the device's work, L2 flushed before each launch). Per model
+   (``phase_kernels_model``, ``MODEL_KERNEL_SHAPES``): paged attention at
+   the pass's rows and head ratio, fp pages and, for gemma3-12b, int8 pages
+   at head_dim 256, against SDPA over gathered pages; the fused MLP at the
+   decode rows and the largest prefill batch its plan routes to it,
+   against the dense bf16 MLP through cuBLAS; the BCSC GEMM at a long
+   prompt's M (and at 48 rows, past the 12 B models' fused-MLP boundary of
+   32) against ``torch.matmul`` on the dense bf16 weight, with its plan and
+   its bound in bytes and in operations; each also for equal bits on a
+   second call. At qwen2.5-3b widths the GEMM is also held against its
+   plain version at the edges of its tiles (16 and 48 rows, an odd number
+   of block-columns, pads, columns with no block, a K split), the fused MLP
+   at M 8 and 64, rs_matmul at M 512 and 8 against ``addmm`` + gelu, the
+   GEMV at the up (bias + silu) and down projections against ``addmm`` +
+   silu and ``torch.matmul``. The sliding window runs at every served
+   model's prefill shapes (gemma3-12b's 1024 window at head_dim 256 with no
+   softcap among them) and at head ratios 5, 6 and 10 (llama4,
+   internvl2-26b and recurrentgemma-2b heads), causal and in window mode.
+   Each kernel's launch configuration (paged attention's split, the
+   sliding window's blocks, stages and shared memory, the fused MLP's
+   grid, rings and phase-2 split, the GEMV's grid, split and rings,
+   rs_matmul's arm and units) is printed beside the compiler's registers
+   and spills;
 4. serve qwen2.5-3b: full width and depth, random weights from a seed, MLPs
    packed at 0.75 block sparsity. First the first prefill and decode logits
    of the kernel path are held against the plain path; then 12 requests go
@@ -41,23 +46,37 @@ Phases, each of which must pass:
    8 requests of 64 new tokens through ``LLM.generate`` on
    ``plan_for_engine(slots=8, cache_len=1024)`` (the drain engine's
    contiguous cache);
-5. serve gemma2-2b: full width and depth (26 layers alternating local and
-   global attention, softcaps), the same checks, then 6 requests of up to
-   6000 prompt tokens through ``LLM.stream`` on paged fp KV: prefill runs
-   the sliding-window kernel in window mode in the local layers, decode
-   past position 4096 wraps the local rings; every request must return its
-   budget of in-vocabulary tokens;
+5. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
+   depth after the previous model was freed, with the same logits and
+   per-layer checks:
+   gemma2-2b (26 layers alternating local and global attention, softcaps):
+   6 requests of up to 6000 prompt tokens through ``LLM.stream`` on paged
+   fp KV: prefill runs the sliding-window kernel in window mode in the
+   local layers, decode past position 4096 wraps the local rings;
+   mistral-nemo-12b (40 global layers, an untied head): 12 requests of up
+   to 3500 prompt tokens through ``LLM.stream`` (rows 8, cache 4096), then
+   8 requests through ``LLM.generate`` on ``plan_for_engine(slots=8,
+   cache_len=4096)``;
+   gemma3-12b (48 layers, five local of window 1024 to one global,
+   qk-norm, two RoPE thetas): 6 requests of up to 7000 prompt tokens
+   through ``LLM.stream`` (rows 4, cache 8192), every ring longer than
+   1024 wrapping in decode, then 4 requests on int8 KV pages on the
+   default MLP route;
+   every request must return its budget of in-vocabulary tokens;
    every pass of 4 and 5 runs three times in turns (``_turns``): with the
    decode step captured as a CUDA graph (the first run captures it), with
    the eager step (``decode_graphs=False``), with the graph again. The
    three must give equal streams token for token, and the last run (the
    main path's: launch counts zeroed just before, read just after) the
    eager run's launch counts exactly, with paged attention once per global
-   layer per decode step and the MLP kernel at least once per layer per
-   step. Each pass prints decode tokens/s in both modes, the graphed step's
-   device time (CUDA events around 16 replays), its kernels' busy time and
-   the three pairs of kernels with the most idle time between them (a
-   profiler trace of 16 more), and the capture time;
+   layer per decode step (``core.plan.num_global_layers``), the MLP kernel
+   at least once per layer per step and, on the stream passes of 5, the
+   sliding window once per layer per prefill batch. Each pass prints
+   prefill and decode tokens/s in both modes, the graphed step's device
+   time (CUDA events around 16 replays), its kernels' busy time and the
+   three pairs of kernels with the most idle time between them (a profiler
+   trace of 16 more), the capture time and the peak of device memory;
+   each load prints its own peak;
 6. report: prefill and decode tokens/s, the wall time of each phase, one
    JSON line describing every kernel, the card's name and power limit, then
    the contract line.
@@ -96,6 +115,27 @@ GEMMA_NEW = 24
 # the qwen2.5-3b generate pass (plan_for_engine(slots=8, cache_len=1024))
 GENERATE_LENS = (5, 37, 64, 130, 300, 511, 700, 900)
 GENERATE_NEW = 64
+# the mistral-nemo-12b passes: the stream pass's plan, prompts (four arrive
+# at each of steps 0, 8 and 16) and tokens per request; the logits check's
+# two prompts; the generate pass's prompts (plan_for_engine(slots=8,
+# cache_len=4096)) and tokens per request
+NEMO = "mistral-nemo-12b"
+NEMO_PLAN = dict(rows=8, cache_len=4096, page_size=64)
+NEMO_LENS = (5, 64, 300, 1000, 2000, 3500) * 2
+NEMO_NEW = 32
+NEMO_CHECK = (300, 1000)
+NEMO_GENERATE_LENS = (5, 37, 130, 511, 900, 1500, 2000, 3000)
+NEMO_GENERATE_NEW = 32
+# the gemma3-12b passes: plan, prompts (three at step 0, three at step 8),
+# tokens per request, the logits check's prompts (past the 1024 window);
+# then the int8-KV pass's prompts (all at step 0) and tokens per request
+GEMMA3 = "gemma3-12b"
+GEMMA3_PLAN = dict(rows=4, cache_len=8192, page_size=64)
+GEMMA3_LENS = (7, 300, 1000, 1500, 4100, 7000)
+GEMMA3_NEW = 24
+GEMMA3_CHECK = (300, 1500)
+GEMMA3_INT8_LENS = (5, 1100, 3000, 6000)
+GEMMA3_INT8_NEW = 8
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -590,93 +630,139 @@ def phase_kernels(flush, judge, records):
                 records["bcsc_gemv"] = rec
 
 
-def phase_kernels_gemma(flush, judge):
-    """Paged attention, the fused MLP and the GEMM at the shapes the gemma2
-    pass gives them (head_dim 256, two query heads per KV head, softcap 50,
-    tanh-gelu, 2304 -> 9216 -> 2304), each against its plain version with
-    the tolerance used at qwen2.5-3b shapes; returns the log lines of their
-    times (the JSON line keeps the qwen2.5-3b shapes)."""
+# the paged-attention, fused-MLP and GEMM shapes each served model's pass
+# gives the kernels: arch -> (plan geometry, paged-attention row lengths,
+# KV formats, fused-MLP rows, GEMM rows)
+MODEL_KERNEL_SHAPES = {
+    GEMMA: (GEMMA_PLAN, (6000, 7, 4724, 1523), ("fp",), (4, 64), (8192,)),
+    NEMO: (NEMO_PLAN, (3532, 5, 332, 1032, 2032, 96, 3000, 1500), ("fp",),
+           (8, 32), (4096, 48)),
+    GEMMA3: (GEMMA3_PLAN, (7024, 31, 4124, 1524), ("fp", "int8"), (4, 32),
+             (8192, 48)),
+}
+
+
+def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
+    """Paged attention at a model's decode shape (its pass's rows, ragged
+    lengths, a random block table with never-touched tails), fp or int8
+    pages: held against the plain version, equal bits on a second call,
+    timed against the plain version, SDPA over gathered (dequantized) pages
+    and the bound; returns the log line."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import bcsc_matmul as bm
     from repro_torch.kernels import paged_attention as pa
-
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    cfg = get_config(GEMMA)
-    d, ff = cfg.d_model, cfg.d_ff
-    log("kernels: paged attention, fused MLP and GEMM at gemma2-2b widths")
-    lines = []
-
-    # ---- paged attention: the pass's 4 rows, ragged up to 6000 tokens
-    KV, D, ps = cfg.num_kv_heads, cfg.head_dim, GEMMA_PLAN["page_size"]
-    R, MP = cfg.num_heads // KV, GEMMA_PLAN["cache_len"] // ps
-    lengths = torch.tensor([6000, 7, 4724, 1523], dtype=torch.int32,
-                           device=dev)
+    KV, D, ps = cfg.num_kv_heads, cfg.head_dim, geometry["page_size"]
+    R, MP = cfg.num_heads // KV, geometry["cache_len"] // ps
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     B, P = len(lengths), len(lengths) * MP
     bt = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
     bt = bt.reshape(B, MP).clone()
     for b in range(B):
         bt[b, -(-int(lengths[b]) // ps):] = -1
     q = torch.randn(B, KV, R, D, generator=gen, device=dev).bfloat16()
-    kp = torch.randn(P, ps, KV, D, generator=gen, device=dev).bfloat16()
-    vp = torch.randn(P, ps, KV, D, generator=gen, device=dev).bfloat16()
+    shape = (P, ps, KV, D)
+    if kv == "fp":
+        kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        sc, kd, vd, elem = {}, kp, vp, 2
+    else:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8)
+        sc = dict(k_scale=torch.rand(P, KV, generator=gen, device=dev) * 4,
+                  v_scale=torch.rand(P, KV, generator=gen, device=dev) * 4)
+        kd, vd = ((p.float() * s[:, None, :, None] / 127).bfloat16()
+                  for p, s in ((kp, sc["k_scale"]), (vp, sc["v_scale"])))
+        elem = 1
     args = (q, kp, vp, bt, lengths)
     cap = cfg.attn_logit_softcap
     log("  " + _split_line(B, KV, MP))
 
     def cu():
-        return pa.paged_attention_cuda(*args, softcap=cap)
+        return pa.paged_attention_cuda(*args, softcap=cap, **sc)
 
     def plain():
-        return pa.paged_attention_plain(*args, softcap=cap)
-    abs_err, _ = errors(cu(), plain())
-    torch.cuda.synchronize()
-    judge(f"paged_attention[gemma2: D {D}, R {R}, softcap {cap:g}]", abs_err,
-          1e-4, "absolute on outputs of order 1: fp32 online softmax vs one "
-          "masked softmax, sums in another order")
+        return pa.paged_attention_plain(*args, softcap=cap, **sc)
+    got = cu()
+    abs_err, _ = errors(got, plain())
+    what = (f"paged_attention[{cfg.name}: {kv}, D {D}, R {R}, B {B}, "
+            f"softcap {cap:g}]")
+    judge(what, abs_err, 1e-4, "absolute on outputs of order 1: fp32 online "
+          "softmax vs one masked softmax, sums in another order")
+    judge.check(f"{what}: the same bits on a second run",
+                bool(torch.equal(got, cu())), "fixed split and combine order")
     tokens = int(lengths.sum())
-    ms, by = bound(q.numel() * 2 + 2 * tokens * KV * D * 2 + bt.numel() * 4
-                   + B * 4 + B * KV * R * D * 4, 4 * tokens * KV * R * D)
-    sdpa = _sdpa_over_pages(q, kp, vp, bt, lengths)
-    lines.append(f"paged_attention (gemma2: B {B}, KV {KV}, R {R}, D {D}, "
-                 f"softcap {cap:g}, {tokens} tokens): "
-                 f"{time_ms(cu, flush):.4f} ms, plain "
-                 f"{time_ms(plain, flush):.4f} ms, SDPA over gathered pages "
-                 f"(no softcap) {time_ms(sdpa, flush):.4f} ms, bound "
-                 f"{ms:.4f} ms ({by})")
-    del kp, vp, sdpa
+    n_bytes = (q.numel() * 2 + 2 * tokens * KV * D * elem + bt.numel() * 4
+               + B * 4 + B * KV * R * D * 4
+               + (2 * B * MP * KV * 4 if sc else 0))
+    ms, by = bound(n_bytes, 4 * tokens * KV * R * D)
+    sdpa = _sdpa_over_pages(q, kd, vd, bt, lengths)
+    return (f"paged_attention ({cfg.name}: {kv} pages, B {B}, KV {KV}, R "
+            f"{R}, D {D}, softcap {cap:g}, {tokens} tokens): "
+            f"{time_ms(cu, flush):.4f} ms, plain {time_ms(plain, flush):.4f} "
+            f"ms, SDPA over gathered pages (no softcap) "
+            f"{time_ms(sdpa, flush):.4f} ms, bound {ms:.4f} ms ({by})")
 
-    # ---- fused MLP (decode, M 4, and short prefill, M 64), tanh-gelu
+
+def phase_kernels_model(flush, judge, arch):
+    """Paged attention, the fused MLP and the GEMM at the shapes ``arch``'s
+    pass gives them (``MODEL_KERNEL_SHAPES``), each against its plain
+    version with the tolerance used at qwen2.5-3b shapes and for equal bits
+    on a second call; returns the log lines of their times (the JSON line
+    keeps the qwen2.5-3b shapes)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bcsc_matmul as bm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    cfg = get_config(arch)
+    geometry, pa_lengths, formats, mlp_rows, gemm_rows = \
+        MODEL_KERNEL_SHAPES[arch]
+    d, ff = cfg.d_model, cfg.d_ff
+    act = "silu" if cfg.mlp_act == "silu" else "gelu"
+    log(f"kernels: paged attention, fused MLP and GEMM at {arch} widths")
+    lines = [_paged_line(cfg, geometry, pa_lengths, kv, gen, flush, judge)
+             for kv in formats]
+
+    # ---- fused MLP (decode at the pass's rows, and the largest prefill
+    # batch the plan routes to it)
     wg = _packed_weight(d, ff, 0.75, gen)
     wu = _packed_weight(d, ff, 0.75, gen)
     wd = _packed_weight(ff, d, 0.75, gen)
     counts = torch.stack([wg["nnzb"], wu["nnzb"], wd["nnzb"]])
-    for M in (4, 64):
-        # the kernel takes rows in eights: the decode step's 4 rows come
-        # zero-padded, as kernels.ops pads them
+    for M in mlp_rows:
+        # the kernel takes rows in eights: fewer come zero-padded, as
+        # kernels.ops pads them
         x = torch.zeros(-(-M // 8) * 8, d, device=dev, dtype=torch.bfloat16)
         x[:M] = torch.randn(M, d, generator=gen, device=dev).bfloat16()
-        lines.append(_mlp_line("gemma2-2b", x, M, (wg, wu, wd), counts, ff,
-                               "gelu", flush, judge)[1])
+        lines.append(_mlp_line(arch, x, M, (wg, wu, wd), counts, ff, act,
+                               flush, judge)[1])
 
-    # ---- GEMM at the prefill's M: one 8192-token prompt
-    for name, K, N, w in (("up", d, ff, wg), ("down", ff, d, wd)):
-        x = torch.randn(8192, K, generator=gen, device=dev).bfloat16()
+    # ---- GEMM at the prefill's M (one long prompt's tier; 48 rows, the
+    # first multiple of 16 past a fused-MLP boundary of 32)
+    for M in gemm_rows:
+        for name, K, N, w in (("up", d, ff, wg), ("down", ff, d, wd)):
+            x = torch.randn(M, K, generator=gen, device=dev).bfloat16()
 
-        def cu():
-            return bm.bcsc_matmul_cuda(x, w["blocks"], w["row_ids"],
-                                       w["col_ptr"], n_out=N)
+            def cu():
+                return bm.bcsc_matmul_cuda(x, w["blocks"], w["row_ids"],
+                                           w["col_ptr"], n_out=N)
 
-        def plain():
-            return bm.bcsc_matmul_plain(x, w["blocks"], w["row_ids"],
-                                        w["col_ids"], n_out=N)
-        judge(f"bcsc_matmul[gemma2: 8192x{K}->{N}]", errors(cu(), plain())[1],
-              1e-3, "relative to max |out|: tensor-core fp32 accumulation "
-              "of the same bf16 products in another order")
-        lines.append(_gemm_line(f"gemma2-2b {name}", x, w, N, cu, plain,
-                                flush)[1])
-        del x
+            def plain():
+                return bm.bcsc_matmul_plain(x, w["blocks"], w["row_ids"],
+                                            w["col_ids"], n_out=N)
+            got = cu()
+            what = f"bcsc_matmul[{arch}: {M}x{K}->{N}]"
+            judge(what, errors(got, plain())[1], 1e-3,
+                  "relative to max |out|: tensor-core fp32 accumulation of "
+                  "the same bf16 products in another order")
+            judge.check(f"{what}: the same bits on a second run",
+                        bool(torch.equal(got, cu())), "fixed sum order")
+            lines.append(_gemm_line(f"{arch} {name}", x, w, N, cu, plain,
+                                    flush)[1])
+            del x, got
     for line in lines:
         log(f"  {line}")
     return lines
@@ -732,8 +818,10 @@ def _swa_ratios(flush, judge):
 
 
 def phase_kernels_dense(flush, judge, records):
-    """Sliding-window attention at gemma2-2b local and qwen2.5-3b causal
-    prefill shapes, and rs_matmul at the GeGLU up-projection's widths."""
+    """Sliding-window attention at the prefill shapes of the served models
+    (gemma2-2b and gemma3-12b local and global, qwen2.5-3b and
+    mistral-nemo-12b causal), each also for equal bits on a second call,
+    and rs_matmul at the GeGLU up-projection's widths."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -742,12 +830,16 @@ def phase_kernels_dense(flush, judge, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    log("kernels: sliding-window attention (R 2 and 8 as served, R 5, 6 "
-        "and 10 as the reference's other configs need) and rs_matmul")
+    log("kernels: sliding-window attention (R 2, 4 and 8 as served, R 5, "
+        "6 and 10 as the reference's other configs need) and rs_matmul")
     for tag, (B, S, H, KV, D, window, cap) in {
             "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 50.0),
             "gemma2-2b global": (1, 8192, 8, 4, 256, 8192, 50.0),
-            "qwen2.5-3b causal": (2, 512, 16, 2, 128, 512, 0.0)}.items():
+            "qwen2.5-3b causal": (2, 512, 16, 2, 128, 512, 0.0),
+            "gemma3-12b local": (1, 8192, 16, 8, 256, 1024, 0.0),
+            "gemma3-12b global": (1, 8192, 16, 8, 256, 8192, 0.0),
+            "mistral-nemo-12b causal": (1, 4096, 32, 8, 128, 4096,
+                                        0.0)}.items():
         q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
@@ -771,6 +863,9 @@ def phase_kernels_dense(flush, judge, records):
                "bf16 against another running max, 2^-9 of each term")
         judge(f"sliding_window_attention[{tag}]", row_errors(got, want),
               1e-2, why)
+        judge.check(f"sliding_window_attention[{tag}]: the same bits on a "
+                    "second run", bool(torch.equal(got, cu())),
+                    "fixed key order")
         if window < S:
             # the check must see a band one key short at the window's edge
             off = row_errors(cu(window - 1), want)
@@ -1104,9 +1199,12 @@ def _turns(llm, make_requests, judge, tag, max_new, must_launch,
     on the same weights), graphed again (the captured graph replayed: the
     main path's run, whose counts are returned). The three must give equal
     streams token for token, and the second graphed run the eager run's
-    launch counts exactly. Returns (launch counts, phase stats, wall
-    seconds, a line of rates)."""
+    launch counts exactly. The line of rates gives prefill and decode
+    tokens/s in both modes, the graphed step's device time, busy share and
+    capture time, and the peak of device memory over the pass. Returns
+    (launch counts, phase stats, wall seconds, the line of rates)."""
     from repro_torch.serve import LLM
+    _reset_peak()
     eager = LLM(llm.cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
                 decode_graphs=False)
     engine = llm._scheduler if entry == "stream" else None
@@ -1128,13 +1226,15 @@ def _turns(llm, make_requests, judge, tag, max_new, must_launch,
     judge.check(f"{tag}: graphed launches equal the eager run's",
                 runs["graphed"][1] == runs["eager"][1],
                 f"{runs['graphed'][1]} vs {runs['eager'][1]}")
-    rate = {}
+    rate, pre = {}, {}
     for mode, (done, _, st, _) in runs.items():
         generated = sum(len(r.out) for r in done)
         rate[mode] = generated / max(st["decode_s"], 1e-9)
+        pre[mode] = st["prefill_real_tokens"] / max(st["prefill_s"], 1e-9)
     line = (f"{tag}: decode {rate['graphed']:.1f} tokens/s graphed, "
             f"{rate['eager']:.1f} eager ({rate['graphed'] / rate['eager']:.2f}"
-            "x)")
+            f"x); prefill {pre['graphed']:.1f} tokens/s graphed run, "
+            f"{pre['eager']:.1f} eager run")
     graph = engine.graph
     if DEVICE == "cuda":
         judge.check(f"{tag}: decode step captured", graph is not None
@@ -1152,6 +1252,7 @@ def _turns(llm, make_requests, judge, tag, max_new, must_launch,
         log(f"  {tag}: most idle time between two kernels, ms per graphed "
             "step (traced): " + "; ".join(f"{t:.3f} {pair}"
                                           for pair, t in idle))
+    line += f"; {_memory('peak of the pass')}"
     log(f"  {line}")
     _, counts, st, wall = runs["graphed"]
     return counts, st, wall, line
@@ -1167,9 +1268,41 @@ def _requests(cfg, lengths, max_new, arrivals):
             for i, (n, a) in enumerate(zip(lengths, arrivals))]
 
 
+def _reset_peak():
+    import torch
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _memory(what):
+    """The peak of device memory allocated since the last ``_reset_peak``
+    and what is allocated now, in GiB."""
+    import torch
+    if DEVICE != "cuda":
+        return f"{what}: not measured (CPU)"
+    return (f"{what}: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"(allocated now {torch.cuda.memory_allocated() / 2**30:.2f} "
+            "GiB)")
+
+
+def _free():
+    """Free what earlier passes left on the card (their models, caches and
+    step graphs, which reference cycles may hold until a collection)
+    before the next model loads."""
+    import gc
+    import torch
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        log(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+            "still allocated before the next load")
+
+
 def _load(arch, plan_kw):
     """Full-width random weights from SEED, MLPs packed at 0.75, on the
-    device behind ``LLM`` with a paged fp plan."""
+    device behind ``LLM`` with a paged fp plan. Frees the previous model
+    first and prints the peak of device memory over the load (the fp32
+    weights of ``init_params`` beside one layer's packing temporaries)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.plan import plan_for_scheduler
@@ -1177,6 +1310,8 @@ def _load(arch, plan_kw):
     from repro_torch.serve import LLM
     from repro_torch.serve.sparse import sparsify_mlp_params
 
+    _free()
+    _reset_peak()
     cfg = get_config(arch)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1192,9 +1327,7 @@ def _load(arch, plan_kw):
         f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, head_dim {cfg.head_dim}; "
         f"MLPs packed at block density {stats['block_density']:.3f} "
         f"({stats['kept_blocks']} blocks); loaded in "
-        f"{time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30 if DEVICE == 'cuda' else 0:.2f}"
-        " GiB on the card; "
+        f"{time.perf_counter() - t0:.1f} s; {_memory('load peak')}; "
         f"plan rows {plan.rows}, cache {plan.cache_len}, page "
         f"{plan.page_size}, {plan.num_pages} pages, fused MLP up to M "
         f"{plan.mlp_fused_m_max}")
@@ -1221,7 +1354,8 @@ def phase_serve(judge):
     then through ``LLM.generate`` a drain pass on ``plan_for_engine``'s
     contiguous plan; each pass graphed and eager in turns (``_turns``).
     Returns (the graphed runs' summed launch counts, lines of rates)."""
-    from repro_torch.core.plan import plan_for_engine, plan_for_scheduler
+    from repro_torch.core.plan import (num_global_layers, plan_for_engine,
+                                       plan_for_scheduler)
     from repro_torch.serve import LLM
 
     llm = _load(ARCH, dict(rows=8, cache_len=1024, page_size=64))
@@ -1236,8 +1370,8 @@ def phase_serve(judge):
         judge, "qwen fp pass", 32,
         ("sliding_window_attention", "paged_attention", "bcsc_mlp",
          "bcsc_matmul"))
-    _per_step_checks(judge, "qwen fp pass", launches, layers, layers,
-                     st["decode_steps"])
+    _per_step_checks(judge, "qwen fp pass", launches, layers,
+                     num_global_layers(cfg), st["decode_steps"])
     lines = [line]
     plan8 = dataclasses.replace(
         plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
@@ -1249,8 +1383,9 @@ def phase_serve(judge):
         llm8, lambda: _requests(cfg, [5, 130, 300, 511], 8, [0] * 4),
         judge, "qwen int8 pass", 8,
         ("paged_attention", "bcsc_gemv", "bcsc_matmul"))
-    _per_step_checks(judge, "qwen int8 pass", counts8, layers, layers,
-                     st8["decode_steps"], mlp="bcsc_gemv", mlp_per_layer=3)
+    _per_step_checks(judge, "qwen int8 pass", counts8, layers,
+                     num_global_layers(cfg), st8["decode_steps"],
+                     mlp="bcsc_gemv", mlp_per_layer=3)
     lines.append(line)
     del llm8
     llm_g = LLM(cfg, llm.params, plan_for_engine(cfg, slots=8,
@@ -1275,6 +1410,29 @@ def phase_serve(judge):
     return total, lines
 
 
+def _stream_pass(llm, judge, tag, lens, max_new, arrivals):
+    """An ``LLM.stream`` pass through ``_turns`` that must launch all four
+    kernels of the path; then, on its main-path run, the sliding window
+    once per layer per prefill batch, paged attention once per global
+    layer per decode step and the fused MLP at least once per layer per
+    step. Returns what ``_turns`` returns."""
+    from repro_torch.core.plan import num_global_layers
+    cfg = llm.cfg
+    counts, st, wall, line = _turns(
+        llm, lambda: _requests(cfg, lens, max_new, arrivals), judge, tag,
+        max_new, ("sliding_window_attention", "paged_attention", "bcsc_mlp",
+                  "bcsc_matmul"))
+    layers = cfg.num_layers
+    judge.check(f"{tag}: sliding-window launches per prefill batch",
+                counts["sliding_window_attention"]
+                == layers * st["prefill_batches"],
+                f"{counts['sliding_window_attention']} = {layers} x "
+                f"{st['prefill_batches']} batches")
+    _per_step_checks(judge, tag, counts, layers, num_global_layers(cfg),
+                     st["decode_steps"])
+    return counts, st, wall, line
+
+
 def phase_serve_gemma(judge):
     """Full-width, full-depth gemma2-2b through ``LLM.stream``: long prompts
     (window-mode prefill in the local layers), decode past the window (the
@@ -1284,20 +1442,9 @@ def phase_serve_gemma(judge):
     cfg, plan = llm.cfg, llm.plan
     _check_logits(llm, judge, GEMMA_CHECK, plan.tier(max(GEMMA_CHECK)))
     _layer_errors(llm, judge, GEMMA_CHECK, plan.tier(max(GEMMA_CHECK)))
-    arrivals = [0, 0, 0, 8, 8, 8]
-    counts, st, wall, line = _turns(
-        llm, lambda: _requests(cfg, GEMMA_LENS, GEMMA_NEW, arrivals), judge,
-        "gemma2 pass", GEMMA_NEW,
-        ("sliding_window_attention", "paged_attention", "bcsc_mlp",
-         "bcsc_matmul"))
-    layers, n_global = cfg.num_layers, cfg.num_layers // 2
-    judge.check("gemma2 pass: sliding-window launches per prefill batch",
-                counts["sliding_window_attention"]
-                == layers * st["prefill_batches"],
-                f"{counts['sliding_window_attention']} = {layers} x "
-                f"{st['prefill_batches']} batches")
-    _per_step_checks(judge, "gemma2 pass", counts, layers, n_global,
-                     st["decode_steps"])
+    counts, st, wall, line = _stream_pass(llm, judge, "gemma2 pass",
+                                          GEMMA_LENS, GEMMA_NEW,
+                                          [0, 0, 0, 8, 8, 8])
     generated = len(GEMMA_LENS) * GEMMA_NEW
     rates = (f"gemma2-2b: prefill "
              f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
@@ -1307,6 +1454,76 @@ def phase_serve_gemma(judge):
              f"({generated} tokens, {st['decode_s']:.2f} s), wall "
              f"{wall:.2f} s (the graphed run)")
     return counts, [line, rates]
+
+
+def phase_serve_nemo(judge):
+    """Full-width, full-depth mistral-nemo-12b (40 global layers, d_model
+    5120 against 32 heads of 128, an untied 131k head): through
+    ``LLM.stream`` 12 requests of up to 3500 prompt tokens on paged fp KV,
+    then through ``LLM.generate`` 8 requests on ``plan_for_engine(slots=8,
+    cache_len=4096)``'s contiguous cache; each pass graphed and eager in
+    turns. Returns (the graphed runs' summed launch counts, lines of
+    rates)."""
+    from repro_torch.core.plan import plan_for_engine
+    from repro_torch.serve import LLM
+    llm = _load(NEMO, NEMO_PLAN)
+    cfg, plan = llm.cfg, llm.plan
+    _check_logits(llm, judge, NEMO_CHECK, plan.tier(max(NEMO_CHECK)))
+    _layer_errors(llm, judge, NEMO_CHECK, plan.tier(max(NEMO_CHECK)))
+    counts, _, _, line = _stream_pass(
+        llm, judge, "mistral-nemo fp pass", NEMO_LENS, NEMO_NEW,
+        [8 * (i // 4) for i in range(len(NEMO_LENS))])
+    lines = [line]
+    llm_g = LLM(cfg, llm.params,
+                plan_for_engine(cfg, slots=NEMO_PLAN["rows"],
+                                cache_len=NEMO_PLAN["cache_len"]),
+                eos_id=-1, device=DEVICE)
+    counts_g, st_g, _, line = _turns(
+        llm_g, lambda: _requests(cfg, NEMO_GENERATE_LENS, NEMO_GENERATE_NEW,
+                                 [0] * len(NEMO_GENERATE_LENS)),
+        judge, "mistral-nemo generate pass", NEMO_GENERATE_NEW,
+        ("sliding_window_attention", "bcsc_mlp", "bcsc_matmul"),
+        entry="generate")
+    eng = llm_g._engine
+    judge.check("mistral-nemo generate pass: one host transfer per decode "
+                "chunk", eng.host_syncs == 2 * st_g["decode_chunks"],
+                f"{eng.host_syncs} transfers over its two runs of "
+                f"{st_g['decode_chunks']} chunks")
+    steps = _decode_steps(llm_g, st_g)
+    judge.check("mistral-nemo generate pass: fused-MLP launches per decode "
+                "step", counts_g["bcsc_mlp"] >= cfg.num_layers * steps,
+                f"{counts_g['bcsc_mlp']} >= {cfg.num_layers} x {steps} steps")
+    lines.append(line + f"; host_syncs {st_g['decode_chunks']} a run")
+    return {k: counts[k] + counts_g[k] for k in counts}, lines
+
+
+def phase_serve_gemma3(judge):
+    """Full-width, full-depth gemma3-12b (48 layers, five local of window
+    1024 to one global, qk-norm, RoPE theta 10 000 local and 1 000 000
+    global, d_model 3840 against 16 heads of 256, a tied 262k head) through
+    ``LLM.stream``: 6 requests of up to 7000 prompt tokens on paged fp KV
+    (window-mode prefill in the local layers; every ring longer than 1024
+    wraps in decode), then 4 on int8 KV pages on the default MLP route;
+    each pass graphed and eager in turns. Returns (the graphed runs' summed
+    launch counts, lines of rates)."""
+    from repro_torch.core.plan import plan_for_scheduler
+    from repro_torch.serve import LLM
+    llm = _load(GEMMA3, GEMMA3_PLAN)
+    cfg, plan = llm.cfg, llm.plan
+    _check_logits(llm, judge, GEMMA3_CHECK, plan.tier(max(GEMMA3_CHECK)))
+    _layer_errors(llm, judge, GEMMA3_CHECK, plan.tier(max(GEMMA3_CHECK)))
+    counts, _, _, line = _stream_pass(llm, judge, "gemma3 fp pass",
+                                      GEMMA3_LENS, GEMMA3_NEW,
+                                      [0, 0, 0, 8, 8, 8])
+    lines = [line]
+    plan8 = plan_for_scheduler(cfg, attn_path="paged", share_prefix=False,
+                               kv_quant="int8", sync_every=8, **GEMMA3_PLAN)
+    llm8 = LLM(cfg, llm.params, plan8, eos_id=-1, device=DEVICE)
+    counts8, _, _, line = _stream_pass(llm8, judge, "gemma3 int8 pass",
+                                       GEMMA3_INT8_LENS, GEMMA3_INT8_NEW,
+                                       [0] * len(GEMMA3_INT8_LENS))
+    lines.append(line + f"; fused MLP up to M {plan8.mlp_fused_m_max}")
+    return {k: counts[k] + counts8[k] for k in counts}, lines
 
 
 def main() -> int:
@@ -1329,15 +1546,19 @@ def main() -> int:
         flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
         judge, records = Judge(), {}
         timed("kernels", phase_kernels, flush, judge, records)
-        timed("kernels (gemma2 widths)", phase_kernels_gemma, flush, judge)
+        for arch in (GEMMA, NEMO, GEMMA3):
+            timed(f"kernels ({arch} widths)", phase_kernels_model, flush,
+                  judge, arch)
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
         del flush
         launches, rates = timed("serve qwen2.5-3b", phase_serve, judge)
         torch.cuda.empty_cache()
-        g_counts, g_rates = timed("serve gemma2-2b", phase_serve_gemma,
-                                  judge)
-        rates += g_rates
-        launches = {k: launches[k] + g_counts[k] for k in launches}
+        for name, phase in (("serve gemma2-2b", phase_serve_gemma),
+                            ("serve mistral-nemo-12b", phase_serve_nemo),
+                            ("serve gemma3-12b", phase_serve_gemma3)):
+            counts, more = timed(name, phase, judge)
+            rates += more
+            launches = {k: launches[k] + counts[k] for k in launches}
         if judge.failures:
             raise SmokeFailure(f"checks failed: {judge.failures}")
     except SmokeFailure as e:

@@ -11,7 +11,9 @@ Builds a full-width model as ``chip_smoke.py`` does (random weights from
 seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
 ragged length into a paged fp pool (qwen2.5-3b: 8 rows of 5 to 900 tokens
 in a 1024-token cache; gemma2-2b: 4 rows of 7 to 6000 tokens in an
-8192-token cache, so its local rings have wrapped), then runs decode steps
+8192-token cache, so its local rings have wrapped; mistral-nemo-12b: 8 rows
+of 5 to 3500 tokens in a 4096-token cache; gemma3-12b: 4 rows of 7 to 7000
+tokens in an 8192-token cache, past its 1024-token window), then runs decode steps
 (the serving path's in-place step, ``serve.engine.DecodeLoop``: greedy
 sampling, the EOS and budget masks and ``decoding.serve_step`` through the
 block table) twice: eager, and as replays of the step captured as a CUDA
@@ -61,7 +63,10 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # arch -> (cache_len, prompt lengths of the rows, in turn)
 SETUPS = {"qwen2.5-3b": (1024, (5, 37, 64, 130, 300, 511, 700, 900)),
-          "gemma2-2b": (8192, (7, 1500, 4700, 6000))}
+          "gemma2-2b": (8192, (7, 1500, 4700, 6000)),
+          "mistral-nemo-12b": (4096, (5, 300, 1000, 2000, 3500, 64, 511,
+                                      3000)),
+          "gemma3-12b": (8192, (7, 1500, 4100, 7000))}
 GROUPS = (   # kernel-name fragment -> group, first match wins
     ("paged_attention", "paged attention (port)"),
     ("swa_kernel", "sliding-window attention (port)"),

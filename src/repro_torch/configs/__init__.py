@@ -1,5 +1,5 @@
-"""Architecture config registry of the port (``qwen2.5-3b`` and
-``gemma2-2b`` so far)."""
+"""Architecture config registry of the port: the dense decoders it serves
+(``qwen2.5-3b``, ``gemma2-2b``, ``mistral-nemo-12b`` and ``gemma3-12b``)."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +10,8 @@ from repro_torch.configs.base import ArchConfig
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
     "gemma2-2b": "gemma2_2b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

@@ -4,7 +4,7 @@
 The constants are still the TPU-derived ones (VMEM budget, GEMV crossover,
 page size), kept on purpose so that every route the port takes is the route
 the reference takes on the same shapes. Re-deriving them for Hopper is a
-later planning item (ROADMAP queue 1, item 13).
+later planning item (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 

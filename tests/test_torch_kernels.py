@@ -1057,11 +1057,17 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("KV,R,D,softcap", [(2, 8, 128, 30.0),
-                                            (4, 2, 256, 50.0)])
+                                            (4, 2, 256, 50.0),
+                                            (8, 4, 128, 0.0),
+                                            (8, 2, 256, 0.0)])
 def test_cuda_paged_attention_matches_plain(cuda, KV, R, D, softcap):
-    """qwen2.5-3b's head layout, and gemma2-2b's (head_dim 256, softcap 50)
-    on rows up to 6000 tokens."""
-    lengths = [64, 65, 1, 130] if D == 128 else [6000, 7, 4724, 1523]
+    """qwen2.5-3b's head layout, gemma2-2b's (head_dim 256, softcap 50) on
+    rows up to 6000 tokens, mistral-nemo-12b's (R 4, D 128) and gemma3-12b's
+    (R 2, D 256, no softcap) on rows up to 3500 and 7024 tokens; fp and
+    int8 pages."""
+    lengths = {(2, 128): [64, 65, 1, 130], (4, 256): [6000, 7, 4724, 1523],
+               (8, 128): [3532, 5, 1032, 96],
+               (8, 256): [7024, 31, 4124, 1524]}[(KV, D)]
     for int8 in (False, True):
         q, kp, vp, bt, lens, sc = _paged_case(lengths, 64, KV=KV, R=R, D=D,
                                               int8=int8)
@@ -1215,6 +1221,23 @@ def test_cuda_sliding_window_matches_plain(cuda, S, window, R, D):
     got = pops.sliding_window_attention(q, k, v, window=window, softcap=50.0)
     want = pops.sliding_window_attention(q, k, v, window=window,
                                          softcap=50.0, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(2500, 1024), (1024, 1024),
+                                      (1025, 1024)])
+def test_cuda_sliding_window_gemma3_local(cuda, S, window):
+    """gemma3-12b's local layers: window 1024, 16 query heads over 8 KV
+    heads of 256, no softcap; a prompt past the window (window mode), one
+    that fills it (causal) and one a key past it: 1e-3 of max |out|."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, B=1, KV=8, R=2, D=256, seed=S))
+    got = pops.sliding_window_attention(q, k, v, window=window, softcap=0.0)
+    want = pops.sliding_window_attention(q, k, v, window=window, softcap=0.0,
+                                         impl="plain")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))
