@@ -46,7 +46,29 @@ Phases, each of which must pass:
    8 requests of 64 new tokens through ``LLM.generate`` on
    ``plan_for_engine(slots=8, cache_len=1024)`` (the drain engine's
    contiguous cache);
-5. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
+   every serve pass runs under ``LLM``'s defaults, the serving guard
+   (``GuardConfig()``) and the tracer;
+5. serve qwen2.5-3b guarded (``phase_serve_guarded``, on the model phase 4
+   loaded): the fp pass's requests through the default ``LLM`` and a
+   guard-less, untraced one (``guard=False, trace=False``) in turns, graphed,
+   with equal streams and both rates printed (over the decode spans and
+   over each run's wall time), then one more run of each in a profiler
+   trace: the card ran one device-to-host copy per decode chunk; a
+   pressure pass on ``PRESSURE_PAGES`` pages (rows 8, cache 1024, page 64;
+   12 prompts of 130-511 tokens at steps 0/8/16, 32 new tokens) where the
+   int8 rung fires at a boundary with live rows: every outcome ok,
+   ``kv_quant`` int8 from the printed step on, the graphed run's step
+   captured again over the int8 pools (both captures' seconds and the
+   pass's peak memory printed), paged attention launching exactly once per
+   global layer per decode step on both sides of the rung (plus each
+   capture's warm-up), and a fresh eager run giving the same streams with
+   one device-to-host copy per chunk; a chaos pass (``audit_every_sync``,
+   ``CHAOS``: ensure failures, a transient step fault, a NaN on rid 2):
+   every request terminal, no audit violation, survivors equal to the
+   clean run, rid 2 failed as non-finite, as many device-to-host copies as
+   ``host_syncs``, and the same trace signature from two graphed runs and
+   an eager one;
+6. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
    depth after the previous model was freed, with the same logits and
    per-layer checks:
    gemma2-2b (26 layers alternating local and global attention, softcaps):
@@ -63,21 +85,21 @@ Phases, each of which must pass:
    1024 wrapping in decode, then 4 requests on int8 KV pages on the
    default MLP route;
    every request must return its budget of in-vocabulary tokens;
-   every pass of 4 and 5 runs three times in turns (``_turns``): with the
+   every pass of 4 and 6 runs three times in turns (``_turns``): with the
    decode step captured as a CUDA graph (the first run captures it), with
    the eager step (``decode_graphs=False``), with the graph again. The
    three must give equal streams token for token, and the last run (the
    main path's: launch counts zeroed just before, read just after) the
    eager run's launch counts exactly, with paged attention once per global
    layer per decode step (``core.plan.num_global_layers``), the MLP kernel
-   at least once per layer per step and, on the stream passes of 5, the
+   at least once per layer per step and, on the stream passes of 6, the
    sliding window once per layer per prefill batch. Each pass prints
    prefill and decode tokens/s in both modes, the graphed step's device
    time (CUDA events around 16 replays), its kernels' busy time and the
    three pairs of kernels with the most idle time between them (a profiler
    trace of 16 more), the capture time and the peak of device memory;
    each load prints its own peak;
-6. report: prefill and decode tokens/s, the wall time of each phase, one
+7. report: prefill and decode tokens/s, the wall time of each phase, one
    JSON line describing every kernel, the card's name and power limit, then
    the contract line.
 
@@ -136,6 +158,17 @@ GEMMA3_NEW = 24
 GEMMA3_CHECK = (300, 1500)
 GEMMA3_INT8_LENS = (5, 1100, 3000, 6000)
 GEMMA3_INT8_NEW = 8
+# the guarded qwen2.5-3b phase: the pressure pass's pool (the int8 rung
+# fires at step 16 with 8 live rows, after two graphed chunks), prompts
+# (four arrive at each of steps 0, 8 and 16) and tokens per request; the
+# chaos pass's prompts, tokens per request and fault schedule
+PRESSURE_PAGES = 44
+PRESSURE_LENS = (130, 511, 300, 220, 400, 160, 480, 256, 350, 190, 511, 275)
+PRESSURE_NEW = 32
+CHAOS_LENS = (5, 37, 64, 130, 300, 511, 700, 900)
+CHAOS_NEW = 16
+CHAOS = dict(seed=7, ensure_fail_rate=0.3, ensure_fail_max=4,
+             step_fail_chunks=(1,), step_fail_attempts=2, nan_rids={0: (2,)})
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -1407,6 +1440,322 @@ def phase_serve(judge):
                 f"{_decode_steps(llm_g, st_g)} steps")
     lines.append(line + f"; host_syncs {st_g['decode_chunks']} a run")
     total = {k: launches[k] + counts8[k] + counts_g[k] for k in launches}
+    return total, lines, llm
+
+
+def _device_transfers(fn):
+    """``fn()`` under a profiler trace of the card and the sync debug mode
+    "warn". Returns (fn's result, the device-to-host copies the card ran,
+    {"file:line": n} of every host-blocking call the debug mode saw, host-
+    to-device copies included). The count is what the card did, not what
+    the scheduler says it did: an ``.item()``, ``.cpu()`` or
+    ``bool(tensor)`` anywhere in the run is one more copy. None and {} on
+    the CPU."""
+    import collections
+    import warnings
+    import torch
+    if DEVICE != "cuda":
+        return fn(), None, {}
+    from torch.profiler import ProfilerActivity, profile
+    with warnings.catch_warnings(record=True) as seen, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    # the raw trace: building the profiler's event tree for an eager run's
+    # ~10^5 kernels would take minutes
+    dtoh = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name().startswith("Memcpy DtoH"))
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in seen
+        if "synchronizing CUDA operation" in str(w.message))
+    return out, dtoh, dict(sites)
+
+
+def _sites(sites):
+    return ", ".join(f"{k} x{v}" for k, v in sorted(
+        sites.items(), key=lambda kv: -kv[1])) or "none"
+
+
+def _guarded_run(llm, requests, chaos=None, transfers=False):
+    """One ``LLM.stream`` run with the launch counts zeroed just before and
+    read just after; nothing is checked here (a chaos run's failed requests
+    are short). With ``transfers`` the run goes through
+    ``_device_transfers``. Returns a namespace: ``done`` (requests by rid),
+    ``counts`` (launches), ``st`` (phase stats), ``syncs`` (the scheduler's
+    ``host_syncs`` of the run), ``wall`` (seconds, synchronized at both
+    ends), ``rung`` ((paged-attention launches, decode steps) on the fp
+    pool when the int8 rung fired, else None), ``dtoh`` and ``sites`` (see
+    ``_device_transfers``; None and {} unless measured)."""
+    import types
+    from repro_torch.kernels import ops
+    sch = llm._scheduler
+    syncs = sch.host_syncs
+    at_rung = []
+
+    def watch(r, t):
+        # tokens of a chunk arrive after it: the last counts read before the
+        # rung's flag appears hold every launch and step made on the fp pool
+        if "degraded_to_int8_at" not in sch.phase_stats:
+            at_rung[:] = [(ops.launch_counts()["paged_attention"],
+                           sch.phase_stats["decode_steps"])]
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if transfers:
+        done, dtoh, sites = _device_transfers(
+            lambda: llm.stream(requests, chaos=chaos, on_token=watch))
+    else:
+        done = llm.stream(requests, chaos=chaos, on_token=watch)
+        dtoh, sites = None, {}
+    sync()
+    wall = time.perf_counter() - t0
+    st = llm.phase_stats
+    return types.SimpleNamespace(
+        done={r.rid: r for r in done}, counts=ops.launch_counts(), st=st,
+        syncs=sch.host_syncs - syncs, wall=wall,
+        rung=at_rung[0] if "degraded_to_int8_at" in st and at_rung
+        else None, dtoh=dtoh, sites=sites)
+
+
+def _transfer_check(judge, tag, run, want, what):
+    """The card's device-to-host copies in ``run`` against ``want``."""
+    if run.dtoh is None:
+        judge.check(f"{tag}: device-to-host copies", True,
+                    "not measured (CPU)")
+        return
+    judge.check(f"{tag}: device-to-host copies the card ran == {what}",
+                run.dtoh == want,
+                f"{run.dtoh} copies in the profiler trace, {want} {what} "
+                f"({run.st['decode_chunks']} chunks, host_syncs "
+                f"{run.syncs}); host-blocking calls by site: "
+                f"{_sites(run.sites)}")
+
+
+def phase_serve_guarded(judge, llm):
+    """Full-width qwen2.5-3b (the model ``phase_serve`` loaded) under the
+    serving guard, which ``LLM`` runs by default with tracing on:
+
+    * guard cost: the fp pass's requests through the default ``LLM`` and a
+      guard-less, untraced one (``guard=False, trace=False``), graphed, in
+      turns (default, off, off, default); equal streams; both rates
+      printed, over the decode spans and over each run's wall time (the
+      guard's host work at a boundary lies outside the decode spans); then
+      one more run of each under ``_device_transfers``: the card ran one
+      device-to-host copy per decode chunk;
+    * pressure: ``PRESSURE_PAGES`` pages of 64 (rows 8, cache 1024) under 12
+      staggered prompts: the int8 rung fires at a boundary with live rows,
+      the graphed run captures its step again over the int8 pools (whose
+      graph launches paged attention once per global layer), paged
+      attention launches exactly once per global layer per decode step on
+      each side of the rung (plus each capture's warm-up steps), every
+      outcome is ok, and a fresh eager run, profiled, gives the same
+      streams with one device-to-host copy per chunk; the second capture's
+      seconds and the pass's peak memory are printed;
+    * chaos: ``audit_every_sync`` and ``CHAOS`` (ensure failures, a
+      transient step fault, a NaN on rid 2): every request terminal, no
+      audit violation, survivors equal to the clean run, rid 2 failed as
+      non-finite, the second run's device-to-host copies equal to
+      ``host_syncs`` (the chunks and the NaN sweeps); two same-seed runs
+      and an eager run give the same trace signature.
+
+    Returns (the main-path runs' summed launch counts, lines of rates)."""
+    from repro_torch.core.plan import num_global_layers, plan_for_scheduler
+    from repro_torch.serve import LLM
+    from repro_torch.serve.chaos import ChaosConfig
+    from repro_torch.serve.graphs import WARMUP_STEPS
+    from repro_torch.serve.guard import GuardConfig
+    cfg = llm.cfg
+    n_global = num_global_layers(cfg)
+    lines = []
+    judge.check("guarded: LLM serves under the default guard, traced",
+                llm.guard == GuardConfig()
+                and llm.telemetry().tracer.enabled, f"{llm.guard}")
+
+    # ---- guard cost, in turns on one card
+    lens = [5, 37, 64, 130, 300, 511] * 2
+    arrivals = [8 * (i // 4) for i in range(12)]
+    off = LLM(cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+              guard=False, trace=False)
+    off.stream(_requests(cfg, lens, 32, arrivals))          # captures
+    rates = {"default": [], "off": []}
+    wall_rates = {"default": [], "off": []}
+    streams = {}
+    total = None
+    for mode in ("default", "off", "off", "default"):
+        target = llm if mode == "default" else off
+        run = _guarded_run(target, _requests(cfg, lens, 32, arrivals))
+        done, st = run.done, run.st
+        streams.setdefault(mode, [done[i].out for i in sorted(done)])
+        generated = sum(len(r.out) for r in done.values())
+        rates[mode].append(generated / max(st["decode_s"], 1e-9))
+        wall_rates[mode].append(generated / max(run.wall, 1e-9))
+        if mode == "default":
+            judge.check("guard cost [default]: every request ok and traced",
+                        all(r.outcome is not None and r.outcome.ok
+                            for r in done.values())
+                        and llm.telemetry().tracer.events
+                        and "drift" in st,
+                        f"{st['outcomes']}; "
+                        f"{len(llm.telemetry().tracer.events)} trace "
+                        f"events; drift {st['drift']}")
+            total = run.counts
+    judge.check("guard cost: guarded and guard-less streams equal",
+                streams["default"] == streams["off"],
+                f"{sum(len(o) for o in streams['off'])} tokens")
+    mean = {k: sum(v) / len(v) for k, v in rates.items()}
+    wmean = {k: sum(v) / len(v) for k, v in wall_rates.items()}
+
+    def turns(v):
+        return ", ".join(f"{x:.1f}" for x in v)
+    lines.append(
+        f"qwen fp pass, guard cost (graphed, in turns default/off/off/"
+        f"default): decode {mean['default']:.1f} tokens/s with the default "
+        f"guard and tracing ({turns(rates['default'])}), {mean['off']:.1f} "
+        f"without ({turns(rates['off'])}); guarded/off "
+        f"{mean['default'] / mean['off']:.3f}; end to end (generated "
+        f"tokens over each run's wall time) {wmean['default']:.1f} "
+        f"({turns(wall_rates['default'])}) against {wmean['off']:.1f} "
+        f"({turns(wall_rates['off'])}); guarded/off "
+        f"{wmean['default'] / wmean['off']:.3f}")
+    log(f"  {lines[-1]}")
+    for mode, target in (("default", llm), ("off", off)):
+        run = _guarded_run(target, _requests(cfg, lens, 32, arrivals),
+                           transfers=True)
+        judge.check(f"guard cost [{mode}]: host_syncs == decode chunks",
+                    run.syncs == run.st["decode_chunks"],
+                    f"{run.syncs} transfers, {run.st['decode_chunks']} "
+                    "chunks")
+        _transfer_check(judge, f"guard cost [{mode}]", run,
+                        run.st["decode_chunks"], "decode chunks")
+    del off, target
+
+    # ---- pressure: the int8 rung mid-run, graphed against eager
+    _free()
+    _reset_peak()
+    plan = plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
+                              num_pages=PRESSURE_PAGES, attn_path="paged",
+                              share_prefix=False, kv_quant="fp",
+                              sync_every=8)
+    arrivals = [8 * (i // 4) for i in range(len(PRESSURE_LENS))]
+    runs = {}
+    for mode in ("graphed", "eager"):
+        press = LLM(cfg, llm.params, plan, eos_id=-1, device=DEVICE,
+                    decode_graphs=mode == "graphed")
+        run = runs[mode] = _guarded_run(press, _requests(
+            cfg, PRESSURE_LENS, PRESSURE_NEW, arrivals),
+            transfers=mode == "eager")
+        done, counts, st = run.done, run.counts, run.st
+        tag = f"pressure pass [{mode}]"
+        judge.check(f"{tag}: every outcome ok with its tokens",
+                    all(r.outcome.ok and len(r.out) == PRESSURE_NEW
+                        for r in done.values()), f"{st['outcomes']}")
+        rung = st.get("degraded_to_int8_at")
+        judge.check(f"{tag}: int8 rung fired mid-run",
+                    st["kv_quant"] == "int8" and rung is not None
+                    and rung > 0,
+                    f"kv_quant {st['kv_quant']}, rung at step {rung} of "
+                    f"{st['clock_steps']}, pool {plan.num_pages} -> "
+                    f"{plan.num_pages_int8} pages, peak "
+                    f"{st['pages_peak']['pages_used']} pages used, "
+                    f"preemptions {st['preemptions']}")
+        # each capture runs WARMUP_STEPS eager steps before it; the
+        # capture's own launches come back only as its replays
+        warm = WARMUP_STEPS * n_global if press._scheduler._loop.use_graph             else 0
+        pa_rung, steps_rung = run.rung or (0, 0)
+        after = counts["paged_attention"] - pa_rung
+        steps_after = st["decode_steps"] - steps_rung
+        judge.check(f"{tag}: paged-attention launches before the rung",
+                    run.rung is not None
+                    and pa_rung == n_global * steps_rung + warm,
+                    f"{pa_rung} = {n_global} x {steps_rung} steps + {warm} "
+                    "warm-up")
+        judge.check(f"{tag}: paged-attention launches after the rung",
+                    run.rung is not None and steps_after > 0
+                    and after == n_global * steps_after + warm,
+                    f"{after} = {n_global} x {steps_after} steps + {warm} "
+                    "warm-up, from int8 pages")
+        judge.check(f"{tag}: host_syncs == decode chunks",
+                    run.syncs == st["decode_chunks"],
+                    f"{run.syncs} transfers, {st['decode_chunks']} chunks")
+        if mode == "eager":
+            _transfer_check(judge, tag, run, st["decode_chunks"],
+                            "decode chunks")
+        if mode == "graphed":
+            loop = press._scheduler._loop
+            caps = loop.captures
+            judge.check(f"{tag}: step graph captured again over the int8 "
+                        "pool, paged attention in it",
+                        DEVICE != "cuda" or (
+                            len(caps) == 2 and loop.graph.tally.get(
+                                "paged_attention") == n_global),
+                        f"captures {['%.2f s' % c for c in caps]}; the int8 "
+                        "graph's paged-attention launches "
+                        f"{loop.graph.tally.get('paged_attention') if loop.graph else None}")
+            total = {k: total[k] + counts[k] for k in total}
+            lines.append(
+                f"pressure pass: int8 rung at step {rung} ({len(done)} "
+                f"requests, {st['decode_chunks']} chunks); second capture "
+                + (f"{caps[1]:.2f} s (first {caps[0]:.2f} s)"
+                   if len(caps) == 2 else "not made (CPU)")
+                + f"; {after} paged-attention launches after the rung "
+                f"({n_global} x {steps_after} steps + {warm} warm-up); "
+                f"wall {run.wall:.2f} s; {_memory('peak of the pass')}")
+    judge.check("pressure pass: graphed and eager streams equal",
+                [runs["graphed"].done[i].out for i in sorted(runs["graphed"].done)]
+                == [runs["eager"].done[i].out for i in sorted(runs["eager"].done)],
+                f"{len(PRESSURE_LENS) * PRESSURE_NEW} tokens")
+    log(f"  {lines[-1]}")
+    del runs, press
+
+    # ---- chaos: faults absorbed, survivors untouched, traces reproducible
+    guard = GuardConfig(audit_every_sync=True, degrade_rungs=("shed",))
+    chaos_llm = LLM(cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+                    guard=guard)
+    eager = LLM(cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+                guard=guard, decode_graphs=False)
+    zero = [0] * len(CHAOS_LENS)
+    clean = _guarded_run(
+        chaos_llm, _requests(cfg, CHAOS_LENS, CHAOS_NEW, zero)).done
+    sigs = []
+    for target in (chaos_llm, chaos_llm, eager):
+        run = _guarded_run(
+            target, _requests(cfg, CHAOS_LENS, CHAOS_NEW, zero),
+            chaos=ChaosConfig(**CHAOS), transfers=len(sigs) == 1)
+        done, st = run.done, run.st
+        tracer = target.telemetry().tracer
+        sigs.append(tracer.signature())
+        if target is eager:
+            continue
+        survivors = [r for r in done.values() if r.outcome.ok]
+        judge.check("chaos pass: every request terminal, audits clean",
+                    all(r.outcome is not None for r in done.values())
+                    and not any(e.name == "pool_audit"
+                                for e in tracer.events),
+                    f"{st['outcomes']}; injected {st['chaos_injected']}; "
+                    f"step retries {st['step_retries']}; preemptions "
+                    f"{st['preemptions']}")
+        judge.check("chaos pass: survivors equal the clean run",
+                    survivors and all(r.out == clean[r.rid].out
+                                      for r in survivors),
+                    f"{len(survivors)} survivors")
+        judge.check("chaos pass: the poisoned rid failed as non-finite",
+                    done[2].outcome.status == "failed"
+                    and "non-finite" in done[2].outcome.reason,
+                    f"rid 2: {done[2].outcome.status}")
+        if len(sigs) == 1:
+            total = {k: total[k] + run.counts[k] for k in total}
+        else:
+            _transfer_check(judge, "chaos pass", run, run.syncs,
+                            "host_syncs (chunks and NaN sweeps)")
+    judge.check("chaos pass: same-seed trace signatures equal (graphed "
+                "twice, eager)", sigs[0] == sigs[1] == sigs[2],
+                f"{len(sigs[0])} bytes of signature")
+    del chaos_llm, eager
     return total, lines
 
 
@@ -1551,7 +1900,12 @@ def main() -> int:
                   judge, arch)
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
         del flush
-        launches, rates = timed("serve qwen2.5-3b", phase_serve, judge)
+        launches, rates, llm = timed("serve qwen2.5-3b", phase_serve, judge)
+        counts, more = timed("serve qwen2.5-3b guarded", phase_serve_guarded,
+                             judge, llm)
+        del llm
+        rates += more
+        launches = {k: launches[k] + counts[k] for k in launches}
         torch.cuda.empty_cache()
         for name, phase in (("serve gemma2-2b", phase_serve_gemma),
                             ("serve mistral-nemo-12b", phase_serve_nemo),

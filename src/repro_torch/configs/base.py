@@ -115,14 +115,16 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count of an attention-only dense config
-        (embedding counted once when tied)."""
+        (embedding counted once when tied), counted as the reference counts
+        it: qk-norm scales are left out, post-norms are in."""
         d, hd = self.d_model, self.head_dim
         total = self.vocab_padded * d * (1 if self.tie_embeddings else 2)
         attn = d * self.num_heads * hd * 2 + 2 * d * self.num_kv_heads * hd
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        mlp = (3 if self.mlp_gated else 2) * d * self.d_ff
-        return total + self.num_layers * (attn + mlp + 2 * d) + d
+        mlp = (3 if self.mlp_gated else 2) * d * (self.dense_d_ff or self.d_ff)
+        norms = (4 if self.use_post_norm else 2) * d
+        return total + self.num_layers * (attn + mlp + norms) + d
 
     # --- reduced config for CPU tests ------------------------------------------
     def reduced(self) -> "ArchConfig":

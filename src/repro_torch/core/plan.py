@@ -7,7 +7,12 @@ every call identically. Two things differ on purpose:
 
 * the plan is an argument of whatever reads it (``layers.mlp``,
   ``kernels.ops``, the scheduler), never a context variable;
-* the Eyexam decision records and their roofline text are not carried.
+* of the reference's decision records (:class:`Decision`), the port resolves
+  the ones drift detection reads (``attention``, ``kv_quant``, ``mlp``,
+  ``degrade``, ``prefill``), with the reference's names, choices and byte
+  and token counts; their ``why`` prose and the roofline's seconds (which
+  divide by a TPU's memory rate) are not carried. A reference plan loaded
+  through :meth:`ServePlan.from_dict` keeps its own records.
 """
 from __future__ import annotations
 
@@ -15,6 +20,29 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 from repro_torch.core import dataflow
+
+# the serving roofline's terms a decision may cite (the reference's BOUNDS)
+BOUNDS = ("compute", "HBM", "occupancy", "collective")
+BCSC_OVERHEAD = 1.02     # index-vector bytes per payload byte
+MLP_SPARSITY = 0.75      # the served MLPs' block sparsity
+PACKING_EFFICIENCY = 0.93  # real blocks per padded block slot
+
+
+@dataclasses.dataclass(frozen=True)
+class Decision:
+    """One resolved dispatch decision: ``bound`` names the roofline term
+    behind it, ``numbers`` the counts it was resolved from (what
+    ``serve.telemetry.detect_drift`` measures a run against)."""
+    name: str
+    choice: str
+    bound: str
+    why: str = ""
+    numbers: Dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.bound not in BOUNDS:
+            raise ValueError(f"{self.name}: bound must be one of {BOUNDS}, "
+                             f"got {self.bound!r}")
 
 
 def _fused_m_max(d_ff: int, n_out: int, gated: bool) -> Optional[int]:
@@ -55,6 +83,7 @@ class ServePlan:
     spec_k: int = 0
     tp: int = 1
     ep: int = 1
+    decisions: Tuple[Decision, ...] = ()
 
     # ------------------------------------------------------- route queries
     def matmul_route(self, M: int) -> str:
@@ -90,12 +119,17 @@ class ServePlan:
     @classmethod
     def from_dict(cls, d: Dict) -> "ServePlan":
         """Build from a plan dict, the reference's ``as_dict()`` included:
-        its ``decisions`` records are dropped, sequences become tuples."""
+        its ``decisions`` become :class:`Decision` records, sequences
+        tuples."""
         names = {f.name for f in dataclasses.fields(cls)}
         kw = {k: v for k, v in d.items() if k in names}
         for k in ("prefill_tiers", "degrade"):
             if k in kw:
                 kw[k] = tuple(kw[k])
+        if "decisions" in kw:
+            kw["decisions"] = tuple(
+                x if isinstance(x, Decision) else Decision(**x)
+                for x in kw["decisions"])
         return cls(**kw)
 
 
@@ -141,6 +175,7 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
     """The reference's ``_resolve`` for one device and no speculation;
     ``drain_only`` (the drain engine) never pages."""
     from repro_torch.models import transformer as tfm
+    from repro_torch.serve import kvcache
 
     kinds = {k for k, _ in tfm.slot_kinds(cfg)}
     recurrent = bool(kinds & {"ssm", "rglru"})
@@ -148,9 +183,22 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
     ps = page_size or min(dataflow.PAGE_SIZE, cache_len)
     max_pages = dataflow.pages_for(cache_len, ps)
     mean_len = cache_len / 2
+    decisions = []
 
     ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
     fused_max = _fused_m_max(ff, cfg.d_model, cfg.mlp_gated)
+    decode_bm = dataflow.bcsc_tile_m(rows)
+    mlp_n = _mlp_bytes(cfg, bm=decode_bm)
+    mlp_n["fused_m_max"] = fused_max
+    mlp_n["scratch_bytes_at_decode_bm"] = dataflow.fused_mlp_scratch_bytes(
+        decode_bm, ff, cfg.d_model, cfg.mlp_gated)
+    mlp_n["scratch_budget_bytes"] = dataflow.FUSED_MLP_VMEM_BUDGET
+    mlp_route = "fused" if (fused_max is None or rows <= fused_max) \
+        else "two_call"
+    decisions.append(Decision(
+        "mlp", f"{mlp_route} (fused_m_max="
+        f"{'inf' if fused_max is None else fused_max}, "
+        f"chunk={dataflow.BCSC_CHUNK})", "HBM", numbers=mlp_n))
 
     rule_attn = dataflow.attn_path(cache_len, mean_len, ps) \
         if has_global else "contiguous"
@@ -160,6 +208,19 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
         raise ValueError(f"attn_path must be paged|contiguous, got {attn_path}")
     paged = has_global and attn_path == "paged" and not drain_only
     np_ = (num_pages or rows * max_pages) if paged else 0
+    expected = dataflow.pages_for(mean_len, ps) * ps
+    decisions.append(Decision(
+        "attention", "paged" if paged else "contiguous", "occupancy",
+        numbers={
+            "page_size": ps, "max_pages_per_row": max_pages,
+            "num_pages": np_, "expected_resident_tokens": expected,
+            "cache_len": cache_len,
+            "occupancy_threshold": dataflow.PAGED_OCCUPANCY_MAX,
+            "tokens_resident_paged": rows * expected,
+            "tokens_resident_dense": rows * cache_len,
+            "rule_choice": "paged" if (has_global and rule_attn == "paged"
+                                       and not drain_only) else "contiguous",
+        }))
 
     if share_prefix is None:
         share_prefix = cfg.num_codebooks == 1
@@ -171,20 +232,38 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
     kv_quant = kv_quant if paged else "fp"
+    w_bytes = cfg.param_count() * 2
+    c_bytes = kvcache.cache_bytes(cfg, max(rows, 1), cache_len)
+    decisions.append(Decision("kv_quant", kv_quant, "HBM", numbers={
+        "kv_quant_min_rows": dataflow.KV_QUANT_MIN_ROWS, "rows": rows,
+        "weight_stream_bytes": w_bytes, "cache_stream_bytes": c_bytes,
+        "cache_share": c_bytes / max(w_bytes + c_bytes, 1),
+        "int8_step_speedup": (w_bytes + c_bytes) / (w_bytes + c_bytes / 2),
+        "rule_choice": rule_kv,
+    }))
 
     ladder = []
     np_int8 = 0
+    deg_n: Dict = {"num_pages": np_}
     if paged:
-        n_glob = num_global_layers(cfg)
-        fp_b = dataflow.paged_kv_bytes(1, ps, cfg.num_kv_heads, cfg.head_dim,
-                                       n_glob, "fp")
-        i8_b = dataflow.paged_kv_bytes(1, ps, cfg.num_kv_heads, cfg.head_dim,
-                                       n_glob, "int8")
+        fp_b = kvcache.kv_page_bytes(cfg, ps, "fp")
+        i8_b = kvcache.kv_page_bytes(cfg, ps, "int8")
+        deg_n.update(fp_page_bytes=fp_b, int8_page_bytes=i8_b)
         if kv_quant == "fp":
             np_int8 = min(int(np_ * fp_b // max(i8_b, 1)), rows * max_pages)
             if np_int8 > np_:
                 ladder.append("int8_kv")
         ladder += ["clamp_max_new", "shed"]
+        deg_n["num_pages_int8"] = np_int8
+    decisions.append(Decision(
+        "degrade", " -> ".join(ladder) if ladder else "none", "occupancy",
+        numbers=deg_n))
+
+    tiers = () if recurrent else _pow2_tiers(cache_len)
+    decisions.append(Decision(
+        "prefill", "exact-length tiers" if recurrent else
+        f"pow2 tiers ({len(tiers)} buckets <= {cache_len})", "compute",
+        numbers={"n_tiers": len(tiers), "sync_every": sync_every}))
 
     return ServePlan(
         arch=getattr(cfg, "name", type(cfg).__name__), rows=rows,
@@ -195,9 +274,30 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
         bcsc_chunk=dataflow.BCSC_CHUNK,
         attn_path="paged" if paged else "contiguous", page_size=ps,
         max_pages=max_pages, num_pages=np_, share_prefix=share_prefix,
-        kv_quant=kv_quant, prefill_exact=recurrent,
-        prefill_tiers=() if recurrent else _pow2_tiers(cache_len),
-        degrade=tuple(ladder), num_pages_int8=np_int8)
+        kv_quant=kv_quant, prefill_exact=recurrent, prefill_tiers=tiers,
+        degrade=tuple(ladder), num_pages_int8=np_int8,
+        decisions=tuple(decisions))
+
+
+def _mlp_bytes(cfg, bm: int = 8) -> Dict:
+    """The byte counts of the reference's ``mlp_roofline`` for one layer
+    at ``bm`` rows (its seconds, which divide by a TPU's memory rate, are
+    not carried)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    ups = 2 if cfg.mlp_gated else 1
+    w_dense = (ups * d * ff + ff * d) * 2            # bf16
+    w_real = w_dense * (1 - MLP_SPARSITY) * BCSC_OVERHEAD
+    return {
+        "sparsity": MLP_SPARSITY, "layers": cfg.num_layers,
+        "per_layer_bytes": {
+            "weights_dense": w_dense,
+            "weights_sparse_real": w_real,
+            "weights_sparse_padded": w_real / PACKING_EFFICIENCY,
+            "hidden_roundtrip": bm * ff * (ups * 4 + (2 * 4 if ups == 2
+                                                     else 0) + 2 + 2),
+            "act_in_out": bm * d * (2 + 4),
+        },
+    }
 
 
 def num_global_layers(cfg) -> int:

@@ -119,6 +119,44 @@ def quantize_to_i8(x, scale):
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
 
 
+def quantize_paged_entry(entry, num_pages: Optional[int] = None) -> Dict:
+    """An fp page pool requantized to the int8 layout (the device half of
+    the guard's int8 degradation rung; plain torch, run once per rung).
+
+    Each page gets the per-(page, KV head) amax scale the int8 prefill and
+    append paths use, so paged attention and ``_append_token_i8`` read and
+    extend the result unchanged. ``num_pages`` above the pool's size grows
+    the page axis with zero pages (a zero scale marks an empty page); ids
+    0..old-1 keep their contents, so block tables stay valid. Stacked
+    ``(periods, P, ps, KV, D)`` and unstacked ``(P, ps, KV, D)`` pools both
+    work (the page axis is -4). Converts one leading index at a time, so
+    the fp32 temporaries stay one layer's size. Returns a new entry; the
+    given one is left as it was."""
+    if not is_paged_entry(entry) or is_quantized_entry(entry):
+        raise ValueError("quantize_paged_entry takes an fp paged entry")
+
+    def conv(pool):
+        P, ps, KV, D = pool.shape[-4:]
+        n = P if num_pages is None else max(num_pages, P)
+        lead = pool.shape[:-4]
+        q = torch.zeros(lead + (n, ps, KV, D), dtype=torch.int8,
+                        device=pool.device)
+        scale = torch.zeros(lead + (n, KV), device=pool.device)
+        src = pool.reshape((-1, P, ps, KV, D))
+        qf = q.view((-1, n, ps, KV, D))
+        sf = scale.view((-1, n, KV))
+        for i in range(src.shape[0]):
+            x = src[i].float()
+            s = x.abs().amax(dim=(-3, -1))                      # (P, KV)
+            qf[i, :P] = quantize_to_i8(x, s[:, None, :, None])
+            sf[i, :P] = s
+        return q, scale
+
+    pk, ks = conv(entry["pk"])
+    pv, vs = conv(entry["pv"])
+    return {"pk": pk, "pv": pv, "pk_scale": ks, "pv_scale": vs}
+
+
 def _token_pages(block_table_rows, lengths, S: int, ps: int, start=None):
     """Physical page, in-page offset and write mask of every (row, token)."""
     B = block_table_rows.shape[0]

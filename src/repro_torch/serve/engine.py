@@ -10,11 +10,16 @@ on the card each step is one replay of a captured CUDA graph
 (``serve.graphs.StepGraph``), on the CPU (or with ``graphs=False``) the same
 body runs eagerly. :class:`DecodeEngine` (the dense-slot drain engine behind
 ``LLM.generate``) and the streaming scheduler both decode through it.
+
+The loop also carries the device half of the guard's int8 degradation rung
+(:meth:`DecodeLoop.quantize_kv`): the paged pools are requantized in place
+of the fp ones mid-run and, on the card, the step graph is captured again
+over the new pools without disturbing the live rows.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -24,6 +29,7 @@ import torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.models import decoding
 from repro_torch.models import transformer as tfm
+from repro_torch.serve import telemetry as telemetry_mod
 from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.guard import RequestOutcome
 from repro_torch.serve.kvcache import SlotAllocator
@@ -38,13 +44,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: repro_torch serves on the GPU; pass "
             "device='cpu' to run the kernels' plain versions on the CPU")
     return dev
-
-
-def synchronize(device: torch.device) -> None:
-    """Wait for the card's queued work (timing); nothing to wait for on
-    the CPU."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def make_serve_step(cfg, plan) -> Callable:
@@ -223,7 +222,9 @@ class DecodeLoop:
     :class:`StepGraph`, captured at the first :meth:`start` and reused by
     every later one; on the CPU, or with ``graphs=False``, the same in-place
     body runs eagerly. Either way the buffers are the state: callers write
-    new rows into them (``refill_rows``) and never rebind them."""
+    new rows into them (``refill_rows``) and never rebind them; only
+    :meth:`quantize_kv` swaps the paged pools, inside the same cache dict.
+    ``captures`` lists the seconds of every capture this loop made."""
 
     def __init__(self, cfg, params, plan, *, temperature: float,
                  eos_id: int, device, paged: bool, sync_every: int,
@@ -240,6 +241,7 @@ class DecodeLoop:
         self.state = None
         self.block_table: Optional[torch.Tensor] = None
         self.graph: Optional[StepGraph] = None
+        self.captures: List[float] = []
 
     def _alloc(self) -> None:
         cfg, plan, dev, R, T = (self.cfg, self.plan, self.device, self.rows,
@@ -268,6 +270,13 @@ class DecodeLoop:
         if self.block_table is not None:
             self.block_table.fill_(-1)
 
+    def _capture(self) -> None:
+        self.graph = StepGraph(
+            self.body, self.params, self.state, self.nxt, self.emit,
+            block_table=self.block_table,
+            generator=self.generator if self.temperature > 0 else None)
+        self.captures.append(self.graph.capture_s)
+
     def start(self, seed: int = 0):
         """Zeroed state for a new run, the sampler seeded with ``seed``;
         captures the step graph first if this loop has none yet."""
@@ -275,13 +284,55 @@ class DecodeLoop:
             self._alloc()
         if self.use_graph and self.graph is None:
             self._reset()
-            self.graph = StepGraph(
-                self.body, self.params, self.state, self.nxt, self.emit,
-                block_table=self.block_table,
-                generator=self.generator if self.temperature > 0 else None)
+            self._capture()
         self._reset()
         self.generator.manual_seed(seed)
         return self.state
+
+    @contextlib.contextmanager
+    def _kept(self):
+        """Run the block (a capture's warm-up and captured steps) and leave
+        the live decode state as it was: every tensor of the state but the
+        paged pools is copied aside and written back, as are ``nxt``,
+        ``emit``, the block table and the sampler's state; the block table
+        reads all -1 meanwhile, so the steps' paged appends write
+        nothing."""
+        pools = {id(t) for part in self.state[0].values()
+                 for e in part.values() if decoding.is_paged_entry(e)
+                 for t in e.values()}
+        kept = [t for t in _tensors(self.state) if id(t) not in pools]
+        kept += [self.nxt, self.emit]
+        if self.block_table is not None:
+            kept.append(self.block_table)
+        saved = [t.clone() for t in kept]
+        rng = self.generator.get_state()
+        if self.block_table is not None:
+            self.block_table.fill_(-1)
+        try:
+            yield
+        finally:
+            for t, v in zip(kept, saved):
+                t.copy_(v)
+            self.generator.set_state(rng)
+
+    def quantize_kv(self, num_pages: int) -> None:
+        """The int8 rung on the device: every fp paged entry of the cache
+        becomes ``decoding.quantize_paged_entry(entry, num_pages)`` (the
+        rings stay as they are) and the fp pools are released. With a step
+        graph, the old graph is dropped and a new one is captured over the
+        int8 pools with the live rows kept (:meth:`_kept`). The step reads
+        each entry's format from the entry itself, so it reads int8 pages
+        from here on."""
+        recapture = self.graph is not None
+        self.graph = None                  # its memory pool goes with it
+        for part in self.state[0].values():
+            for name, e in list(part.items()):
+                if decoding.is_paged_entry(e) \
+                        and not decoding.is_quantized_entry(e):
+                    part[name] = decoding.quantize_paged_entry(e, num_pages)
+        if recapture:
+            with self._kept():
+                self._capture()
 
     def set_block_table(self, table: np.ndarray) -> torch.Tensor:
         """Copy a host (rows, max_pages) table into the static buffer."""
@@ -325,8 +376,11 @@ class DecodeEngine:
     (``plan_for_engine`` for explicit slots/cache_len); slots, cache_len,
     sync cadence, tiers and kernel routes come from it. The legacy
     ``slots=``/``cache_len=`` kwargs build the same single-decision plan,
-    with a DeprecationWarning. ``telemetry`` is refused until the
-    reference's ``serve.telemetry`` is ported. ``params`` must already be
+    with a DeprecationWarning. ``telemetry`` (a ``serve.telemetry.
+    Telemetry``; the engine's own, reset per run, when None) receives the
+    ``prefill`` and ``decode_chunk`` spans on the synthetic clock
+    ``decode_chunks x sync_every``, as the reference's engine records them.
+    ``params`` must already be
     on ``device`` (``LLM`` puts them there). ``graphs=False`` runs the
     eager step on the card, for comparison."""
 
@@ -335,10 +389,6 @@ class DecodeEngine:
                  cache_len: Optional[int] = None, eos_id: int = 1,
                  temperature: float = 0.0, sync_every: Optional[int] = None,
                  telemetry=None, device=None, graphs: bool = True):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry (serve.telemetry's spans and metrics) is not "
-                "ported yet")
         if plan is not None and not (slots is None and cache_len is None):
             raise TypeError(
                 "pass either plan= or the legacy slots=/cache_len= kwargs, "
@@ -371,6 +421,9 @@ class DecodeEngine:
         self.device = resolve_device(device)
         self.host_syncs = 0                  # device->host fetches (per chunk)
         self.phase_stats: Dict = {}
+        self.telemetry = telemetry if telemetry is not None \
+            else telemetry_mod.Telemetry()
+        self._own_telemetry = telemetry is None
         self._loop = DecodeLoop(cfg, params, plan, temperature=temperature,
                                 eos_id=eos_id, device=self.device,
                                 paged=False, sync_every=self.sync_every,
@@ -400,6 +453,10 @@ class DecodeEngine:
             "prefill_prompts": 0, "prefill_real_tokens": 0,
             "prefill_padded_tokens": 0, "decode_chunks": 0,
         }
+        if self._own_telemetry:
+            self.telemetry.reset()
+        tr = self.telemetry.tracer
+        T = self.sync_every
         while queue or active:
             admits: List[Tuple[int, Request]] = []
             while queue and alloc.available():
@@ -416,24 +473,30 @@ class DecodeEngine:
                 for slot, r in admits:
                     buckets.setdefault(self.plan.tier(len(r.prompt)),
                                        []).append((slot, r))
-                t0 = time.perf_counter()
-                for tier, group in sorted(buckets.items()):
-                    toks, lengths, slot_ids, max_news = build_tier_batch(
-                        group, tier, lambda r: r.prompt, lambda r: r.max_new)
-                    for slot, r in group:
-                        active[slot] = r
-                    refill_rows(self.params, self.cfg, self.plan, state,
-                                toks, lengths, slot_ids, max_news)
-                    st["prefill_batches"] += 1
-                    st["prefill_prompts"] += len(group)
-                    st["prefill_real_tokens"] += int(lengths.sum())
-                    st["prefill_padded_tokens"] += len(group) * tier
-                synchronize(self.device)
-                st["prefill_s"] += time.perf_counter() - t0
+                with telemetry_mod.phase_timer(
+                        st, "prefill_s", tracer=tr, name="prefill",
+                        start=st["decode_chunks"] * T) as ph:
+                    for tier, group in sorted(buckets.items()):
+                        toks, lengths, slot_ids, max_news = build_tier_batch(
+                            group, tier, lambda r: r.prompt,
+                            lambda r: r.max_new)
+                        for slot, r in group:
+                            active[slot] = r
+                        refill_rows(self.params, self.cfg, self.plan, state,
+                                    toks, lengths, slot_ids, max_news)
+                        st["prefill_batches"] += 1
+                        st["prefill_prompts"] += len(group)
+                        st["prefill_real_tokens"] += int(lengths.sum())
+                        st["prefill_padded_tokens"] += len(group) * tier
+                    ph.ready(state[1])
+                    ph.note(prompts=len(admits), tiers=len(buckets))
 
-            t0 = time.perf_counter()
-            toks_h, emits_h, live_h = self._loop.chunk()
-            st["decode_s"] += time.perf_counter() - t0
+            with telemetry_mod.phase_timer(
+                    st, "decode_s", tracer=tr, name="decode_chunk",
+                    start=st["decode_chunks"] * T,
+                    end=(st["decode_chunks"] + 1) * T) as ph:
+                toks_h, emits_h, live_h = self._loop.chunk()
+                ph.note(rows=len(active))
             self.host_syncs += 1
             st["decode_chunks"] += 1
             for t in range(emits_h.shape[0]):

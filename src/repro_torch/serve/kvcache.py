@@ -1,8 +1,29 @@
-"""Row accounting for the scheduler's preallocated decode rows (the port's
-copy of ``repro.serve.kvcache.SlotAllocator``)."""
+"""Cache sizes and row accounting (the port's copy of the parts of
+``repro.serve.kvcache`` the plan and the scheduler read)."""
 from __future__ import annotations
 
 from typing import List
+
+from repro_torch.core import dataflow
+
+
+def cache_bytes(cfg, batch: int, cache_len: int) -> int:
+    """Bytes of the contiguous cache ``decoding.init_cache`` allocates:
+    bf16 K and V of ``batch`` rows for every layer, ``cache_len`` slots for
+    a global layer and ``min(window, cache_len)`` for a local one."""
+    slots = sum(min(cfg.window_size, cache_len)
+                if cfg.layer_kind(i) == "local" else cache_len
+                for i in range(cfg.num_layers))
+    return 2 * batch * slots * cfg.num_kv_heads * cfg.head_dim * 2
+
+
+def kv_page_bytes(cfg, page_size: int, kv_quant: str = "fp") -> int:
+    """Bytes one physical page costs across every global layer's K and V
+    pool, the int8 format's scales included."""
+    from repro_torch.core.plan import num_global_layers
+    return dataflow.paged_kv_bytes(1, page_size, cfg.num_kv_heads,
+                                   cfg.head_dim, num_global_layers(cfg),
+                                   kv_quant)
 
 
 class SlotAllocator:

@@ -28,10 +28,12 @@ from repro_torch.core import plan as pplan
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as pops
 from repro_torch.models import transformer as ptfm
-from repro_torch.serve import LLM, DecodeEngine, Request
+from repro_torch.serve import LLM, DecodeEngine, Request, StreamRequest
 from repro_torch.serve import engine as peng
+from repro_torch.serve.graphs import WARMUP_STEPS
 from repro_torch.serve.guard import RequestOutcome
 from repro_torch.serve.sparse import sparsify_mlp_params
+from repro_torch.serve.telemetry import Telemetry
 
 ARCHS = ("qwen2.5-3b-reduced", "gemma2-2b-reduced")
 # five requests over two slots, sync_every 4: every budget but the 8 ends
@@ -158,8 +160,10 @@ def test_plan_for_engine_matches_reference(ref, arch, slots, cache_len,
     mine = pplan.plan_for_engine(get_config(arch), slots=slots,
                                  cache_len=cache_len,
                                  sync_every=sync_every).as_dict()
-    assert set(mine) == set(want) - {"decisions"}
+    assert set(mine) == set(want)
     for key, value in mine.items():
+        if key == "decisions":       # test_torch_telemetry holds the records
+            continue
         w = want[key]
         assert (tuple(value) if isinstance(value, (list, tuple)) else value) \
             == (tuple(w) if isinstance(w, (list, tuple)) else w), key
@@ -317,7 +321,7 @@ def test_scheduler_keeps_its_state_buffers(ref, weights):
                                     num_pages=6, share_prefix=False,
                                     sync_every=4)
     llm = LLM(cfg, _bridged(ref, params["dense"]), plan, eos_id=-1,
-              device="cpu")
+              device="cpu", guard=False)
     loop = llm._scheduler._loop
     seen = []
     chunk = loop.chunk
@@ -339,7 +343,7 @@ def test_scheduler_keeps_its_state_buffers(ref, weights):
 def test_engine_construction_rules():
     """The legacy kwargs build ``plan_for_engine``'s plan with a
     DeprecationWarning; a plan plus kwargs, or neither, is a TypeError;
-    telemetry is refused until it is ported; an over-long request is a
+    a shared Telemetry is taken as given; an over-long request is a
     ValueError; the engine defaults to the card."""
     cfg = get_config(ARCHS[0])
     plan = pplan.plan_for_engine(cfg, slots=2, cache_len=32, sync_every=4)
@@ -353,8 +357,9 @@ def test_engine_construction_rules():
     assert eng.plan == plan and eng.slots == 2 and eng.sync_every == 4
     with pytest.warns(DeprecationWarning), pytest.raises(ValueError):
         DecodeEngine(cfg, {}, slots=0, cache_len=32, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        DecodeEngine(cfg, {}, plan, telemetry=object(), device="cpu")
+    tel = Telemetry()
+    assert DecodeEngine(cfg, {}, plan, telemetry=tel,
+                        device="cpu").telemetry is tel
     with pytest.raises(ValueError, match="cache_len"):
         DecodeEngine(cfg, {}, plan, device="cpu").run(
             [Request(0, [1] * 30, 3)])
@@ -438,8 +443,9 @@ def test_cuda_graphed_stream_equals_eager(cuda, arch):
     plan = pplan.plan_for_scheduler(cfg, rows=3, cache_len=64, page_size=4,
                                     num_pages=6, attn_path="paged",
                                     share_prefix=False, sync_every=T)
-    graphed = LLM(cfg, params, plan, eos_id=-1)
-    eager = LLM(cfg, graphed.params, plan, eos_id=-1, decode_graphs=False)
+    graphed = LLM(cfg, params, plan, eos_id=-1, guard=False)
+    eager = LLM(cfg, graphed.params, plan, eos_id=-1, decode_graphs=False,
+                guard=False)
     reqs = [(p, 12) for p in PROMPTS[:4]]
     first = graphed.stream(reqs)
     graph = graphed._scheduler.graph
@@ -573,3 +579,98 @@ def test_cuda_graphed_generate_equals_eager(cuda, arch):
     assert graphed._engine.graph is not None
     assert graphed._engine.host_syncs == \
         2 * graphed.phase_stats["decode_chunks"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cuda_int8_rung_recaptures_mid_run(cuda, arch, temperature):
+    """``LLM.stream`` under the default guard on a pool the staggered
+    requests fill past ``int8_pressure``: the int8 rung fires at a boundary
+    with live rows, the graphed run drops its fp step graph and captures a
+    new one over the int8 pools (two captures), paged attention keeps
+    launching from that graph, and the streams equal the eager run's token
+    for token. A second graphed run starts on the int8 pool and replays the
+    same graph. With temperature sampling the capture leaves the sampler's
+    state as it was, so the draws match the eager run's too."""
+    cfg, params = _card_params(arch, cuda)
+    plan = pplan.plan_for_scheduler(cfg, rows=3, cache_len=96, page_size=8,
+                                    num_pages=16, attn_path="paged",
+                                    share_prefix=False, sync_every=T)
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(2, 500, n)]
+               for i, n in enumerate((5, 60, 33, 17))]
+
+    def reqs():
+        return [StreamRequest(i, p, min(40, 96 - len(p)), arrival=4.0 * i)
+                for i, p in enumerate(prompts)]
+    graphed = LLM(cfg, params, plan, eos_id=-1, temperature=temperature)
+    eager = LLM(cfg, graphed.params, plan, eos_id=-1, decode_graphs=False,
+                temperature=temperature)
+    n_global = pplan.num_global_layers(cfg)
+    runs = {}
+    for name, llm in (("graphed", graphed), ("eager", eager)):
+        counts = []
+        pops.reset_launches()
+        done = llm.stream(reqs(), seed=5,
+                          on_token=lambda r, t, llm=llm: counts.append(
+                              ("degraded_to_int8_at" in llm.phase_stats,
+                               pops.launch_counts()["paged_attention"],
+                               llm.phase_stats["decode_steps"])))
+        torch.cuda.synchronize()
+        st = llm.phase_stats
+        assert st["kv_quant"] == "int8" and st["degraded_to_int8_at"] > 0
+        assert all(r.outcome.ok for r in done)
+        # paged attention once per global layer per decode step on each
+        # side of the rung; each capture adds its eager warm-up steps
+        warm = WARMUP_STEPS * n_global if name == "graphed" else 0
+        _, before, steps = [c for c in counts if not c[0]][-1]
+        after = pops.launch_counts()["paged_attention"] - before
+        assert before == n_global * steps + warm
+        assert st["decode_steps"] > steps
+        assert after == n_global * (st["decode_steps"] - steps) + warm
+        runs[name] = [r.out for r in done]
+    loop = graphed._scheduler._loop
+    assert len(loop.captures) == 2
+    assert loop.graph.tally["paged_attention"] == n_global
+    for name, kind in ptfm.slot_names(cfg):
+        if kind == "global":
+            assert loop.state[0]["blocks"][name]["pk"].dtype == torch.int8
+    assert runs["graphed"] == runs["eager"]
+    graph = loop.graph
+    again = graphed.stream(reqs())
+    assert loop.graph is graph and len(loop.captures) == 2
+    assert all(r.outcome.ok for r in again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guard", [None, False])
+def test_cuda_one_device_to_host_copy_per_chunk(cuda, guard):
+    """Under the default guard (and without one) the card runs exactly one
+    device-to-host copy per decode chunk, counted in a profiler trace of
+    the run rather than by the scheduler's own ``host_syncs``: a host read
+    of a device tensor anywhere in the run (an ``.item()``, a ``.cpu()``,
+    a ``bool(tensor)``) is one more copy."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params = _card_params("qwen2.5-3b-reduced", cuda)
+    plan = pplan.plan_for_scheduler(cfg, rows=3, cache_len=96, page_size=8,
+                                    num_pages=16, attn_path="paged",
+                                    share_prefix=False, sync_every=T)
+    prompts = [[int(t) for t in np.random.default_rng(i).integers(2, 500, n)]
+               for i, n in enumerate((5, 60, 33, 17))]
+    llm = LLM(cfg, params, plan, eos_id=-1, guard=guard)
+
+    def reqs():
+        return [StreamRequest(i, p, min(40, 96 - len(p)), arrival=4.0 * i)
+                for i, p in enumerate(prompts)]
+    llm.stream(reqs())           # captures the step graph (and its rung's)
+    syncs = llm._scheduler.host_syncs
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        done = llm.stream(reqs())
+        torch.cuda.synchronize()
+    assert all(r.outcome is None or r.outcome.ok for r in done)
+    dtoh = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.name().startswith("Memcpy DtoH"))
+    chunks = llm.phase_stats["decode_chunks"]
+    assert chunks > 0
+    assert dtoh == chunks == llm._scheduler.host_syncs - syncs

@@ -230,7 +230,7 @@ def test_stream_matches_reference(setup, mix, kv_quant):
     llm = LLM(cfg, bridge.params_from_numpy(jax.tree.map(np.asarray,
                                                          weights[0.5])),
               pplan.ServePlan.from_dict(plan.as_dict()), eos_id=-1,
-              device="cpu")
+              device="cpu", guard=False)
     pops.reset_launches()
     got = llm.stream([StreamRequest(i, p, min(max_new, CACHE - len(p)),
                                     arrival=a)

@@ -42,16 +42,22 @@ def test_port_files_exist():
              for p in PORT}
     for need in ("bridge.py", "serve/facade.py", "serve/scheduler.py",
                  "serve/engine.py", "serve/graphs.py", "serve/guard.py",
+                 "serve/chaos.py", "serve/telemetry.py",
+                 "runtime/fault_tolerance.py",
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py"):
         assert need in names
 
 
 @pytest.mark.parametrize("module", ["repro_torch.serve.graphs",
                                     "repro_torch.serve.guard",
-                                    "repro_torch.serve.engine"])
+                                    "repro_torch.serve.engine",
+                                    "repro_torch.serve.chaos",
+                                    "repro_torch.serve.telemetry",
+                                    "repro_torch.runtime.fault_tolerance"])
 def test_decode_loop_modules_import_without_a_card(module):
-    """The graph and guard modules import on a machine without CUDA: a
-    graph is captured only when a decode loop first runs on the card."""
+    """The graph, guard, chaos and telemetry modules import on a machine
+    without CUDA: a graph is captured only when a decode loop first runs
+    on the card."""
     import importlib
     assert importlib.import_module(module)
 

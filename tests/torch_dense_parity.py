@@ -304,7 +304,7 @@ def stream_vs_reference(case: Case, prompts, max_new, geometry, arrivals,
                  key=lambda r: r.rid)
     llm = LLM(cfg, bridge.params_from_numpy(jax.tree.map(np.asarray,
                                                          rparams)),
-              port_plan(plan), eos_id=-1, device="cpu")
+              port_plan(plan), eos_id=-1, device="cpu", guard=False)
     pops.reset_launches()
     got = llm.stream([StreamRequest(i, p, n, arrival=a)
                       for i, (p, n, a) in enumerate(zip(prompts, budgets,
@@ -349,9 +349,12 @@ def generate_vs_reference(case: Case, prompts, budgets, slots, cache_len,
 
 
 def plan_fields_equal(mine, want):
-    """Every field of a port plan dict equals the reference's."""
-    assert set(mine) == set(want) - {"decisions"}
+    """Every dispatch field of a port plan dict equals the reference's
+    (the decision records are held by ``tests/test_torch_telemetry.py``)."""
+    assert set(mine) == set(want)
     for key, value in mine.items():
+        if key == "decisions":
+            continue
         w = want[key]
         assert (tuple(value) if isinstance(value, (list, tuple)) else value) \
             == (tuple(w) if isinstance(w, (list, tuple)) else w), key
