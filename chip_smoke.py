@@ -68,7 +68,25 @@ Phases, each of which must pass:
    clean run, rid 2 failed as non-finite, as many device-to-host copies as
    ``host_syncs``, and the same trace signature from two graphed runs and
    an eager one;
-6. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
+6. serve qwen2.5-3b with prefix sharing and speculation
+   (``phase_serve_prefix_spec``, on the same model): ``verify_step`` of 8
+   candidates against 8 sequential steps on the kernel path; a sharing
+   pass (rows 8, cache 1024, page 64; 12 requests behind one 448-token
+   system prompt, the last two the same whole prompt, at steps 0/8/16, 32
+   new tokens) with ``share_prefix`` on (the default plan) and off,
+   graphed then eager, in turns: equal streams, fewer pages in use at
+   peak with sharing, a copy on write; a speculation pass on
+   ``plan_serve(expected_batch=1)`` (``SPEC_BUDGET``), whose ``spec``
+   rule picks k: prompts {5, 64, 300, 511}, 64 new tokens, graphed and
+   eager, against the same plan pinned ``spec_k=0`` (graphed), in turns:
+   streams equal or parted only at near-ties (top-2 margin under
+   ``NEAR_TIE`` of max |logit|), paged attention once per global layer
+   per round, the acceptance rate and decode tokens/s printed; a resume
+   pass on ``RESUME_PAGES`` pages with a guard without the int8 rung:
+   preemptions, suffix-only resumes through the verifier (the GEMM
+   launching in them), streams equal (or parted at near-ties) to a fully
+   provisioned run;
+7. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
    depth after the previous model was freed, with the same logits and
    per-layer checks:
    gemma2-2b (26 layers alternating local and global attention, softcaps):
@@ -85,21 +103,21 @@ Phases, each of which must pass:
    1024 wrapping in decode, then 4 requests on int8 KV pages on the
    default MLP route;
    every request must return its budget of in-vocabulary tokens;
-   every pass of 4 and 6 runs three times in turns (``_turns``): with the
+   every pass of 4 and 7 runs three times in turns (``_turns``): with the
    decode step captured as a CUDA graph (the first run captures it), with
    the eager step (``decode_graphs=False``), with the graph again. The
    three must give equal streams token for token, and the last run (the
    main path's: launch counts zeroed just before, read just after) the
    eager run's launch counts exactly, with paged attention once per global
    layer per decode step (``core.plan.num_global_layers``), the MLP kernel
-   at least once per layer per step and, on the stream passes of 6, the
+   at least once per layer per step and, on the stream passes of 7, the
    sliding window once per layer per prefill batch. Each pass prints
    prefill and decode tokens/s in both modes, the graphed step's device
    time (CUDA events around 16 replays), its kernels' busy time and the
    three pairs of kernels with the most idle time between them (a profiler
    trace of 16 more), the capture time and the peak of device memory;
    each load prints its own peak;
-7. report: prefill and decode tokens/s, the wall time of each phase, one
+8. report: prefill and decode tokens/s, the wall time of each phase, one
    JSON line describing every kernel, the card's name and power limit, then
    the contract line.
 
@@ -169,6 +187,25 @@ CHAOS_LENS = (5, 37, 64, 130, 300, 511, 700, 900)
 CHAOS_NEW = 16
 CHAOS = dict(seed=7, ensure_fail_rate=0.3, ensure_fail_max=4,
              step_fail_chunks=(1,), step_fail_attempts=2, nan_rids={0: (2,)})
+# the prefix-sharing and speculation phase (qwen2.5-3b): the system prefix
+# all sharing-pass prompts start with (7 pages of 64), their distinct
+# suffixes (the last two prompts are the same whole prompt, so an append
+# copies the shared tail page), four arriving at each of steps 0, 8 and 16,
+# and tokens per request; the speculation pass's prompts, tokens per request
+# and the HBM budget handed to plan_serve; the resume pass's suffixes
+# (behind the same prefix, all at step 0), tokens per request and pool
+SHARED_PREFIX = 448
+SHARED_SUFFIXES = (5, 37, 64, 130, 200, 17, 90, 150, 23, 111, 77, 77)
+SHARED_NEW = 32
+SPEC_LENS = (5, 64, 300, 511)
+SPEC_NEW = 64
+SPEC_BUDGET = 8 << 30
+RESUME_SUFFIXES = (180, 120, 150, 200, 100, 170, 130, 160)
+RESUME_NEW = 32
+RESUME_PAGES = 30
+# a greedy parting is a near-tie when the top-2 logit margin at it is under
+# this share of max |logit| (tests/torch_dense_parity.py's LOGIT_TOL)
+NEAR_TIE = 1e-2
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -594,6 +631,12 @@ def phase_kernels(flush, judge, records):
             bound=bound(n_bytes, 4 * tokens * KV * R * D),
             shape=f"B {B}, KV {KV}, R {R}, D {D}, ps {ps}, {tokens} tokens")
 
+    for tag, rows, k, start in (("verify, rows 1 x k 8", 1, 8, 511),
+                                ("verify, rows 8 x k 8", 8, 8, 300),
+                                ("resume, 1 row x 256 suffix", 1, 256, 448)):
+        log("  " + _virtual_line(cfg, tag, rows, k, start, gen, flush,
+                                 judge))
+
     # ---- fused MLP: M 8 (the decode step at rows 8) and 64 (the largest
     # prefill batch it takes), K 2048, d_ff 11008, sparsity 0.75
     wg = _packed_weight(d, ff, 0.75, gen)
@@ -673,6 +716,51 @@ MODEL_KERNEL_SHAPES = {
     GEMMA3: (GEMMA3_PLAN, (7024, 31, 4124, 1524), ("fp", "int8"), (4, 32),
              (8192, 48)),
 }
+
+
+def _virtual_line(cfg, tag, rows, k, start, gen, flush, judge):
+    """Paged attention at the flattened verifier's shape: ``rows`` real
+    rows of 16 pages of 64, each repeated as ``k`` virtual rows of lengths
+    start + 1 .. start + k, the split taken as for the real rows
+    (``split_rows``), as ``decoding.verify_step`` calls it: held against
+    the plain version and timed; the bound reads each page once."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device("cuda")
+    KV, D, ps, MP = cfg.num_kv_heads, cfg.head_dim, 64, 16
+    R, P = cfg.num_heads // KV, rows * MP
+    bt = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    bt = bt.reshape(rows, MP).repeat_interleave(k, dim=0).contiguous()
+    lengths = (start + 1 + torch.arange(k, device=dev)).repeat(rows) \
+        .to(torch.int32)
+    q = torch.randn(rows * k, KV, R, D, generator=gen,
+                    device=dev).bfloat16()
+    kp, vp = (torch.randn(P, ps, KV, D, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    args = (q, kp, vp, bt, lengths)
+
+    def cu():
+        return pa.paged_attention_cuda(*args, split_rows=rows)
+
+    def plain():
+        return pa.paged_attention_plain(*args)
+    abs_err, _ = errors(cu(), plain())
+    judge(f"paged_attention[{tag}]", abs_err, 1e-4, "absolute on outputs of "
+          "order 1: fp32 online softmax vs one masked softmax, sums in "
+          "another order")
+    tokens = rows * (start + k)
+    n_bytes = (q.numel() * 2 + 2 * tokens * KV * D * 2 + bt.numel() * 4
+               + rows * k * 4 + q.numel() * 4)
+    ms, by = bound(n_bytes, 4 * int(lengths.sum()) * KV * R * D)
+    pages, n_split = pa.split_plan(rows, KV, MP, _build.sm_count(0))
+    return (f"paged_attention ({tag}: {rows * k} virtual rows, KV {KV}, R "
+            f"{R}, D {D}, lengths {start + 1}-{start + k}, split as for "
+            f"{rows} rows: {pages} pages x {n_split}): "
+            f"{time_ms(cu, flush):.4f} ms, plain {time_ms(plain, flush):.4f}"
+            f" ms, SDPA over gathered pages "
+            f"{time_ms(_sdpa_over_pages(*args), flush):.4f} ms, bound "
+            f"{ms:.4f} ms ({by})")
 
 
 def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
@@ -1351,8 +1439,8 @@ def _load(arch, plan_kw):
     params = tfm.init_params(cfg, gen, DEVICE)
     packed, stats = sparsify_mlp_params(params, cfg, sparsity=0.75)
     del params
-    plan = plan_for_scheduler(cfg, attn_path="paged", share_prefix=False,
-                              kv_quant="fp", sync_every=8, **plan_kw)
+    plan = plan_for_scheduler(cfg, attn_path="paged", kv_quant="fp",
+                              sync_every=8, **plan_kw)
     llm = LLM(cfg, packed, plan, eos_id=-1, device=DEVICE)
     del packed
     sync()
@@ -1408,8 +1496,7 @@ def phase_serve(judge):
     lines = [line]
     plan8 = dataclasses.replace(
         plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
-                           attn_path="paged", share_prefix=False,
-                           kv_quant="int8", sync_every=8),
+                           attn_path="paged", kv_quant="int8", sync_every=8),
         mlp_fused_m_max=0)
     llm8 = LLM(cfg, llm.params, plan8, eos_id=-1, device=DEVICE)
     counts8, st8, _, line = _turns(
@@ -1634,7 +1721,9 @@ def phase_serve_guarded(judge, llm):
                         run.st["decode_chunks"], "decode chunks")
     del off, target
 
-    # ---- pressure: the int8 rung mid-run, graphed against eager
+    # ---- pressure: the int8 rung mid-run, graphed against eager. This
+    # pass and the chaos pass keep share_prefix=False: their exact launch
+    # counts and the rung's step were derived without sharing
     _free()
     _reset_peak()
     plan = plan_for_scheduler(cfg, rows=8, cache_len=1024, page_size=64,
@@ -1714,9 +1803,10 @@ def phase_serve_guarded(judge, llm):
 
     # ---- chaos: faults absorbed, survivors untouched, traces reproducible
     guard = GuardConfig(audit_every_sync=True, degrade_rungs=("shed",))
-    chaos_llm = LLM(cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+    unshared = dataclasses.replace(llm.plan, share_prefix=False)
+    chaos_llm = LLM(cfg, llm.params, unshared, eos_id=-1, device=DEVICE,
                     guard=guard)
-    eager = LLM(cfg, llm.params, llm.plan, eos_id=-1, device=DEVICE,
+    eager = LLM(cfg, llm.params, unshared, eos_id=-1, device=DEVICE,
                 guard=guard, decode_graphs=False)
     zero = [0] * len(CHAOS_LENS)
     clean = _guarded_run(
@@ -1756,6 +1846,345 @@ def phase_serve_guarded(judge, llm):
                 "twice, eager)", sigs[0] == sigs[1] == sigs[2],
                 f"{len(sigs[0])} bytes of signature")
     del chaos_llm, eager
+    return total, lines
+
+
+def _prefixed(cfg, suffixes, max_new, arrivals, twin=False):
+    """Requests behind one ``SHARED_PREFIX``-token system prompt, each with
+    its own random suffix (seeded); ``twin`` makes the last prompt equal to
+    the one before it, whole."""
+    import torch
+    from repro_torch.serve import StreamRequest
+    gen = torch.Generator().manual_seed(SEED + 2)
+    prefix = torch.randint(0, cfg.vocab_size, (SHARED_PREFIX,),
+                           generator=gen).tolist()
+    prompts = [prefix + torch.randint(0, cfg.vocab_size, (n,),
+                                      generator=gen).tolist()
+               for n in suffixes]
+    if twin:
+        prompts[-1] = list(prompts[-2])
+    return [StreamRequest(i, p, max_new, arrival=float(a))
+            for i, (p, a) in enumerate(zip(prompts, arrivals))]
+
+
+def _partings(llm, done, want):
+    """Where each request's stream parts from ``want``'s (rid -> tokens):
+    [(rid, token index, top-2 margin share)], the margin that of the
+    kernel path's logits for the next token after the common prefix (one
+    prefill of prompt and common tokens)."""
+    import torch
+    from repro_torch.models import decoding
+    out = []
+    for r in done:
+        w = want[r.rid]
+        t = next((i for i, (a, b) in enumerate(zip(r.out, w)) if a != b),
+                 None)
+        if t is None:
+            continue
+        toks = torch.tensor([list(r.prompt) + list(w[:t])],
+                            device=llm.device)
+        logits, _ = decoding.prefill(llm.params, toks, llm.cfg,
+                                     toks.shape[1], plan=llm.plan)
+        row = logits[0, -1, :llm.cfg.vocab_size].float()
+        top = torch.topk(row, 2).values
+        out.append((r.rid, t, float((top[0] - top[1]) / row.abs().max())))
+    return out
+
+
+def _equal_or_tie(judge, tag, llm, done, want):
+    """Streams equal to ``want``'s, or parted only at near-ties."""
+    parts = _partings(llm, done, want)
+    judge.check(f"{tag}: streams equal, or parted only at a near-tie",
+                all(m < NEAR_TIE for _, _, m in parts),
+                f"{sum(len(r.out) for r in done)} tokens; partings (rid, "
+                f"token, top-2 margin / max |logit|): {parts or 'none'}")
+
+
+def _verify_check(llm, judge, k: int):
+    """One row prefilled on the kernel path, then k candidates scored by
+    one ``verify_step`` (B·k virtual rows, the paged attention split as for
+    the real row) and by k sequential ``serve_step`` calls from the same
+    state: the logits' largest gap relative to max |logit|, and the argmax
+    equality."""
+    import torch
+    from repro_torch.models import decoding
+    cfg, plan, dev = llm.cfg, llm.plan, llm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    plen, MP = 300, plan.max_pages
+    toks = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                         device=dev)
+    cand = torch.randint(0, cfg.vocab_size, (1, k), generator=gen,
+                         device=dev)
+    bt = torch.arange(MP, dtype=torch.int32, device=dev)[None]
+    lengths = torch.tensor([plen], dtype=torch.int32, device=dev)
+    outs = {}
+    for mode in ("verify", "sequential"):
+        cache = decoding.init_paged_cache(cfg, 1, plan.cache_len, MP,
+                                          plan.page_size, "fp", device=dev)
+        pp = decoding.PagedPrefill(cache=cache, block_table_rows=bt,
+                                   slots=torch.arange(1, device=dev))
+        decoding.prefill_batched(llm.params, toks, lengths, cfg,
+                                 plan.cache_len, plan=plan, paged=pp)
+        if mode == "verify":
+            lg, _ = decoding.verify_step(llm.params, cache, cand, lengths,
+                                         cfg, plan=plan, block_table=bt)
+            outs[mode] = lg[0]
+        else:
+            seq = []
+            for i in range(k):
+                lg, _ = decoding.serve_step(
+                    llm.params, cache, cand[:, i:i + 1], lengths.long() + i,
+                    cfg, plan=plan, block_table=bt)
+                seq.append(lg[0, 0])
+            outs[mode] = torch.stack(seq)
+    sync()
+    got, want = (outs[m][:, :cfg.vocab_size] for m in ("verify",
+                                                       "sequential"))
+    err = float((got - want).abs().max() / want.abs().max())
+    same = "bit-equal" if torch.equal(got, want) else "not bit-equal"
+    judge.check(f"verify_step (k {k}) vs {k} sequential steps: argmax",
+                torch.equal(got.argmax(-1), want.argmax(-1)),
+                f"largest gap {err:.3e} of max |logit| ({same})")
+    return err
+
+
+def phase_serve_prefix_spec(judge, llm):
+    """Full-width qwen2.5-3b (the model ``phase_serve`` loaded) with
+    copy-on-write prefix sharing and speculative decoding:
+
+    * sharing: 12 requests behind one 448-token system prompt (two with
+      the same whole prompt), at steps 0/8/16, on rows 8, cache 1024, page
+      64, with ``share_prefix`` on (the default plan) and off, graphed then
+      eager, in turns: equal streams, fewer pages at peak with sharing (by
+      at most 7 a co-resident request after the first), copies on write;
+    * speculation: ``plan_serve(expected_batch=1)`` with ``SPEC_BUDGET``
+      picks k by its ``spec`` rule; prompts ``SPEC_LENS`` with k (graphed,
+      eager, graphed) and pinned ``spec_k=0`` (graphed, twice), in turns:
+      equal streams or partings at near-ties only, paged attention once
+      per global layer per round (the graph's tally too); the acceptance
+      rate and decode tokens/s; one more run of each of sharing on and
+      speculation in a profiler trace: one device-to-host copy per chunk;
+    * resume: ``RESUME_PAGES`` pages under 8 prefixed requests and a guard
+      without the int8 rung: preemptions, suffix-only resumes through the
+      verifier (the GEMM launching in them), streams equal to a fully
+      provisioned run (or parted at near-ties), graphed and eager.
+
+    Returns (the main-path runs' summed launch counts, lines of rates)."""
+    import torch
+    from repro_torch.core.plan import (num_global_layers, plan_for_scheduler,
+                                       plan_serve)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import LLM
+    from repro_torch.serve import scheduler as sched_mod
+    from repro_torch.serve.guard import GuardConfig
+    cfg = llm.cfg
+    n_global = num_global_layers(cfg)
+    lines = []
+    _verify_check(llm, judge, 8)
+
+    # ---- sharing on and off, graphed and eager, in turns
+    _free()
+    _reset_peak()
+    geometry = dict(rows=8, cache_len=1024, page_size=64, attn_path="paged",
+                    kv_quant="fp", sync_every=8)
+    plans = {"on": plan_for_scheduler(cfg, **geometry),
+             "off": plan_for_scheduler(cfg, share_prefix=False, **geometry)}
+    judge.check("sharing: plan_for_scheduler shares prefixes by default",
+                plans["on"].share_prefix and not plans["off"].share_prefix,
+                f"share_prefix {plans['on'].share_prefix}")
+    arrivals = [8 * (i // 4) for i in range(len(SHARED_SUFFIXES))]
+
+    def shared():
+        return _prefixed(cfg, SHARED_SUFFIXES, SHARED_NEW, arrivals,
+                         twin=True)
+    llms = {(mode, graphs): LLM(cfg, llm.params, plans[mode], eos_id=-1,
+                                device=DEVICE, decode_graphs=graphs)
+            for mode in ("on", "off") for graphs in (True, False)}
+    streams, stats, total = {}, {}, None
+    for mode, graphs in (("on", True), ("off", True), ("on", False),
+                         ("off", False), ("on", True), ("off", True)):
+        tag = f"sharing {mode} [{'graphed' if graphs else 'eager'}]"
+        done, counts, st, _ = _serve(llms[mode, graphs], shared(), judge,
+                                     tag, SHARED_NEW, ())
+        streams.setdefault(mode, []).append([r.out for r in done])
+        stats[mode] = st
+        if mode == "on" and graphs:
+            total = counts
+    judge.check("sharing: every stream equal, on and off, graphed and eager",
+                all(x == streams["off"][0]
+                    for v in streams.values() for x in v),
+                f"{len(SHARED_SUFFIXES) * SHARED_NEW} tokens, six runs")
+    on, off = stats["on"], stats["off"]
+    saved = off["pages_peak"]["pages_used"] - on["pages_peak"]["pages_used"]
+    pages_prefix = SHARED_PREFIX // 64
+    judge.check("sharing: fewer pages in use at peak",
+                0 < saved <= pages_prefix * (on["peak_live_rows"] - 1),
+                f"peak {on['pages_peak']['pages_used']} pages on, "
+                f"{off['pages_peak']['pages_used']} off ({saved} saved, at "
+                f"most {pages_prefix} x {on['peak_live_rows'] - 1}); "
+                f"shared_tokens_admitted {on['shared_tokens_admitted']}, "
+                f"cow_copies {on['cow_copies']}")
+    judge.check("sharing: a shared tail page copied on write",
+                on["cow_copies"] > 0 and off["cow_copies"] == 0
+                and on["shared_tokens_admitted"] > 0,
+                f"{on['cow_copies']} copies")
+    rate = {m: len(SHARED_SUFFIXES) * SHARED_NEW / max(stats[m]["decode_s"],
+                                                       1e-9)
+            for m in stats}
+    lines.append(
+        f"sharing pass: peak {on['pages_peak']['pages_used']} pages with "
+        f"sharing, {off['pages_peak']['pages_used']} without; "
+        f"shared_tokens_admitted {on['shared_tokens_admitted']}, "
+        f"cow_copies {on['cow_copies']}; decode {rate['on']:.1f} tokens/s "
+        f"on, {rate['off']:.1f} off (graphed); prefill "
+        f"{on['prefill_real_tokens'] / max(on['prefill_s'], 1e-9):.1f} "
+        f"tokens/s on, "
+        f"{off['prefill_real_tokens'] / max(off['prefill_s'], 1e-9):.1f} "
+        f"off; {_memory('peak of the pass')}")
+    log(f"  {lines[-1]}")
+    run = _guarded_run(llms["on", True], shared(), transfers=True)
+    _transfer_check(judge, "sharing on [graphed]", run,
+                    run.st["decode_chunks"], "decode chunks (copies on "
+                    "write included)")
+    del llms
+
+    # ---- speculation at batch 1, from plan_serve's rule
+    _free()
+    _reset_peak()
+    dist = [n + SPEC_NEW for n in SPEC_LENS]
+    splan = plan_serve(cfg, hbm_budget_bytes=SPEC_BUDGET, expected_batch=1,
+                       expected_len_dist=dist)
+    base = plan_serve(cfg, hbm_budget_bytes=SPEC_BUDGET, expected_batch=1,
+                      expected_len_dist=dist, spec_k=0)
+    dec = {d.name: d for d in splan.decisions}["spec"]
+    k = splan.spec_k
+    judge.check("spec: plan_serve picks k > 0 by rule at batch 1",
+                k > 0 and dec.numbers["rule_choice"] == f"k={k}"
+                and base.spec_k == 0,
+                f"k {k}, rows {splan.rows}, cache {splan.cache_len}, "
+                f"{splan.num_pages} pages; spec decision {dec.choice}: "
+                f"{dec.numbers}")
+    zero = [0] * len(SPEC_LENS)
+    # the sequential plan runs graphed only: its eager step at one row is
+    # the slowest run of the script (~28 s), and the graphed step is held
+    # to the eager one by every other pass
+    sllms = {(mode, graphs): LLM(cfg, llm.params,
+                                 splan if mode == "spec" else base,
+                                 eos_id=-1, device=DEVICE,
+                                 decode_graphs=graphs)
+             for mode, graphs in (("spec", True), ("spec", False),
+                                  ("base", True))}
+    sdone, sst, scounts = {}, {}, {}
+    for mode, graphs in (("spec", True), ("base", True), ("spec", False),
+                         ("spec", True), ("base", True)):
+        tag = f"spec {mode} [{'graphed' if graphs else 'eager'}]"
+        done, counts, st, _ = _serve(sllms[mode, graphs],
+                                     _requests(cfg, SPEC_LENS, SPEC_NEW,
+                                               zero), judge, tag, SPEC_NEW,
+                                     ("paged_attention", "bcsc_mlp"))
+        sdone[mode, graphs], sst[mode, graphs] = done, st
+        scounts[mode, graphs] = counts
+    want = {r.rid: r.out for r in sdone["base", True]}
+    for graphs in (True, False):
+        _equal_or_tie(judge, f"spec [{'graphed' if graphs else 'eager'}] vs "
+                      "spec_k=0", llm, sdone["spec", graphs], want)
+    judge.check("spec: graphed and eager speculative streams equal",
+                [r.out for r in sdone["spec", True]]
+                == [r.out for r in sdone["spec", False]],
+                f"{len(SPEC_LENS) * SPEC_NEW} tokens")
+    st = sst["spec", True]
+    graph = sllms["spec", True]._scheduler.graph
+    judge.check("spec: paged attention once per global layer per round",
+                all(scounts["spec", g]["paged_attention"]
+                    == n_global * sst["spec", g]["spec_rounds"]
+                    for g in (True, False))
+                and st["spec_rounds"] > 0
+                and (graph is None
+                     or graph.tally.get("paged_attention") == n_global),
+                f"{scounts['spec', True]['paged_attention']} = {n_global} x "
+                f"{st['spec_rounds']} rounds; the graph's tally "
+                f"{graph.tally if graph is not None else 'none (CPU)'}")
+    total = {kk: total[kk] + scounts["spec", True][kk] for kk in total}
+    acc = st["spec_accepted_tokens"] / max(st["spec_drafted_tokens"], 1)
+    srate = {m: len(SPEC_LENS) * SPEC_NEW / max(sst[m]["decode_s"], 1e-9)
+             for m in sst}
+    lines.append(
+        f"spec pass (k {k} from plan_serve, rows 1): acceptance "
+        f"{st['spec_accepted_tokens']} / {st['spec_drafted_tokens']} = "
+        f"{acc:.3f} (untrained weights repeat tokens: not a property of "
+        f"speculation), {st['spec_rounds']} rounds in "
+        f"{st['decode_chunks']} chunks; decode {srate['spec', True]:.1f} "
+        f"tokens/s graphed with spec, {srate['base', True]:.1f} without; "
+        f"eager with spec {srate['spec', False]:.1f}; "
+        f"{_memory('peak of the pass')}")
+    log(f"  {lines[-1]}")
+    run = _guarded_run(sllms["spec", True], _requests(cfg, SPEC_LENS,
+                                                      SPEC_NEW, zero),
+                       transfers=True)
+    _transfer_check(judge, "spec [graphed]", run, run.st["decode_chunks"],
+                    "decode chunks (tokens, emit and live flags of k "
+                    "candidates in one copy)")
+    del sllms
+
+    # ---- preemption and the suffix-only resume on a tight pool
+    _free()
+    _reset_peak()
+    guard = GuardConfig(degrade_rungs=())
+    tight = plan_for_scheduler(cfg, num_pages=RESUME_PAGES, **geometry)
+    zero = [0] * len(RESUME_SUFFIXES)
+    resumes = []
+    resume = sched_mod.resume_suffix
+
+    def counted(*a, **kw):
+        before = ops.launch_counts()
+        resume(*a, **kw)
+        after = ops.launch_counts()
+        resumes.append({n: after[n] - before[n] for n in after
+                        if after[n] != before[n]})
+    runs = {}
+    sched_mod.resume_suffix = counted
+    try:
+        for tag, plan, graphs in (("tight [graphed]", tight, True),
+                                  ("tight [eager]", tight, False),
+                                  ("provisioned", plans["on"], True)):
+            target = LLM(cfg, llm.params, plan, eos_id=-1, device=DEVICE,
+                         decode_graphs=graphs, guard=guard)
+            runs[tag] = _serve(target, _prefixed(cfg, RESUME_SUFFIXES,
+                                                 RESUME_NEW, zero), judge,
+                               f"resume {tag}", RESUME_NEW, ())
+            if tag == "tight [graphed]":
+                n_resumes = len(resumes)
+    finally:
+        sched_mod.resume_suffix = resume
+    st = runs["tight [graphed]"][2]
+    judge.check("resume: preemptions and suffix-only resumes",
+                st["preemptions"] > 0 and st["resume_fast_prompts"] > 0
+                and all(r.outcome.ok for r in runs["tight [graphed]"][0]),
+                f"preemptions {st['preemptions']}, resume_fast_prompts "
+                f"{st['resume_fast_prompts']}, resume_fast_tokens "
+                f"{st['resume_fast_tokens']}; {st['outcomes']}")
+    judge.check("resume: the GEMM launched in the resumes",
+                any(c.get("bcsc_matmul", 0) > 0 for c in resumes)
+                and all(c.get("paged_attention", 0) == n_global
+                        for c in resumes),
+                f"launches per resume {resumes}")
+    judge.check("resume: graphed and eager streams equal",
+                [r.out for r in runs["tight [graphed]"][0]]
+                == [r.out for r in runs["tight [eager]"][0]],
+                f"{len(RESUME_SUFFIXES) * RESUME_NEW} tokens")
+    _equal_or_tie(judge, "resume vs fully provisioned", llm,
+                  runs["tight [graphed]"][0],
+                  {r.rid: r.out for r in runs["provisioned"][0]})
+    total = {kk: total[kk] + runs["tight [graphed]"][1][kk] for kk in total}
+    lines.append(
+        f"resume pass ({RESUME_PAGES} pages): preemptions "
+        f"{st['preemptions']}, suffix-only resumes "
+        f"{st['resume_fast_prompts']} ({st['resume_fast_tokens']} prompt "
+        f"tokens not prefilled again; {n_resumes} in the graphed run), wall "
+        f"{runs['tight [graphed]'][3]:.2f} s against "
+        f"{runs['provisioned'][3]:.2f} s fully provisioned; "
+        f"{_memory('peak of the pass')}")
+    log(f"  {lines[-1]}")
     return total, lines
 
 
@@ -1865,8 +2294,8 @@ def phase_serve_gemma3(judge):
                                       GEMMA3_LENS, GEMMA3_NEW,
                                       [0, 0, 0, 8, 8, 8])
     lines = [line]
-    plan8 = plan_for_scheduler(cfg, attn_path="paged", share_prefix=False,
-                               kv_quant="int8", sync_every=8, **GEMMA3_PLAN)
+    plan8 = plan_for_scheduler(cfg, attn_path="paged", kv_quant="int8",
+                               sync_every=8, **GEMMA3_PLAN)
     llm8 = LLM(cfg, llm.params, plan8, eos_id=-1, device=DEVICE)
     counts8, _, _, line = _stream_pass(llm8, judge, "gemma3 int8 pass",
                                        GEMMA3_INT8_LENS, GEMMA3_INT8_NEW,
@@ -1903,6 +2332,10 @@ def main() -> int:
         launches, rates, llm = timed("serve qwen2.5-3b", phase_serve, judge)
         counts, more = timed("serve qwen2.5-3b guarded", phase_serve_guarded,
                              judge, llm)
+        rates += more
+        launches = {k: launches[k] + counts[k] for k in launches}
+        counts, more = timed("serve qwen2.5-3b prefix + spec",
+                             phase_serve_prefix_spec, judge, llm)
         del llm
         rates += more
         launches = {k: launches[k] + counts[k] for k in launches}

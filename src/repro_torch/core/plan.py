@@ -3,16 +3,21 @@
 The port's counterpart of ``repro.core.plan``. It carries the same dispatch
 fields and route queries, so a plan resolved by the reference
 (``plan.as_dict()``) loads here through :meth:`ServePlan.from_dict` and routes
-every call identically. Two things differ on purpose:
+every call identically. :func:`plan_serve` resolves a plan from a serving
+budget (rows from the HBM budget and the expected batch, the pool from the
+expected lengths, speculation's depth by rule); :func:`plan_for_scheduler`
+and :func:`plan_for_engine` from explicit geometry. Two things differ on
+purpose:
 
 * the plan is an argument of whatever reads it (``layers.mlp``,
   ``kernels.ops``, the scheduler), never a context variable;
 * of the reference's decision records (:class:`Decision`), the port resolves
-  the ones drift detection reads (``attention``, ``kv_quant``, ``mlp``,
-  ``degrade``, ``prefill``), with the reference's names, choices and byte
-  and token counts; their ``why`` prose and the roofline's seconds (which
-  divide by a TPU's memory rate) are not carried. A reference plan loaded
-  through :meth:`ServePlan.from_dict` keeps its own records.
+  ``capacity``, ``mlp``, ``attention``, ``kv_quant``, ``spec``, ``degrade``
+  and ``prefill``, with the reference's names, choices and byte and token
+  counts; their ``why`` prose, the roofline's seconds (which divide by a
+  TPU's memory rate), the ``matmul`` decision and the mesh are not carried.
+  A reference plan loaded through :meth:`ServePlan.from_dict` keeps its own
+  records.
 """
 from __future__ import annotations
 
@@ -26,6 +31,12 @@ BOUNDS = ("compute", "HBM", "occupancy", "collective")
 BCSC_OVERHEAD = 1.02     # index-vector bytes per payload byte
 MLP_SPARSITY = 0.75      # the served MLPs' block sparsity
 PACKING_EFFICIENCY = 0.93  # real blocks per padded block slot
+# speculative decoding's model: the assumed per-candidate acceptance of the
+# bigram self-draft, the draft depths considered, and the modelled gain
+# below which speculation stays off (the reference's constants)
+SPEC_ALPHA = 0.8
+SPEC_K_CANDIDATES = (2, 3, 4, 6, 8)
+SPEC_MIN_GAIN = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,12 +160,14 @@ def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
                        kv_quant: Optional[str] = None,
                        sync_every: int = 8) -> ServePlan:
     """The streaming scheduler's plan from explicit geometry: the same
-    dispatch fields the reference's ``plan_for_scheduler`` resolves, for
-    the single-device, non-speculative case (``spec_k`` = 0, tp = ep = 1)."""
-    return _resolve(cfg, rows, cache_len, page_size=page_size,
-                    num_pages=num_pages, attn_path=attn_path,
-                    share_prefix=share_prefix, kv_quant=kv_quant,
-                    sync_every=sync_every, drain_only=False)
+    dispatch fields the reference's ``plan_for_scheduler`` resolves, for one
+    device (tp = ep = 1). It never speculates (``spec_k`` pinned 0):
+    speculation is :func:`plan_serve`'s."""
+    return _resolve(cfg, rows, cache_len, mean_len=cache_len / 2,
+                    page_size=page_size, num_pages=num_pages,
+                    attn_path=attn_path, share_prefix=share_prefix,
+                    kv_quant=kv_quant, sync_every=sync_every,
+                    drain_only=False, spec_k=0)
 
 
 def plan_for_engine(cfg, *, slots: int, cache_len: int,
@@ -163,17 +176,121 @@ def plan_for_engine(cfg, *, slots: int, cache_len: int,
     ``plan_for_engine``): a dense per-slot cache, contiguous attention, no
     pages, every other dispatch field resolved by the same rules as
     ``plan_for_scheduler``."""
-    return _resolve(cfg, slots, cache_len, page_size=0, num_pages=0,
-                    attn_path=None, share_prefix=None, kv_quant=None,
-                    sync_every=sync_every, drain_only=True)
+    return _resolve(cfg, slots, cache_len, mean_len=cache_len / 2,
+                    page_size=0, num_pages=0, attn_path=None,
+                    share_prefix=None, kv_quant=None, sync_every=sync_every,
+                    drain_only=True)
 
 
-def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
-             num_pages: int, attn_path: Optional[str],
+def _normalize_len_dist(expected_len_dist) -> Tuple[float, int]:
+    """(mean, max) from a {'mean', 'max'} dict or an iterable of lengths."""
+    if isinstance(expected_len_dist, dict):
+        mx = int(expected_len_dist["max"])
+        return float(expected_len_dist.get("mean", mx / 2)), mx
+    lens = [int(x) for x in expected_len_dist]
+    if not lens:
+        raise ValueError("expected_len_dist must be non-empty")
+    return sum(lens) / len(lens), max(lens)
+
+
+def plan_serve(cfg, *, hbm_budget_bytes: int, expected_batch: int,
+               expected_len_dist, page_size: Optional[int] = None,
+               num_pages: Optional[int] = None,
+               attn_path: Optional[str] = None,
+               share_prefix: Optional[bool] = None,
+               kv_quant: Optional[str] = None, sync_every: int = 8,
+               spec_k: Optional[int] = None, mesh=None) -> ServePlan:
+    """A plan from a serving budget, as the reference's ``plan_serve``
+    resolves it on one device.
+
+    ``expected_len_dist`` ({'mean', 'max'} or an iterable of total lengths,
+    prompt plus generation) gives ``cache_len`` (its max) and the expected
+    occupancy (its mean). ``expected_batch`` rows are provisioned, clamped
+    to what ``hbm_budget_bytes`` holds in dense ``(1, cache_len)`` slots (at
+    least one must fit). The pool holds the expected occupancy plus one
+    growth page a row, at least one whole request and at most full
+    provisioning. ``spec_k`` None lets the ``spec`` rule pick the draft
+    depth (on at one row, for an all-global fp paged plan, when the
+    modelled gain reaches ``SPEC_MIN_GAIN``); an int pins it. The keyword
+    overrides pin single decisions. ``mesh`` other than one device raises:
+    sharded serving is not ported."""
+    from repro_torch.serve import kvcache
+
+    if mesh not in (None, (1, 1)):
+        raise NotImplementedError(
+            f"mesh={mesh!r}: sharded serving is not ported yet")
+    mean_len, cache_len = _normalize_len_dist(expected_len_dist)
+    slot_bytes = kvcache.cache_bytes(cfg, 1, cache_len)
+    fit_rows = int(hbm_budget_bytes // max(slot_bytes, 1))
+    if fit_rows < 1:
+        raise ValueError(
+            f"hbm_budget_bytes={hbm_budget_bytes} cannot hold one "
+            f"(1, {cache_len}) cache slot ({slot_bytes} B)")
+    rows = max(1, min(int(expected_batch), fit_rows))
+    ps = page_size or min(dataflow.PAGE_SIZE, cache_len)
+    if num_pages is None:
+        max_pages = dataflow.pages_for(cache_len, ps)
+        want = rows * (dataflow.pages_for(mean_len, ps) + 1)
+        num_pages = min(max(max_pages, want), rows * max_pages)
+    return _resolve(cfg, rows, cache_len, mean_len=mean_len, page_size=ps,
+                    num_pages=num_pages, attn_path=attn_path,
+                    share_prefix=share_prefix, kv_quant=kv_quant,
+                    sync_every=sync_every, drain_only=False, spec_k=spec_k,
+                    capacity_numbers={
+                        "hbm_budget_bytes": int(hbm_budget_bytes),
+                        "expected_batch": int(expected_batch),
+                        "expected_mean_len": mean_len,
+                        "slot_bytes": slot_bytes,
+                        "rows_fitting_budget": fit_rows})
+
+
+def _spec_decision(spec_k: Optional[int], eligible: bool, rows: int,
+                   w_bytes: int, c_bytes: int) -> Tuple[int, Decision]:
+    """The reference's ``spec`` rule: one flattened k-position verify
+    streams the weights once and the cache k times, and retires E[n] =
+    (1 - alpha^k) / (1 - alpha) tokens a round, so its modelled gain over
+    sequential steps is E[n] (w + c) / (w + k c). On at one row for an
+    eligible plan when the best k reaches ``SPEC_MIN_GAIN``; a pinned
+    ``spec_k`` is validated. Returns (k, the Decision)."""
+    cand = {}
+    for kk in SPEC_K_CANDIDATES:
+        exp_tokens = (1 - SPEC_ALPHA ** kk) / (1 - SPEC_ALPHA)
+        cand[kk] = exp_tokens * (w_bytes + c_bytes) / (w_bytes + kk * c_bytes)
+    rule_k = max(cand, key=cand.get)
+    rule_on = eligible and rows == 1 and cand[rule_k] >= SPEC_MIN_GAIN
+    if spec_k is None:
+        k = rule_k if rule_on else 0
+    else:
+        k = int(spec_k)
+        if k and not 2 <= k <= max(SPEC_K_CANDIDATES):
+            raise ValueError(f"spec_k must be 0 or in "
+                             f"[2, {max(SPEC_K_CANDIDATES)}], got {k}")
+        if k and not eligible:
+            raise ValueError(
+                "spec_k > 0 requires an all-global-attention, single-"
+                "codebook, fp paged plan: the flattened verifier's appends "
+                "are exact only there")
+    return k, Decision(
+        "spec", f"k={k}" if k else "off", "HBM", numbers={
+            "alpha_assumed": SPEC_ALPHA, "rows": rows,
+            "step_bytes_baseline": w_bytes + c_bytes,
+            "verify_bytes_per_round": w_bytes + max(k, rule_k) * c_bytes,
+            "est_tokens_per_round": (1 - SPEC_ALPHA ** rule_k)
+            / (1 - SPEC_ALPHA),
+            "est_speedup": cand[rule_k],
+            "candidates": {str(kk): v for kk, v in cand.items()},
+            "rule_choice": f"k={rule_k}" if rule_on else "off",
+        })
+
+
+def _resolve(cfg, rows: int, cache_len: int, *, mean_len: float,
+             page_size: int, num_pages: int, attn_path: Optional[str],
              share_prefix: Optional[bool], kv_quant: Optional[str],
-             sync_every: int, drain_only: bool) -> ServePlan:
-    """The reference's ``_resolve`` for one device and no speculation;
-    ``drain_only`` (the drain engine) never pages."""
+             sync_every: int, drain_only: bool,
+             spec_k: Optional[int] = None,
+             capacity_numbers: Optional[Dict] = None) -> ServePlan:
+    """The reference's ``_resolve`` for one device; ``drain_only`` (the
+    drain engine) never pages."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import kvcache
 
@@ -182,8 +299,11 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
     has_global = "global" in kinds
     ps = page_size or min(dataflow.PAGE_SIZE, cache_len)
     max_pages = dataflow.pages_for(cache_len, ps)
-    mean_len = cache_len / 2
-    decisions = []
+
+    cap_n = dict(capacity_numbers or {})
+    cap_n.setdefault("slot_bytes", kvcache.cache_bytes(cfg, 1, cache_len))
+    decisions = [Decision("capacity", f"rows={rows} cache_len={cache_len}",
+                          "HBM", numbers=cap_n)]
 
     ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
     fused_max = _fused_m_max(ff, cfg.d_model, cfg.mlp_gated)
@@ -242,6 +362,13 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
         "rule_choice": rule_kv,
     }))
 
+    spec_eligible = (paged and kv_quant == "fp" and not recurrent
+                     and kinds == {"global"} and cfg.num_codebooks == 1
+                     and not drain_only)
+    spec_choice, spec_d = _spec_decision(spec_k, spec_eligible, rows,
+                                         w_bytes, c_bytes)
+    decisions.append(spec_d)
+
     ladder = []
     np_int8 = 0
     deg_n: Dict = {"num_pages": np_}
@@ -275,10 +402,8 @@ def _resolve(cfg, rows: int, cache_len: int, *, page_size: int,
         attn_path="paged" if paged else "contiguous", page_size=ps,
         max_pages=max_pages, num_pages=np_, share_prefix=share_prefix,
         kv_quant=kv_quant, prefill_exact=recurrent, prefill_tiers=tiers,
-        degrade=tuple(ladder), num_pages_int8=np_int8,
+        degrade=tuple(ladder), num_pages_int8=np_int8, spec_k=spec_choice,
         decisions=tuple(decisions))
-
-
 def _mlp_bytes(cfg, bm: int = 8) -> Dict:
     """The byte counts of the reference's ``mlp_roofline`` for one layer
     at ``bm`` rows (its seconds, which divide by a TPU's memory rate, are

@@ -168,17 +168,20 @@ def bcsc_mlp_packed(x, gate_packed, up_packed, down_packed, *, d_ff: int,
 
 def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
                     k_scale=None, v_scale=None, softcap: float = 0.0,
+                    split_rows: Optional[int] = None,
                     impl: Optional[str] = None):
     """Decode attention through a block table. q (B,1,H,D) bf16; pools
     (P,ps,KV,D); block_table (B,MP) int32 (-1 = no page); lengths (B,)
-    int32. Returns (B,1,H,D) fp32."""
+    int32. Returns (B,1,H,D) fp32. ``split_rows`` sets the kernel's split
+    as for that many rows (the plain version has no split)."""
     B, _, H, D = q.shape
     KV = k_pool.shape[2]
     qr = q.reshape(B, KV, H // KV, D).contiguous()
     kw = dict(k_scale=k_scale, v_scale=v_scale, softcap=softcap)
     if _use_kernel(qr, impl):
         out = _paged.paged_attention_cuda(qr, k_pool, v_pool, block_table,
-                                          lengths, **kw)
+                                          lengths, split_rows=split_rows,
+                                          **kw)
     else:
         out = _paged.paged_attention_plain(qr, k_pool, v_pool, block_table,
                                            lengths, **kw)

@@ -29,6 +29,7 @@ page.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -111,10 +112,14 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
-                         k_scale=None, v_scale=None, softcap: float = 0.0):
+                         k_scale=None, v_scale=None, softcap: float = 0.0,
+                         split_rows: Optional[int] = None):
     """The same function through the CUDA kernels (tensors on the card):
     the split kernel on grid (B, KV, n_split) of ``split_plan``, then the
-    combine, both on the current stream; one launch as counted."""
+    combine, both on the current stream; one launch as counted.
+    ``split_rows`` (default B) is the row count ``split_plan`` is asked
+    about: the speculative verifier's B·k virtual rows pass the B real
+    rows, so each reduces its pages in the splits a sequential step would."""
     _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
     B, KV, R, D = q.shape
     P, ps = k_pool.shape[:2]
@@ -134,7 +139,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
         raise ValueError(f"at most 16 query heads per KV head, got {R}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {D}")
-    pages, n_split = split_plan(B, KV, MP,
+    pages, n_split = split_plan(split_rows or B, KV, MP,
                                  _build.sm_count(q.device.index or 0))
     out = torch.empty((B, KV, R, D), dtype=torch.float32, device=q.device)
     ws = torch.empty(B * KV * n_split * R * (D + 2), dtype=torch.float32,

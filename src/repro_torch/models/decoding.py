@@ -290,7 +290,7 @@ def _positions(pos, B: int, device) -> torch.Tensor:
 
 
 def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
-                 impl: Optional[str] = None):
+                 impl: Optional[str] = None, split_rows: Optional[int] = None):
     q, k, v = layers.attn_qkv(p, x, cfg)               # q (B,1,H,D)
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -308,7 +308,7 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
         ctx = ops.paged_attention(q, entry["pk"], entry["pv"], block_table,
                                   (posv + 1).to(torch.int32),
                                   softcap=cfg.attn_logit_softcap,
-                                  impl=impl, **scales)
+                                  split_rows=split_rows, impl=impl, **scales)
         return layers.attn_out(p, ctx.to(COMPUTE_DTYPE))
     cap = entry["k"].shape[1]
     B = x.shape[0]
@@ -336,21 +336,24 @@ def _mlp_residual(p, x, cfg, plan, impl):
                      "post_norm_mlp", cfg)
 
 
-def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl):
+def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
+                  split_rows: Optional[int] = None):
     """One layer: pre-norm attention, then the MLP."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table, impl)
+    y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table, impl,
+                     split_rows)
     return _mlp_residual(p, _residual(x, y, p, "post_norm", cfg), cfg, plan,
                          impl)
 
 
 def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
-               impl: Optional[str] = None):
+               impl: Optional[str] = None, split_rows: Optional[int] = None):
     """One decode step over every row. tokens (B,1); pos scalar or (B,)
     per-row positions; ``block_table`` (B, max_pages) int32 routes paged
     entries through the paged-attention kernel. Writes the new token's K/V
     into ``cache`` in place. Returns (logits fp32 (B,1,Vp), cache).
-    ``impl`` is passed on to ``kernels.ops`` (None: by device)."""
+    ``impl`` is passed on to ``kernels.ops`` (None: by device);
+    ``split_rows`` to paged attention (``verify_step``'s real rows)."""
     x = tfm.embed_tokens(params, tokens, cfg)
     B = x.shape[0]
     posv = _positions(pos, B, x.device)
@@ -359,9 +362,52 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
         for name, kind in slots:
             x = _block_decode(tfm.layer(params["blocks"][name], i), x, kind,
                               tfm.layer(cache["blocks"][name], i), posv, cfg,
-                              plan, block_table, impl)
+                              plan, block_table, impl, split_rows)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return tfm.lm_logits(params, x, cfg), cache
+
+
+def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
+                impl: Optional[str] = None):
+    """Score k candidate tokens per row in one step: the speculative
+    verifier (the reference's ``verify_step``).
+
+    tokens (B, k): row b's candidates, tokens[b, 0] at position pos[b].
+    Returns (logits fp32 (B, k, Vp), cache), where logits[b, i] conditions
+    on the row's history and tokens[b, :i + 1], as ``serve_step`` would
+    after taking those tokens one at a time. The k positions flatten into
+    the batch: each row's block table repeated k times gives k virtual rows
+    on one page chain; virtual row i appends its token at pos + i (disjoint
+    slots, one scatter) and reads with length pos + i + 1, so it sees its
+    own prefix of the candidates and none after it. Paged attention splits
+    the pages as for the B real rows. int8 pools take k sequential steps
+    instead: a louder later token requantizes its whole page, so the order
+    of appends is visible there. Only all-global-attention configs on a
+    paged cache: a ring's per-row state cannot be replicated."""
+    if block_table is None:
+        raise ValueError("verify_step needs a paged cache and its block "
+                         "table")
+    kinds = {k for k, _ in tfm.slot_kinds(cfg)}
+    if kinds != {"global"}:
+        raise ValueError(f"verify_step needs an all-global-attention "
+                         f"config, got {sorted(kinds)}")
+    B, k = tokens.shape
+    posv = _positions(pos, B, tokens.device)
+    if any(is_quantized_entry(e) for e in cache["blocks"].values()):
+        outs = []
+        for i in range(k):
+            lg, cache = serve_step(params, cache, tokens[:, i:i + 1],
+                                   posv + i, cfg, plan=plan,
+                                   block_table=block_table, impl=impl)
+            outs.append(lg)
+        return torch.cat(outs, dim=1), cache
+    posf = (posv[:, None] + torch.arange(k, device=posv.device)[None, :]
+            ).reshape(-1)
+    logits, cache = serve_step(params, cache, tokens.reshape(-1, 1), posf,
+                               cfg, plan=plan,
+                               block_table=block_table.repeat_interleave(
+                                   k, dim=0), impl=impl, split_rows=B)
+    return logits.reshape((B, k) + logits.shape[2:]), cache
 
 
 # ----------------------------------------------------------------- prefill

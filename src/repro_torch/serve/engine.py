@@ -11,10 +11,20 @@ on the card each step is one replay of a captured CUDA graph
 body runs eagerly. :class:`DecodeEngine` (the dense-slot drain engine behind
 ``LLM.generate``) and the streaming scheduler both decode through it.
 
+Under a plan with ``spec_k`` >= 2 the loop's step is one round of greedy
+speculative decoding (``make_spec_decode_step``): k candidates drafted from
+each row's own token history by bigram lookup (``ngram_successor``), scored
+by one flattened k-position verify (``decoding.verify_step``), and the
+prefix that greedy decoding would have produced emitted. On the card a round
+is one graph replay, as a plain step is.
+
 The loop also carries the device half of the guard's int8 degradation rung
 (:meth:`DecodeLoop.quantize_kv`): the paged pools are requantized in place
 of the fp ones mid-run and, on the card, the step graph is captured again
-over the new pools without disturbing the live rows.
+over the new pools (as a plain step: int8 pools never speculate) without
+disturbing the live rows. The device halves of copy-on-write
+(:meth:`DecodeLoop.copy_pages`) and of the scheduler's suffix-only resume
+(``resume_suffix``) run between chunks, eagerly, on the same buffers.
 """
 from __future__ import annotations
 
@@ -119,10 +129,11 @@ def length_tier(plen: int, recurrent: bool, cache_len: int = 0) -> int:
 
 def make_decode_step(cfg, plan, temperature: float, eos_id: int) -> Callable:
     """One decode step over every row: sample -> EOS/budget masks ->
-    ``serve_step``. carry = (cache, last, pos, live, budget)."""
+    ``serve_step``. carry = (cache, last, pos, live, budget[, hist]); a
+    draft history rides along untouched."""
 
     def step(params, carry, generator=None, block_table=None):
-        cache, last, pos, live, budget = carry
+        cache, last, pos, live, budget = carry[:5]
         nxt = sample_temperature(last, temperature, generator)
         emit = live
         budget = budget - emit.to(budget.dtype)
@@ -130,62 +141,146 @@ def make_decode_step(cfg, plan, temperature: float, eos_id: int) -> Callable:
         logits, cache = decoding.serve_step(
             params, cache, nxt[:, None], pos, cfg, plan=plan,
             block_table=block_table)
-        return (cache, logits[:, -1], pos + 1, live, budget), (nxt, emit)
+        return (cache, logits[:, -1], pos + 1, live, budget) \
+            + tuple(carry[5:]), (nxt, emit)
 
     return step
 
 
-def make_step_in_place(cfg, plan, temperature: float, eos_id: int
-                       ) -> Callable:
-    """``make_decode_step``'s step with its results written into its
-    inputs: body(params, state, nxt, emit, generator, block_table) leaves
-    the sampled tokens in ``nxt``, the emit flags in ``emit`` and the new
-    last, pos, live and budget in ``state``'s own buffers (the cache is
-    written in place by ``serve_step``). The body a StepGraph captures."""
-    step = make_decode_step(cfg, plan, temperature, eos_id)
+def ngram_successor(hist, pos, tok):
+    """The bigram self-draft: for each row, the token that followed the
+    most recent earlier occurrence of ``tok`` in its history, or ``tok``
+    itself when it never occurred. ``hist`` (B, H) holds each row's tokens
+    by position, ``pos`` (B,) how many of them are committed: only a
+    successor at j + 1 < pos is read, so the draft depends on the committed
+    stream alone (a rejected draft's leftovers past pos are never seen)."""
+    H = hist.shape[1]
+    idx = torch.arange(H, device=hist.device)
+    match = (hist == tok[:, None].to(hist.dtype)) \
+        & (idx[None, :] + 1 < pos[:, None])
+    j = torch.where(match, idx[None, :], -1).amax(dim=1)
+    nxt = torch.gather(hist, 1, (j + 1).clamp(0, H - 1)[:, None])[:, 0]
+    return torch.where(j >= 0, nxt.to(tok.dtype), tok)
+
+
+def make_spec_decode_step(cfg, plan, eos_id: int, k: int) -> Callable:
+    """One round of greedy speculative decoding over every row (the
+    reference's ``make_spec_decode_step``): draft k candidates (the argmax
+    of ``last``, then k - 1 bigram successors), score them with one
+    ``decoding.verify_step``, and emit the prefix greedy decoding would
+    produce: candidate i + 1 only while it equals the verifier's argmax
+    after candidates 0..i, stopping at the first EOS and at the row's
+    budget. A row emits n in [1, k] tokens a round (0 when dead); ``pos``
+    advances by n, ``last`` becomes the verifier's logits after the last
+    emitted token, and all k candidates go into ``hist`` at pos..pos+k-1
+    (the rejected tail lies past the new pos, where the next round writes
+    over it and no read looks). carry = (cache, last, pos, live, budget,
+    hist); returns (carry, (candidates (B, k), emit flags (B, k)))."""
+    if k < 2:
+        raise ValueError(f"spec k must be >= 2, got {k}")
+
+    def step(params, carry, generator=None, block_table=None):
+        cache, last, pos, live, budget, hist = carry
+        B, dev = last.shape[0], last.device
+        cands = [torch.argmax(last, dim=-1)]
+        for _ in range(k - 1):
+            cands.append(ngram_successor(hist, pos, cands[-1]))
+        v = torch.stack(cands, dim=1)                             # (B, k)
+        logits, cache = decoding.verify_step(params, cache, v, pos, cfg,
+                                             plan=plan,
+                                             block_table=block_table)
+        g = torch.argmax(logits, dim=-1)
+        first = torch.ones((B, 1), dtype=torch.bool, device=dev)
+        ok = torch.cat([first, v[:, 1:] == g[:, :-1]], dim=1)
+        acc = torch.cumprod(ok.int(), dim=1).bool()
+        not_eos = v != eos_id
+        no_prior_eos = torch.cat(
+            [first, torch.cumprod(not_eos[:, :-1].int(), dim=1).bool()],
+            dim=1)
+        steps = torch.arange(k, device=dev)[None, :]
+        emit = live[:, None] & acc & no_prior_eos \
+            & (budget[:, None] > steps)
+        n = emit.sum(dim=1)
+        budget = budget - n.to(budget.dtype)
+        new_live = live & ~(emit & ~not_eos).any(dim=1) & (budget > 0)
+        sel = (n - 1).clamp(0, k - 1)
+        picked = torch.gather(
+            logits, 1, sel[:, None, None].expand(B, 1, logits.shape[-1]))
+        last = torch.where(live[:, None], picked[:, 0], last)
+        posk = pos[:, None] + steps
+        rows = torch.arange(B, device=dev)[:, None].expand(B, k)
+        decoding._masked_set(hist, (rows.reshape(-1), posk.reshape(-1)),
+                             v.reshape(-1),
+                             ((posk < hist.shape[1]) & live[:, None])
+                             .reshape(-1))
+        return (cache, last, pos + n, new_live, budget, hist), (v, emit)
+
+    return step
+
+
+def make_step_in_place(cfg, plan, temperature: float, eos_id: int,
+                       spec_k: int = 0) -> Callable:
+    """The decode step with its results written into its inputs:
+    body(params, state, nxt, emit, generator, block_table) leaves the
+    sampled tokens in ``nxt``, the emit flags in ``emit`` and the new last,
+    pos, live and budget in ``state``'s own buffers (the cache and, in a
+    speculative round, ``hist`` are written in place). ``spec_k`` >= 2
+    makes it a ``make_spec_decode_step`` round (greedy; ``nxt`` and
+    ``emit`` are then (rows, k)), otherwise a ``make_decode_step`` step,
+    which leaves ``hist`` as it is. The body a StepGraph captures."""
+    step = make_spec_decode_step(cfg, plan, eos_id, spec_k) if spec_k \
+        else make_decode_step(cfg, plan, temperature, eos_id)
 
     def body(params, state, nxt, emit, generator=None, block_table=None):
         new, (tok, em) = step(params, state, generator, block_table)
         nxt.copy_(tok)
-        emit.copy_(em)             # em is state's live: copy it first
-        for buf, value in zip(state[1:], new[1:]):
+        emit.copy_(em)             # em may be state's live: copy it first
+        for buf, value in zip(state[1:5], new[1:5]):
             buf.copy_(value)
 
     return body
 
 
 def build_tier_batch(group, tier: int, prompt_of: Callable,
-                     budget_of: Callable):
-    """Host arrays for one admission tier: (toks, lengths, slots, budgets).
-    ``group`` is [(slot, request), ...]."""
+                     budget_of: Callable, start_of: Optional[Callable] = None):
+    """Host arrays for one admission tier: (toks, lengths, slots, budgets,
+    starts). ``group`` is [(slot, request), ...]; ``start_of`` gives the
+    first prompt token the prefill writes (past a shared prefix; default
+    0)."""
     B = len(group)
     toks = np.zeros((B, tier), np.int32)
     lengths = np.empty((B,), np.int32)
     slot_ids = np.empty((B,), np.int64)
     budgets = np.empty((B,), np.int32)
+    starts = np.zeros((B,), np.int32)
     for i, (slot, r) in enumerate(group):
         p = prompt_of(r)
         toks[i, :len(p)] = p
         lengths[i] = len(p)
         slot_ids[i] = slot
         budgets[i] = budget_of(r)
-    return toks, lengths, slot_ids, budgets
+        if start_of is not None:
+            starts[i] = start_of(r)
+    return toks, lengths, slot_ids, budgets, starts
 
 
 def refill_rows(params, cfg, plan, state, toks, lengths, slots, budgets, *,
-                block_table=None) -> None:
+                block_table=None, starts=None) -> None:
     """Batched prefill of one length tier into rows ``slots`` of ``state``,
     in place: paged global K/V straight into the pools through
-    ``block_table``'s rows, every other entry merged into its rows."""
-    cache, last, pos, live, budget = state
+    ``block_table``'s rows from ``starts`` on (tokens before it sit in
+    adopted shared pages), every other entry merged into its rows; each
+    row's draft history is the prompt."""
+    cache, last, pos, live, budget, hist = state
     dev = last.device
     toks = torch.as_tensor(toks, device=dev)
     lengths = torch.as_tensor(lengths, device=dev)
     slots = torch.as_tensor(slots, dtype=torch.long, device=dev)
     if block_table is not None:
-        pp = decoding.PagedPrefill(cache=cache,
-                                   block_table_rows=block_table[slots],
-                                   slots=slots)
+        pp = decoding.PagedPrefill(
+            cache=cache, block_table_rows=block_table[slots], slots=slots,
+            write_start=None if starts is None
+            else torch.as_tensor(starts, device=dev))
         logits, _ = decoding.prefill_batched(
             params, toks, lengths, cfg, plan.cache_len, plan=plan, paged=pp)
     else:
@@ -198,6 +293,38 @@ def refill_rows(params, cfg, plan, state, toks, lengths, slots, budgets, *,
     pos[slots] = lengths.long()
     live[slots] = True
     budget[slots] = torch.as_tensor(budgets, dtype=budget.dtype, device=dev)
+    S = toks.shape[1]
+    hist[slots] = -1
+    hist[slots, :S] = torch.where(
+        torch.arange(S, device=dev)[None, :] < lengths[:, None],
+        toks.to(hist.dtype), -1)
+
+
+def resume_suffix(params, cfg, plan, state, prompt: List[int], start: int,
+                  row: int, budget: int, *, block_table) -> None:
+    """The suffix-only refill of a preempted request re-admitted on its
+    resident prefix pages (the reference's ``_make_resume_fn``): the pages
+    hold K/V for ``prompt[:start]``, so only ``prompt[start:]``, padded to
+    a power of two, goes through one ``decoding.verify_step`` over that
+    many virtual rows. Pad positions write past the committed length (into
+    the row's own fresh pages, which decode overwrites before any read)
+    and their logits are never read. Row ``row`` of ``state`` is set live
+    at ``len(prompt)`` with ``budget`` tokens to go."""
+    cache, last, pos, live, budget_t, hist = state
+    dev = last.device
+    suffix = prompt[start:]
+    Lp = 1 << (len(suffix) - 1).bit_length()
+    toks = torch.as_tensor([suffix + [0] * (Lp - len(suffix))], device=dev)
+    logits, _ = decoding.verify_step(
+        params, cache, toks, torch.as_tensor([start], device=dev), cfg,
+        plan=plan, block_table=block_table[row:row + 1])
+    last[row] = logits[0, len(suffix) - 1]
+    pos[row] = len(prompt)
+    live[row] = True
+    budget_t[row] = budget
+    hist[row] = -1
+    hist[row, :len(prompt)] = torch.as_tensor(prompt, dtype=hist.dtype,
+                                              device=dev)
 
 
 def _tensors(tree):
@@ -215,37 +342,54 @@ class DecodeLoop:
     """The device side of a decode loop: the decode state on persistent
     buffers, ``sync_every``-step chunks, and one transfer per chunk.
 
-    ``paged`` keeps global K/V in ``plan``'s page pool, read through the
-    static ``block_table`` (rows, max_pages) int32 that the caller fills in
-    place; otherwise the cache is contiguous (``decoding.init_cache``). On
-    the card with ``graphs`` (the default) each step is one replay of a
-    :class:`StepGraph`, captured at the first :meth:`start` and reused by
-    every later one; on the CPU, or with ``graphs=False``, the same in-place
-    body runs eagerly. Either way the buffers are the state: callers write
-    new rows into them (``refill_rows``) and never rebind them; only
-    :meth:`quantize_kv` swaps the paged pools, inside the same cache dict.
-    ``captures`` lists the seconds of every capture this loop made."""
+    The state is (cache, last, pos, live, budget, hist): ``hist`` (rows,
+    cache_len) int32 holds each row's tokens by position (-1 where none),
+    the speculative draft's source. ``paged`` keeps global K/V in
+    ``plan``'s page pool, read through the static ``block_table`` (rows,
+    max_pages) int32 that the caller fills in place; otherwise the cache is
+    contiguous (``decoding.init_cache``). ``spec_k`` >= 2 makes each step a
+    speculative round of k candidates (greedy, paged fp only), whose tokens
+    and emit flags come back as (T, rows, k). On the card with ``graphs``
+    (the default) each step is one replay of a :class:`StepGraph`, captured
+    at the first :meth:`start` and reused by every later one; on the CPU, or
+    with ``graphs=False``, the same in-place body runs eagerly. Either way
+    the buffers are the state: callers write new rows into them
+    (``refill_rows``, ``resume_suffix``, :meth:`copy_pages`) and never
+    rebind them; only :meth:`quantize_kv` swaps the paged pools, inside the
+    same cache dict. ``captures`` lists the seconds of every capture this
+    loop made."""
 
     def __init__(self, cfg, params, plan, *, temperature: float,
                  eos_id: int, device, paged: bool, sync_every: int,
-                 graphs: bool = True):
+                 graphs: bool = True, spec_k: int = 0):
         self.cfg, self.params, self.plan = cfg, params, plan
         self.device = device
         self.paged = paged
         self.rows = plan.rows
         self.sync_every = max(1, sync_every)
         self.temperature = temperature
+        self.eos_id = eos_id
+        self.spec_k = spec_k
         self.use_graph = graphs and device.type == "cuda"
-        self.body = make_step_in_place(cfg, plan, temperature, eos_id)
+        self.body = make_step_in_place(cfg, plan, temperature, eos_id,
+                                       spec_k)
         self.generator = torch.Generator(device=device)
         self.state = None
         self.block_table: Optional[torch.Tensor] = None
         self.graph: Optional[StepGraph] = None
         self.captures: List[float] = []
 
+    def _alloc_outputs(self) -> None:
+        """``nxt``/``emit`` (rows[, k]) and the chunk's (T, rows[, k])."""
+        dev, R, T = self.device, self.rows, self.sync_every
+        shape = (R, self.spec_k) if self.spec_k else (R,)
+        self.nxt = torch.zeros(shape, dtype=torch.long, device=dev)
+        self.emit = torch.zeros(shape, dtype=torch.bool, device=dev)
+        self.toks = torch.zeros((T,) + shape, dtype=torch.long, device=dev)
+        self.emits = torch.zeros((T,) + shape, dtype=torch.bool, device=dev)
+
     def _alloc(self) -> None:
-        cfg, plan, dev, R, T = (self.cfg, self.plan, self.device, self.rows,
-                                self.sync_every)
+        cfg, plan, dev, R = self.cfg, self.plan, self.device, self.rows
         if self.paged:
             cache = decoding.init_paged_cache(
                 cfg, R, plan.cache_len, plan.num_pages, plan.page_size,
@@ -258,15 +402,15 @@ class DecodeLoop:
                       torch.zeros((R, cfg.vocab_padded), device=dev),
                       torch.zeros((R,), dtype=torch.long, device=dev),
                       torch.zeros((R,), dtype=torch.bool, device=dev),
-                      torch.zeros((R,), dtype=torch.int32, device=dev))
-        self.nxt = torch.zeros((R,), dtype=torch.long, device=dev)
-        self.emit = torch.zeros((R,), dtype=torch.bool, device=dev)
-        self.toks = torch.zeros((T, R), dtype=torch.long, device=dev)
-        self.emits = torch.zeros((T, R), dtype=torch.bool, device=dev)
+                      torch.zeros((R,), dtype=torch.int32, device=dev),
+                      torch.full((R, plan.cache_len), -1, dtype=torch.int32,
+                                 device=dev))
+        self._alloc_outputs()
 
     def _reset(self) -> None:
         for t in _tensors(self.state):
             t.zero_()
+        self.state[5].fill_(-1)
         if self.block_table is not None:
             self.block_table.fill_(-1)
 
@@ -293,10 +437,10 @@ class DecodeLoop:
     def _kept(self):
         """Run the block (a capture's warm-up and captured steps) and leave
         the live decode state as it was: every tensor of the state but the
-        paged pools is copied aside and written back, as are ``nxt``,
-        ``emit``, the block table and the sampler's state; the block table
-        reads all -1 meanwhile, so the steps' paged appends write
-        nothing."""
+        paged pools is copied aside and written back (``hist`` among them),
+        as are ``nxt``, ``emit``, the block table and the sampler's state;
+        the block table reads all -1 meanwhile, so the steps' paged appends
+        write nothing."""
         pools = {id(t) for part in self.state[0].values()
                  for e in part.values() if decoding.is_paged_entry(e)
                  for t in e.values()}
@@ -318,11 +462,13 @@ class DecodeLoop:
     def quantize_kv(self, num_pages: int) -> None:
         """The int8 rung on the device: every fp paged entry of the cache
         becomes ``decoding.quantize_paged_entry(entry, num_pages)`` (the
-        rings stay as they are) and the fp pools are released. With a step
-        graph, the old graph is dropped and a new one is captured over the
-        int8 pools with the live rows kept (:meth:`_kept`). The step reads
-        each entry's format from the entry itself, so it reads int8 pages
-        from here on."""
+        rings stay as they are) and the fp pools are released. Speculation
+        ends here (an int8 append requantizes its whole page, so a rejected
+        draft's tokens would move the committed ones' scales): the step
+        becomes a plain one. With a step graph, the old graph is dropped and
+        a new one is captured over the int8 pools with the live rows kept
+        (:meth:`_kept`). The step reads each entry's format from the entry
+        itself, so it reads int8 pages from here on."""
         recapture = self.graph is not None
         self.graph = None                  # its memory pool goes with it
         for part in self.state[0].values():
@@ -330,9 +476,27 @@ class DecodeLoop:
                 if decoding.is_paged_entry(e) \
                         and not decoding.is_quantized_entry(e):
                     part[name] = decoding.quantize_paged_entry(e, num_pages)
+        if self.spec_k:
+            self.spec_k = 0
+            self.body = make_step_in_place(self.cfg, self.plan,
+                                           self.temperature, self.eos_id)
+            self._alloc_outputs()
         if recapture:
             with self._kept():
                 self._capture()
+
+    def copy_pages(self, src: List[int], dst: List[int]) -> None:
+        """Copy-on-write on the device: physical pages ``src`` (payload and
+        int8 scales) copied onto ``dst`` in every paged entry, in place on
+        the pools the step graph reads. Between chunks, never inside one."""
+        dev = self.device
+        s = torch.as_tensor(src, dtype=torch.long, device=dev)
+        d = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        for part in self.state[0].values():
+            for e in part.values():
+                if decoding.is_paged_entry(e):
+                    for t in e.values():          # (periods, P, ...)
+                        t[:, d] = t[:, s]
 
     def set_block_table(self, table: np.ndarray) -> torch.Tensor:
         """Copy a host (rows, max_pages) table into the static buffer."""
@@ -348,15 +512,19 @@ class DecodeLoop:
 
     def chunk(self):
         """``sync_every`` steps on the device, then one transfer of the
-        sampled tokens (T, rows), their emit flags and the live flags."""
+        sampled tokens (T, rows) or, speculating, the candidates (T, rows,
+        k), their emit flags and the live flags."""
         T = self.sync_every
         for t in range(T):
             self.step()
             self.toks[t].copy_(self.nxt)
             self.emits[t].copy_(self.emit)
-        host = torch.cat([self.toks, self.emits.long(),
-                          self.state[3].long()[None]]).cpu().numpy()
-        return host[:T], host[T:2 * T].astype(bool), host[2 * T].astype(bool)
+        n = self.toks.numel()
+        host = torch.cat([self.toks.reshape(-1), self.emits.reshape(-1).long(),
+                          self.state[3].long()]).cpu().numpy()
+        return (host[:n].reshape(self.toks.shape),
+                host[n:2 * n].reshape(self.toks.shape).astype(bool),
+                host[2 * n:].astype(bool))
 
 
 class DecodeEngine:
@@ -477,9 +645,9 @@ class DecodeEngine:
                         st, "prefill_s", tracer=tr, name="prefill",
                         start=st["decode_chunks"] * T) as ph:
                     for tier, group in sorted(buckets.items()):
-                        toks, lengths, slot_ids, max_news = build_tier_batch(
-                            group, tier, lambda r: r.prompt,
-                            lambda r: r.max_new)
+                        toks, lengths, slot_ids, max_news, _ = \
+                            build_tier_batch(group, tier, lambda r: r.prompt,
+                                             lambda r: r.max_new)
                         for slot, r in group:
                             active[slot] = r
                         refill_rows(self.params, self.cfg, self.plan, state,

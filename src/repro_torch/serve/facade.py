@@ -18,9 +18,11 @@ streamed request ends with an ``outcome`` and overload walks the plan's
 degradation ladder (on the card the int8 rung captures the decode step
 again over the requantized pool, mid-run).
 
-``plan`` is a ``core.plan.ServePlan`` (``plan_for_scheduler``,
-``plan_for_engine``, or the reference's ``as_dict()`` through
-``ServePlan.from_dict``). The model runs on the card unless ``device="cpu"``
+``plan`` is a ``core.plan.ServePlan`` (``plan_serve``,
+``plan_for_scheduler``, ``plan_for_engine``, or the reference's
+``as_dict()`` through ``ServePlan.from_dict``); ``stream`` serves what it
+resolves, copy-on-write prefix sharing (on for a paged plan by default) and
+greedy speculative decoding (``spec_k`` >= 2) included. The model runs on the card unless ``device="cpu"``
 is passed; without a CUDA device and without that request, construction
 raises rather than carry on on the CPU.
 """

@@ -4,12 +4,14 @@ The reference runs ``sync_every`` decode steps as one jitted ``lax.scan``
 whose donated state is updated in place (``repro.serve.engine.DecodeEngine``,
 the scheduler's paged chunk). The port's counterpart is :class:`StepGraph`:
 the in-place decode step (``serve.engine.make_step_in_place``) captured once
-on static buffers and replayed ``sync_every`` times per chunk. The buffers
-are the decode state itself (the cache, ``last``, ``pos``, ``live``,
-``budget``), the block table of a paged plan, and the step's outputs
-``nxt`` and ``emit``; the captured body ends by writing the new ``last``,
-``pos``, ``live`` and ``budget`` back into their input buffers, so T
-replays are the T-step chunk. A replay costs the host one graph launch
+on static buffers and replayed ``sync_every`` times per chunk (under
+speculation the body is one round: k drafted candidates, one flattened
+verify, the accepted prefix). The buffers are the decode state itself (the
+cache, ``last``, ``pos``, ``live``, ``budget``, the draft history
+``hist``), the block table of a paged plan, and the step's outputs ``nxt``
+and ``emit``; the captured body ends by writing the new ``last``, ``pos``,
+``live`` and ``budget`` back into their input buffers, so T replays are
+the T-step chunk. A replay costs the host one graph launch
 instead of the step's several thousand kernel launches.
 
 Capture is preceded by eager warm-up steps on the capture stream: the
@@ -40,13 +42,14 @@ class StepGraph:
     """``body(params, state, nxt, emit, generator, block_table)`` captured
     once; :meth:`replay` runs it on the current stream.
 
-    ``state`` = (cache, last, pos, live, budget) and the other tensors are
-    the graph's fixed inputs and outputs: the caller writes new rows,
-    flags and tables into them in place between replays and never rebinds
-    them. The warm-up steps write garbage into ``state``; the caller resets
-    it after construction. ``generator`` (temperature sampling) is
-    registered with the graph, so each replay draws the numbers the next
-    eager step from the generator's current seed and offset would."""
+    ``state`` = (cache, last, pos, live, budget, hist) and the other
+    tensors are the graph's fixed inputs and outputs: the caller writes new
+    rows, flags and tables into them in place between replays and never
+    rebinds them. The warm-up steps write garbage into ``state``; the
+    caller resets it after construction. ``generator`` (temperature
+    sampling) is registered with the graph, so each replay draws the
+    numbers the next eager step from the generator's current seed and
+    offset would."""
 
     def __init__(self, body: Callable, params, state, nxt: torch.Tensor,
                  emit: torch.Tensor, *, block_table: Optional[torch.Tensor]

@@ -101,7 +101,7 @@ def audit_pool(pager, drained: bool = False, *, tracer=None,
       it, and a count of 0 holds exactly for the pages on the free list;
     * block tables: no page twice in one table, recorded lengths covered;
     * the prefix index: every indexed page resident, the reverse map
-      agreeing (both empty while prefix sharing is not ported).
+      agreeing.
 
     ``drained=True`` (end of run) also requires the whole pool returned.
     A ``tracer`` records a ``pool_audit`` event only when violations are

@@ -11,11 +11,22 @@ for one replica, with the serving guard, fault injection and telemetry:
   re-prefill of prompt plus the tokens it had produced);
 * admission into freed rows, bucketed into power-of-two length tiers and
   batch-prefilled straight into the pool pages (``decoding.PagedPrefill``);
+* copy-on-write prefix sharing (``plan.share_prefix``, on by default for a
+  paged plan): admission adopts the resident pages already holding a
+  prompt's leading full pages (refcounted, their prefill writes skipped)
+  and indexes its own for later arrivals; before each chunk every shared
+  page a row is about to append to is copied to a private page
+  (``DecodeLoop.copy_pages``, on the pools the step graph reads). A
+  preempted request re-admitted on its still-resident leading pages
+  refills only the rest (``engine.resume_suffix``: one flattened verify);
 * decode in chunks of ``sync_every`` device steps whose sampled tokens reach
   the host in one transfer per chunk (``engine.DecodeLoop``: on the card
   each step is one replay of a captured CUDA graph); streaming ``on_token``
   callbacks; rows leave at EOS or when their budget is spent, and their
-  pages return at once.
+  pages return at once. Under a plan with ``spec_k`` >= 2 (greedy, fp
+  pages) each step is a speculative round of k drafted candidates and one
+  flattened verify, run on forks of the rows' page chains that the host
+  commits after the chunk.
 
 With a ``guard.GuardConfig`` every request ends in exactly one
 ``RequestOutcome``: deadlines are swept before admission and for live rows,
@@ -33,9 +44,8 @@ reference's. A guarded run ends with ``assert_pool_clean(drained=True)``;
 every run ends with ``telemetry.detect_drift`` against the plan.
 
 Not ported yet, and refused rather than ignored (``check_plan``):
-copy-on-write prefix sharing, speculative decoding and tensor/expert-parallel
-plans; the fleet's externally driven runs (``start_gen``/``inject``) wait for
-the replica set.
+tensor/expert-parallel plans; the fleet's externally driven runs
+(``start_gen``/``inject``) wait for the replica set.
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ from repro_torch.serve import chaos as chaos_mod
 from repro_torch.serve import guard as guard_mod
 from repro_torch.serve import telemetry as telemetry_mod
 from repro_torch.serve.engine import (DecodeLoop, build_tier_batch,
-                                      refill_rows, resolve_device)
+                                      refill_rows, resolve_device,
+                                      resume_suffix)
 from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kvcache import SlotAllocator
 from repro_torch.serve.paging import PageAllocator
@@ -71,8 +82,8 @@ class StreamRequest:
     the guard's ``default_ttl_steps``); ``on_outcome(request, outcome)`` is
     called once with the request's terminal ``outcome``; ``degraded`` lists
     the ladder rungs applied to it; ``tenant`` keys the per-tenant metrics.
-    ``shared_tokens`` (prompt tokens served from shared pages) stays 0 until
-    prefix sharing is ported."""
+    ``shared_tokens`` counts the prompt tokens served from adopted shared
+    pages at its latest admission."""
     rid: int
     prompt: List[int]
     max_new: int
@@ -95,13 +106,6 @@ class StreamRequest:
 
 def check_plan(plan) -> None:
     """Raise NotImplementedError for plan features the port does not serve."""
-    if plan.share_prefix:
-        raise NotImplementedError(
-            "copy-on-write prefix sharing (share_prefix=True) is not ported "
-            "yet: plan with share_prefix=False")
-    if plan.spec_k:
-        raise NotImplementedError(
-            f"speculative decoding (spec_k={plan.spec_k}) is not ported yet")
     if plan.tp * plan.ep > 1:
         raise NotImplementedError(
             f"sharded serving (tp={plan.tp}, ep={plan.ep}) is not ported yet")
@@ -142,6 +146,19 @@ class ContinuousBatchingScheduler:
         self.max_pages = plan.max_pages
         self.num_pages = plan.num_pages if self.paged else 0
         self.kv_quant = plan.kv_quant
+        self.share_prefix = plan.share_prefix
+        # speculation needs greedy sampling and the fp paged pool the
+        # flattened verifier is exact on; the int8 rung turns it off
+        self.spec_k = int(plan.spec_k)
+        self.spec_on = (self.spec_k >= 2 and self.paged and temperature <= 0
+                        and cfg.num_codebooks == 1 and self.kv_quant == "fp")
+        # a preempted request re-admitted on its resident leading pages
+        # refills only the rest through the verifier: its gates minus k
+        self._fast_resume = (self.paged and self.share_prefix
+                             and cfg.num_codebooks == 1
+                             and self.kv_quant == "fp"
+                             and {k for k, _ in tfm.slot_kinds(cfg)}
+                             == {"global"})
         self.eos_id = eos_id
         self.temperature = temperature
         self.guard = guard
@@ -158,7 +175,8 @@ class ContinuousBatchingScheduler:
         self._loop = DecodeLoop(cfg, params, plan, temperature=temperature,
                                 eos_id=eos_id, device=self.device,
                                 paged=self.paged, sync_every=self.sync_every,
-                                graphs=graphs)
+                                graphs=graphs,
+                                spec_k=self.spec_k if self.spec_on else 0)
         self.pager: Optional[PageAllocator] = None
         self.phase_stats: Dict = {}
 
@@ -167,6 +185,13 @@ class ContinuousBatchingScheduler:
         """The captured decode step (None on the CPU, with graphs=False,
         or before the first run)."""
         return self._loop.graph
+
+    def _chunk_span(self) -> int:
+        """Most tokens a chunk appends per row: T steps, or T rounds of k
+        candidate writes under speculation (rejected candidates hold their
+        slots until the next round writes over them, so page headroom and
+        the CoW window cover them)."""
+        return self.sync_every * (self.spec_k if self.spec_on else 1)
 
     # -------------------------------------------------------------- host loop
     def _plen(self, r: StreamRequest) -> int:
@@ -203,13 +228,17 @@ class ContinuousBatchingScheduler:
         """The ladder's int8 rung: requantize the live pool to int8 pages
         and grow it to the plan's ``num_pages_int8`` (the same footprint,
         about twice the pages). Page ids 0..old-1 keep their contents, so
-        every block table survives. Sticky for the scheduler's lifetime:
-        later runs start on the grown int8 pool."""
+        every block table survives. Speculation and the suffix-only resume
+        end here (``DecodeLoop.quantize_kv`` captures the plain step). Sticky
+        for the scheduler's lifetime: later runs start on the grown int8
+        pool."""
         new_pages = self.plan.num_pages_int8
         self._loop.quantize_kv(new_pages)
         self.pager.grow(new_pages)
         self.num_pages = new_pages
         self.kv_quant = "int8"
+        self.spec_on = False
+        self._fast_resume = False
         self.phase_stats["kv_quant"] = "int8"
         self.phase_stats["degraded_to_int8_at"] = clock
         self.telemetry.metrics.count("requant_events")
@@ -271,9 +300,15 @@ class ContinuousBatchingScheduler:
             "peak_live_rows": 0,
             "attn_path": "paged" if self.paged else "contiguous",
             "kv_quant": self.kv_quant,
+            "share_prefix": self.share_prefix,
+            "shared_tokens_admitted": 0, "cow_copies": 0,
             "guard_enabled": g is not None,
             "stalled_boundaries": 0, "step_retries": 0,
-            "clamped_admissions": 0}
+            "clamped_admissions": 0,
+            "spec_k": self.spec_k if self.spec_on else 0,
+            "spec_rounds": 0, "spec_drafted_tokens": 0,
+            "spec_accepted_tokens": 0, "resume_fast_prompts": 0,
+            "resume_fast_tokens": 0}
         preempted_rows: List[int] = []
         just_preempted: set = set()
         peak_pages: Optional[Dict] = None
@@ -448,12 +483,13 @@ class ContinuousBatchingScheduler:
 
             # ---- page headroom for the live rows' next chunk, oldest first
             stalled = False
+            span = self._chunk_span()
             if self.paged:
                 for row in list(admit_order):
                     if row not in active:
                         continue
                     r = active[row]
-                    need = min(row_pos[row] + T, self._final_len(r))
+                    need = min(row_pos[row] + span, self._final_len(r))
                     while row in active and not ensure_pages(r.rid, need):
                         if not preempt_latest():
                             if g is None:
@@ -478,9 +514,22 @@ class ContinuousBatchingScheduler:
                 r = waiting[0]
                 if r.rid in just_preempted:
                     break        # evicted this boundary: wait one, keep rank
-                if self.paged and not ensure_pages(
-                        r.rid, min(self._plen(r) + T, self._final_len(r))):
-                    break        # page pressure: wait for frees
+                if self.paged:
+                    # adopt the resident pages holding the prompt's prefix,
+                    # rolled back when the rest does not fit
+                    r.shared_tokens = pager.adopt_prefix(
+                        r.rid, self._resume_prompt(r)) \
+                        if self.share_prefix else 0
+                    if not ensure_pages(r.rid, min(self._plen(r) + span,
+                                                   self._final_len(r))):
+                        if pager.pages_of(r.rid):
+                            pager.free(r.rid)
+                        r.shared_tokens = 0
+                        break    # page pressure: wait for frees
+                    if self.share_prefix:
+                        # indexed at once: the pages fill in this boundary's
+                        # prefill, so a same-boundary arrival may adopt them
+                        pager.register_prefix(r.rid, self._resume_prompt(r))
                 waiting.pop(0)
                 to_admit.append(r)
             just_preempted.clear()
@@ -492,6 +541,7 @@ class ContinuousBatchingScheduler:
                 row_pos[row] = self._plen(r)
                 if self.paged:
                     pager.set_length(r.rid, row_pos[row])
+                    st["shared_tokens_admitted"] += r.shared_tokens
                 if r.admitted_at is None:
                     r.admitted_at = clock
                     m.count("requests_admitted")
@@ -500,7 +550,19 @@ class ContinuousBatchingScheduler:
                     m.tenant_observe(r.tenant, "admission_wait_steps", wait)
                     tr.event("admitted", clock, cat="request", slot=slot,
                              rid=r.rid, shared_tokens=r.shared_tokens)
+                if self.paged and r.shared_tokens:
+                    m.count("shared_tokens_admitted", r.shared_tokens)
             if admits:
+                # a preempted request whose leading pages are still resident
+                # refills only the rest; a partial match is page-aligned, so
+                # the rest starts on a fresh page and needs no copy
+                fast: List[Tuple[int, StreamRequest]] = []
+                if self._fast_resume:
+                    fast = [(row, r) for row, r in admits
+                            if r.out and 0 < r.shared_tokens < self._plen(r)
+                            and r.shared_tokens % self.page_size == 0]
+                    fast_rows = {row for row, _ in fast}
+                    admits = [a for a in admits if a[0] not in fast_rows]
                 buckets: Dict[int, List[Tuple[int, StreamRequest]]] = {}
                 for row, r in admits:
                     buckets.setdefault(self.plan.tier(self._plen(r)),
@@ -509,15 +571,30 @@ class ContinuousBatchingScheduler:
                 with telemetry_mod.phase_timer(
                         st, "prefill_s", tracer=tr, name="prefill",
                         start=clock, slot=slot) as ph:
+                    for row, r in fast:
+                        active[row] = r
+                        prompt = self._resume_prompt(r)
+                        cov = r.shared_tokens
+                        resume_suffix(self.params, self.cfg, self.plan,
+                                      state, prompt, cov, row,
+                                      r.max_new - len(r.out), block_table=bt)
+                        st["resume_fast_prompts"] += 1
+                        st["resume_fast_tokens"] += cov
+                        st["prefill_real_tokens"] += len(prompt) - cov
+                        tr.event("resume_fast", clock, cat="request",
+                                 slot=slot, rid=r.rid, adopted=cov,
+                                 suffix=len(prompt) - cov)
                     for tier, group in sorted(buckets.items()):
-                        toks, lengths, slots, budgets = build_tier_batch(
-                            group, tier, self._resume_prompt,
-                            lambda r: r.max_new - len(r.out))
+                        toks, lengths, slots, budgets, starts = \
+                            build_tier_batch(
+                                group, tier, self._resume_prompt,
+                                lambda r: r.max_new - len(r.out),
+                                lambda r: r.shared_tokens)
                         for row, r in group:
                             active[row] = r
                         refill_rows(self.params, self.cfg, self.plan, state,
                                     toks, lengths, slots, budgets,
-                                    block_table=bt)
+                                    block_table=bt, starts=starts)
                         B, real = len(group), int(lengths.sum())
                         st["prefill_batches"] += 1
                         st["prefill_prompts"] += B
@@ -528,7 +605,8 @@ class ContinuousBatchingScheduler:
                         m.count("prefill_real_tokens", real)
                         m.count("prefill_padded_tokens", B * tier)
                     ph.ready(state[1])
-                    ph.note(prompts=len(admits), tiers=len(buckets))
+                    ph.note(prompts=len(admits) + len(fast),
+                            tiers=len(buckets))
 
             if not active:
                 if g is not None or inj is not None:
@@ -538,6 +616,53 @@ class ContinuousBatchingScheduler:
                     clock += T
                 continue
             st["peak_live_rows"] = max(st["peak_live_rows"], len(active))
+
+            # ---- CoW guard: a private copy of every shared page this chunk
+            # appends to (after admission, so a whole-prompt adoption's tail
+            # is covered); the device copy lands before the chunk
+            if self.paged and self.share_prefix:
+                pairs: List[Tuple[int, int]] = []
+                for row in list(admit_order):
+                    if row not in active:
+                        continue
+                    r = active[row]
+                    lo = row_pos[row]
+                    hi = min(lo + span, self._final_len(r))
+                    # probe again after every change: a preemption can
+                    # leave a page with one holder
+                    while row in active:
+                        shared = pager.shared_pages_in(r.rid, lo, hi)
+                        if not shared:
+                            break
+                        pair = pager.cow_page(r.rid, shared[0])
+                        if pair is None:
+                            if not preempt_latest():
+                                if g is None:
+                                    raise RuntimeError(
+                                        "page pool exhausted during "
+                                        "copy-on-write with nothing left to "
+                                        "preempt: num_pages is too small")
+                                stalled = True
+                                break
+                            continue
+                        pairs.append(pair)
+                    if stalled:
+                        break
+                if pairs:
+                    # even on a stalled boundary: the tables already name
+                    # the copies
+                    st["cow_copies"] += len(pairs)
+                    m.count("cow_copies", len(pairs))
+                    tr.event("cow_copy", clock, cat="pool", slot=slot,
+                             pages=len(pairs))
+                    self._loop.copy_pages([a for a, _ in pairs],
+                                          [b for _, b in pairs])
+            clear_preempted_flags()
+            if stalled:
+                note_stall("no free page for CoW materialization")
+                clock += T
+                continue
+
             if self.paged:
                 s = pager.stats()
                 if peak_pages is None or \
@@ -600,13 +725,27 @@ class ContinuousBatchingScheduler:
                     clock += T
                     continue
 
-            # ---- one decode chunk on the device, one transfer back
+            # ---- one decode chunk on the device, one transfer back. Under
+            # speculation the chunk runs on forks of the rows' chains
+            # (refcounts only): the drafts land in the forks' headroom and
+            # the host commits them after the transfer. Fork ids are
+            # -2 - rid: rids are >= 0 and -1 marks an empty row, which must
+            # never name a fork's table
+            fork_rids: List[int] = []
+            if self.spec_on:
+                for row in list(admit_order):
+                    if row in active:
+                        rid = active[row].rid
+                        pager.fork_chain(rid, -2 - rid)
+                        fork_rids.append(rid)
             with telemetry_mod.phase_timer(
                     st, "decode_s", tracer=tr, name="decode_chunk",
                     start=clock, end=clock + T, slot=slot) as ph:
                 block_table()
                 toks_h, emits_h, live_h = self._loop.chunk()
                 ph.note(rows=len(active))
+            for rid in fork_rids:
+                pager.commit_fork(rid, -2 - rid)
             self.host_syncs += 1
             st["decode_chunks"] += 1
             st["decode_steps"] += T
@@ -622,20 +761,36 @@ class ContinuousBatchingScheduler:
                 pager.observe(m)
             m.end_window(clock, slot)
             emitted = 0
+            spec = emits_h.ndim == 3           # (T, rows, k): spec rounds
+            if not spec:
+                toks_h, emits_h = toks_h[..., None], emits_h[..., None]
+            k = emits_h.shape[2]
             for t in range(T):
                 for row, r in active.items():
-                    if emits_h[t, row]:
-                        tok = int(toks_h[t, row])
+                    for i in range(k):
+                        if not emits_h[t, row, i]:
+                            continue
+                        tok = int(toks_h[t, row, i])
                         r.out.append(tok)
                         emitted += 1
                         if r.first_token_at is None:
                             r.first_token_at = clock - T + t + 1
                         if r.on_token is not None:
                             r.on_token(r, tok)
+            if spec:
+                drafted = T * k * len(active)
+                st["spec_rounds"] += T
+                st["spec_drafted_tokens"] += drafted
+                st["spec_accepted_tokens"] += emitted
+                m.count("spec_rounds", T)
+                m.count("spec_drafted_tokens", drafted)
+                m.count("spec_accepted_tokens", emitted)
+                tr.event("spec_chunk", clock, cat="spec", slot=slot,
+                         drafted=drafted, accepted=emitted)
             m.count("tokens_emitted", emitted)
             freed_rows: List[int] = []
             for row in list(active):
-                row_pos[row] += T
+                row_pos[row] += int(emits_h[:, row].sum()) if spec else T
                 if not live_h[row]:
                     r = active.pop(row)
                     freed_rows.append(row)

@@ -674,3 +674,76 @@ def test_cuda_one_device_to_host_copy_per_chunk(cuda, guard):
     chunks = llm.phase_stats["decode_chunks"]
     assert chunks > 0
     assert dtoh == chunks == llm._scheduler.host_syncs - syncs
+
+
+def _spec_plan(cfg, k, **kw):
+    """A speculative (or, at k 0, sequential) plan from ``plan_serve`` on
+    three or four rows of 64 tokens, pages of 4."""
+    return dataclasses.replace(pplan.plan_serve(
+        cfg, hbm_budget_bytes=1 << 30, expected_batch=kw.pop("rows", 3),
+        expected_len_dist={"mean": 24, "max": 64}, page_size=4,
+        attn_path="paged", spec_k=k), **kw)
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_spec_equals_eager(cuda):
+    """Speculative rounds replayed as a CUDA graph against the eager round:
+    equal streams (the first graphed run captures, the second replays),
+    equal launch counts, paged attention once per global layer per round;
+    and equal to the sequential plan's streams."""
+    cfg, params = _card_params("qwen2.5-3b-reduced", cuda)
+    graphed = LLM(cfg, params, _spec_plan(cfg, 4, sync_every=T), eos_id=-1,
+                  guard=False)
+    eager = LLM(cfg, graphed.params, graphed.plan, eos_id=-1,
+                decode_graphs=False, guard=False)
+    seq = LLM(cfg, graphed.params, _spec_plan(cfg, 0, sync_every=T),
+              eos_id=-1, guard=False)
+    reqs = [([5, 6, 7], 20, 0.0), ([9, 8, 7, 6, 5, 4], 14, 2.0),
+            ([1, 2], 24, 3.0)]
+
+    def run(llm):
+        pops.reset_launches()
+        done = llm.stream([StreamRequest(i, p, m, arrival=t)
+                           for i, (p, m, t) in enumerate(reqs)])
+        torch.cuda.synchronize()
+        return [r.out for r in done], pops.launch_counts()
+    first, _ = run(graphed)
+    want, n_eager = run(eager)
+    again, n_graphed = run(graphed)
+    assert first == want == again == run(seq)[0]
+    assert n_graphed == n_eager
+    graph = graphed._scheduler.graph
+    n_global = pplan.num_global_layers(cfg)
+    assert graph.tally["paged_attention"] == n_global
+    assert graphed.phase_stats["spec_rounds"] > 0
+    assert n_graphed["paged_attention"] == \
+        n_global * graphed.phase_stats["spec_rounds"]
+
+
+@pytest.mark.gpu
+def test_cuda_spec_int8_rung_recaptures_plain_step(cuda):
+    """The int8 rung under a speculative plan on the card (chunks of 2
+    rounds: the rung fires at step 4 with live rows): the speculative graph
+    is dropped and the plain step captured over the int8 pools; graphed
+    and eager streams equal, and equal to the sequential plan's."""
+    from repro_torch.serve.guard import GuardConfig
+    cfg, params = _card_params("qwen2.5-3b-reduced", cuda)
+    reqs = [dict(rid=i, prompt=[3 + i, 5, 7, 11], max_new=16,
+                 arrival=float(i)) for i in range(6)]
+    outs = {}
+    for name, k, graphs in (("seq", 0, False), ("eager", 4, False),
+                            ("graphed", 4, True)):
+        plan = _spec_plan(cfg, k, rows=4, num_pages=16, sync_every=2)
+        llm = LLM(cfg, params, plan, eos_id=-1, decode_graphs=graphs,
+                  guard=GuardConfig(int8_pressure=0.3))
+        done = llm.stream([StreamRequest(**r) for r in reqs])
+        st = llm.phase_stats
+        assert st["kv_quant"] == "int8" and all(r.outcome.ok for r in done)
+        assert (st["spec_rounds"] > 0) == bool(k)
+        outs[name] = [r.out for r in done]
+        if graphs:
+            loop = llm._scheduler._loop
+            assert len(loop.captures) == 2 and loop.spec_k == 0
+            assert loop.graph.tally["paged_attention"] == \
+                pplan.num_global_layers(cfg)
+    assert outs["graphed"] == outs["eager"] == outs["seq"]

@@ -159,16 +159,31 @@ def test_plan_for_scheduler_matches_reference(arch, rows, cache_len, kw):
             == (tuple(want) if isinstance(want, (list, tuple)) else want), key
 
 
-def test_unported_plan_features_raise(weights):
+def test_sharing_and_spec_plans_serve_sharded_raise(weights):
+    """A plan with prefix sharing on or with ``spec_k=4`` serves, with the
+    base plan's streams; a sharded plan (tp=2) is still refused."""
     rcfg, params = weights
     cfg = get_config(ARCH)
     tree = bridge.params_from_numpy(jax.tree.map(np.asarray,
                                                  params["dense"]))
     base = pplan.plan_for_scheduler(cfg, rows=2, cache_len=64, page_size=8,
                                     share_prefix=False)
-    for change in (dict(share_prefix=True), dict(spec_k=4), dict(tp=2)):
-        with pytest.raises(NotImplementedError):
-            LLM(cfg, tree, dataclasses.replace(base, **change), device="cpu")
+    reqs = [([5, 6, 7, 8, 9, 10, 11, 12, 13], 6), ([5, 6, 7, 8, 9, 10, 11,
+                                                    12, 1], 5), ([3, 3], 7)]
+    want = [r.out for r in LLM(cfg, tree, base, eos_id=-1, device="cpu",
+                               guard=False).stream(reqs)]
+    for change in (dict(share_prefix=True), dict(spec_k=4),
+                   dict(share_prefix=True, spec_k=4)):
+        llm = LLM(cfg, tree, dataclasses.replace(base, **change), eos_id=-1,
+                  device="cpu", guard=False)
+        assert [r.out for r in llm.stream(reqs)] == want, change
+        st = llm.phase_stats
+        assert st["share_prefix"] == change.get("share_prefix", False)
+        assert (st["spec_rounds"] > 0) == ("spec_k" in change)
+        if change.get("share_prefix"):
+            assert st["shared_tokens_admitted"] == 8
+    with pytest.raises(NotImplementedError):
+        LLM(cfg, tree, dataclasses.replace(base, tp=2), device="cpu")
     guarded = LLM(cfg, tree, base, eos_id=-1, device="cpu", guard=True)
     assert [r.outcome.status for r in guarded.stream([([1, 2, 3], 2)])] \
         == ["ok"]

@@ -209,7 +209,8 @@ def test_page_allocator_matches_reference():
 def _decision_pairs(mine, ref):
     ref_by = {d.name: d for d in ref.decisions}
     assert [d.name for d in mine.decisions] == \
-        ["mlp", "attention", "kv_quant", "degrade", "prefill"]
+        ["capacity", "mlp", "attention", "kv_quant", "spec", "degrade",
+         "prefill"]
     for d in mine.decisions:
         r = ref_by[d.name]
         assert (d.name, d.choice, d.bound) == (r.name, r.choice, r.bound)
