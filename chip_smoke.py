@@ -86,7 +86,20 @@ Phases, each of which must pass:
    preemptions, suffix-only resumes through the verifier (the GEMM
    launching in them), streams equal (or parted at near-ties) to a fully
    provisioned run;
-7. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
+7. the front door (``phase_front_door``, on the same model):
+   ``LLM(cfg, params)`` with no plan and no other argument must resolve
+   ``plan_serve`` over 40e9 B (half the H100's memory) for 8 rows of up to
+   512 tokens, paged; its ``explain()`` is printed in full; 8 requests
+   (``FRONT_LENS``, ``FRONT_NEW`` new tokens) stream through it graphed,
+   eager, graphed: every outcome ok, equal streams, equal launch counts,
+   paged attention, the fused MLP and the sliding window launched; the
+   plan's Eyexam prediction of the fused MLP at H100 rates is printed
+   beside the kernel phase's measured time, and the card's memory beside
+   ``H100_SXM.hbm_cap``; then ``ops.bcsc_matmul`` (M ``SPARSE_ROWS``, bare
+   and with bias + silu, a forced tile) and ``ops.bcsc_gemv`` at the up
+   projection, each against its plain version and dense ``torch.matmul``,
+   the GEMV kernel at M <= 8 and the GEMM above;
+8. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
    depth after the previous model was freed, with the same logits and
    per-layer checks:
    gemma2-2b (26 layers alternating local and global attention, softcaps):
@@ -103,21 +116,21 @@ Phases, each of which must pass:
    1024 wrapping in decode, then 4 requests on int8 KV pages on the
    default MLP route;
    every request must return its budget of in-vocabulary tokens;
-   every pass of 4 and 7 runs three times in turns (``_turns``): with the
+   every pass of 4 and 8 runs three times in turns (``_turns``): with the
    decode step captured as a CUDA graph (the first run captures it), with
    the eager step (``decode_graphs=False``), with the graph again. The
    three must give equal streams token for token, and the last run (the
    main path's: launch counts zeroed just before, read just after) the
    eager run's launch counts exactly, with paged attention once per global
    layer per decode step (``core.plan.num_global_layers``), the MLP kernel
-   at least once per layer per step and, on the stream passes of 7, the
+   at least once per layer per step and, on the stream passes of 8, the
    sliding window once per layer per prefill batch. Each pass prints
    prefill and decode tokens/s in both modes, the graphed step's device
    time (CUDA events around 16 replays), its kernels' busy time and the
    three pairs of kernels with the most idle time between them (a profiler
    trace of 16 more), the capture time and the peak of device memory;
    each load prints its own peak;
-8. report: prefill and decode tokens/s, the wall time of each phase, one
+9. report: prefill and decode tokens/s, the wall time of each phase, one
    JSON line describing every kernel, the card's name and power limit, then
    the contract line.
 
@@ -203,6 +216,12 @@ SPEC_BUDGET = 8 << 30
 RESUME_SUFFIXES = (180, 120, 150, 200, 100, 170, 130, 160)
 RESUME_NEW = 32
 RESUME_PAGES = 30
+# the plan-less front door (``LLM(cfg, params)``, its default plan: 8 rows
+# of up to 512 tokens): prompt lengths and new tokens of its pass, and the
+# rows of the general sparse entry points at the up projection's widths
+FRONT_LENS = (5, 37, 64, 130, 300, 448, 90, 200)
+FRONT_NEW = 32
+SPARSE_ROWS = (1, 8, 16, 48)
 # a greedy parting is a near-tie when the top-2 logit margin at it is under
 # this share of max |logit| (tests/torch_dense_parity.py's LOGIT_TOL)
 NEAR_TIE = 1e-2
@@ -2188,6 +2207,183 @@ def phase_serve_prefix_spec(judge, llm):
     return total, lines
 
 
+def _front_run(llm, judge, tag, requests):
+    """One ``stream`` of the front-door LLM (its default ``eos_id``), the
+    launch counts zeroed just before and read just after: every outcome
+    ok, every request at most ``FRONT_NEW`` in-vocab tokens, ending at its
+    budget or at the end-of-sequence token. Returns (finished requests,
+    launch counts, phase stats)."""
+    from repro_torch.kernels import ops
+    vocab = llm.cfg.vocab_size
+    sync()
+    ops.reset_launches()
+    done = llm.stream(requests)
+    sync()
+    counts = ops.launch_counts()
+    ok = len(done) == len(requests) and all(
+        r.outcome.ok and 0 < len(r.out) <= FRONT_NEW
+        and all(0 <= t < vocab for t in r.out)
+        and (len(r.out) == FRONT_NEW or r.out[-1] == llm.eos_id)
+        for r in done)
+    judge.check(f"{tag}: outcomes and tokens", ok,
+                f"{len(done)} requests ok, {sum(len(r.out) for r in done)} "
+                f"in-vocab tokens (eos {llm.eos_id})")
+    return done, counts, llm.phase_stats
+
+
+def _sparse_entry_points(llm, judge):
+    """``ops.bcsc_matmul`` and ``ops.bcsc_gemv`` (the general sparse
+    library, the reference's ``kernels/ops.py`` surface) at the model's up
+    projection (d_model -> d_ff, 0.75 block sparsity): M ``SPARSE_ROWS``
+    without and with bias + silu, a forced GEMM tile at M 5, and
+    ``bcsc_gemv`` at M 8. Each is held against its plain version and
+    against ``torch.matmul`` of x and the decoded dense bf16 weight in fp32
+    (plus bias and silu), and takes the GEMV kernel at M <= 8, the GEMM
+    above and at a forced tile. Returns the summed launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import sparsity as sp
+    from repro_torch.kernels import ops
+    cfg, dev = llm.cfg, llm.device
+    d, ff = cfg.d_model, cfg.d_ff
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    w = torch.randn(d, ff, generator=gen, device=dev) / d ** 0.5
+    w = sp.block_magnitude_prune(w, 0.75, 16, 16).bfloat16()
+    m = sp.bcsc_encode(w, 16, 16)
+    wdense = w.float()                  # the decoded bf16 weight's values
+    bias = torch.randn(ff, generator=gen, device=dev)
+    total = {k: 0 for k in ops.launch_counts()}
+    cases = [(M, act, 0) for M in SPARSE_ROWS for act in (None, "silu")]
+    cases += [(5, "silu", 16), (8, "silu", -1)]      # -1: bcsc_gemv
+    for M, act, bm in cases:
+        x = torch.randn(M, d, generator=gen, device=dev).bfloat16()
+        kw = dict(bias=bias, activation="silu") if act else {}
+        entry = (lambda **k: ops.bcsc_gemv(x, m, **k)) if bm < 0 else \
+            (lambda **k: ops.bcsc_matmul(x, m, bm=bm, **k))
+        sync()
+        ops.reset_launches()
+        got = entry(**kw)
+        sync()
+        counts = ops.launch_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        plain = entry(impl="plain", **kw)
+        dense = torch.matmul(x.float(), wdense)
+        if act:
+            dense = F.silu(dense + bias)
+        gemv = M <= 8 and bm <= 0
+        arm = "bcsc_gemv" if gemv else "bcsc_matmul"
+        name = (f"ops.{'bcsc_gemv' if bm < 0 else 'bcsc_matmul'}[M={M}"
+                f"{', bm=%d' % bm if bm > 0 else ''}, "
+                f"{'bias + silu' if act else 'bare'}]")
+        tol = 1e-4 if gemv else 1e-3
+        why = ("relative to max |out|: fp32 sums of the same bf16 products "
+               "in another order" + ("" if gemv else ", a K split among "
+                                     "them"))
+        judge(f"{name} vs plain", errors(got, plain)[1], tol, why)
+        judge(f"{name} vs torch.matmul (dense bf16 weight)",
+              errors(got, dense)[1], tol, why)
+        judge.check(f"{name}: the {arm} kernel launched",
+                    counts[arm] == 1 and sum(counts.values()) == 1,
+                    f"launches {counts}")
+    return total
+
+
+def phase_front_door(judge, llm, records):
+    """The plan-less front door on full-width qwen2.5-3b (the weights
+    ``phase_serve`` loaded): ``LLM(cfg, params)`` with no other argument
+    resolves ``plan_serve`` over half the H100's memory (40e9 B) for 8 rows
+    of up to 512 tokens; its ``explain()`` is printed in full. Eight
+    requests (``FRONT_LENS``, ``FRONT_NEW`` new tokens) stream through it
+    graphed (the first run captures the step), eager
+    (``decode_graphs=False``) and graphed again (the main path's run), under
+    the defaults (the guard, the tracer, eos 1): every outcome ok, equal
+    streams, paged attention, the fused MLP and the sliding window
+    launched. Then Eyexam's per-layer fused-MLP prediction at H100 rates
+    beside the kernel phase's measured time, and the general sparse entry
+    points (``_sparse_entry_points``). Returns (launch counts, lines)."""
+    import torch
+    from repro_torch.core import eyexam
+    from repro_torch.core.plan import num_global_layers, plan_serve
+    from repro_torch.serve import LLM
+    cfg = llm.cfg
+    on = {} if DEVICE == "cuda" else {"device": DEVICE}
+    _free()
+    _reset_peak()
+    front = LLM(cfg, llm.params, **on)
+    want = plan_serve(cfg, hbm_budget_bytes=40_000_000_000, expected_batch=8,
+                      expected_len_dist={"mean": 256, "max": 512})
+    plan = front.plan
+    judge.check("front door: LLM(cfg, params) resolves the default plan",
+                plan == want and plan.paged and plan.rows == 8
+                and plan.cache_len == 512,
+                f"plan_serve(40e9 B, batch 8, mean 256, max 512): rows "
+                f"{plan.rows}, cache {plan.cache_len}, {plan.attn_path}, "
+                f"{plan.num_pages} pages, spec_k {plan.spec_k}")
+    for line in front.explain().splitlines():
+        log(f"  | {line}")
+
+    def requests():
+        return _requests(cfg, FRONT_LENS, FRONT_NEW,
+                         [4 * (i // 4) for i in range(len(FRONT_LENS))])
+    eager = LLM(cfg, llm.params, decode_graphs=False, **on)
+    runs = {}
+    for tag, target in (("graphed, capturing", front), ("eager", eager),
+                        ("graphed", front)):
+        runs[tag] = _front_run(target, judge, f"front door [{tag}]",
+                               requests())
+    streams = [[r.out for r in done] for done, _, _ in runs.values()]
+    judge.check("front door: graphed and eager streams equal",
+                streams[0] == streams[1] == streams[2],
+                f"{sum(len(o) for o in streams[1])} tokens, three runs")
+    _, counts, st = runs["graphed"]
+    judge.check("front door: graphed launches equal the eager run's",
+                counts == runs["eager"][1],
+                f"{counts} vs {runs['eager'][1]}")
+    for name in ("paged_attention", "bcsc_mlp", "sliding_window_attention"):
+        judge.check(f"front door: {name} launched", counts[name] > 0,
+                    f"{counts[name]} launches")
+    _per_step_checks(judge, "front door", counts, cfg.num_layers,
+                     num_global_layers(cfg), st["decode_steps"])
+    rate = {}
+    for tag in ("eager", "graphed"):
+        done, _, s = runs[tag]
+        rate[tag] = (sum(len(r.out) for r in done) / max(s["decode_s"], 1e-9),
+                     s["prefill_real_tokens"] / max(s["prefill_s"], 1e-9))
+    lines = [f"front door (LLM(cfg, params): rows {plan.rows}, cache "
+             f"{plan.cache_len}, {plan.num_pages} pages): decode "
+             f"{rate['graphed'][0]:.1f} tokens/s graphed, "
+             f"{rate['eager'][0]:.1f} eager; prefill "
+             f"{rate['graphed'][1]:.1f} tokens/s graphed run, "
+             f"{rate['eager'][1]:.1f} eager run; "
+             f"{_memory('peak of the pass')}"]
+    log(f"  {lines[-1]}")
+    del eager
+
+    mlp = {d.name: d for d in plan.decisions}["mlp"].numbers
+    t = mlp["per_layer_time_s"]
+    rec = records.get("bcsc_mlp")
+    measured = (f"{rec['ms']:.4f} ms measured by the kernel phase at the "
+                "same M and widths" if rec else "not measured")
+    total_mem = (f"{torch.cuda.get_device_properties(0).total_memory} B"
+                 if DEVICE == "cuda" else "not measured")
+    lines.append(
+        f"Eyexam at {eyexam.H100_SXM.name} rates: fused sparse MLP per layer "
+        f"at M {plan.bcsc_bm(plan.rows)} predicted "
+        f"{1e3 * t['fused_sparse']:.4f} ms "
+        f"({mlp['per_layer_bytes']['weights_sparse_real']:.0f} weight bytes "
+        f"/ {eyexam.H100_SXM.hbm_bw:.3g} B/s + one launch of "
+        f"{eyexam.H100_SXM.launch_s:g} s), {measured}; dense "
+        f"{1e3 * t['dense']:.4f} ms, two-call {1e3 * t['two_call_sparse']:.4f}"
+        f" ms predicted; device memory {total_mem} against "
+        f"H100_SXM.hbm_cap {eyexam.H100_SXM.hbm_cap:.0f} B")
+    log(f"  {lines[-1]}")
+
+    sparse = _sparse_entry_points(llm, judge)
+    total = {k: counts[k] + sparse[k] for k in counts}
+    del front
+    return total, lines
+
+
 def _stream_pass(llm, judge, tag, lens, max_new, arrivals):
     """An ``LLM.stream`` pass through ``_turns`` that must launch all four
     kernels of the path; then, on its main-path run, the sliding window
@@ -2336,6 +2532,10 @@ def main() -> int:
         launches = {k: launches[k] + counts[k] for k in launches}
         counts, more = timed("serve qwen2.5-3b prefix + spec",
                              phase_serve_prefix_spec, judge, llm)
+        rates += more
+        launches = {k: launches[k] + counts[k] for k in launches}
+        counts, more = timed("serve qwen2.5-3b front door", phase_front_door,
+                             judge, llm, records)
         del llm
         rates += more
         launches = {k: launches[k] + counts[k] for k in launches}

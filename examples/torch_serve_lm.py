@@ -1,0 +1,107 @@
+"""Streaming LM serving through the port's ``repro_torch.serve.LLM``.
+
+Resolve a ServePlan once from the model config and the serving budget
+(``core.plan.plan_serve``: every dispatch decision with its Eyexam-style
+rationale, printed by ``plan.explain()``), hand it to ``LLM`` and stream.
+Requests arrive on a Poisson process behind a shared system prompt, share
+a page pool provisioned for the expected occupancy, and stream their tokens
+through a per-request callback. The MLPs are block-pruned and packed in
+BCSC, so decode runs the sparse kernels.
+
+Runs on the card by default, at the full width of ``--arch``; on the CPU
+(``--device cpu``, where the kernels' plain versions run) use a
+``-reduced`` config:
+
+    PYTHONPATH=src python examples/torch_serve_lm.py
+    PYTHONPATH=src python examples/torch_serve_lm.py --device cpu \\
+        --arch qwen2.5-3b-reduced --cache-len 128
+"""
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import plan as plan_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.serve import LLM, StreamRequest
+from repro_torch.serve.sparse import sparsify_mlp_params
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--cache-len", type=int, default=512)
+    ap.add_argument("--hbm", default="40GB",
+                    help="the plan's memory budget (e.g. 40GB, 2GiB)")
+    ap.add_argument("--sparsity", type=float, default=0.75,
+                    help="MLP block sparsity the weights are pruned to")
+    ap.add_argument("--mean-gap", type=float, default=4.0,
+                    help="mean Poisson inter-arrival gap, in decode steps")
+    ap.add_argument("--prefix-len", type=int, default=16,
+                    help="shared system-prompt length (0 disables)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=args.device).manual_seed(args.seed)
+    params, stats = sparsify_mlp_params(
+        tfm.init_params(cfg, gen, args.device), cfg, sparsity=args.sparsity)
+
+    plan = plan_lib.plan_serve(
+        cfg, hbm_budget_bytes=plan_lib._parse_bytes(args.hbm),
+        expected_batch=args.rows,
+        expected_len_dist={"mean": args.cache_len // 2,
+                           "max": args.cache_len},
+        sparsity_stats=stats)
+    print(plan.explain())
+    print()
+    llm = LLM(cfg, params, plan, eos_id=-1, device=args.device)
+    del params
+
+    first = {}
+
+    def on_token(req, tok):
+        if req.rid not in first:
+            first[req.rid] = tok
+            print(f"  req {req.rid} (arrived t={req.arrival:.0f}, admitted "
+                  f"t={req.admitted_at:.0f}) first token: {tok}")
+
+    rng = np.random.default_rng(args.seed)
+    arrivals = np.cumsum(rng.exponential(args.mean_gap, args.requests))
+    prefix = [int(t) for t in rng.integers(2, cfg.vocab_size,
+                                           args.prefix_len)]
+    room = plan.cache_len - args.prefix_len - args.max_new
+    reqs = [StreamRequest(
+        rid=i, prompt=prefix + [int(t) for t in rng.integers(
+            2, cfg.vocab_size, int(rng.integers(4, max(room, 5))))],
+        max_new=int(rng.integers(4, args.max_new + 1)),
+        arrival=float(arrivals[i]), on_token=on_token)
+        for i in range(args.requests)]
+
+    t0 = time.perf_counter()
+    done = llm.stream(reqs)
+    wall = time.perf_counter() - t0
+    st = llm.phase_stats
+    generated = sum(len(r.out) for r in done)
+    lat = [r.finished_at - r.arrival for r in done]
+    print(f"{len(done)} requests, {generated} tokens in {wall:.2f} s wall "
+          f"on {llm.device}; decode {generated / max(st['decode_s'], 1e-9):.1f}"
+          f" tokens/s, prefill {st['prefill_real_tokens']} tokens")
+    print(f"latency p50 {np.percentile(lat, 50):.0f} / p99 "
+          f"{np.percentile(lat, 99):.0f} steps; preemptions "
+          f"{st['preemptions']}; outcomes "
+          + ", ".join(f"{k} {v}" for k, v in st["outcomes"].items() if v))
+    drift = llm.telemetry().last_drift
+    if drift is not None:
+        print(f"drift: {len(drift.confirmed)} CONFIRMED / "
+              f"{len(drift.findings)} compared")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,14 @@
 """Padding and dispatch around the port's kernels (counterpart of
 ``repro.kernels.ops``).
 
-Each entry point picks its route from the ServePlan it is given, pads the
-rows to the route's tile, and runs the kernel's plain version for a tensor
-on the CPU or launches the CUDA kernel for a tensor on the card. There is no
-fallback: a CUDA launch that fails raises. ``impl="plain"`` forces the plain
-version on any device; it exists so that ``chip_smoke.py`` can hold each
-kernel against its plain version on the card, and nothing on the serving
-path passes it.
+Each entry point picks its route from the ServePlan it is given (the
+general BCSC entry points, ``bcsc_matmul`` and ``bcsc_gemv``, from the
+``core.dataflow`` rule when given none), pads the rows to the route's tile,
+and runs the kernel's plain version for a tensor on the CPU or launches the
+CUDA kernel for a tensor on the card. There is no fallback: a CUDA launch
+that fails raises. ``impl="plain"`` forces the plain version on any device;
+it exists so that ``chip_smoke.py`` can hold each kernel against its plain
+version on the card, and nothing on the serving path passes it.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import dataflow
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import bcsc_matmul as _bcsc
 from repro_torch.kernels import bcsc_mlp as _bmlp
@@ -104,12 +106,22 @@ def bcsc_apply_packed(x, packed, *, n_out: int, plan, bias=None,
     (bias and activation fused into the flush), the GEMM arm otherwise
     (epilogue as a post-op)."""
     M = x.shape[0]
-    bm = plan.bcsc_bm(M)
+    return _bcsc_apply(x, packed, n_out=n_out, bm=plan.bcsc_bm(M),
+                       gemv=plan.matmul_route(M) == "gemv",
+                       gemv_bm=plan.gemv_bm, bias=bias,
+                       activation=activation, out_dtype=out_dtype, impl=impl)
+
+
+def _bcsc_apply(x, packed, *, n_out: int, bm: int, gemv: bool, gemv_bm: int,
+                bias, activation, out_dtype, impl):
+    """The GEMV arm when the route is 'gemv' and ``bm`` its tile, else the
+    GEMM arm, on rows padded to ``bm`` (the GEMM kernel's to 16 too)."""
+    M = x.shape[0]
     xp = _pad_rows(x, bm)
     blocks, rows = packed["blocks"], packed["row_ids"]
     kernel = _use_kernel(xp, impl)
     bn = blocks.shape[2]
-    if plan.matmul_route(M) == "gemv" and bm == plan.gemv_bm:
+    if gemv and bm == gemv_bm:
         if kernel:
             out = _bcsc.bcsc_gemv_cuda(
                 xp, blocks, rows, _col_ptr(packed, n_out // bn), n_out=n_out,
@@ -121,7 +133,7 @@ def bcsc_apply_packed(x, packed, *, n_out: int, plan, bias=None,
                                         activation=activation)
         return out[:M].to(out_dtype)
     if kernel:
-        out = _bcsc.bcsc_matmul_cuda(xp, blocks, rows,
+        out = _bcsc.bcsc_matmul_cuda(_pad_rows(xp, 16), blocks, rows,
                                      _col_ptr(packed, n_out // bn),
                                      n_out=n_out)
     else:
@@ -130,6 +142,56 @@ def bcsc_apply_packed(x, packed, *, n_out: int, plan, bias=None,
     if bias is not None or activation not in (None, "none"):
         out = fused_epilogue(out, bias, activation)
     return out[:M].to(out_dtype)
+
+
+def prepare_bcsc(m: sp.BCSCMatrix):
+    """(blocks, row_ids, col_ids, n_out) of a BCSC matrix, every
+    block-column given at least one (zero) block so that every output tile
+    is visited."""
+    m = _bcsc.ensure_nonempty_cols(m)
+    return m.blocks, m.row_ids, _bcsc.expand_col_ptr(m.col_ptr), m.shape[1]
+
+
+def bcsc_matmul(x, m: sp.BCSCMatrix, *, bm: int = 0, bias=None,
+                activation: Optional[str] = None, out_dtype=torch.float32,
+                plan=None, impl: Optional[str] = None):
+    """Sparse (M, K) · BCSC(K, N) -> (M, N), zero weight blocks skipped.
+
+    The route comes from ``plan`` (a ServePlan), else from the
+    ``core.dataflow`` rule: the GEMV kernel at M <= ``GEMV_M_MAX`` (bias
+    and activation fused into its flush), the GEMM kernel above (epilogue
+    as a post-op). ``bm`` forces the row tile; one that is not the GEMV's
+    takes the GEMM. The blocks are taken in x's dtype, which on the card
+    must be bf16, the kernels' input type; on the CPU the plain versions
+    accumulate in fp32."""
+    if x.shape[1] != m.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} against a {m.shape} matrix")
+    blocks, row_ids, col_ids, n_out = prepare_bcsc(m)
+    packed = {"blocks": blocks.to(x.dtype), "row_ids": row_ids,
+              "col_ids": col_ids}
+    M = x.shape[0]
+    if plan is not None:
+        route, tile, gemv_bm = plan.matmul_route(M), plan.bcsc_bm(M), \
+            plan.gemv_bm
+    else:
+        route, tile, gemv_bm = dataflow.matmul_path(M), \
+            dataflow.bcsc_tile_m(M), dataflow.GEMV_BM
+    return _bcsc_apply(x, packed, n_out=n_out, bm=bm if bm > 0 else tile,
+                       gemv=route == "gemv", gemv_bm=gemv_bm, bias=bias,
+                       activation=activation, out_dtype=out_dtype, impl=impl)
+
+
+def bcsc_gemv(x, m: sp.BCSCMatrix, *, bias=None,
+              activation: Optional[str] = None, out_dtype=torch.float32,
+              plan=None, impl: Optional[str] = None):
+    """The decode path: skinny (M <= ``GEMV_M_MAX``, K) · BCSC(K, N)
+    through the GEMV kernel."""
+    M = x.shape[0]
+    if M > dataflow.GEMV_M_MAX:
+        raise ValueError(f"bcsc_gemv is the M<={dataflow.GEMV_M_MAX} "
+                         f"decode path, got M={M}")
+    return bcsc_matmul(x, m, bias=bias, activation=activation,
+                       out_dtype=out_dtype, plan=plan, impl=impl)
 
 
 def bcsc_mlp_packed(x, gate_packed, up_packed, down_packed, *, d_ff: int,

@@ -3,7 +3,8 @@
 The counterpart of ``repro.serve.LLM`` for one replica, with the reference's
 defaults: the serving guard on (``GuardConfig()``) and tracing on::
 
-    llm = LLM(cfg, params, plan)                 # on the card
+    llm = LLM(cfg, params)                       # on the card, default plan
+    print(llm.explain())                         # the plan's rationale
     done = llm.generate([(prompt, max_new), ...])          # drain semantics
     done = llm.stream([(prompt, max_new), ...], on_token=callback)
     llm.telemetry().tracer.signature()           # the call's trace
@@ -20,7 +21,10 @@ again over the requantized pool, mid-run).
 
 ``plan`` is a ``core.plan.ServePlan`` (``plan_serve``,
 ``plan_for_scheduler``, ``plan_for_engine``, or the reference's
-``as_dict()`` through ``ServePlan.from_dict``); ``stream`` serves what it
+``as_dict()`` through ``ServePlan.from_dict``). Without one, ``LLM``
+resolves the reference's default, ``plan_serve`` over half of the device's
+memory (``rates.hbm_cap``: 40e9 B on an H100) for ``DEFAULT_BATCH`` rows of
+``DEFAULT_LEN_DIST`` tokens; ``stream`` serves what it
 resolves, copy-on-write prefix sharing (on for a paged plan by default) and
 greedy speculative decoding (``spec_k`` >= 2) included. The model runs on the card unless ``device="cpu"``
 is passed; without a CUDA device and without that request, construction
@@ -32,12 +36,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import plan as plan_lib
+from repro_torch.core.eyexam import H100_SXM, DeviceRates
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import DecodeEngine, Request, resolve_device
 from repro_torch.serve.guard import GuardConfig
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          StreamRequest)
 from repro_torch.serve.telemetry import Telemetry
+
+DEFAULT_LEN_DIST = {"mean": 256, "max": 512}
+DEFAULT_BATCH = 8
 
 
 class LLM:
@@ -55,24 +64,40 @@ class LLM:
     ``trace`` is True (spans recorded), False (metrics only) or a shared
     ``Telemetry``; :meth:`telemetry` returns the bundle, reset at every
     call. ``on_token`` and ``on_outcome`` are defaults for requests that
-    carry none. ``replicas`` exists to refuse the multi-replica control
-    plane, which is not ported. The scheduler's step graph is captured at
+    carry none. ``replicas`` below 1 raises ``ValueError``, as the
+    reference's does; above 1 it asks for the multi-replica control plane,
+    which is not ported. ``rates`` is read only without ``plan``: the
+    default plan's budget is half its ``hbm_cap`` and its MLP roofline
+    divides by its rates. The scheduler's step graph is captured at
     the first ``stream`` and the drain engine (built at the first
     ``generate``) its own; both are reused across calls.
     ``decode_graphs`` is read only on the card: False runs the eager
     decode step there."""
 
-    def __init__(self, cfg, params, plan, *, eos_id: int = 1,
+    def __init__(self, cfg, params,
+                 plan: Optional[plan_lib.ServePlan] = None, *,
+                 rates: DeviceRates = H100_SXM, eos_id: int = 1,
                  temperature: float = 0.0, device=None,
                  guard: Union[GuardConfig, None, bool] = None,
                  replicas: int = 1, decode_graphs: bool = True,
                  on_token: Optional[Callable] = None,
                  on_outcome: Optional[Callable] = None,
                  trace: Union[bool, Telemetry] = True):
-        if replicas != 1:
+        if replicas < 1:
+            raise ValueError(
+                f"replicas must be >= 1, got {replicas}: serving always "
+                "goes through at least one scheduler replica (replicas=1 "
+                "is the single-scheduler fast path, replicas>=2 the "
+                "fault-tolerant control plane)")
+        if replicas > 1:
             raise NotImplementedError(
                 f"replicas={replicas}: the multi-replica control plane is "
                 "not ported yet")
+        if plan is None:
+            plan = plan_lib.plan_serve(
+                cfg, hbm_budget_bytes=int(rates.hbm_cap // 2),
+                expected_batch=DEFAULT_BATCH,
+                expected_len_dist=dict(DEFAULT_LEN_DIST), rates=rates)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the reference's precision: fp32 products (attention scores,
@@ -102,6 +127,10 @@ class LLM:
             telemetry=self._telemetry)
         self._engine: Optional[DecodeEngine] = None
         self._last_run = None                # engine behind the last call
+
+    def explain(self) -> str:
+        """The plan's per-decision Eyexam rationale."""
+        return self.plan.explain()
 
     def _normalize(self, requests: Sequence, cls,
                    on_token: Optional[Callable] = None) -> List:

@@ -1,10 +1,15 @@
-"""Cache sizes and row accounting (the port's copy of the parts of
-``repro.serve.kvcache`` the plan and the scheduler read)."""
+"""Cache sizes, capacity and row accounting (the port's counterpart of
+``repro.serve.kvcache``): bytes per slot and per page, whether a batch of
+contexts fits a device's memory, the rows a budget holds, and the live
+occupancy of a page pool."""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
+
+import torch
 
 from repro_torch.core import dataflow
+from repro_torch.core.eyexam import H100_SXM, DeviceRates
 
 
 def cache_bytes(cfg, batch: int, cache_len: int) -> int:
@@ -24,6 +29,40 @@ def kv_page_bytes(cfg, page_size: int, kv_quant: str = "fp") -> int:
     return dataflow.paged_kv_bytes(1, page_size, cfg.num_kv_heads,
                                    cfg.head_dim, num_global_layers(cfg),
                                    kv_quant)
+
+
+def paged_cache_bytes(cfg, rows: int, cache_len: int, num_pages: int,
+                      page_size: int, kv_quant: str = "fp") -> int:
+    """Bytes of the paged cache ``decoding.init_paged_cache`` allocates
+    (global layers in a ``num_pages`` pool, local rings per row; int8 pools
+    with their scales), counted on the meta device, which gives shapes and
+    dtypes without allocating."""
+    from repro_torch.models import decoding
+    cache = decoding.init_paged_cache(cfg, rows, cache_len, num_pages,
+                                      page_size, kv_quant, device="meta")
+    return _tree_bytes(cache)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(_tree_bytes(v) for v in tree.values())
+
+
+def cache_bytes_per_chip(cfg, batch: int, cache_len: int, chips: int,
+                         sharded: bool = True) -> float:
+    total = cache_bytes(cfg, batch, cache_len)
+    return total / chips if sharded else float(total)
+
+
+def max_slots(cfg, cache_len: int, chips: int,
+              hbm_budget_fraction: float = 0.5,
+              rates: DeviceRates = H100_SXM) -> int:
+    """Dense ``(1, cache_len)`` slots that ``hbm_budget_fraction`` of
+    ``rates``' device memory holds; 0 when not even one fits."""
+    per_slot = cache_bytes(cfg, 1, cache_len) / chips
+    budget = rates.hbm_cap * hbm_budget_fraction
+    return int(budget // max(per_slot, 1))
 
 
 class SlotAllocator:
@@ -67,3 +106,28 @@ class SlotAllocator:
 
     def live_slots(self) -> List[int]:
         return sorted(self._live)
+
+
+def report(cfg, batch: int, cache_len: int, chips: int, pager=None,
+           kv_quant: str = "fp",
+           rates: DeviceRates = H100_SXM) -> Dict[str, float]:
+    """Capacity report against ``rates``' device memory. With a
+    ``serve.paging.PageAllocator`` as ``pager`` it adds the pool's live
+    occupancy (``pager.stats()``) with its byte-valued sharing saving in
+    the pool's page format (``kv_quant``)."""
+    total = cache_bytes(cfg, batch, cache_len)
+    out = {
+        "total_gb": total / 1e9,
+        "per_chip_gb": total / chips / 1e9,
+        "fits": total / chips < rates.hbm_cap,
+        "max_slots_half_hbm": max_slots(cfg, cache_len, chips, rates=rates),
+    }
+    if pager is not None:
+        st = pager.stats()
+        page_b = kv_page_bytes(cfg, pager.page_size, kv_quant)
+        st["kv_quant"] = kv_quant
+        st["page_bytes"] = page_b
+        # pages other requests reference instead of allocating
+        st["bytes_saved_sharing"] = st["pages_saved_sharing"] * page_b
+        out["paged"] = st
+    return out

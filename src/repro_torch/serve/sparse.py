@@ -22,6 +22,18 @@ from repro_torch.kernels.ops import is_packed
 MLP_WEIGHTS = ("wg", "wu", "wd", "w1", "w2")
 
 
+def packed_bytes(params) -> int:
+    """Resident bytes of every BCSC-packed weight in a params tree: the
+    payload blocks, ``row_ids``, ``col_ids``, ``nnzb`` and ``col_ptr``
+    (0 for an unpacked tree). The reference's packs hold no ``col_ptr``, so
+    this exceeds its count by exactly those segment starts."""
+    if is_packed(params):
+        return sum(v.numel() * v.element_size() for v in params.values())
+    if isinstance(params, dict):
+        return sum(packed_bytes(v) for v in params.values())
+    return 0
+
+
 def pack_weight(w: torch.Tensor, bk: int, bn: int,
                 store_dtype=None, chunk: int = dataflow.BCSC_CHUNK
                 ) -> Dict[str, torch.Tensor]:

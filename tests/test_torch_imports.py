@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of the reference package.
 
 Every file of ``src/repro_torch``, ``chip_smoke.py`` and the port's scripts
-is parsed, and any import of ``jax`` (or ``jaxlib``) or of
+and examples is parsed, and any import of ``jax`` (or ``jaxlib``) or of
 ``repro``/``repro.*`` fails the test.
 """
 import ast
@@ -18,7 +18,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 FILES = PORT + [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "profile_decode_torch.py",
-                ROOT / "scripts" / "ablate_kernels_torch.py"]
+                ROOT / "scripts" / "ablate_kernels_torch.py",
+                ROOT / "examples" / "torch_serve_lm.py",
+                ROOT / "examples" / "torch_sparse_inference.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,7 +45,8 @@ def test_port_files_exist():
     for need in ("bridge.py", "serve/facade.py", "serve/scheduler.py",
                  "serve/engine.py", "serve/graphs.py", "serve/guard.py",
                  "serve/chaos.py", "serve/telemetry.py",
-                 "runtime/fault_tolerance.py",
+                 "runtime/fault_tolerance.py", "core/eyexam.py",
+                 "core/reuse.py",
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py"):
         assert need in names
 

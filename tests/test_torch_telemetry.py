@@ -39,6 +39,7 @@ from repro.serve.paging import PageAllocator as RPages
 
 from repro_torch import bridge
 from repro_torch.configs import get_config
+from repro_torch.core import eyexam
 from repro_torch.core import plan as pplan
 from repro_torch.models import decoding as pdec
 from repro_torch.runtime.fault_tolerance import backoff_delay
@@ -99,11 +100,15 @@ def test_tracer_metrics_and_drift_match_reference():
     assert pm.snapshot().as_dict() == rm.snapshot().as_dict()
     cfg, rcfg = get_config("qwen2.5-3b"), rget_config("qwen2.5-3b")
     kw = dict(rows=4, cache_len=1024, page_size=64, share_prefix=False)
-    mine = telemetry.detect_drift(pplan.plan_for_scheduler(cfg, **kw), pm)
-    ref = rtel.detect_drift(rplan.plan_for_scheduler(rcfg, **kw), rm)
+    pp = pplan.plan_for_scheduler(cfg, rates=eyexam.TPU_V5E, **kw)
+    rp = rplan.plan_for_scheduler(rcfg, **kw)
+    mine = telemetry.detect_drift(pp, pm)
+    ref = rtel.detect_drift(rp, rm)
     assert mine.findings and mine.summary() == ref.summary()
     assert [dataclasses.astuple(f) for f in mine.findings] == \
         [dataclasses.astuple(f) for f in ref.findings]
+    assert pp.explain(drift=mine).splitlines() == \
+        rp.explain(drift=ref).splitlines()
 
 
 @pytest.mark.parametrize("seed", [0, 3, 11])
@@ -207,27 +212,29 @@ def test_page_allocator_matches_reference():
 
 
 def _decision_pairs(mine, ref):
-    ref_by = {d.name: d for d in ref.decisions}
+    """Whole decisions equal: name, choice, bound, why and numbers."""
     assert [d.name for d in mine.decisions] == \
-        ["capacity", "mlp", "attention", "kv_quant", "spec", "degrade",
-         "prefill"]
-    for d in mine.decisions:
-        r = ref_by[d.name]
-        assert (d.name, d.choice, d.bound) == (r.name, r.choice, r.bound)
-        assert d.numbers and all(r.numbers[k] == v
-                                 for k, v in d.numbers.items()), d.name
+        ["capacity", "matmul", "mlp", "attention", "kv_quant", "spec",
+         "degrade", "prefill"]
+    assert [dataclasses.asdict(d) for d in mine.decisions] == \
+        [dataclasses.asdict(d) for d in ref.decisions]
+    assert mine.explain() == ref.explain()
 
 
 @pytest.mark.parametrize("arch", CONFIGS)
 def test_decision_numbers_match_reference(arch):
+    """At the reference's device rates (``eyexam.TPU_V5E``)."""
     cfg, rcfg = get_config(arch), rget_config(arch)
+    v5e = eyexam.TPU_V5E
     for kw in (dict(rows=8, cache_len=1024, page_size=64),
                dict(rows=4, cache_len=8192, page_size=64, num_pages=300),
                dict(rows=16, cache_len=4096)):
         _decision_pairs(
-            pplan.plan_for_scheduler(cfg, share_prefix=False, **kw),
+            pplan.plan_for_scheduler(cfg, share_prefix=False, rates=v5e,
+                                     **kw),
             rplan.plan_for_scheduler(rcfg, share_prefix=False, **kw))
-    _decision_pairs(pplan.plan_for_engine(cfg, slots=8, cache_len=4096),
+    _decision_pairs(pplan.plan_for_engine(cfg, slots=8, cache_len=4096,
+                                          rates=v5e),
                     rplan.plan_for_engine(rcfg, slots=8, cache_len=4096))
     ref = rplan.plan_for_scheduler(rcfg, rows=2, cache_len=512,
                                    share_prefix=False)
