@@ -99,7 +99,22 @@ Phases, each of which must pass:
    and with bias + silu, a forced tile) and ``ops.bcsc_gemv`` at the up
    projection, each against its plain version and dense ``torch.matmul``,
    the GEMV kernel at M <= 8 and the GEMM above;
-8. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
+8. the fleet (``phase_fleet``, on the same model): ``LLM(cfg, params,
+   plan, replicas=3)`` over ``plan_for_scheduler(rows 4, cache 1024, page
+   64)`` per replica, 12 requests (``FLEET_LENS``, the second six on the
+   first six's first page, request i arriving at step i, ``FLEET_NEW`` new
+   tokens): one replica against the fleet (equal streams or partings at
+   near-ties), the fleet graphed and eager (equal), the card's
+   device-to-host copies equal to the replicas' decode chunks, one capture
+   per replica, paged attention once per global layer per decode step and
+   capture warm-up step; replica 0 killed at ``FLEET_KILL`` (one failover,
+   every outcome ok, the never-migrated requests equal to the fault-free
+   fleet, the migrated ones equal or parted at near-ties, the allocated
+   memory falling by at least the dead replica's own tensors), replica 1
+   stalled at ``FLEET_STALL`` (caught by the heartbeat); per-replica pool
+   and capture time, the router's affinity hits and the fleet's decode
+   rate against one replica's printed;
+9. serve gemma2-2b, mistral-nemo-12b and gemma3-12b, each at full width and
    depth after the previous model was freed, with the same logits and
    per-layer checks:
    gemma2-2b (26 layers alternating local and global attention, softcaps):
@@ -130,9 +145,9 @@ Phases, each of which must pass:
    three pairs of kernels with the most idle time between them (a profiler
    trace of 16 more), the capture time and the peak of device memory;
    each load prints its own peak;
-9. report: prefill and decode tokens/s, the wall time of each phase, one
-   JSON line describing every kernel, the card's name and power limit, then
-   the contract line.
+10. report: prefill and decode tokens/s, the wall time of each phase, one
+    JSON line describing every kernel, the card's name and power limit,
+    then the contract line.
 
 ``rs_matmul`` is on no model path (as in the reference), so it launches only
 in the kernel phase and reports 0 launches on the main path.
@@ -222,6 +237,17 @@ RESUME_PAGES = 30
 FRONT_LENS = (5, 37, 64, 130, 300, 448, 90, 200)
 FRONT_NEW = 32
 SPARSE_ROWS = (1, 8, 16, 48)
+# the fleet phase (qwen2.5-3b, ``LLM(..., replicas=FLEET_REPLICAS)``): each
+# replica's plan geometry, the prompt lengths (the second six start with the
+# first 64-token page of the first six's prompts where both hold one), new
+# tokens per request (request i arrives at step i), the step of the kill
+# of replica 0 and of the stall of replica 1
+FLEET_REPLICAS = 3
+FLEET_PLAN = dict(rows=4, cache_len=1024, page_size=64)
+FLEET_LENS = (5, 37, 64, 130, 300, 511) * 2
+FLEET_NEW = 32
+FLEET_KILL = 16.0
+FLEET_STALL = 16.0
 # a greedy parting is a near-tie when the top-2 logit margin at it is under
 # this share of max |logit| (tests/torch_dense_parity.py's LOGIT_TOL)
 NEAR_TIE = 1e-2
@@ -2384,6 +2410,306 @@ def phase_front_door(judge, llm, records):
     return total, lines
 
 
+def _fleet_requests(cfg):
+    """``FLEET_LENS`` prompts (seeded), request i arriving at step i, in
+    two tenants; the second six begin with the first page of the first
+    six's prompts where both are at least a page long."""
+    import torch
+    from repro_torch.serve import StreamRequest
+    gen = torch.Generator().manual_seed(SEED + 3)
+    page = FLEET_PLAN["page_size"]
+    half = len(FLEET_LENS) // 2
+    prompts = []
+    for i, n in enumerate(FLEET_LENS):
+        head = []
+        if i >= half and n >= page and len(prompts[i - half]) >= page:
+            head = prompts[i - half][:page]
+        prompts.append(head + torch.randint(0, cfg.vocab_size,
+                                            (n - len(head),),
+                                            generator=gen).tolist())
+    return [StreamRequest(i, p, FLEET_NEW, arrival=float(i),
+                          tenant=f"t{i % 2}") for i, p in enumerate(prompts)]
+
+
+def _fleet_run(fleet, chaos=None, transfers=False, audit_memory=False):
+    """One ``stream`` of a fleet ``LLM``, the launch counts zeroed just
+    before and read just after; with ``audit_memory`` the device memory
+    allocated at each window's supervision and before the run ("start"),
+    and each live replica's own device bytes then (``memory`` and
+    ``resident``: clock -> bytes, clock -> {slot: bytes}). Returns a
+    namespace: ``done`` (by rid), ``counts``, ``st`` (the fleet's phase
+    stats), ``reps`` (its replicas), ``wall``, ``dtoh`` and ``sites``
+    (``_device_transfers``), ``memory``, ``resident``."""
+    import types
+    import torch
+    from repro_torch.kernels import ops
+    memory, resident = {}, {}
+    if audit_memory:
+        sup = fleet._fleet.supervisor
+        audit = sup.audit
+
+        def measured(replicas, clock, sync_every):
+            sync()
+            memory[clock] = torch.cuda.memory_allocated() \
+                if DEVICE == "cuda" else 0
+            resident[clock] = {rep.slot: rep.scheduler._loop.device_bytes()
+                               for rep in replicas}
+            return audit(replicas, clock, sync_every)
+        sup.audit = measured
+        sync()
+        memory["start"] = torch.cuda.memory_allocated() \
+            if DEVICE == "cuda" else 0
+    sync()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if transfers:
+            done, dtoh, sites = _device_transfers(
+                lambda: fleet.stream(_fleet_requests(fleet.cfg), chaos=chaos))
+        else:
+            done = fleet.stream(_fleet_requests(fleet.cfg), chaos=chaos)
+            dtoh, sites = None, {}
+    finally:
+        if audit_memory:
+            del sup.audit                 # the instance's own again
+    sync()
+    wall = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        done={r.rid: r for r in done}, counts=ops.launch_counts(),
+        st=fleet.phase_stats, reps=list(fleet._fleet._all), wall=wall,
+        dtoh=dtoh, sites=sites, memory=memory, resident=resident)
+
+
+def _decode_rate(done, decode_s):
+    return sum(len(r.out) for r in done) / max(decode_s, 1e-9)
+
+
+def phase_fleet(judge, llm):
+    """The multi-replica fleet on full-width qwen2.5-3b (the weights
+    ``phase_serve`` loaded): ``LLM(cfg, params, plan,
+    replicas=FLEET_REPLICAS)`` over ``plan_for_scheduler(rows 4, cache 1024,
+    page 64)`` per replica, 12 requests (``_fleet_requests``), greedy,
+    ``eos_id=-1``. Runs: (a) the same requests through a one-replica
+    ``LLM`` on the same plan; (b) the fault-free fleet, graphed (then once
+    more under ``_device_transfers``); (c) the fleet eager
+    (``decode_graphs=False``); (d) replica 0 killed at ``FLEET_KILL``; (e)
+    replica 1 stalled at ``FLEET_STALL``. Checks: one terminal outcome per
+    rid in (b), (d) and (e); one failover in (d) and in (e), the stall
+    caught by the heartbeat; (b) == (c); the requests of (d) that never
+    lived on replica 0 equal (b), migrated ones equal or part at a near-tie;
+    (b) against (a) by the near-tie rule; the card's device-to-host copies
+    over (b) equal the replicas' decode chunks; one capture per replica;
+    after the kill the allocated memory falls by one replica's footprint
+    (pool, decode state, step graph); the replicas share ``llm``'s weights.
+    Prints per-replica pool bytes and capture seconds, the memory the fleet
+    adds, the router's affinity hits and the fleet's decode rate against
+    (a)'s. Returns ((b)'s launch counts, lines)."""
+    import torch
+    from repro_torch.core.plan import num_global_layers, plan_for_scheduler
+    from repro_torch.serve import LLM, kvcache
+    from repro_torch.serve.chaos import ReplicaChaosConfig
+    from repro_torch.serve.graphs import WARMUP_STEPS
+    from repro_torch.serve.replica import DEAD, RETIRED
+    cfg = llm.cfg
+    n_global = num_global_layers(cfg)
+    _free()
+    _reset_peak()
+    plan = plan_for_scheduler(cfg, attn_path="paged", kv_quant="fp",
+                              sync_every=8, **FLEET_PLAN)
+    pool = kvcache.paged_cache_bytes(cfg, plan.rows, plan.cache_len,
+                                     plan.num_pages, plan.page_size)
+    n = len(FLEET_LENS)
+
+    # (a) one replica on the same plan
+    single = LLM(cfg, llm.params, plan, eos_id=-1, device=DEVICE)
+    sync()
+    t0 = time.perf_counter()
+    done_a = {r.rid: r for r in single.stream(_fleet_requests(cfg))}
+    sync()
+    wall_a = time.perf_counter() - t0
+    st_a = single.phase_stats
+    rate_a = _decode_rate(done_a.values(), st_a["decode_s"])
+    del single
+
+    # (b) the fault-free fleet, graphed; it shares llm's weights
+    before = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    fleet = LLM(cfg, llm.params, plan, eos_id=-1, device=DEVICE,
+                replicas=FLEET_REPLICAS)
+    built = (torch.cuda.memory_allocated() if DEVICE == "cuda" else 0) \
+        - before
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        _leaves(fleet.params), _leaves(llm.params)))
+    judge.check("fleet: the replicas share the one copy of the weights",
+                shared and built < 1 << 20,
+                f"every tensor of the fleet's params is llm's; the fleet LLM "
+                f"allocated {built} B when built")
+    b = _fleet_run(fleet, audit_memory=True)
+    st = b.st
+
+    def terminal(tag, run):
+        judge.check(f"fleet {tag}: every rid in exactly one terminal outcome",
+                    sorted(run.done) == list(range(n)) and all(
+                        r.outcome is not None for r in run.done.values()),
+                    f"{run.st['outcomes']} over {n} requests")
+    terminal("(b)", b)
+    judge.check("fleet (b): every request ok with its budget of tokens",
+                all(r.outcome.ok and len(r.out) == FLEET_NEW
+                    and all(0 <= t < cfg.vocab_size for t in r.out)
+                    for r in b.done.values()),
+                f"{sum(len(r.out) for r in b.done.values())} tokens")
+    caps = [rep.scheduler._loop.captures for rep in b.reps]
+    judge.check("fleet (b): one capture per replica's scheduler",
+                DEVICE != "cuda" or all(len(c) == 1 for c in caps),
+                f"captures {[[round(x, 3) for x in c] for c in caps]} s")
+    judge.check("fleet (b): every replica released at its retirement",
+                all(rep.state == RETIRED and rep.scheduler._loop.state is None
+                    and rep.scheduler._loop.graph is None for rep in b.reps),
+                f"{len(b.reps)} replicas retired")
+    counts = b.counts
+    steps = st["fleet"]["decode_steps"]
+    warm = WARMUP_STEPS * sum(len(c) for c in caps)
+    for name in ("sliding_window_attention", "paged_attention", "bcsc_mlp"):
+        judge.check(f"fleet (b): {name} launched", counts[name] > 0,
+                    f"{counts[name]} launches")
+    judge.check("fleet (b): paged-attention launches per decode step",
+                counts["paged_attention"] == n_global * (steps + warm),
+                f"{counts['paged_attention']} = {n_global} x ({steps} "
+                f"decode steps over the replicas + {warm} capture warm-up "
+                "steps)")
+    decode_b = sum(rep.scheduler.phase_stats["decode_s"] for rep in b.reps)
+    rate_b = _decode_rate(b.done.values(), decode_b)
+    want = {rid: r.out for rid, r in b.done.items()}
+    _equal_or_tie(judge, "fleet (b) vs one replica (a)", llm,
+                  list(done_a.values()), want)
+
+    # (b) again, the card's device-to-host copies counted
+    bt = _fleet_run(fleet, transfers=True)
+    syncs = sum(rep.scheduler.host_syncs for rep in bt.reps)
+    judge.check("fleet (b): the same streams under the profiler",
+                {rid: r.out for rid, r in bt.done.items()} == want,
+                f"{n} requests")
+    if bt.dtoh is None:
+        judge.check("fleet (b): device-to-host copies", True,
+                    "not measured (CPU)")
+    else:
+        judge.check("fleet (b): device-to-host copies the card ran == the "
+                    "replicas' decode chunks",
+                    bt.dtoh == bt.st["fleet"]["decode_chunks"] == syncs,
+                    f"{bt.dtoh} copies in the profiler trace, "
+                    f"{bt.st['fleet']['decode_chunks']} chunks over "
+                    f"{len(bt.reps)} replicas, host_syncs {syncs}; "
+                    f"host-blocking calls by site: {_sites(bt.sites)}")
+
+    # (c) the same fleet eager
+    eager = LLM(cfg, llm.params, plan, eos_id=-1, device=DEVICE,
+                replicas=FLEET_REPLICAS, decode_graphs=False)
+    c = _fleet_run(eager)
+    judge.check("fleet (c): eager streams, outcomes and placements equal "
+                "(b)'s",
+                [(r.out, r.outcome.status, r.replica, r.migrations)
+                 for _, r in sorted(c.done.items())]
+                == [(r.out, r.outcome.status, r.replica, r.migrations)
+                    for _, r in sorted(b.done.items())],
+                f"{sum(len(r.out) for r in c.done.values())} tokens")
+    judge.check("fleet (c): paged-attention launches per decode step",
+                c.counts["paged_attention"]
+                == n_global * c.st["fleet"]["decode_steps"],
+                f"{c.counts['paged_attention']} = {n_global} x "
+                f"{c.st['fleet']['decode_steps']} steps")
+    del eager
+
+    # (d) replica 0 killed: survivors equal (b), migrated ones by the rule
+    d = _fleet_run(fleet, chaos=ReplicaChaosConfig(
+        kill_at_step={0: FLEET_KILL}), audit_memory=True)
+    terminal("(d)", d)
+    judge.check("fleet (d): one failover, every outcome ok",
+                d.st["failovers"] == 1 and d.st["outcomes"]["ok"] == n,
+                f"failovers {d.st['failovers']} "
+                f"({d.st['failover_reasons']}), migrated "
+                f"{d.st['migrated_requests']}")
+    stay = [r for r in d.done.values() if not r.migrations]
+    moved = [r for r in d.done.values() if r.migrations]
+    judge.check("fleet (d): requests that never lived on replica 0 equal "
+                "(b)", stay and all(r.out == want[r.rid] for r in stay),
+                f"{len(stay)} requests")
+    parts = _partings(llm, moved, want)
+    judge.check("fleet (d): migrated requests equal (b), or part at a "
+                "near-tie", moved and all(m < NEAR_TIE for _, _, m in parts),
+                f"{len(moved)} migrated, {len(parts)} parted (rid, token, "
+                f"top-2 margin / max |logit|): {parts or 'none'}")
+    dead = [rep for rep in d.reps if rep.state == DEAD]
+    mem = d.memory
+    before_kill = FLEET_KILL - plan.sync_every
+    own = d.resident[before_kill][0]       # replica 0's tensors
+    foot = (mem[0.0] - mem["start"]) / FLEET_REPLICAS
+    drop = mem[before_kill] - mem[FLEET_KILL]
+    judge.check("fleet (d): the dead replica's memory released",
+                len(dead) == 1 and dead[0].scheduler._loop.device_bytes()
+                == 0 and own >= pool and (DEVICE != "cuda"
+                                          or drop >= 0.99 * own),
+                f"allocated {mem[before_kill] / 2**20:.1f} MiB at the window "
+                f"before the kill (step {before_kill:g}), "
+                f"{mem[FLEET_KILL] / 2**20:.1f} MiB at the kill's: "
+                f"{drop / 2**20:.1f} MiB released against replica 0's own "
+                f"{own / 2**20:.1f} MiB (pool {pool / 2**20:.1f} MiB; its "
+                "graph's intermediates sit in the graph's private pool, "
+                "reserved, not allocated)" if DEVICE == "cuda" else
+                "not measured (CPU): its decode state and pools dropped")
+
+    # (e) replica 1 stalled: the heartbeat catches it
+    e = _fleet_run(fleet, chaos=ReplicaChaosConfig(
+        stall_at_step={1: FLEET_STALL}))
+    terminal("(e)", e)
+    judge.check("fleet (e): the stall failed over by the heartbeat",
+                e.st["failovers"] == 1 and all(
+                    k.startswith("heartbeat stalled")
+                    for k in e.st["failover_reasons"]),
+                f"{e.st['failover_reasons']}, clock {e.st['clock_steps']:g} "
+                f"steps against {st['clock_steps']:g} fault-free")
+    parts_e = _partings(llm, [r for r in e.done.values() if r.outcome.ok],
+                        want)
+    judge.check("fleet (e): streams equal (b), or part at a near-tie",
+                e.st["outcomes"]["ok"] == n
+                and all(m < NEAR_TIE for _, _, m in parts_e),
+                f"{len(parts_e)} parted: {parts_e or 'none'}")
+
+    cap_s = [round(c_[0], 3) for c_ in caps if c_]
+    lines = [
+        f"fleet ({FLEET_REPLICAS} replicas of rows {plan.rows}, cache "
+        f"{plan.cache_len}, {plan.num_pages} pages of {plan.page_size}): "
+        f"decode {rate_b:.1f} tokens/s over the replicas' summed decode "
+        f"time, {sum(len(r.out) for r in b.done.values()) / b.wall:.1f} "
+        f"over the run's wall ({b.wall:.2f} s, captures included); one "
+        f"replica (a) {rate_a:.1f} and "
+        f"{sum(len(r.out) for r in done_a.values()) / wall_a:.1f} "
+        f"({wall_a:.2f} s); per replica: pool {pool / 2**20:.1f} MiB, "
+        f"capture {cap_s} s"
+        + (f", own tensors {own / 2**20:.1f} MiB, allocated at spawn "
+           f"{foot / 2**20:.1f} MiB (the rest is cuBLAS's workspace for the "
+           f"capture stream, which PyTorch keeps per stream of its pool); "
+           f"the fleet adds {(mem[0.0] - mem['start']) / 2**20:.1f} MiB "
+           "over llm at spawn" if DEVICE == "cuda" else "")
+        + f"; run walls (a) {wall_a:.2f}, (b) {b.wall:.2f}, profiled "
+        f"{bt.wall:.2f}, (c) {c.wall:.2f}, (d) {d.wall:.2f}, (e) "
+        f"{e.wall:.2f} s"
+        + f"; router {st['router']}; clock {st['clock_steps']:g} steps, "
+        f"{st['rounds']} windows; (d) {d.st['migrated_requests']} migrated, "
+        f"{len(parts)} parted, (e) detected after "
+        f"{e.st['clock_steps'] - st['clock_steps']:g} more steps; "
+        f"{_memory('peak of the pass')}"]
+    log(f"  {lines[-1]}")
+    del fleet
+    return counts, lines
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _stream_pass(llm, judge, tag, lens, max_new, arrivals):
     """An ``LLM.stream`` pass through ``_turns`` that must launch all four
     kernels of the path; then, on its main-path run, the sliding window
@@ -2536,6 +2862,10 @@ def main() -> int:
         launches = {k: launches[k] + counts[k] for k in launches}
         counts, more = timed("serve qwen2.5-3b front door", phase_front_door,
                              judge, llm, records)
+        rates += more
+        launches = {k: launches[k] + counts[k] for k in launches}
+        counts, more = timed("serve qwen2.5-3b fleet", phase_fleet, judge,
+                             llm)
         del llm
         rates += more
         launches = {k: launches[k] + counts[k] for k in launches}

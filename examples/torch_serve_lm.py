@@ -8,6 +8,13 @@ a page pool provisioned for the expected occupancy, and stream their tokens
 through a per-request callback. The MLPs are block-pruned and packed in
 BCSC, so decode runs the sparse kernels.
 
+With ``--replicas N`` the same front door serves through the fleet
+(``serve.replica.ReplicaSet``): N schedulers on the one device and the one
+copy of the weights, requests placed by prefix affinity and queue depth,
+heartbeats audited every sync window; ``--kill-replica-at STEP`` kills
+replica 0 at that virtual step, and its unfinished requests migrate by
+recompute to the survivors.
+
 Runs on the card by default, at the full width of ``--arch``; on the CPU
 (``--device cpu``, where the kernels' plain versions run) use a
 ``-reduced`` config:
@@ -15,6 +22,9 @@ Runs on the card by default, at the full width of ``--arch``; on the CPU
     PYTHONPATH=src python examples/torch_serve_lm.py
     PYTHONPATH=src python examples/torch_serve_lm.py --device cpu \\
         --arch qwen2.5-3b-reduced --cache-len 128
+    PYTHONPATH=src python examples/torch_serve_lm.py --device cpu \\
+        --arch qwen2.5-3b-reduced --cache-len 128 --replicas 3 \\
+        --kill-replica-at 8
 """
 import argparse
 import time
@@ -26,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import plan as plan_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import LLM, StreamRequest
+from repro_torch.serve.chaos import ReplicaChaosConfig
 from repro_torch.serve.sparse import sparsify_mlp_params
 
 
@@ -46,7 +57,17 @@ def main():
     ap.add_argument("--prefix-len", type=int, default=16,
                     help="shared system-prompt length (0 disables)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="scheduler replicas behind the router (>1 serves "
+                         "through the fleet)")
+    ap.add_argument("--kill-replica-at", type=float, default=None,
+                    help="kill replica 0 at this virtual step (needs "
+                         "--replicas > 1); its requests migrate by "
+                         "recompute")
     args = ap.parse_args()
+    if args.kill_replica_at is not None and args.replicas < 2:
+        ap.error("--kill-replica-at needs --replicas > 1 (killing the "
+                 "only replica just respawns it)")
 
     cfg = get_config(args.arch)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
@@ -61,7 +82,8 @@ def main():
         sparsity_stats=stats)
     print(plan.explain())
     print()
-    llm = LLM(cfg, params, plan, eos_id=-1, device=args.device)
+    llm = LLM(cfg, params, plan, eos_id=-1, device=args.device,
+              replicas=args.replicas)
     del params
 
     first = {}
@@ -84,19 +106,33 @@ def main():
         arrival=float(arrivals[i]), on_token=on_token)
         for i in range(args.requests)]
 
+    chaos = None
+    if args.kill_replica_at is not None:
+        chaos = ReplicaChaosConfig(kill_at_step={0: args.kill_replica_at})
     t0 = time.perf_counter()
-    done = llm.stream(reqs)
+    done = llm.stream(reqs, chaos=chaos)
     wall = time.perf_counter() - t0
     st = llm.phase_stats
+    counters = st.get("fleet", st)     # a fleet's summed scheduler counters
     generated = sum(len(r.out) for r in done)
     lat = [r.finished_at - r.arrival for r in done]
+    rate = (f"decode {generated / max(st['decode_s'], 1e-9):.1f} tokens/s"
+            if "decode_s" in st else f"{generated / wall:.1f} tokens/s wall")
     print(f"{len(done)} requests, {generated} tokens in {wall:.2f} s wall "
-          f"on {llm.device}; decode {generated / max(st['decode_s'], 1e-9):.1f}"
-          f" tokens/s, prefill {st['prefill_real_tokens']} tokens")
+          f"on {llm.device}; {rate}, prefill "
+          f"{counters['prefill_real_tokens']} tokens")
     print(f"latency p50 {np.percentile(lat, 50):.0f} / p99 "
           f"{np.percentile(lat, 99):.0f} steps; preemptions "
-          f"{st['preemptions']}; outcomes "
+          f"{counters['preemptions']}; outcomes "
           + ", ".join(f"{k} {v}" for k, v in st["outcomes"].items() if v))
+    if args.replicas > 1:
+        print(f"fleet: {st['replicas_spawned']} replicas spawned, "
+              f"{st['replicas_final']} live at the end; failovers "
+              f"{st['failovers']}"
+              + (f" {st['failover_reasons']}" if st["failovers"] else "")
+              + f", {st['migrated_requests']} requests migrated; router "
+              f"{st['router']['affinity_hits']}/{st['router']['placements']}"
+              " placements on their prefix's replica")
     drift = llm.telemetry().last_drift
     if drift is not None:
         print(f"drift: {len(drift.confirmed)} CONFIRMED / "

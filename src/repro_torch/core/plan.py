@@ -6,7 +6,9 @@ Eyexam (paper Appendix A) justifying each choice; :func:`plan_serve` does
 the same for serving. It resolves a plan from a serving budget (rows from
 the HBM budget and the expected batch, the pool from the expected lengths,
 speculation's depth by rule); :func:`plan_for_scheduler` and
-:func:`plan_for_engine` from explicit geometry. Each decision carries its
+:func:`plan_for_engine` from explicit geometry; :func:`replan_from_lengths`
+and :func:`replan_spec_k` re-resolve a serving fleet's plan from measured
+lengths and draft acceptance. Each decision carries its
 rationale: the roofline term that bounds it, the reference's prose and the
 numbers it was resolved from; :meth:`ServePlan.explain` renders them and
 :meth:`ServePlan.to_json` serializes the plan.
@@ -704,6 +706,106 @@ def _resolve(cfg, arch: str, rows: int, cache_len: int, *, mean_len: float,
         prefill_exact=recurrent, prefill_tiers=tiers,
         degrade=tuple(ladder), num_pages_int8=np_int8, spec_k=spec_choice,
         decisions=tuple(decisions))
+
+
+def replan_from_lengths(cfg, base_plan: ServePlan, lengths, *,
+                        arch: Optional[str] = None,
+                        rates: DeviceRates = H100_SXM) -> ServePlan:
+    """Feedback re-planning (the fleet's, ``serve.replica.ReplicaSet``): a
+    fresh plan from measured finished-request lengths (prompt plus
+    generated tokens), as the reference's ``replan_from_lengths`` resolves
+    it. The serving envelope stays pinned (rows, cache_len, page geometry,
+    the attention path, sharing, KV format, sync cadence, ``spec_k``), so a
+    swap at a drain boundary never shrinks feasibility or flips a dispatch
+    decision; only the pool re-resolves, from ``{'mean': measured mean,
+    'max': base.cache_len}``. ``rates`` divides the MLP roofline's seconds,
+    as in :func:`plan_serve`."""
+    from repro_torch.serve import kvcache
+
+    mean_len, _ = _normalize_len_dist(list(lengths))
+    mean_len = min(mean_len, float(base_plan.cache_len))
+    slot_bytes = kvcache.cache_bytes(cfg, 1, base_plan.cache_len)
+    return plan_serve(
+        cfg,
+        hbm_budget_bytes=base_plan.rows * slot_bytes,
+        expected_batch=base_plan.rows,
+        expected_len_dist={"mean": mean_len, "max": base_plan.cache_len},
+        page_size=base_plan.page_size or None,
+        attn_path=base_plan.attn_path,
+        share_prefix=base_plan.share_prefix,
+        kv_quant=base_plan.kv_quant,
+        sync_every=base_plan.sync_every,
+        spec_k=base_plan.spec_k,
+        mesh={"tp": base_plan.tp, "ep": base_plan.ep}
+        if base_plan.sharded else None,
+        arch=arch or base_plan.arch, rates=rates)
+
+
+def _alpha_from_acceptance(rate: float, k: int) -> float:
+    """The per-candidate acceptance ``alpha`` behind a measured acceptance
+    rate (emitted over drafted per round) under the geometric model
+    ``E[n]/k = (1 - alpha^k) / ((1 - alpha) k)``, increasing in alpha on
+    (0, 1): 60 steps of bisection."""
+    k = max(int(k), 1)
+    rate = min(max(float(rate), 0.0), 1.0)
+    lo, hi = 0.0, 0.999
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        if (1 - mid ** k) / ((1 - mid) * k) < rate:
+            lo = mid
+        else:
+            hi = mid
+    return (lo + hi) / 2
+
+
+def replan_spec_k(cfg, base_plan: ServePlan, *, drafted_tokens: int,
+                  accepted_tokens: int, min_samples: int = 64) -> ServePlan:
+    """Acceptance-adaptive speculative depth (the reference's
+    ``replan_spec_k``): the ``spec`` rule's gain model run again with the
+    measured acceptance in place of :data:`SPEC_ALPHA`, k set to the best
+    candidate, or off below :data:`SPEC_MIN_GAIN`. Everything else stays
+    pinned; ``base_plan`` itself comes back when speculation is off, the
+    sample is under ``min_samples`` drafted tokens, or k stays."""
+    from repro_torch.serve import kvcache
+
+    if base_plan.spec_k < 2 or drafted_tokens < min_samples:
+        return base_plan
+    rate = accepted_tokens / max(drafted_tokens, 1)
+    alpha = _alpha_from_acceptance(rate, base_plan.spec_k)
+    w_bytes = cfg.param_count() * 2
+    c_bytes = kvcache.cache_bytes(cfg, max(base_plan.rows, 1),
+                                  base_plan.cache_len)
+    cand = {}
+    for kk in SPEC_K_CANDIDATES:
+        exp_tokens = (1 - alpha ** kk) / max(1 - alpha, 1e-9)
+        cand[kk] = exp_tokens * (w_bytes + c_bytes) \
+            / (w_bytes + kk * c_bytes)
+    best = max(cand, key=cand.get)
+    new_k = best if cand[best] >= SPEC_MIN_GAIN else 0
+    if new_k == base_plan.spec_k:
+        return base_plan
+    spec_n = {
+        "alpha_assumed": SPEC_ALPHA, "alpha_measured": round(alpha, 4),
+        "acceptance_rate_measured": round(rate, 4),
+        "drafted_tokens": int(drafted_tokens),
+        "accepted_tokens": int(accepted_tokens),
+        "previous_k": base_plan.spec_k,
+        "est_speedup": cand[best],
+        "candidates": {str(kk): v for kk, v in cand.items()},
+    }
+    why = (f"measured acceptance {rate:.2f} over {drafted_tokens} drafted "
+           f"tokens inverts to alpha={alpha:.2f} (planned {SPEC_ALPHA}): "
+           + (f"the gain model now peaks at k={new_k} "
+              f"({cand[best]:.2f}x)" if new_k else
+              f"best modeled gain {cand[best]:.2f}x < {SPEC_MIN_GAIN}x — "
+              "drafts miss too often to pay for the k-wide verify; "
+              "speculation turns off")
+           + f" — re-planned from k={base_plan.spec_k} at a drain boundary")
+    decisions = tuple(
+        d if d.name != "spec" else Decision(
+            "spec", f"k={new_k}" if new_k else "off", "HBM", why, spec_n)
+        for d in base_plan.decisions)
+    return dataclasses.replace(base_plan, spec_k=new_k, decisions=decisions)
 
 
 def num_global_layers(cfg) -> int:

@@ -1,5 +1,5 @@
-"""Seeded fault injection for the serving loop (the port's copy of
-``repro.serve.chaos``; the fleet's ``ReplicaChaosConfig`` is not ported).
+"""Seeded fault injection for the serving loop and the fleet (the port's
+copy of ``repro.serve.chaos``).
 
 Three fault classes the guarded scheduler must absorb, all driven by a fixed
 seed so a chaos run is reproducible and, for the same seed, schedules the
@@ -15,6 +15,10 @@ same faults as the reference's injector:
 * NaN logits: ``nan_rids_for`` names the requests whose next-token logits are
   poisoned before a given chunk; the guard's NaN sweep must quarantine
   exactly those rows.
+
+:class:`ReplicaChaosConfig` schedules whole-replica failures on the fleet's
+virtual clock (``serve.replica.ReplicaSet``): kills, permanent stalls and
+pool corruption, which the fleet's supervisor must absorb.
 """
 from __future__ import annotations
 
@@ -44,6 +48,29 @@ class ChaosConfig:
     step_fail_chunks: Tuple[int, ...] = ()
     step_fail_attempts: int = 1
     nan_rids: Dict[int, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+
+
+@dataclasses.dataclass
+class ReplicaChaosConfig:
+    """Replica-level fault schedule for ``serve.replica.ReplicaSet``, keyed
+    by replica slot, on the fleet's virtual clock:
+
+    * ``kill_at_step``: the replica dies at that step (its run is abandoned
+      without finalization, its pool and step graph released, its
+      unfinished requests stranded until failover re-routes them);
+    * ``stall_at_step``: the replica stops answering ticks from that step
+      on without dying, so only the heartbeat audit can catch it;
+    * ``corrupt_pool_at_step``: a phantom refcount in the replica's
+      ``PageAllocator``, which the per-window pool audit must catch;
+    * ``request_chaos``: a :class:`ChaosConfig` for that replica's
+      scheduler run (the two layers compose).
+    """
+    kill_at_step: Dict[int, float] = dataclasses.field(default_factory=dict)
+    stall_at_step: Dict[int, float] = dataclasses.field(default_factory=dict)
+    corrupt_pool_at_step: Dict[int, float] = dataclasses.field(
+        default_factory=dict)
+    request_chaos: Dict[int, ChaosConfig] = dataclasses.field(
         default_factory=dict)
 
 

@@ -370,12 +370,15 @@ class DecodeLoop:
         self.temperature = temperature
         self.eos_id = eos_id
         self.spec_k = spec_k
+        # the pool's format and size: the plan's until quantize_kv
+        self.kv_quant, self.num_pages = plan.kv_quant, plan.num_pages
         self.use_graph = graphs and device.type == "cuda"
         self.body = make_step_in_place(cfg, plan, temperature, eos_id,
                                        spec_k)
         self.generator = torch.Generator(device=device)
         self.state = None
         self.block_table: Optional[torch.Tensor] = None
+        self.nxt = self.emit = self.toks = self.emits = None
         self.graph: Optional[StepGraph] = None
         self.captures: List[float] = []
 
@@ -392,8 +395,8 @@ class DecodeLoop:
         cfg, plan, dev, R = self.cfg, self.plan, self.device, self.rows
         if self.paged:
             cache = decoding.init_paged_cache(
-                cfg, R, plan.cache_len, plan.num_pages, plan.page_size,
-                plan.kv_quant, device=dev)
+                cfg, R, plan.cache_len, self.num_pages, plan.page_size,
+                self.kv_quant, device=dev)
             self.block_table = torch.full((R, plan.max_pages), -1,
                                           dtype=torch.int32, device=dev)
         else:
@@ -471,6 +474,7 @@ class DecodeLoop:
         itself, so it reads int8 pages from here on."""
         recapture = self.graph is not None
         self.graph = None                  # its memory pool goes with it
+        self.kv_quant, self.num_pages = "int8", num_pages
         for part in self.state[0].values():
             for name, e in list(part.items()):
                 if decoding.is_paged_entry(e) \
@@ -484,6 +488,25 @@ class DecodeLoop:
         if recapture:
             with self._kept():
                 self._capture()
+
+    def release(self) -> None:
+        """Drop the device memory this loop holds: the decode state (paged
+        pools included), the block table, the step's outputs and the step
+        graph with its memory pool. The next :meth:`start` allocates (and
+        captures) anew, on the pool format of the last one."""
+        self.graph = None
+        self.state = self.block_table = None
+        self.nxt = self.emit = self.toks = self.emits = None
+
+    def device_bytes(self) -> int:
+        """Bytes of the tensors this loop holds (decode state and pools,
+        block table, the step's outputs); 0 once released. A step graph's
+        intermediates live in its private memory pool, which is not
+        counted here."""
+        held = list(_tensors(self.state)) if self.state is not None else []
+        held += [t for t in (self.block_table, self.nxt, self.emit,
+                             self.toks, self.emits) if t is not None]
+        return sum(t.numel() * t.element_size() for t in held)
 
     def copy_pages(self, src: List[int], dst: List[int]) -> None:
         """Copy-on-write on the device: physical pages ``src`` (payload and

@@ -1,7 +1,7 @@
 """``repro_torch.serve.LLM``: the port's serving front door.
 
-The counterpart of ``repro.serve.LLM`` for one replica, with the reference's
-defaults: the serving guard on (``GuardConfig()``) and tracing on::
+The counterpart of ``repro.serve.LLM``, with the reference's defaults: the
+serving guard on (``GuardConfig()``) and tracing on::
 
     llm = LLM(cfg, params)                       # on the card, default plan
     print(llm.explain())                         # the plan's rationale
@@ -26,7 +26,12 @@ resolves the reference's default, ``plan_serve`` over half of the device's
 memory (``rates.hbm_cap``: 40e9 B on an H100) for ``DEFAULT_BATCH`` rows of
 ``DEFAULT_LEN_DIST`` tokens; ``stream`` serves what it
 resolves, copy-on-write prefix sharing (on for a paged plan by default) and
-greedy speculative decoding (``spec_k`` >= 2) included. The model runs on the card unless ``device="cpu"``
+greedy speculative decoding (``spec_k`` >= 2) included. With
+``replicas=N`` (N >= 2) ``stream`` serves through the fleet,
+``serve.replica.ReplicaSet``: N schedulers on the one device and the one
+copy of the weights, router placement, heartbeat supervision, failover,
+autoscaling and re-planning as the reference's; ``generate`` keeps the one
+drain engine. The model runs on the card unless ``device="cpu"``
 is passed; without a CUDA device and without that request, construction
 raises rather than carry on on the CPU.
 """
@@ -41,6 +46,7 @@ from repro_torch.core.eyexam import H100_SXM, DeviceRates
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import DecodeEngine, Request, resolve_device
 from repro_torch.serve.guard import GuardConfig
+from repro_torch.serve.replica import ReplicaSet
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          StreamRequest)
 from repro_torch.serve.telemetry import Telemetry
@@ -65,10 +71,14 @@ class LLM:
     ``Telemetry``; :meth:`telemetry` returns the bundle, reset at every
     call. ``on_token`` and ``on_outcome`` are defaults for requests that
     carry none. ``replicas`` below 1 raises ``ValueError``, as the
-    reference's does; above 1 it asks for the multi-replica control plane,
-    which is not ported. ``rates`` is read only without ``plan``: the
-    default plan's budget is half its ``hbm_cap`` and its MLP roofline
-    divides by its rates. The scheduler's step graph is captured at
+    reference's does; from 2 on ``stream`` serves through a
+    ``serve.replica.ReplicaSet`` on this plan, guard, telemetry and device
+    (built here, allocating nothing; each run spawns its replicas, each
+    with its own pool and step graph, over the shared ``params``), and
+    ``phase_stats`` / ``telemetry()`` read the fleet's.
+    ``rates`` is read only without ``plan``: the default plan's budget is
+    half its ``hbm_cap`` and its MLP roofline divides by its rates. The
+    scheduler's step graph is captured at
     the first ``stream`` and the drain engine (built at the first
     ``generate``) its own; both are reused across calls.
     ``decode_graphs`` is read only on the card: False runs the eager
@@ -89,10 +99,6 @@ class LLM:
                 "goes through at least one scheduler replica (replicas=1 "
                 "is the single-scheduler fast path, replicas>=2 the "
                 "fault-tolerant control plane)")
-        if replicas > 1:
-            raise NotImplementedError(
-                f"replicas={replicas}: the multi-replica control plane is "
-                "not ported yet")
         if plan is None:
             plan = plan_lib.plan_serve(
                 cfg, hbm_budget_bytes=int(rates.hbm_cap // 2),
@@ -124,7 +130,12 @@ class LLM:
         self._scheduler = ContinuousBatchingScheduler(
             cfg, self.params, plan, eos_id=eos_id, temperature=temperature,
             device=self.device, graphs=decode_graphs, guard=guard,
-            telemetry=self._telemetry)
+            telemetry=self._telemetry) if replicas == 1 else None
+        self._fleet = ReplicaSet(
+            cfg, self.params, plan, replicas=replicas, eos_id=eos_id,
+            temperature=temperature, guard=guard, telemetry=self._telemetry,
+            device=self.device, graphs=decode_graphs) \
+            if replicas > 1 else None
         self._engine: Optional[DecodeEngine] = None
         self._last_run = None                # engine behind the last call
 
@@ -190,7 +201,8 @@ class LLM:
         ``r.outcome`` its terminal status. ``on_token(request, token)`` and
         ``on_outcome(request, outcome)`` apply to requests without their
         own, falling back to the constructor's. ``chaos`` takes a
-        ``serve.chaos.ChaosConfig`` for deterministic fault injection."""
+        ``serve.chaos.ChaosConfig`` for deterministic fault injection or,
+        with ``replicas`` >= 2, a ``ReplicaChaosConfig``."""
         on_token = on_token if on_token is not None else self.on_token
         on_outcome = on_outcome if on_outcome is not None \
             else self.on_outcome
@@ -199,6 +211,9 @@ class LLM:
             for r in reqs:
                 if r.on_outcome is None:
                     r.on_outcome = on_outcome
+        if self._fleet is not None:
+            self._last_run = self._fleet     # it resets the telemetry itself
+            return self._fleet.run(reqs, seed=seed, chaos=chaos)
         self._last_run = self._scheduler
         self._telemetry.reset()            # one trace per call
         done = self._scheduler.run(reqs, seed=seed, chaos=chaos)

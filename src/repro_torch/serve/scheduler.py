@@ -43,9 +43,18 @@ arguments, so the port's ``Tracer.signature()`` of a run equals the
 reference's. A guarded run ends with ``assert_pool_clean(drained=True)``;
 every run ends with ``telemetry.detect_drift`` against the plan.
 
+The loop is a generator (``_run_gen``) that yields a status dict before
+every sync boundary. :meth:`ContinuousBatchingScheduler.run` drives it
+self-paced, jumping the clock over idle gaps; the fleet
+(``serve.replica.ReplicaSet``) drives it from outside through
+:meth:`~ContinuousBatchingScheduler.start_gen`, one shared clock for every
+replica, adds requests to a run in progress with
+:meth:`~ContinuousBatchingScheduler.inject`, harvests a dead replica's
+unfinished requests from ``_live`` and returns its device memory with
+:meth:`~ContinuousBatchingScheduler.release`.
+
 Not ported yet, and refused rather than ignored (``check_plan``):
-tensor/expert-parallel plans; the fleet's externally driven runs
-(``start_gen``/``inject``) wait for the replica set.
+tensor/expert-parallel plans.
 """
 from __future__ import annotations
 
@@ -83,7 +92,8 @@ class StreamRequest:
     called once with the request's terminal ``outcome``; ``degraded`` lists
     the ladder rungs applied to it; ``tenant`` keys the per-tenant metrics.
     ``shared_tokens`` counts the prompt tokens served from adopted shared
-    pages at its latest admission."""
+    pages at its latest admission. In a fleet, ``replica`` is the slot that
+    resolved the request and ``migrations`` the failovers it survived."""
     rid: int
     prompt: List[int]
     max_new: int
@@ -102,6 +112,8 @@ class StreamRequest:
     outcome: Optional[guard_mod.RequestOutcome] = None
     degraded: List[str] = dataclasses.field(default_factory=list)
     tenant: Optional[str] = None
+    replica: Optional[int] = None
+    migrations: int = 0
 
 
 def check_plan(plan) -> None:
@@ -179,6 +191,7 @@ class ContinuousBatchingScheduler:
                                 spec_k=self.spec_k if self.spec_on else 0)
         self.pager: Optional[PageAllocator] = None
         self.phase_stats: Dict = {}
+        self._live: Optional[Dict] = None    # a run's lists (start_gen)
 
     @property
     def graph(self) -> Optional[StepGraph]:
@@ -207,13 +220,19 @@ class ContinuousBatchingScheduler:
     def _final_len(r: StreamRequest) -> int:
         return len(r.prompt) + r.max_new
 
-    def _validate(self, requests: List[StreamRequest]) -> None:
-        """Caller bugs raise before any work: duplicate rids, a request
-        longer than the cache or than the whole pool."""
+    def _validate(self, requests: List[StreamRequest],
+                  known: Optional[set] = None) -> None:
+        """Caller bugs raise before any work: duplicate rids (within
+        ``requests``, or with the ``known`` rids of a run in progress), a
+        request longer than the cache or than the whole pool."""
         rids = [r.rid for r in requests]
-        if len(set(rids)) != len(rids):
+        if known is None and len(set(rids)) != len(rids):
             raise ValueError(f"request rids must be unique, got {rids}")
         for r in requests:
+            if known is not None and r.rid in known:
+                raise ValueError(
+                    f"request rid {r.rid} already known to this run — rids "
+                    "must be unique across the run, including re-routes")
             total = len(r.prompt) + r.max_new
             if r.max_new > 0 and total > self.cache_len:
                 raise ValueError(
@@ -223,6 +242,17 @@ class ContinuousBatchingScheduler:
             if self.paged and r.max_new > 0 and need > self.num_pages:
                 raise ValueError(f"request {r.rid} needs {need} pages, pool "
                                  f"has {self.num_pages}: it can never run")
+
+    @staticmethod
+    def _resolve_empty(r: StreamRequest, done: List[StreamRequest]) -> None:
+        """A request with no generation budget is done at its arrival."""
+        r.done = True
+        r.finished_at = r.arrival
+        r.outcome = guard_mod.RequestOutcome(
+            "ok", "empty generation budget", at_step=r.arrival)
+        if r.on_outcome is not None:
+            r.on_outcome(r, r.outcome)
+        done.append(r)
 
     def _degrade_to_int8(self, clock: float) -> None:
         """The ladder's int8 rung: requantize the live pool to int8 pages
@@ -246,12 +276,73 @@ class ContinuousBatchingScheduler:
                                     slot=self.slot, rung="int8_kv",
                                     pages=new_pages)
 
+    def release(self) -> None:
+        """Return this scheduler's device memory: the decode state, the
+        paged pools, the block table and the step graph
+        (``DecodeLoop.release``). The host side stays readable: ``pager``,
+        ``phase_stats`` and ``_live``. A later run allocates (and captures)
+        anew."""
+        self._loop.release()
+
     def run(self, requests: List[StreamRequest], seed: int = 0,
             chaos=None) -> List[StreamRequest]:
         """Serve ``requests`` to completion; returns them in finishing order.
         ``seed`` seeds the sampler (unused when greedy); ``chaos`` takes a
         ``ChaosConfig`` (or a ``FaultInjector``) for deterministic fault
-        injection."""
+        injection. The run is self-paced: every boundary ticks with no
+        outside clock, and the clock jumps over idle gaps."""
+        gen = self._run_gen(requests, seed, chaos, external=False)
+        try:
+            gen.send(None)                   # set-up and validation
+            while True:
+                gen.send(("tick", None))
+        except StopIteration as e:
+            return e.value
+        finally:
+            self._live = None
+
+    def start_gen(self, requests: List[StreamRequest], seed: int = 0,
+                  chaos=None):
+        """Prime a run for an outside caller (the fleet,
+        ``serve.replica.ReplicaSet``) and return its generator.
+
+        The generator yields a status dict before every sync boundary:
+        ``{"clock", "drained", "active", "waiting", "pending", "done",
+        "decode_chunks"}``. Send ``("tick", clock)`` to process one
+        boundary with the scheduler's clock moved up to the shared
+        ``clock`` (it never jumps ahead of it, so replicas ticked together
+        stay in lockstep, and a drained run stays alive for :meth:`inject`),
+        or ``("stop", None)`` to finalize: ``StopIteration.value`` is the
+        done list, as :meth:`run` returns it. Validation runs here, before
+        the first yield. Closing the generator models the replica's death:
+        nothing is finalized, no outcome delivered, and the live state stays
+        harvestable in ``_live``."""
+        gen = self._run_gen(requests, seed, chaos, external=True)
+        gen.send(None)
+        return gen
+
+    def inject(self, requests: List[StreamRequest]) -> None:
+        """Add requests to a run in progress (the fleet's dispatch and
+        failover re-routes), with :meth:`run`'s validation; a request whose
+        ``arrival`` has passed is admissible at the next boundary."""
+        live = self._live
+        if live is None:
+            raise RuntimeError(
+                "inject() requires a run in progress (start_gen)")
+        self._validate(requests, known=live["rids"])
+        for r in sorted(requests, key=lambda r: (r.arrival, r.rid)):
+            live["rids"].add(r.rid)
+            live["requests"].append(r)
+            if r.max_new <= 0:
+                self._resolve_empty(r, live["done"])
+            else:
+                live["pending"].append(r)
+        live["pending"].sort(key=lambda r: (r.arrival, r.rid))
+
+    def _run_gen(self, requests: List[StreamRequest], seed: int = 0,
+                 chaos=None, external: bool = False):
+        """The serving loop as a generator (see :meth:`start_gen`);
+        ``external`` runs follow the caller's clock and outlive a drain."""
         self._validate(requests)
         g = self.guard
         inj = None
@@ -270,6 +361,7 @@ class ContinuousBatchingScheduler:
                 "chaos_inject", clock, cat="chaos", slot=slot, rid=rid,
                 kind=kind)
         T = self.sync_every
+        allreqs = list(requests)               # grows through inject()
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         waiting: List[StreamRequest] = []
         done: List[StreamRequest] = []
@@ -277,15 +369,14 @@ class ContinuousBatchingScheduler:
             if self.paged else None
         for r in [r for r in pending if r.max_new <= 0]:
             pending.remove(r)
-            r.done = True
-            r.finished_at = r.arrival
-            r.outcome = guard_mod.RequestOutcome(
-                "ok", "empty generation budget", at_step=r.arrival)
-            if r.on_outcome is not None:
-                r.on_outcome(r, r.outcome)
-            done.append(r)
+            self._resolve_empty(r, done)
         alloc = SlotAllocator(self.rows)
         active: Dict[int, StreamRequest] = {}          # row -> request
+        # the loop's own objects: inject() appends to them, and the fleet
+        # harvests them after the replica's death
+        self._live = {"pending": pending, "waiting": waiting,
+                      "active": active, "done": done, "requests": allreqs,
+                      "rids": {r.rid for r in requests}}
         row_pos: Dict[int, int] = {}                   # row -> device pos
         admit_order: List[int] = []                    # rows, oldest first
         row_rids = [-1] * self.rows
@@ -421,7 +512,25 @@ class ContinuousBatchingScheduler:
             return self._loop.set_block_table(pager.block_table_rows(
                 row_rids, self.max_pages)) if self.paged else None
 
-        while pending or waiting or active:
+        while True:
+            # ---- the boundary gate: a self-paced run ticks with no clock;
+            # an outside caller's tick moves the clock up to the shared one
+            cmd, tick = yield {
+                "clock": clock,
+                "drained": not (pending or waiting or active),
+                "active": len(active), "waiting": len(waiting),
+                "pending": len(pending), "done": len(done),
+                "decode_chunks": st["decode_chunks"]}
+            if cmd == "stop":
+                break
+            if tick is not None and tick > clock:
+                st["idle_steps"] += tick - clock
+                clock = tick
+            if not (pending or waiting or active):
+                if not external:
+                    break
+                continue             # lockstep: stay alive for inject()
+
             # ---- the int8 rung (boundary start, measured pressure): it
             # relieves pressure before this boundary's arrivals are judged
             if "int8_kv" in self._ladder and self.paged \
@@ -475,6 +584,8 @@ class ContinuousBatchingScheduler:
                                      "kept")
 
             if not active and not waiting:
+                if external:
+                    continue     # lockstep: never jump past the tick
                 if not pending:
                     break
                 st["idle_steps"] += pending[0].arrival - clock
@@ -810,7 +921,7 @@ class ContinuousBatchingScheduler:
         st["clock_steps"] = clock
         m.gauge("clock", clock)
         if g is not None:
-            for r in requests:
+            for r in allreqs:
                 if r.outcome is None:       # unreachable by construction
                     if not r.done:
                         r.done = True

@@ -747,3 +747,71 @@ def test_cuda_spec_int8_rung_recaptures_plain_step(cuda):
             assert loop.graph.tally["paged_attention"] == \
                 pplan.num_global_layers(cfg)
     assert outs["graphed"] == outs["eager"] == outs["seq"]
+
+
+def _fleet_reqs():
+    return [StreamRequest(i, [3 + i % 4, 5, 7], 6, arrival=float(i),
+                          tenant="t%d" % (i % 2)) for i in range(8)]
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_graphed_equals_eager(cuda):
+    """``LLM(..., replicas=3).stream`` with every replica's step graphed
+    against the same fleet eager, fault-free and with replica 0 killed at
+    step 8: equal outcomes, streams, placements and migrations and equal
+    trace signatures; every replica of the graphed fleet captured its step
+    once and released it (with its pool) at death or retirement."""
+    from repro_torch.serve.chaos import ReplicaChaosConfig
+    cfg, params = _card_params("qwen2.5-3b-reduced", cuda)
+    plan = pplan.plan_for_scheduler(cfg, rows=3, cache_len=64, page_size=4,
+                                    num_pages=24, sync_every=T)
+    graphed = LLM(cfg, params, plan, eos_id=-1, replicas=3)
+    eager = LLM(cfg, graphed.params, plan, eos_id=-1, replicas=3,
+                decode_graphs=False)
+    for chaos in (None, ReplicaChaosConfig(kill_at_step={0: 8.0})):
+        runs = []
+        for llm in (graphed, eager):
+            done = llm.stream(_fleet_reqs(), chaos=chaos)
+            runs.append(([(r.rid, r.out, r.outcome.status, r.replica,
+                           r.migrations) for r in done],
+                         llm.telemetry().tracer.signature()))
+        assert runs[0] == runs[1]
+        assert graphed.phase_stats["failovers"] == (chaos is not None)
+        for rep in graphed._fleet._all:
+            loop = rep.scheduler._loop
+            assert len(loop.captures) == 1
+            assert loop.graph is None and loop.state is None
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_kill_frees_the_dead_replica(cuda):
+    """Device memory at the window of replica 0's kill (step 8) is at least
+    that replica's own tensors (``DecodeLoop.device_bytes``: its pool,
+    decode state, block table and step outputs, at least the pool's
+    ``kvcache.paged_cache_bytes``) below the window before, and the dead
+    loop holds nothing."""
+    from repro_torch.serve import kvcache
+    from repro_torch.serve.chaos import ReplicaChaosConfig
+    cfg, params = _card_params("qwen2.5-3b-reduced", cuda)
+    plan = pplan.plan_for_scheduler(cfg, rows=3, cache_len=64, page_size=4,
+                                    num_pages=24, sync_every=T)
+    llm = LLM(cfg, params, plan, eos_id=-1, replicas=3)
+    llm.stream(_fleet_reqs())             # the kernels built and loaded
+    fleet = llm._fleet
+    audit, seen, own = fleet.supervisor.audit, {}, {}
+
+    def measured(replicas, clock, sync_every):
+        torch.cuda.synchronize()
+        seen[clock] = torch.cuda.memory_allocated()
+        own[clock] = {rep.slot: rep.scheduler._loop.device_bytes()
+                      for rep in replicas}
+        return audit(replicas, clock, sync_every)
+    fleet.supervisor.audit = measured
+    done = llm.stream(_fleet_reqs(),
+                      chaos=ReplicaChaosConfig(kill_at_step={0: 8.0}))
+    assert all(r.outcome.ok for r in done)
+    pool = kvcache.paged_cache_bytes(cfg, plan.rows, plan.cache_len,
+                                     plan.num_pages, plan.page_size)
+    assert own[4.0][0] >= pool > 0
+    assert fleet._all[0].scheduler._loop.device_bytes() == 0
+    assert seen[4.0] - seen[8.0] >= own[4.0][0]

@@ -45,6 +45,7 @@ def test_port_files_exist():
     for need in ("bridge.py", "serve/facade.py", "serve/scheduler.py",
                  "serve/engine.py", "serve/graphs.py", "serve/guard.py",
                  "serve/chaos.py", "serve/telemetry.py",
+                 "serve/router.py", "serve/replica.py",
                  "runtime/fault_tolerance.py", "core/eyexam.py",
                  "core/reuse.py",
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py"):
@@ -56,6 +57,8 @@ def test_port_files_exist():
                                     "repro_torch.serve.engine",
                                     "repro_torch.serve.chaos",
                                     "repro_torch.serve.telemetry",
+                                    "repro_torch.serve.router",
+                                    "repro_torch.serve.replica",
                                     "repro_torch.runtime.fault_tolerance"])
 def test_decode_loop_modules_import_without_a_card(module):
     """The graph, guard, chaos and telemetry modules import on a machine

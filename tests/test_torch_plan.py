@@ -21,7 +21,8 @@ reference.
 * the plan-less front door: ``LLM(cfg, params)`` resolves the reference's
   default plan and serves a short stream with the reference's tokens (or a
   parting at a reference near-tie, ``torch_dense_parity.compare_streams``);
-  ``replicas`` below 1 raises the reference's ``ValueError``;
+  ``replicas`` below 1 raises the reference's ``ValueError``, 2 serves
+  through the fleet;
 * the CLI ``python -m repro_torch.core.plan`` prints the reference CLI's
   report at ``--rates tpu-v5e``.
 """
@@ -348,8 +349,13 @@ def test_llm_replicas(qwen):
     with pytest.raises(ValueError) as mine:
         LLM(cfg, params, device="cpu", replicas=0)
     assert str(mine.value) == str(ref.value)
-    with pytest.raises(NotImplementedError, match="multi-replica"):
-        LLM(cfg, params, device="cpu", replicas=2)
+    # from 2 on, stream serves through the port's fleet on the default plan
+    fleet = LLM(cfg, params, device="cpu", replicas=2, eos_id=-1)
+    assert fleet._scheduler is None
+    done = fleet.stream([([3, 5, 7], 4), ([4, 5, 7], 4)])
+    assert [len(r.out) for r in done] == [4, 4]
+    assert all(r.outcome.ok and r.replica in (0, 1) for r in done)
+    assert fleet.phase_stats["replicas"] == 2
 
 
 # ------------------------------------------------------------------ CLI

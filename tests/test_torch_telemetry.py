@@ -4,7 +4,9 @@ plan decisions, unit by unit against the reference.
 * ``METRIC_KEYS`` (and its three kinds) and ``CATEGORIES`` equal the
   reference's; the tracer's exports and ``detect_drift`` agree on the same
   events and windows.
-* ``FaultInjector`` delivers the reference's schedule for three seeds.
+* ``FaultInjector`` delivers the reference's schedule for three seeds;
+  the fleet's policy records and ``StragglerDetector`` equal the
+  reference's.
 * ``quantize_paged_entry`` on stacked and unstacked pools, grown: scales
   within 1e-6 relative, int8 codes equal except by one where the scaled
   value ``x / s * 127`` lies within 1e-6 of a rounding tie (the two
@@ -30,10 +32,12 @@ from repro.configs import get_config as rget_config
 from repro.core import plan as rplan
 from repro.models import decoding as rdec
 from repro.models import transformer as rtfm
+from repro.runtime import fault_tolerance as rft
 from repro.runtime.fault_tolerance import backoff_delay as rbackoff
 from repro.serve import LLM as RLLM
 from repro.serve import chaos as rchaos
 from repro.serve import guard as rguard
+from repro.serve import replica as rreplica
 from repro.serve import telemetry as rtel
 from repro.serve.paging import PageAllocator as RPages
 
@@ -42,9 +46,10 @@ from repro_torch.configs import get_config
 from repro_torch.core import eyexam
 from repro_torch.core import plan as pplan
 from repro_torch.models import decoding as pdec
+from repro_torch.runtime import fault_tolerance
 from repro_torch.runtime.fault_tolerance import backoff_delay
 from repro_torch.serve import LLM
-from repro_torch.serve import chaos, guard, telemetry
+from repro_torch.serve import chaos, guard, replica, telemetry
 from repro_torch.serve.paging import PageAllocator
 
 CONFIGS = ("qwen2.5-3b", "gemma2-2b", "mistral-nemo-12b", "gemma3-12b")
@@ -90,6 +95,37 @@ def _record(mod):
         m.tenant_observe("a", "admission_wait_steps", clock)
         m.end_window(clock)
     return tr, m
+
+
+def test_fleet_policies_and_straggler_detector_match_reference():
+    """The fleet's policy records (``ReplicaChaosConfig``, the supervisor's,
+    autoscaler's and re-planner's configs) carry the reference's fields and
+    defaults, and ``StragglerDetector`` flags, strikes and records the same
+    over a seeded heartbeat stream with stalls and two step-clock restarts
+    (a restart clears the strikes and keeps the history)."""
+    for mine, ref in ((chaos.ReplicaChaosConfig, rchaos.ReplicaChaosConfig),
+                      (replica.SupervisorConfig, rreplica.SupervisorConfig),
+                      (replica.AutoscaleConfig, rreplica.AutoscaleConfig),
+                      (replica.ReplanConfig, rreplica.ReplanConfig)):
+        assert [(f.name, f.default) for f in dataclasses.fields(mine)] == \
+            [(f.name, f.default) for f in dataclasses.fields(ref)]
+        assert dataclasses.asdict(mine()) == dataclasses.asdict(ref())
+    rng = np.random.default_rng(5)
+    steps = list(range(40)) + list(range(10)) + list(range(30))
+    dts = [float(x) for x in rng.gamma(4.0, 0.25, len(steps))]
+    for i in (12, 13, 14, 44, 60, 61, 62, 63):
+        dts[i] *= 6.0                             # stalls
+    got = fault_tolerance.StragglerDetector(3.0, 2)
+    want = rft.StragglerDetector(3.0, 2)
+    for step, dt in zip(steps, dts):
+        assert got.observe(step, dt) == want.observe(step, dt)
+        assert (got.strikes, got.persistent, got.last_step) == \
+            (want.strikes, want.persistent, want.last_step)
+    assert got.events == want.events and got.times == want.times
+    assert len(got.events) >= 4 and not got.persistent
+    got.reset()
+    assert (got.times, got.events, got.strikes, got.last_step) == \
+        ([], [], 0, None)
 
 
 def test_tracer_metrics_and_drift_match_reference():
