@@ -145,7 +145,26 @@ Phases, each of which must pass:
    three pairs of kernels with the most idle time between them (a profiler
    trace of 16 more), the capture time and the peak of device memory;
    each load prints its own peak;
-10. report: prefill and decode tokens/s, the wall time of each phase, one
+10. serve the recurrent architectures (``phase_serve_recurrent``), after
+    gemma3-12b was freed, at full width and depth on the contiguous plans
+    their lack of a global layer resolves to (no page pool, no int8 rung,
+    exact-length prefill buckets): recurrentgemma-2b (26 layers: 8
+    periods of two RG-LRU layers and one local of window 2048, then two
+    RG-LRU; MLPs packed at 0.75): the first prefill and decode logits of
+    the kernel path against ``impl="plain"`` at 2 x ``RGEMMA_CHECK``
+    tokens (past the window), then 8 requests through ``LLM.stream``
+    (rows 4, cache 4096; prompts up to 3000, so window-mode prefill and
+    ring wrap; two exact-length buckets of two in the second wave) and 4
+    through ``LLM.generate`` on ``plan_for_engine(slots=4,
+    cache_len=4096)``, each in turns (``_turns``): the sliding window once
+    per local layer per prefill batch, the fused MLP at least once per
+    layer per decode step, the GEMM three times per layer on each prefill
+    batch past ``mlp_fused_m_max``, paged attention never; mamba2-130m (24
+    SSD layers, no MLP): 8 requests through ``LLM.stream`` (rows 8, cache
+    2048; prompts 5-2000, the primes 509 and 1021 among them) in turns,
+    with no port kernel launched, then one prompt of each length prefilled
+    alone: its ms, its SSD chunk and the peak of device memory;
+11. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -251,6 +270,22 @@ FLEET_STALL = 16.0
 # a greedy parting is a near-tie when the top-2 logit margin at it is under
 # this share of max |logit| (tests/torch_dense_parity.py's LOGIT_TOL)
 NEAR_TIE = 1e-2
+# the recurrent phase: recurrentgemma-2b's stream pass (rows, cache; prompts,
+# the first four at step 0 and the last four, two exact-length buckets of
+# two, at step 8; 3000 is past the 2048 window), its logits check (rows of
+# one exact length past the window) and its generate pass (4 slots, prompts
+# at step 0); then mamba2-130m's stream pass (all at step 0; 509 and 1021
+# are prime, so their SSD prefill runs chunks of 1)
+RGEMMA = "recurrentgemma-2b"
+RGEMMA_PLAN = dict(rows=4, cache_len=4096)
+RGEMMA_LENS = (5, 37, 511, 3000, 64, 300, 64, 300)
+RGEMMA_NEW = 32
+RGEMMA_CHECK = 2100
+RGEMMA_GENERATE_LENS = (5, 64, 511, 3000)
+MAMBA = "mamba2-130m"
+MAMBA_PLAN = dict(rows=8, cache_len=2048)
+MAMBA_LENS = (5, 37, 256, 509, 512, 1021, 1024, 2000)
+MAMBA_NEW = 32
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -1489,10 +1524,12 @@ def _load(arch, plan_kw):
     llm = LLM(cfg, packed, plan, eos_id=-1, device=DEVICE)
     del packed
     sync()
+    packing = (f"MLPs packed at block density {stats['block_density']:.3f} "
+               f"({stats['kept_blocks']} blocks)" if stats["packed"]
+               else "no MLP to pack")
     log(f"serve: {arch}, {cfg.num_layers} layers {cfg.attn_pattern}, "
         f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, head_dim {cfg.head_dim}; "
-        f"MLPs packed at block density {stats['block_density']:.3f} "
-        f"({stats['kept_blocks']} blocks); loaded in "
+        f"{packing}; loaded in "
         f"{time.perf_counter() - t0:.1f} s; {_memory('load peak')}; "
         f"plan rows {plan.rows}, cache {plan.cache_len}, page "
         f"{plan.page_size}, {plan.num_pages} pages, fused MLP up to M "
@@ -2826,6 +2863,182 @@ def phase_serve_gemma3(judge):
     return {k: counts[k] + counts8[k] for k in counts}, lines
 
 
+def _check_logits_exact(llm, judge, length: int, rows: int = 2):
+    """``_check_logits`` for a config with recurrent state, which prefills
+    exact lengths only: ``rows`` prompts of one ``length`` on the plan's
+    contiguous cache, their prefill (the GEMM arm past the fused route,
+    prefill attention) and one decode step (M ``rows``: the fused MLP, the
+    local rings, the recurrent state) through the kernels and through
+    ``impl="plain"``."""
+    import torch
+    from repro_torch.models import decoding
+    cfg, plan, dev = llm.cfg, llm.plan, llm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    toks = torch.randint(0, cfg.vocab_size, (rows, length), generator=gen,
+                         device=dev)
+    lengths = [length] * rows
+    out, nxt = {}, None
+    for impl in (None, "plain"):
+        logits, cache = decoding.prefill_batched(
+            llm.params, toks, lengths, cfg, plan.cache_len, plan=plan,
+            impl=impl)
+        if nxt is None:
+            nxt = logits[:, -1].argmax(-1)[:, None]
+        step, _ = decoding.serve_step(
+            llm.params, cache, nxt,
+            torch.full((rows,), length, dtype=torch.long, device=dev), cfg,
+            plan=plan, impl=impl)
+        out[impl] = (logits[..., :cfg.vocab_size], step[..., :cfg.vocab_size])
+    sync()
+    for i, what in enumerate(("prefill", "decode")):
+        got, want = out[None][i], out["plain"][i]
+        judge.check(f"{cfg.name} {what} logits finite",
+                    bool(torch.isfinite(got).all()), f"{tuple(got.shape)}")
+        judge(f"{cfg.name} {what} logits, kernels vs plain",
+              errors(got, want)[1], 5e-2,
+              f"relative to max |logit| after {cfg.num_layers} layers at "
+              f"{rows} x {length} tokens: sums in another order flip bf16 "
+              "roundings, which the layers carry forward")
+
+
+def _exact_batches(lens, rows: int):
+    """The prefill batches' M of a pass whose requests arrive in waves of
+    ``rows`` (each wave admitted when the previous one finishes, as equal
+    budgets make them do), bucketed by exact length within a wave."""
+    out = []
+    for i in range(0, len(lens), rows):
+        wave = lens[i:i + rows]
+        out += [wave.count(n) * n for n in sorted(set(wave))]
+    return out
+
+
+def _prefill_ms(llm, lengths):
+    """(ms, peak GiB) of one single-prompt prefill at each length: host
+    clock around a call synchronised on both sides, the second of two (the
+    first pays each new shape's library set-up), and the peak of device
+    memory over it (None on the CPU)."""
+    import torch
+    from repro_torch.models import decoding
+    cfg, plan, dev = llm.cfg, llm.plan, llm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = {}
+    for n in lengths:
+        toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                             device=dev)
+        for _ in range(2):
+            sync()
+            _reset_peak()
+            t0 = time.perf_counter()
+            decoding.prefill_batched(llm.params, toks, [n], cfg,
+                                     plan.cache_len, plan=plan)
+            sync()
+            out[n] = ((time.perf_counter() - t0) * 1e3,
+                      torch.cuda.max_memory_allocated() / 2**30
+                      if DEVICE == "cuda" else None)
+    return out
+
+
+def phase_serve_recurrent(judge):
+    """Full-width, full-depth recurrentgemma-2b (26 layers: 8 periods of
+    two RG-LRU layers and one local of window 2048, then 2 RG-LRU; MQA 10
+    heads of 256, d_ff 7680) and mamba2-130m (24 Mamba-2 SSD layers, no
+    MLP), each after the previous model was freed, on the plans' contiguous
+    caches (no global layer, so no page pool) with exact-length prefill
+    buckets. recurrentgemma-2b: the logits check, ``LLM.stream`` (prefill
+    past the window, decode wrapping the rings) and ``LLM.generate`` on
+    ``plan_for_engine``, each graphed and eager in turns: the sliding
+    window once per local layer per prefill batch, the fused MLP at least
+    once per layer per decode step, the GEMM on the batches past the fused
+    route, paged attention never. mamba2-130m: ``LLM.stream`` in turns with
+    no port kernel launched, and the prefill ms of each prompt length.
+    Returns (the graphed runs' summed launch counts, lines of rates)."""
+    from repro_torch.core.plan import plan_for_engine
+    from repro_torch.models.ssm import chunk_size
+    from repro_torch.serve import LLM
+    llm = _load(RGEMMA, RGEMMA_PLAN)
+    cfg, plan = llm.cfg, llm.plan
+    judge.check(f"{RGEMMA}: contiguous plan, exact-length prefill",
+                not plan.paged and plan.prefill_exact and not plan.degrade,
+                f"attn_path {plan.attn_path}, prefill_exact "
+                f"{plan.prefill_exact}, degrade {plan.degrade}")
+    _check_logits_exact(llm, judge, RGEMMA_CHECK)
+    n_local = sum(cfg.layer_kind(i) == "local"
+                  for i in range(cfg.num_layers))
+    fused = plan.mlp_fused_m_max
+
+    def gemm_batches(ms):
+        return sum(fused is not None and m > fused for m in ms)
+
+    lines = []
+    passes = (
+        ("recurrentgemma stream pass", llm, RGEMMA_LENS,
+         [0] * 4 + [8] * 4, "stream",
+         _exact_batches(RGEMMA_LENS, plan.rows)),
+        ("recurrentgemma generate pass",
+         LLM(cfg, llm.params, plan_for_engine(
+             cfg, slots=RGEMMA_PLAN["rows"],
+             cache_len=RGEMMA_PLAN["cache_len"]), eos_id=-1, device=DEVICE),
+         RGEMMA_GENERATE_LENS, [0] * len(RGEMMA_GENERATE_LENS), "generate",
+         _exact_batches(RGEMMA_GENERATE_LENS, len(RGEMMA_GENERATE_LENS))))
+    total = None
+    for tag, model, lens, arrivals, entry, ms in passes:
+        counts, st, _, line = _turns(
+            model, lambda: _requests(cfg, lens, RGEMMA_NEW, arrivals), judge,
+            tag, RGEMMA_NEW,
+            ("sliding_window_attention", "bcsc_mlp", "bcsc_matmul"),
+            entry=entry)
+        steps = _decode_steps(model, st)
+        judge.check(f"{tag}: prefill batches by exact length",
+                    st["prefill_batches"] == len(ms)
+                    and st["prefill_padded_tokens"]
+                    == st["prefill_real_tokens"],
+                    f"{st['prefill_batches']} batches (M {ms}), "
+                    f"{st['prefill_padded_tokens']} padded = "
+                    f"{st['prefill_real_tokens']} real tokens")
+        judge.check(f"{tag}: sliding-window launches per prefill batch",
+                    counts["sliding_window_attention"]
+                    == n_local * len(ms),
+                    f"{counts['sliding_window_attention']} = {n_local} "
+                    f"local layers x {len(ms)} batches")
+        judge.check(f"{tag}: fused-MLP launches per decode step",
+                    counts["bcsc_mlp"] >= cfg.num_layers * steps,
+                    f"{counts['bcsc_mlp']} >= {cfg.num_layers} x {steps} "
+                    "steps (plus the prefills on the fused route)")
+        judge.check(f"{tag}: GEMM launches on the prefills past the fused "
+                    "route", counts["bcsc_matmul"]
+                    == 3 * cfg.num_layers * gemm_batches(ms),
+                    f"{counts['bcsc_matmul']} = 3 x {cfg.num_layers} x "
+                    f"{gemm_batches(ms)} batches of M > {fused}")
+        judge.check(f"{tag}: no paged attention",
+                    counts["paged_attention"] == 0,
+                    f"{counts['paged_attention']} launches")
+        lines.append(line)
+        total = counts if total is None else \
+            {k: total[k] + counts[k] for k in total}
+    del passes, model, llm
+    mamba = _load(MAMBA, MAMBA_PLAN)
+    mcfg = mamba.cfg
+    counts, st, _, line = _turns(
+        mamba, lambda: _requests(mcfg, MAMBA_LENS, MAMBA_NEW,
+                                 [0] * len(MAMBA_LENS)), judge,
+        "mamba2 stream pass", MAMBA_NEW, ())
+    judge.check("mamba2 stream pass: no port kernel launched",
+                sum(counts.values()) == 0, f"{counts}")
+    judge.check("mamba2 stream pass: prefill batches by exact length",
+                st["prefill_batches"] == len(set(MAMBA_LENS))
+                and st["prefill_padded_tokens"] == st["prefill_real_tokens"],
+                f"{st['prefill_batches']} batches")
+    ms = _prefill_ms(mamba, MAMBA_LENS)
+    lines.append(line)
+    lines.append("mamba2-130m: one-prompt prefill by length: ms (SSD "
+                 "chunk, peak GiB): " + ", ".join(
+                     f"{n}: {t:.2f} ({chunk_size(n, mcfg.ssm_chunk)}, "
+                     + (f"{peak:.2f})" if peak is not None else "-)")
+                     for n, (t, peak) in ms.items()))
+    log(f"  {lines[-1]}")
+    return {k: total[k] + counts[k] for k in total}, lines
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -2872,7 +3085,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         for name, phase in (("serve gemma2-2b", phase_serve_gemma),
                             ("serve mistral-nemo-12b", phase_serve_nemo),
-                            ("serve gemma3-12b", phase_serve_gemma3)):
+                            ("serve gemma3-12b", phase_serve_gemma3),
+                            ("serve recurrentgemma-2b + mamba2-130m",
+                             phase_serve_recurrent)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}

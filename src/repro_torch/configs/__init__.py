@@ -1,5 +1,6 @@
-"""Architecture config registry of the port: the dense decoders it serves
-(``qwen2.5-3b``, ``gemma2-2b``, ``mistral-nemo-12b`` and ``gemma3-12b``)."""
+"""Architecture config registry of the port: the architectures it serves
+(the dense decoders ``qwen2.5-3b``, ``gemma2-2b``, ``mistral-nemo-12b`` and
+``gemma3-12b``; the recurrent ``recurrentgemma-2b`` and ``mamba2-130m``)."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +13,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "gemma2-2b": "gemma2_2b",
     "mistral-nemo-12b": "mistral_nemo_12b",
     "gemma3-12b": "gemma3_12b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

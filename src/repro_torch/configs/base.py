@@ -87,6 +87,14 @@ class ArchConfig:
         return pad_to_multiple(self.vocab_size, 256)
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_state else 0
+
+    @property
     def pattern_period(self) -> int:
         return len(self.attn_pattern)
 
@@ -112,19 +120,68 @@ class ArchConfig:
                 raise ValueError(f"{self.name}: unknown layer kind {k!r}")
         if "local" in self.attn_pattern and self.window_size <= 0:
             raise ValueError(f"{self.name}: local layers need window_size")
+        if "chunked" in self.attn_pattern and self.chunk_size <= 0:
+            raise ValueError(f"{self.name}: chunked layers need chunk_size")
+        if "ssm" in self.attn_pattern and (
+                self.ssm_state <= 0 or self.d_inner % self.ssm_headdim):
+            raise ValueError(f"{self.name}: ssm layers need ssm_state and "
+                             "a d_inner that ssm_headdim divides")
+        if "rglru" in self.attn_pattern and self.lru_width <= 0:
+            raise ValueError(f"{self.name}: rglru layers need lru_width")
+        if self.moe and (self.num_experts <= 0
+                         or self.experts_per_token <= 0):
+            raise ValueError(f"{self.name}: MoE needs experts")
 
-    def param_count(self) -> int:
-        """Analytic parameter count of an attention-only dense config
-        (embedding counted once when tied), counted as the reference counts
-        it: qk-norm scales are left out, post-norms are in."""
+    def param_count(self, active_only: bool = False) -> int:
+        """Analytic parameter count (embedding counted once when tied), as
+        the reference counts it: qk-norm scales and the recurrent blocks'
+        biases are left out, post-norms are in, an ssm layer keeps its MLP
+        pre-norm though it has no MLP; ``active_only`` counts the routed
+        experts a token reaches instead of all of them."""
         d, hd = self.d_model, self.head_dim
-        total = self.vocab_padded * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.num_heads * hd * 2 + 2 * d * self.num_kv_heads * hd
-        if self.qkv_bias:
-            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        mlp = (3 if self.mlp_gated else 2) * d * (self.dense_d_ff or self.d_ff)
-        norms = (4 if self.use_post_norm else 2) * d
-        return total + self.num_layers * (attn + mlp + norms) + d
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.vocab_padded * d * self.num_codebooks
+        if not self.tie_embeddings:
+            total += self.vocab_padded * d * self.num_codebooks
+        for i in range(self.num_layers):
+            kind = self.layer_kind(i)
+            total += d                                      # pre-norm
+            if self.use_post_norm:
+                total += d
+            if kind in ("global", "local", "chunked"):
+                attn = d * n_q * hd + 2 * d * n_kv * hd + n_q * hd * d
+                if self.qkv_bias:
+                    attn += (n_q + 2 * n_kv) * hd
+                total += attn
+                if self.cross_attn_cond:
+                    total += attn + d
+            elif kind == "ssm":
+                di, g, n = self.d_inner, self.ssm_ngroups, self.ssm_state
+                hs = self.ssm_nheads
+                total += d * (2 * di + 2 * g * n + hs)      # in_proj
+                total += (di + 2 * g * n) * self.ssm_conv_kernel
+                total += hs * 3                             # A_log, D, dt_bias
+                total += di * d                             # out_proj
+            elif kind == "rglru":
+                w = self.lru_width
+                total += 2 * d * w + w * self.ssm_conv_kernel
+                total += 2 * w * max(w // 8, 1)             # the two gates
+                total += w + w * d                          # Lambda, out_proj
+            if kind in ("global", "local", "chunked", "rglru"):
+                nmats = 3 if self.mlp_gated else 2
+                if self.is_moe_layer(i):
+                    e_params = nmats * d * self.d_ff
+                    total += (self.experts_per_token if active_only
+                              else self.num_experts) * e_params
+                    if self.shared_expert:
+                        total += e_params
+                    total += d * self.num_experts           # router
+                else:
+                    total += nmats * d * (self.dense_d_ff or self.d_ff)
+            total += d                                      # MLP pre-norm
+            if self.use_post_norm:
+                total += d
+        return total + d                                   # final norm
 
     # --- reduced config for CPU tests ------------------------------------------
     def reduced(self) -> "ArchConfig":

@@ -86,9 +86,7 @@ def conv(name: str, n: int, c: int, m: int, h: int, w: int, r: int, s: int,
 # ----------------------------------------------------------- model → workload
 def model_gemms(cfg, tokens: int, decode: bool = False):
     """Decompose an ArchConfig into its per-layer GEMM workloads (one pattern
-    period + head/embed). ``tokens`` = batch·seq per step. Attention layers
-    (global, local, chunked), dense MLPs and MoE layers; the recurrent kinds
-    (ssm, rglru) need config fields the port does not carry yet."""
+    period + head/embed). ``tokens`` = batch·seq per step."""
     out = []
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.num_heads, cfg.num_kv_heads
@@ -102,11 +100,18 @@ def model_gemms(cfg, tokens: int, decode: bool = False):
                 cfg.chunk_size if kind == "chunked" else tokens)
             out.append(gemm(f"l{j}.attn.qk", tokens, hd, min(ctx, tokens),
                             groups=H))
-        else:
-            raise NotImplementedError(
-                f"{cfg.name}: {kind} layers need the recurrent config fields "
-                "(d_inner, ssm_nheads) that arrive with the remaining "
-                "architectures (ROADMAP item 8)")
+        elif kind == "ssm":
+            di = cfg.d_inner
+            out.append(gemm(f"l{j}.ssm.in", tokens, d,
+                            2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state +
+                            cfg.ssm_nheads))
+            out.append(gemm(f"l{j}.ssm.out", tokens, di, d))
+        elif kind == "rglru":
+            w = cfg.lru_width
+            out.append(gemm(f"l{j}.rglru.in", tokens, d, 2 * w))
+            out.append(gemm(f"l{j}.rglru.out", tokens, w, d))
+        if kind == "ssm":           # a Mamba-2 block has no MLP after it
+            continue
         if cfg.is_moe_layer(j):
             # routed experts: the G dimension of Table I
             per_e = tokens * cfg.experts_per_token // cfg.num_experts

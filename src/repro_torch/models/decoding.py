@@ -1,10 +1,16 @@
-"""KV caches, single-token decode and batched prefill for global and
-sliding-window (local) attention layers (counterpart of
-``repro.models.decoding``).
+"""KV and recurrent-state caches, single-token decode and batched prefill
+for global and sliding-window (local) attention, RG-LRU and Mamba-2 SSD
+layers (counterpart of ``repro.models.decoding``).
 
 Caches keep the reference's layout: entries of the stacked layers sit on a
 leading period axis (``cache["blocks"]["slot{j}"]``, one per slot of the
-layer pattern). A global entry is either a contiguous ``(periods, rows,
+layer pattern), remainder layers' entries unstacked in
+``cache["rem"]["rem{j}"]``. A recurrent entry is per-row state: an RG-LRU
+layer's ``conv`` window (rows, 3, lru_width) bf16 and ``h`` (rows,
+lru_width) fp32, an SSD layer's ``conv`` window (rows, K-1, channels) bf16
+and ``ssd`` (rows, heads, state, head_dim) fp32. Its prefill must see
+every prompt position and nothing past it, so a recurrent config prefills
+exact lengths only. A global entry is either a contiguous ``(periods, rows,
 cache_len, KV, D)`` K/V or a paged one, ``(periods, num_pages, page_size,
 KV, D)`` pools (``pk``, ``pv``) plus, in the int8 format, ``(periods,
 num_pages, KV)`` fp32 amax scales. A local entry is a per-row bf16 ring of
@@ -13,7 +19,8 @@ at the largest position ``p = i (mod cap)`` with ``p <= pos``, and validity
 is recomputed from ``pos`` at every step.
 
 Unlike the reference, which returns new caches, every function here writes
-the cache it is given in place and returns it: the pools are the largest
+the cache it is given in place and returns it (a recurrent layer's decode
+copies its new state into the entry's own tensors): the pools are the largest
 tensors of a serving run and are never copied. Writes that the reference
 drops (positions past a row's length, table entries of -1) are masked here
 without reading anything back to the host, so a decode chunk stays free of
@@ -24,13 +31,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import dataflow
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru as rglru_lib, ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
+
+RECURRENT_KINDS = ("ssm", "rglru")
 
 
 # ------------------------------------------------------------------ caches
@@ -38,28 +48,47 @@ def _attn_cache_capacity(cfg, kind: str, cache_len: int) -> int:
     return min(cfg.window_size, cache_len) if kind == "local" else cache_len
 
 
-def _init_entry(cfg, kind: str, rows: int, cache_len: int, device):
-    """Per-row (periods, rows, cap, KV, D) bf16 K/V of one slot."""
-    shape = (tfm.num_scan_periods(cfg), rows,
-             _attn_cache_capacity(cfg, kind, cache_len), cfg.num_kv_heads,
-             cfg.head_dim)
+def _init_entry(cfg, kind: str, rows: int, cache_len: int, device,
+                lead=()):
+    """Per-row state of one layer (``lead`` stacks it): bf16 K/V of
+    (rows, cap, KV, D) for attention, the recurrent block's state else."""
+    if kind == "ssm":
+        return ssm_lib.init_ssm_state(rows, cfg, device, lead)
+    if kind == "rglru":
+        return rglru_lib.init_rglru_state(rows, cfg, device, lead)
+    shape = tuple(lead) + (rows, _attn_cache_capacity(cfg, kind, cache_len),
+                           cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
             "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
 
 
+def _cache_tree(cfg, entry) -> Dict:
+    """``{"blocks": {slot: entry(kind, (periods,))}, "rem": {rem:
+    entry(kind, ())}}``, each part only when the config has its layers."""
+    cache = {}
+    if tfm.num_scan_periods(cfg):
+        cache["blocks"] = {name: entry(kind, (tfm.num_scan_periods(cfg),))
+                           for name, kind in tfm.slot_names(cfg)}
+    if tfm.num_remainder(cfg):
+        cache["rem"] = {name: entry(kind, ())
+                        for name, kind in tfm.rem_names(cfg)}
+    return cache
+
+
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> Dict:
-    """Contiguous K/V for global slots, rings for local ones."""
+    """Contiguous K/V for global layers, rings for local ones, per-row
+    state for recurrent ones."""
     tfm.check_supported(cfg)
-    return {"blocks": {name: _init_entry(cfg, kind, batch, cache_len, device)
-                       for name, kind in tfm.slot_names(cfg)}}
+    return _cache_tree(cfg, lambda kind, lead: _init_entry(
+        cfg, kind, batch, cache_len, device, lead))
 
 
 def _init_paged_entry(cfg, num_pages: int, page_size: int, kv_quant: str,
-                      device):
-    L = tfm.num_scan_periods(cfg)
-    shape = (L, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+                      device, lead=()):
+    shape = tuple(lead) + (num_pages, page_size, cfg.num_kv_heads,
+                           cfg.head_dim)
     if kv_quant == "int8":
-        sshape = (L, num_pages, cfg.num_kv_heads)
+        sshape = tuple(lead) + (num_pages, cfg.num_kv_heads)
         return {"pk": torch.zeros(shape, dtype=torch.int8, device=device),
                 "pv": torch.zeros(shape, dtype=torch.int8, device=device),
                 "pk_scale": torch.zeros(sshape, device=device),
@@ -71,17 +100,22 @@ def _init_paged_entry(cfg, num_pages: int, page_size: int, kv_quant: str,
 def init_paged_cache(cfg, rows: int, cache_len: int, num_pages: int,
                      page_size: int, kv_quant: str = "fp",
                      device=None) -> Dict:
-    """Global slots as (periods, num_pages, page_size, KV, D) pools, bf16
-    or int8 with per-(page, KV head) fp32 scales; local slots keep their
-    per-row rings, whose memory never grows with the context."""
+    """Global layers as (num_pages, page_size, KV, D) pools (stacked on the
+    period axis), bf16 or int8 with per-(page, KV head) fp32 scales; local
+    layers keep their per-row rings and recurrent ones their per-row state,
+    whose memory never grows with the context."""
     tfm.check_supported(cfg)
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
-    return {"blocks": {
-        name: _init_paged_entry(cfg, num_pages, page_size, kv_quant, device)
+    return _cache_tree(cfg, lambda kind, lead: _init_paged_entry(
+        cfg, num_pages, page_size, kv_quant, device, lead)
         if kind == "global" else _init_entry(cfg, kind, rows, cache_len,
-                                             device)
-        for name, kind in tfm.slot_names(cfg)}}
+                                             device, lead))
+
+
+def is_recurrent(cfg) -> bool:
+    """Whether any layer carries recurrent state (ssm, rglru)."""
+    return any(k in RECURRENT_KINDS for k, _ in tfm.slot_kinds(cfg))
 
 
 def is_paged_entry(entry) -> bool:
@@ -336,14 +370,32 @@ def _mlp_residual(p, x, cfg, plan, impl):
                      "post_norm_mlp", cfg)
 
 
+def _recurrent_decode(p, h, kind, entry, cfg):
+    """One token through an RG-LRU or SSD block; its new state is copied
+    into ``entry``'s tensors (a captured step replays against them)."""
+    if kind == "ssm":
+        y, new = ssm_lib.ssm_block_decode(p["ssm"], h, entry, cfg)
+    else:
+        y, new = rglru_lib.rglru_block_decode(p["rglru"], h, entry, cfg)
+    for key, t in entry.items():
+        t.copy_(new[key])
+    return y
+
+
 def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
                   split_rows: Optional[int] = None):
-    """One layer: pre-norm attention, then the MLP."""
+    """One layer: pre-norm mixer (attention or a recurrent block), then
+    the MLP (none after an ssm layer)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table, impl,
-                     split_rows)
-    return _mlp_residual(p, _residual(x, y, p, "post_norm", cfg), cfg, plan,
-                         impl)
+    if kind in RECURRENT_KINDS:
+        y = _recurrent_decode(p, h, kind, entry, cfg)
+    else:
+        y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table,
+                         impl, split_rows)
+    x = _residual(x, y, p, "post_norm", cfg)
+    if kind == "ssm":
+        return x
+    return _mlp_residual(p, x, cfg, plan, impl)
 
 
 def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
@@ -357,12 +409,9 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
     x = tfm.embed_tokens(params, tokens, cfg)
     B = x.shape[0]
     posv = _positions(pos, B, x.device)
-    slots = tfm.slot_names(cfg)
-    for i in range(tfm.num_scan_periods(cfg)):
-        for name, kind in slots:
-            x = _block_decode(tfm.layer(params["blocks"][name], i), x, kind,
-                              tfm.layer(cache["blocks"][name], i), posv, cfg,
-                              plan, block_table, impl, split_rows)
+    for p, entry, kind in tfm.layers_in_order(params, cache, cfg):
+        x = _block_decode(p, x, kind, entry, posv, cfg, plan, block_table,
+                          impl, split_rows)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return tfm.lm_logits(params, x, cfg), cache
 
@@ -393,7 +442,8 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
                          f"config, got {sorted(kinds)}")
     B, k = tokens.shape
     posv = _positions(pos, B, tokens.device)
-    if any(is_quantized_entry(e) for e in cache["blocks"].values()):
+    if any(is_quantized_entry(e) for part in cache.values()
+           for e in part.values()):
         outs = []
         for i in range(k):
             lg, cache = serve_step(params, cache, tokens[:, i:i + 1],
@@ -439,7 +489,9 @@ def _gather_ring_ragged(full, m: int, lengths):
 
 
 def _merge_rows(entry, row_entry, slots) -> None:
-    """Write B prefilled rows into a full-width per-row entry at ``slots``."""
+    """Write B prefilled rows into a full-width per-row entry at ``slots``:
+    every leaf (K/V rings, or a recurrent layer's window and state), so a
+    reused row keeps nothing of its previous request."""
     for key, t in entry.items():
         t[slots] = row_entry[key].to(t.dtype)
 
@@ -481,10 +533,19 @@ def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
 def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
                    paged, plan, impl):
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
-    y, e = _attn_prefill(p["attn"], h, kind, positions, cfg, cache_len,
-                         lengths, entry, paged, impl)
-    return _mlp_residual(p, _residual(x, y, p, "post_norm", cfg), cfg, plan,
-                         impl), e
+    if kind in RECURRENT_KINDS:
+        block = ssm_lib.ssm_block if kind == "ssm" else rglru_lib.rglru_block
+        y, e = block(p[kind], h, cfg, return_state=True)
+        if paged is not None:
+            _merge_rows(entry, e, paged.slots)
+            e = entry
+    else:
+        y, e = _attn_prefill(p["attn"], h, kind, positions, cfg, cache_len,
+                             lengths, entry, paged, impl)
+    x = _residual(x, y, p, "post_norm", cfg)
+    if kind == "ssm":
+        return x, e
+    return _mlp_residual(p, x, cfg, plan, impl), e
 
 
 def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
@@ -493,24 +554,46 @@ def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
     x = tfm.embed_tokens(params, tokens, cfg)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    slots = tfm.slot_names(cfg)
-    entries = {name: [] for name, _ in slots}
-    for i in range(tfm.num_scan_periods(cfg)):
-        for name, kind in slots:
-            entry = tfm.layer(paged.cache["blocks"][name], i) \
-                if paged is not None else None
-            x, e = _block_prefill(tfm.layer(params["blocks"][name], i), x,
-                                  kind, positions, cfg, cache_len, lengths,
-                                  entry, paged, plan, impl)
-            entries[name].append(e)
+    entries = []
+    for p, entry, kind in tfm.layers_in_order(
+            params, paged.cache if paged is not None else None, cfg):
+        x, e = _block_prefill(p, x, kind, positions, cfg, cache_len,
+                              lengths, entry, paged, plan, impl)
+        entries.append(e)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
     logits = tfm.lm_logits(params, torch.gather(x, 1, idx), cfg)
     if paged is not None:
         return logits, paged.cache
-    return logits, {"blocks": {
-        name: {k: torch.stack([e[k] for e in es]) for k in ("k", "v")}
-        for name, es in entries.items()}}
+    # the fresh cache in the reference's layout: per slot, its periods'
+    # entries stacked; the remainder layers' as they are
+    it = iter(entries)
+    periods = [{name: next(it) for name, _ in tfm.slot_names(cfg)}
+               for _ in range(tfm.num_scan_periods(cfg))]
+    cache = {}
+    if periods:
+        cache["blocks"] = {
+            name: {k: torch.stack([per[name][k] for per in periods])
+                   for k in periods[0][name]}
+            for name, _ in tfm.slot_names(cfg)}
+    if tfm.num_remainder(cfg):
+        cache["rem"] = {name: next(it) for name, _ in tfm.rem_names(cfg)}
+    return logits, cache
+
+
+def _check_exact(cfg, tokens, lengths) -> None:
+    """A recurrent config's prefill must see exactly its prompts: every row
+    one length, that of ``tokens`` (padding would enter the carried state).
+    Reads ``lengths`` on the host: a device tensor is copied back, one
+    transfer per recurrent prefill batch, outside any captured step."""
+    S = tokens.shape[1]
+    host = lengths.cpu().numpy() if isinstance(lengths, torch.Tensor) \
+        else np.asarray(lengths)
+    if (host != S).any():
+        raise ValueError(
+            f"{cfg.name} carries recurrent state: prefill takes prompts of "
+            f"one exact length (got lengths {host.tolist()} in a batch of "
+            f"{S} tokens); pad tokens would enter the state")
 
 
 def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
@@ -526,6 +609,8 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
     ``paged.slots`` (in place).
     ``impl`` is passed on to ``kernels.ops`` (None: by device)."""
     tfm.check_supported(cfg)
+    if is_recurrent(cfg):
+        _check_exact(cfg, tokens, lengths)
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,

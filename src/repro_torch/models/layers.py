@@ -68,6 +68,51 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# -------------------------------------------- init, conv and recurrences
+def dense_init(generator: torch.Generator, shape, fan_in: int, device):
+    """Weights ~ N(0, 1/fan_in), the reference's ``dense_init`` scale."""
+    return torch.randn(tuple(shape), generator=generator,
+                       device=device) / math.sqrt(fan_in)
+
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv over (b, l, ch) with taps w (K, ch): fp32 sums
+    tap by tap from zero, then the bias, the result in x's dtype (the
+    reference's unrolled taps)."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        out = out + xp[:, k:k + L].float() * w[k].float()
+    return (out + b.float()).to(x.dtype)
+
+
+def linear_scan(a, b, dim: int):
+    """h_t = a_t * h_{t-1} + b_t along ``dim`` from h_{-1} = 0, all t at
+    once: a log-depth doubling scan (ceil(log2 T) steps, each composing
+    every element with the one ``offset`` before it), the counterpart of
+    the reference's ``jax.lax.associative_scan``. ``a`` broadcasts against
+    ``b`` in every other dimension; both fp32. Sums in another order than
+    a sequential loop: fp32 rounding, not bit equality."""
+    n = b.shape[dim]
+    off = 1
+    while off < n:
+        head_a, head_b = a.narrow(dim, 0, off), b.narrow(dim, 0, off)
+        prev_a, prev_b = a.narrow(dim, 0, n - off), b.narrow(dim, 0, n - off)
+        cur_a, cur_b = a.narrow(dim, off, n - off), b.narrow(dim, off, n - off)
+        b = torch.cat([head_b, cur_b + cur_a * prev_b], dim=dim)
+        a = torch.cat([head_a, cur_a * prev_a], dim=dim)
+        off *= 2
+    return b
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + e^x) at every x (torch's own switches
+    to the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ------------------------------------------------------------------ logits
 def softcap(logits, cap: float):
     if cap and cap > 0.0:
         logits = torch.tanh(logits / cap) * cap

@@ -4,7 +4,11 @@
 Parameters keep the reference's stacked layout: ``params["blocks"]["slot{j}"]``
 holds slot ``j`` of every pattern period on a leading period axis (gemma2:
 ``slot0`` its local layers, ``slot1`` its global ones), which the port walks
-with a Python loop where the reference scans.
+with a Python loop where the reference scans. Layers past the last whole
+period (recurrentgemma's 26 = 8 x 3 + 2) sit unstacked in
+``params["rem"]["rem{j}"]``, remainder layer ``j`` of kind ``slot{j}``'s.
+A layer is attention (global or local), an RG-LRU block or a Mamba-2 SSD
+block (``ssm``, which has no MLP after it).
 """
 from __future__ import annotations
 
@@ -13,12 +17,15 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru as rglru_lib, ssm as ssm_lib
 
 # weight matrices (as opposed to norm scales and biases); the port may keep
-# bf16 copies of exactly these
+# bf16 copies of exactly these. The recurrent blocks' convolutions, gates,
+# Lambda, A_log, D and dt_bias run in fp32 in the reference and stay fp32
 MATRIX_KEYS = ("embed", "lm_head", "wq", "wk", "wv", "wo",
-               "wg", "wu", "wd", "w1", "w2")
+               "wg", "wu", "wd", "w1", "w2",
+               "in_x", "in_gate", "in_proj", "out_proj")
+ATTN_KINDS = ("global", "local")
 
 
 def scan_period(cfg) -> int:
@@ -32,6 +39,10 @@ def num_scan_periods(cfg) -> int:
     return cfg.num_layers // scan_period(cfg)
 
 
+def num_remainder(cfg) -> int:
+    return cfg.num_layers % scan_period(cfg)
+
+
 def slot_kinds(cfg):
     """Static (kind, is_moe) for each slot of a period."""
     return [(cfg.layer_kind(j), cfg.is_moe_layer(j))
@@ -39,21 +50,54 @@ def slot_kinds(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port serves dense decoders of global and sliding-window (local)
-    attention layers, with rope and one codebook, so far."""
+    """The port serves decoders of global and sliding-window (local)
+    attention, RG-LRU and Mamba-2 SSD layers, with rope and one codebook.
+    Chunked attention, MoE layers, frontends, cross-attention, sinusoidal
+    positions and multi-codebook heads are ROADMAP item 8's."""
     kinds = {k for k, _ in slot_kinds(cfg)}
-    if not kinds <= {"global", "local"} or cfg.moe \
-            or cfg.num_codebooks != 1 or cfg.frontend != "none" \
-            or cfg.cross_attn_cond or cfg.pos_embed != "rope" \
-            or cfg.remainder_layers:
+    missing = [f"{k} attention" if k == "chunked" else f"{k} layers"
+               for k in sorted(kinds - {"global", "local", "ssm", "rglru"})]
+    if cfg.moe:
+        missing.append("MoE layers")
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.cross_attn_cond:
+        missing.append("cross-attention")
+    if cfg.pos_embed != "rope":
+        missing.append(f"{cfg.pos_embed} positions")
+    if cfg.num_codebooks != 1:
+        missing.append(f"{cfg.num_codebooks} codebooks")
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense decoders of global and local "
-            "attention layers with rope and one codebook so far")
+            f"{cfg.name}: the port does not serve {', '.join(missing)} yet "
+            "(ROADMAP item 8"
+            + ("; an MoE model at full width also waits for sharded "
+               "serving, item 9)" if cfg.moe else ")"))
 
 
 def slot_names(cfg):
     """``[(f"slot{j}", kind), ...]`` for the slots of a period."""
     return [(f"slot{j}", k) for j, (k, _) in enumerate(slot_kinds(cfg))]
+
+
+def rem_names(cfg):
+    """``[(f"rem{j}", kind), ...]`` for the remainder layers."""
+    return [(f"rem{j}", k)
+            for j, (k, _) in enumerate(slot_kinds(cfg)[:num_remainder(cfg)])]
+
+
+def layers_in_order(params, cache, cfg):
+    """``(layer params, layer cache entry, kind)`` of every layer in depth
+    order: the stacked periods, then the remainder layers. ``cache`` may be
+    None (entries None)."""
+    for i in range(num_scan_periods(cfg)):
+        for name, kind in slot_names(cfg):
+            yield (layer(params["blocks"][name], i),
+                   None if cache is None else layer(cache["blocks"][name], i),
+                   kind)
+    for name, kind in rem_names(cfg):
+        yield (params["rem"][name],
+               None if cache is None else cache["rem"][name], kind)
 
 
 def _rope_theta_for(cfg, kind: str) -> float:
@@ -79,43 +123,51 @@ def init_params(cfg, generator: torch.Generator,
     differ from JAX's for the same seed."""
     check_supported(cfg)
     dev = torch.device(device) if device is not None else generator.device
-    L, d, H, KV, D = (num_scan_periods(cfg), cfg.d_model, cfg.num_heads,
-                      cfg.num_kv_heads, cfg.head_dim)
+    d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ff = cfg.d_ff
 
-    def dense(shape, fan_in):
-        return torch.randn((L,) + shape, generator=generator, device=dev) \
-            / math.sqrt(fan_in)
+    def block(kind, lead):
+        def dense(shape, fan_in):
+            return layers.dense_init(generator, lead + shape, fan_in, dev)
 
-    def zeros(*shape):
-        return torch.zeros(shape, device=dev)
+        def zeros(*shape):
+            return torch.zeros(lead + shape, device=dev)
 
-    def block():
-        attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
-                "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(L, H, D), bk=zeros(L, KV, D),
-                        bv=zeros(L, KV, D))
-        if cfg.qk_norm:
-            attn.update(q_norm=zeros(L, D), k_norm=zeros(L, D))
-        if cfg.mlp_gated:
-            mlp = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
-                   "wd": dense((ff, d), ff)}
-        else:
-            mlp = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
-        p = {"pre_norm": zeros(L, d), "pre_norm_mlp": zeros(L, d),
-             "attn": attn, "mlp": mlp}
+        p = {"pre_norm": zeros(d), "pre_norm_mlp": zeros(d)}
         if cfg.use_post_norm:
-            p.update(post_norm=zeros(L, d), post_norm_mlp=zeros(L, d))
+            p.update(post_norm=zeros(d), post_norm_mlp=zeros(d))
+        if kind in ATTN_KINDS:
+            attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
+                    "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
+            if cfg.qkv_bias:
+                attn.update(bq=zeros(H, D), bk=zeros(KV, D), bv=zeros(KV, D))
+            if cfg.qk_norm:
+                attn.update(q_norm=zeros(D), k_norm=zeros(D))
+            p["attn"] = attn
+        elif kind == "ssm":
+            p["ssm"] = ssm_lib.init_ssm_params(cfg, generator, dev, lead)
+        elif kind == "rglru":
+            p["rglru"] = rglru_lib.init_rglru_params(cfg, generator, dev,
+                                                     lead)
+        if kind != "ssm":
+            if cfg.mlp_gated:
+                p["mlp"] = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
+                            "wd": dense((ff, d), ff)}
+            else:
+                p["mlp"] = {"w1": dense((d, ff), d),
+                            "w2": dense((ff, d), ff)}
         return p
 
-    blocks = {name: block() for name, _ in slot_names(cfg)}
-    params = {
-        "embed": torch.randn((cfg.vocab_padded, d), generator=generator,
-                             device=dev),
-        "final_norm": zeros(d),
-        "blocks": blocks,
-    }
+    params = {}
+    if num_scan_periods(cfg):
+        params["blocks"] = {name: block(kind, (num_scan_periods(cfg),))
+                            for name, kind in slot_names(cfg)}
+    if num_remainder(cfg):
+        params["rem"] = {name: block(kind, ()) for name, kind
+                         in rem_names(cfg)}
+    params["embed"] = torch.randn((cfg.vocab_padded, d), generator=generator,
+                                  device=dev)
+    params["final_norm"] = torch.zeros(d, device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = torch.randn((d, cfg.vocab_padded),
                                         generator=generator,

@@ -286,9 +286,15 @@ def refill_rows(params, cfg, plan, state, toks, lengths, slots, budgets, *,
     else:
         logits, rows = decoding.prefill_batched(
             params, toks, lengths, cfg, plan.cache_len, plan=plan)
-        for name, entry in cache["blocks"].items():
-            for k, t in entry.items():
-                t[:, slots] = rows["blocks"][name][k]
+        # every leaf of every row's entries (a recurrent layer's window and
+        # state too), stacked entries on their period axis
+        for part, entries in rows.items():
+            for name, entry in entries.items():
+                for k, t in cache[part][name].items():
+                    if part == "blocks":
+                        t[:, slots] = entry[k]
+                    else:
+                        t[slots] = entry[k]
     last[slots] = logits[:, -1]
     pos[slots] = lengths.long()
     live[slots] = True
@@ -515,11 +521,14 @@ class DecodeLoop:
         dev = self.device
         s = torch.as_tensor(src, dtype=torch.long, device=dev)
         d = torch.as_tensor(dst, dtype=torch.long, device=dev)
-        for part in self.state[0].values():
-            for e in part.values():
+        for part, entries in self.state[0].items():
+            for e in entries.values():
                 if decoding.is_paged_entry(e):
-                    for t in e.values():          # (periods, P, ...)
-                        t[:, d] = t[:, s]
+                    for t in e.values():   # (periods, P, ...) or (P, ...)
+                        if part == "blocks":
+                            t[:, d] = t[:, s]
+                        else:
+                            t[d] = t[s]
 
     def set_block_table(self, table: np.ndarray) -> torch.Tensor:
         """Copy a host (rows, max_pages) table into the static buffer."""

@@ -13,13 +13,13 @@ from repro_torch.core.eyexam import H100_SXM, DeviceRates
 
 
 def cache_bytes(cfg, batch: int, cache_len: int) -> int:
-    """Bytes of the contiguous cache ``decoding.init_cache`` allocates:
-    bf16 K and V of ``batch`` rows for every layer, ``cache_len`` slots for
-    a global layer and ``min(window, cache_len)`` for a local one."""
-    slots = sum(min(cfg.window_size, cache_len)
-                if cfg.layer_kind(i) == "local" else cache_len
-                for i in range(cfg.num_layers))
-    return 2 * batch * slots * cfg.num_kv_heads * cfg.head_dim * 2
+    """Bytes of the contiguous cache ``decoding.init_cache`` allocates
+    (``cache_len`` K/V slots of a global layer, ``min(window, cache_len)``
+    of a local one, a recurrent layer's fixed state), counted on the meta
+    device, which gives shapes and dtypes without allocating."""
+    from repro_torch.models import decoding
+    return _tree_bytes(decoding.init_cache(cfg, batch, cache_len,
+                                           device="meta"))
 
 
 def kv_page_bytes(cfg, page_size: int, kv_quant: str = "fp") -> int:

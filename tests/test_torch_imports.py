@@ -48,7 +48,8 @@ def test_port_files_exist():
                  "serve/router.py", "serve/replica.py",
                  "runtime/fault_tolerance.py", "core/eyexam.py",
                  "core/reuse.py",
-                 "kernels/ops.py", "kernels/_build.py", "models/decoding.py"):
+                 "kernels/ops.py", "kernels/_build.py", "models/decoding.py",
+                 "models/rglru.py", "models/ssm.py"):
         assert need in names
 
 

@@ -15,9 +15,15 @@ reference.
   times ``launch_s``) differ;
 * ``mlp_roofline``, ``seven_steps``, ``layer_cycles``,
   ``network_performance``, ``reuse`` and ``model_gemms`` equal the
-  reference's (exact: the same float operations in the same order);
-* ``kvcache.paged_cache_bytes``, ``max_slots`` and ``report`` (with a pager
-  after the same allocations) equal the reference's;
+  reference's (exact: the same float operations in the same order), the
+  recurrent archs (``recurrentgemma-2b``, ``mamba2-130m``, full and
+  reduced) among them, whose plans are contiguous with exact-length
+  prefill;
+* ``ArchConfig.param_count``, ``kvcache.cache_bytes``,
+  ``paged_cache_bytes``, ``max_slots`` and ``report`` (with a pager after
+  the same allocations) equal the reference's;
+* the architectures still to port (MoE, chunked attention, frontends,
+  cross-attention, codebooks) are refused with ROADMAP item 8 named;
 * the plan-less front door: ``LLM(cfg, params)`` resolves the reference's
   default plan and serves a short stream with the reference's tokens (or a
   parting at a reference near-tie, ``torch_dense_parity.compare_streams``);
@@ -55,7 +61,10 @@ from torch_dense_parity import compare_streams
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 REDUCED = "qwen2.5-3b-reduced"
 V5E = eyexam.TPU_V5E
-CONFIGS = ("qwen2.5-3b", "gemma2-2b", "mistral-nemo-12b", "gemma3-12b")
+RECURRENT = ("recurrentgemma-2b", "mamba2-130m")
+CONFIGS = ("qwen2.5-3b", "gemma2-2b", "mistral-nemo-12b",
+           "gemma3-12b") + RECURRENT
+REDUCED_ALL = (REDUCED,) + tuple(a + "-reduced" for a in RECURRENT)
 
 
 # ------------------------------------------------------------------- mesh
@@ -125,6 +134,24 @@ PINNED_CASES = [
     (REDUCED, dict(hbm_budget_bytes=1 << 30, expected_batch=4,
                    expected_len_dist=[10, 20, 64], page_size=8,
                    num_pages=20, share_prefix=False, sync_every=4)),
+    # the recurrent archs: no global layer, so contiguous whatever is
+    # asked, exact-length prefill, no int8 rung, never speculative
+    ("recurrentgemma-2b", dict(hbm_budget_bytes=8 << 30, expected_batch=4,
+                               expected_len_dist={"mean": 1024,
+                                                  "max": 4096})),
+    ("recurrentgemma-2b", dict(hbm_budget_bytes=8 << 30, expected_batch=1,
+                               expected_len_dist={"mean": 100, "max": 8192},
+                               attn_path="paged", kv_quant="int8")),
+    ("mamba2-130m", dict(QWEN_DEFAULT, expected_len_dist={"mean": 256,
+                                                          "max": 2048})),
+    ("recurrentgemma-2b-reduced", dict(hbm_budget_bytes=1 << 30,
+                                       expected_batch=2,
+                                       expected_len_dist={"mean": 24,
+                                                          "max": 64})),
+    ("mamba2-130m-reduced", dict(hbm_budget_bytes=1 << 30,
+                                 expected_batch=1,
+                                 expected_len_dist=[10, 20, 64],
+                                 sync_every=4)),
 ]
 
 
@@ -134,6 +161,23 @@ def test_plan_json_and_explain_match_reference(arch, kw):
     mine = pplan.plan_serve(get_config(arch), rates=V5E, **kw)
     assert mine.to_json() == ref.to_json()
     assert mine.explain().splitlines() == ref.explain().splitlines()
+
+
+@pytest.mark.parametrize("arch", RECURRENT + REDUCED_ALL[1:])
+def test_recurrent_plans_match_reference(arch):
+    """``plan_for_scheduler`` and ``plan_for_engine`` for the recurrent
+    archs at the reference's rates: contiguous, exact-length prefill, no
+    int8 rung, ``to_json()`` and ``explain()`` equal to the reference's."""
+    cfg, rcfg = get_config(arch), rget_config(arch)
+    for mine, ref in (
+            (pplan.plan_for_scheduler(cfg, rows=4, cache_len=4096, rates=V5E),
+             rplan.plan_for_scheduler(rcfg, rows=4, cache_len=4096)),
+            (pplan.plan_for_engine(cfg, slots=4, cache_len=4096, rates=V5E),
+             rplan.plan_for_engine(rcfg, slots=4, cache_len=4096))):
+        assert mine.to_json() == ref.to_json()
+        assert mine.explain().splitlines() == ref.explain().splitlines()
+        assert not mine.paged and mine.prefill_exact
+        assert "int8_kv" not in mine.degrade and mine.spec_k == 0
 
 
 def test_explain_shows_each_spec_branch():
@@ -203,7 +247,7 @@ def test_device_rates():
     assert eyexam.Roofline(**kw).t_memory == 819e9 * 10 / 3.35e12
 
 
-@pytest.mark.parametrize("arch", CONFIGS + (REDUCED,))
+@pytest.mark.parametrize("arch", CONFIGS + REDUCED_ALL)
 def test_mlp_roofline_matches_reference(arch):
     cfg, rcfg = get_config(arch), rget_config(arch)
     for sparsity, eff, bm in ((0.75, 0.93, 8), (0.5, 0.8, 64),
@@ -247,8 +291,10 @@ def test_eyexam_steps_match_reference(noc, n_pes):
         reyexam.network_performance(ref, racc)
 
 
-@pytest.mark.parametrize("arch", CONFIGS + (REDUCED,))
+@pytest.mark.parametrize("arch", CONFIGS + REDUCED_ALL)
 def test_model_gemms_match_reference(arch):
+    """Every layer kind's GEMMs, the recurrent ones (no MLP after an ssm
+    layer) included."""
     cfg, rcfg = get_config(arch), rget_config(arch)
     for tokens in (1, 8, 4096):
         got = [dataclasses.astuple(g) for g in reuse.model_gemms(cfg, tokens)]
@@ -257,14 +303,38 @@ def test_model_gemms_match_reference(arch):
         assert got == want
 
 
-def test_model_gemms_recurrent_kinds_wait():
-    cfg = dataclasses.replace(get_config(REDUCED), attn_pattern=("ssm",))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        reuse.model_gemms(cfg, 8)
+@pytest.mark.parametrize("arch", CONFIGS + REDUCED_ALL)
+def test_param_count_and_cache_bytes_match_reference(arch):
+    """The parameter count (all experts and active only) and the
+    contiguous cache's bytes (counted from the allocated tree on the meta
+    device: recurrent state, rings, global K/V) equal the reference's."""
+    cfg, rcfg = get_config(arch), rget_config(arch)
+    assert cfg.param_count() == rcfg.param_count()
+    assert cfg.param_count(active_only=True) == \
+        rcfg.param_count(active_only=True)
+    for rows, cache_len in ((1, 64), (3, 1000), (4, 4096)):
+        assert kvcache.cache_bytes(cfg, rows, cache_len) == \
+            rkv.cache_bytes(rcfg, rows, cache_len)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
+                                  "internvl2-26b", "musicgen-large"])
+def test_remaining_archs_are_refused(arch):
+    """MoE, chunked attention, frontends, cross-attention and codebooks
+    are not served yet: ``LLM`` raises, naming ROADMAP item 8 (and item 9
+    for an MoE model at full width), on the reduced and the full config
+    (the reference's fields in the port's schema)."""
+    from repro_torch.configs.base import ArchConfig
+    for name in (arch + "-reduced", arch):
+        cfg = ArchConfig(**dataclasses.asdict(rget_config(name)))
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8") as e:
+            LLM(cfg, {}, device="cpu")
+        assert ("item 9" in str(e.value)) == cfg.moe
 
 
 # ------------------------------------------------------------- kvcache
-@pytest.mark.parametrize("arch", [REDUCED, "gemma2-2b-reduced"])
+@pytest.mark.parametrize("arch", [REDUCED, "gemma2-2b-reduced",
+                                  *REDUCED_ALL[1:]])
 def test_cache_accounting_matches_reference(arch):
     cfg, rcfg = get_config(arch), rget_config(arch)
     for rows, cache_len, pages, ps in ((2, 64, 9, 8), (4, 256, 20, 64)):
