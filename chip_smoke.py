@@ -30,8 +30,12 @@ Phases, each of which must pass:
    GEMV at the up (bias + silu) and down projections against ``addmm`` +
    silu and ``torch.matmul``. The sliding window runs at every served
    model's prefill shapes (gemma3-12b's 1024 window at head_dim 256 with no
-   softcap among them) and at head ratios 5, 6 and 10 (llama4,
-   internvl2-26b and recurrentgemma-2b heads), causal and in window mode.
+   softcap among them, mixtral-8x7b's 4096 window at 32 heads over 8) and
+   at head ratios 5, 6 and 10 (llama4, internvl2-26b and recurrentgemma-2b
+   heads), causal and in window mode; its chunk mode (llama4's chunked
+   attention) at llama4's attention shape (40 heads over 8, S 16384, two
+   chunks of 8192: time, plain time, SDPA with a block-diagonal causal
+   mask, bound) and where chunk starts fall inside key tiles.
    Each kernel's launch configuration (paged attention's split, the
    sliding window's blocks, stages and shared memory, the fused MLP's
    grid, rings and phase-2 split, the GEMV's grid, split and rings,
@@ -164,7 +168,23 @@ Phases, each of which must pass:
     2048; prompts 5-2000, the primes 509 and 1021 among them) in turns,
     with no port kernel launched, then one prompt of each length prefilled
     alone: its ms, its SSD chunk and the peak of device memory;
-11. report: prefill and decode tokens/s, the wall time of each phase, one
+11. serve mixtral-8x7b (``phase_serve_moe``), after the recurrent models
+    were freed, at full width and ``MIXTRAL_LAYERS`` (6) of its 32 layers
+    (all 32 hold 90e9 B of bf16 experts, more than one card): every layer
+    sliding-window attention (window 4096) and an MoE MLP of 8 experts,
+    top-2, the experts dense bf16 (the reference packs no expert); the
+    load's peak; the first prefill and decode logits of the kernel path
+    against ``impl="plain"`` at prompts of 300 and 5000 tokens (tier 8192:
+    window-mode prefill, the sort dispatch at capacity 2560); 8 requests
+    through ``LLM.stream`` (rows 4, cache 8192; prompts of up to 5000
+    tokens at steps 0 and 8, so decode wraps the rings) and 4 through
+    ``LLM.generate`` on ``plan_for_engine(slots=4, cache_len=8192)``, each
+    in turns (``_turns``): the sliding window once per layer per prefill
+    batch and no other port kernel (the expert products are torch matrix
+    products); the graphed step's device time beside its bound (every
+    expert's weights read per step, as the reference's dense decode reads
+    them);
+12. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -286,6 +306,23 @@ MAMBA = "mamba2-130m"
 MAMBA_PLAN = dict(rows=8, cache_len=2048)
 MAMBA_LENS = (5, 37, 256, 509, 512, 1021, 1024, 2000)
 MAMBA_NEW = 32
+# the mixtral-8x7b phase: full width at MIXTRAL_LAYERS of its 32 layers (all
+# 32 do not fit one card: 90e9 B of bf16 experts); the stream pass's plan,
+# prompts (four at step 0, four at step 8: 5000 is past the 4096 window,
+# 8192 its tier) and tokens per request; the logits check's two prompts;
+# the generate pass's prompts (plan_for_engine(slots=4, cache_len=8192))
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_LAYERS = 6
+MIXTRAL_PLAN = dict(rows=4, cache_len=8192)
+MIXTRAL_LENS = (5, 37, 300, 511, 2000, 5000, 64, 300)
+MIXTRAL_NEW = 32
+MIXTRAL_CHECK = (300, 5000)
+MIXTRAL_GENERATE_LENS = (5, 300, 2000, 5000)
+# llama4's chunked attention in the kernel phase: its attention heads
+# (40 over 8 KV heads of 128) at two chunks of 8192, and a shape whose
+# chunk starts (96, 192, 288) fall inside 64-key tiles
+LLAMA4_CHUNK = (1, 16384, 40, 8, 128, 8192)
+CHUNK_EDGE = (2, 300, 40, 8, 128, 96)
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -1018,6 +1055,73 @@ def _swa_ratios(flush, judge):
         del q, k, v
 
 
+def chunk_pairs(S: int, chunk: int) -> int:
+    """(query, key) pairs of causal attention within chunks of ``chunk``
+    positions over S positions."""
+    full, rest = divmod(S, chunk)
+    return full * chunk * (chunk + 1) // 2 + rest * (rest + 1) // 2
+
+
+def _swa_chunks(flush, judge, records):
+    """The sliding-window kernel's chunk mode (llama4's chunked attention):
+    at llama4's attention shape (``LLAMA4_CHUNK``) held against the plain
+    version, timed beside the plain version and SDPA with a boolean
+    block-diagonal causal mask, its bound in operations; at ``CHUNK_EDGE``,
+    whose chunk starts fall inside key tiles, held against the plain
+    version. Records the llama4 line as ``records["chunked_attention"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import local_attention as swa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    why = ("per (position, head) row, relative to that row's max |out|: "
+           "keys walked in another order than flash's, so p rounds to bf16 "
+           "against another running max, 2^-9 of each term")
+    for tag, (B, S, H, KV, D, c) in (("llama4 chunked", LLAMA4_CHUNK),
+                                     ("chunk starts inside key tiles",
+                                      CHUNK_EDGE)):
+        q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+        v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+
+        def cu():
+            return swa.sliding_window_attention_cuda(q, k, v, window=S,
+                                                     chunk=c)
+
+        def plain():
+            return swa.sliding_window_attention_plain(q, k, v, window=S,
+                                                      chunk=c)
+        got, want = cu(), plain()
+        judge(f"sliding_window_attention[{tag}: S {S}, chunk {c}, R "
+              f"{H // KV}]", row_errors(got, want), 1e-2, why)
+        if tag != "llama4 chunked":
+            del got, want, q, k, v
+            continue
+        pairs = chunk_pairs(S, c)
+        rec = dict(max_abs_err=errors(got, want)[0], ms=time_ms(cu, flush),
+                   plain_ms=time_ms(plain, flush),
+                   bound=bound(2 * B * S * H * D + 2 * 2 * B * S * KV * D
+                               + 4 * B * S * H * D, 4 * B * pairs * H * D),
+                   shape=f"{tag}: B {B}, S {S}, H {H}, KV {KV}, D {D}, "
+                         f"chunk {c}, {pairs} pairs per head")
+        del got, want
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] // c == pos[:, None] // c)
+        qt = q.transpose(1, 2)
+        kt = k.transpose(1, 2).repeat_interleave(H // KV, 1)
+        vt = v.transpose(1, 2).repeat_interleave(H // KV, 1)
+        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), flush)
+        ms, by = rec["bound"]
+        log(f"  sliding_window_attention {rec['shape']}: {rec['ms']:.4f} "
+            f"ms, plain {rec['plain_ms']:.4f} ms, SDPA (block-diagonal "
+            f"causal mask) {rec['library_ms']:.4f} ms, bound {ms:.4f} ms "
+            f"({by})")
+        records["chunked_attention"] = rec
+        del q, k, v, qt, kt, vt, mask
+
+
 def phase_kernels_dense(flush, judge, records):
     """Sliding-window attention at the prefill shapes of the served models
     (gemma2-2b and gemma3-12b local and global, qwen2.5-3b and
@@ -1040,7 +1144,9 @@ def phase_kernels_dense(flush, judge, records):
             "gemma3-12b local": (1, 8192, 16, 8, 256, 1024, 0.0),
             "gemma3-12b global": (1, 8192, 16, 8, 256, 8192, 0.0),
             "mistral-nemo-12b causal": (1, 4096, 32, 8, 128, 4096,
-                                        0.0)}.items():
+                                        0.0),
+            "mixtral-8x7b local": (1, 8192, 32, 8, 128, 4096,
+                                   0.0)}.items():
         q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
         k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
         v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
@@ -1101,6 +1207,7 @@ def phase_kernels_dense(flush, judge, records):
         del q, k, v, qt, kt, vt, band
 
     _swa_ratios(flush, judge)
+    _swa_chunks(flush, judge, records)
 
     K, N = 2304, 9216
     w = (torch.randn(K, N, generator=gen, device=dev) / K ** 0.5).bfloat16()
@@ -1499,11 +1606,13 @@ def _free():
             "still allocated before the next load")
 
 
-def _load(arch, plan_kw):
+def _load(arch, plan_kw, layers: int = 0):
     """Full-width random weights from SEED, MLPs packed at 0.75, on the
-    device behind ``LLM`` with a paged fp plan. Frees the previous model
-    first and prints the peak of device memory over the load (the fp32
-    weights of ``init_params`` beside one layer's packing temporaries)."""
+    device behind ``LLM`` with a paged fp plan (contiguous when the config
+    has no global layer), at ``layers`` of the config's layers when given.
+    Frees the previous model first and prints the peak of device memory
+    over the load (the fp32 weights of ``init_params`` beside one layer's
+    packing temporaries, or beside their bf16 copies)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.plan import plan_for_scheduler
@@ -1514,6 +1623,8 @@ def _load(arch, plan_kw):
     _free()
     _reset_peak()
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, gen, DEVICE)
@@ -2870,13 +2981,22 @@ def _check_logits_exact(llm, judge, length: int, rows: int = 2):
     prefill attention) and one decode step (M ``rows``: the fused MLP, the
     local rings, the recurrent state) through the kernels and through
     ``impl="plain"``."""
+    _check_logits_contiguous(llm, judge, [length] * rows, length)
+
+
+def _check_logits_contiguous(llm, judge, lengths, tier: int):
+    """``_check_logits`` on the plan's contiguous cache: prompts of
+    ``lengths`` padded to ``tier``, their prefill and one decode step
+    through the kernels and through ``impl="plain"``. Returns the two
+    gaps."""
     import torch
     from repro_torch.models import decoding
     cfg, plan, dev = llm.cfg, llm.plan, llm.device
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    toks = torch.randint(0, cfg.vocab_size, (rows, length), generator=gen,
+    rows = len(lengths)
+    toks = torch.randint(0, cfg.vocab_size, (rows, tier), generator=gen,
                          device=dev)
-    lengths = [length] * rows
+    lengths = list(lengths)
     out, nxt = {}, None
     for impl in (None, "plain"):
         logits, cache = decoding.prefill_batched(
@@ -2886,19 +3006,22 @@ def _check_logits_exact(llm, judge, length: int, rows: int = 2):
             nxt = logits[:, -1].argmax(-1)[:, None]
         step, _ = decoding.serve_step(
             llm.params, cache, nxt,
-            torch.full((rows,), length, dtype=torch.long, device=dev), cfg,
+            torch.tensor(lengths, dtype=torch.long, device=dev), cfg,
             plan=plan, impl=impl)
         out[impl] = (logits[..., :cfg.vocab_size], step[..., :cfg.vocab_size])
+        del cache
     sync()
+    gaps = []
     for i, what in enumerate(("prefill", "decode")):
         got, want = out[None][i], out["plain"][i]
         judge.check(f"{cfg.name} {what} logits finite",
                     bool(torch.isfinite(got).all()), f"{tuple(got.shape)}")
-        judge(f"{cfg.name} {what} logits, kernels vs plain",
-              errors(got, want)[1], 5e-2,
+        gaps.append(errors(got, want)[1])
+        judge(f"{cfg.name} {what} logits, kernels vs plain", gaps[-1], 5e-2,
               f"relative to max |logit| after {cfg.num_layers} layers at "
-              f"{rows} x {length} tokens: sums in another order flip bf16 "
-              "roundings, which the layers carry forward")
+              f"prompts of {lengths} tokens (tier {tier}): sums in another "
+              "order flip bf16 roundings, which the layers carry forward")
+    return gaps
 
 
 def _exact_batches(lens, rows: int):
@@ -3039,6 +3162,81 @@ def phase_serve_recurrent(judge):
     return {k: total[k] + counts[k] for k in total}, lines
 
 
+def phase_serve_moe(judge):
+    """mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` layers (each
+    sliding-window attention, window 4096, and an MoE MLP of 8 experts of
+    14336, top-2; random weights from SEED, the experts dense bf16: there
+    is no MLP to pack), after the recurrent models were freed, on the
+    contiguous plan its lack of a global layer resolves to: the logits
+    check at ``MIXTRAL_CHECK`` (tier 8192: window-mode prefill, the sort
+    dispatch at capacity 2560), then ``LLM.stream`` (``MIXTRAL_PLAN``,
+    ``MIXTRAL_LENS``) and ``LLM.generate`` on ``plan_for_engine(slots=4,
+    cache_len=8192)``, each graphed and eager in turns: the sliding window
+    once per layer per prefill batch, no other port kernel (the expert
+    products are torch matrix products, as the reference's are einsums).
+    Prints the graphed step's device ms beside its bound: every expert's
+    weights (decode runs all experts, as the reference's does) and the
+    attention and head weights read once per step at the memory rate.
+    Returns (the graphed runs' summed launch counts, lines of rates)."""
+    from repro_torch.core.plan import plan_for_engine
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.serve import LLM
+    llm = _load(MIXTRAL, MIXTRAL_PLAN, MIXTRAL_LAYERS)
+    cfg, plan = llm.cfg, llm.plan
+    judge.check(f"{MIXTRAL}: contiguous plan, power-of-two tiers",
+                not plan.paged and not plan.prefill_exact
+                and not plan.degrade,
+                f"attn_path {plan.attn_path}, tier(5000) {plan.tier(5000)}")
+    tier = plan.tier(max(MIXTRAL_CHECK))
+    gaps = _check_logits_contiguous(llm, judge, MIXTRAL_CHECK, tier)
+    step_bytes = sum(t.numel() * t.element_size()
+                     for key, part in llm.params.items() if key != "embed"
+                     for t in _leaves(part))
+    bound_ms = 1e3 * step_bytes / HBM_BYTES_PER_S
+    lines = [f"mixtral-8x7b ({cfg.num_layers} layers): kernels vs plain "
+             f"logits gap {gaps[0]:.3e} (prefill), {gaps[1]:.3e} (decode); "
+             f"sort dispatch at tier {tier}: capacity "
+             f"{expert_capacity(tier, cfg)} slots per expert and row; "
+             f"decode step bound {bound_ms:.3f} ms ({step_bytes / 1e9:.2f} "
+             "GB of weights at the memory rate)"]
+    log(f"  {lines[0]}")
+    passes = (
+        ("mixtral stream pass", llm, MIXTRAL_LENS, [0] * 4 + [8] * 4,
+         "stream"),
+        ("mixtral generate pass",
+         LLM(cfg, llm.params, plan_for_engine(
+             cfg, slots=MIXTRAL_PLAN["rows"],
+             cache_len=MIXTRAL_PLAN["cache_len"]), eos_id=-1, device=DEVICE),
+         MIXTRAL_GENERATE_LENS, [0] * len(MIXTRAL_GENERATE_LENS),
+         "generate"))
+    total = None
+    for tag, model, lens, arrivals, entry in passes:
+        counts, st, wall, line = _turns(
+            model, lambda: _requests(cfg, lens, MIXTRAL_NEW, arrivals),
+            judge, tag, MIXTRAL_NEW, ("sliding_window_attention",),
+            entry=entry)
+        judge.check(f"{tag}: sliding-window launches per prefill batch",
+                    counts["sliding_window_attention"]
+                    == cfg.num_layers * st["prefill_batches"],
+                    f"{counts['sliding_window_attention']} = "
+                    f"{cfg.num_layers} x {st['prefill_batches']} batches")
+        others = {k: n for k, n in counts.items()
+                  if k != "sliding_window_attention"}
+        judge.check(f"{tag}: no other port kernel",
+                    not any(others.values()), f"{others}")
+        generated = len(lens) * MIXTRAL_NEW
+        lines.append(
+            line + f"; decode step bound {bound_ms:.3f} ms; prefill "
+            f"{st['prefill_real_tokens'] / max(st['prefill_s'], 1e-9):.1f} "
+            f"tokens/s ({st['prefill_real_tokens']} tokens in "
+            f"{st['prefill_batches']} batches, {st['prefill_s']:.2f} s), "
+            f"decode {generated / max(st['decode_s'], 1e-9):.1f} tokens/s, "
+            f"wall {wall:.2f} s (the graphed run)")
+        total = counts if total is None else \
+            {k: total[k] + counts[k] for k in total}
+    return total, lines
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3087,7 +3285,8 @@ def main() -> int:
                             ("serve mistral-nemo-12b", phase_serve_nemo),
                             ("serve gemma3-12b", phase_serve_gemma3),
                             ("serve recurrentgemma-2b + mamba2-130m",
-                             phase_serve_recurrent)):
+                             phase_serve_recurrent),
+                            ("serve mixtral-8x7b", phase_serve_moe)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}

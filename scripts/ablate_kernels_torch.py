@@ -263,8 +263,12 @@ def main() -> int:
             runs.insert(1, (f"tree at split {other} ({split} planned)",
                             libs[("gemv", "tree")], other))
         if args.parent:
-            runs = [("parent", libs[("parent", "gemv")], 0)] + runs + [
-                ("parent, again", libs[("parent", "gemv")], 0)]
+            # a parent whose GEMV takes the split gets the tree's; an
+            # earlier one has no split argument (split 0 below)
+            psplit = split if "int split, void* stream" in open(
+                jobs[("parent", "gemv")][0]).read() else 0
+            runs = [("parent", libs[("parent", "gemv")], psplit)] + runs + [
+                ("parent, again", libs[("parent", "gemv")], psplit)]
         row = {}
         for name, lib, sp in runs:
             if sp == 0:
@@ -405,14 +409,22 @@ def main() -> int:
             for name, key in (("parent", "parent"), ("tree", "tree"),
                               ("tree, again", "tree"),
                               ("parent, again", "parent")):
-                fn = c_function(libs[(key, "swa")] if key == "parent"
-                                else libs[("swa", "tree")],
-                                "repro_sliding_window_attention")
+                path = jobs[(key, "swa") if key == "parent"
+                            else ("swa", "tree")][0]
+                fn = getattr(libs[(key, "swa")] if key == "parent"
+                             else libs[("swa", "tree")],
+                             "repro_sliding_window_attention")
+                # a source from before the chunk mode takes no chunk
+                chunked = "int window, int chunk" in open(path).read()
+                fn.argtypes = _build.SIGNATURES[
+                    "repro_sliding_window_attention"][:11 if chunked else 10] \
+                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
 
-                def call(fn=fn):
+                def call(fn=fn, chunk=(0,) if chunked else ()):
                     _build.check(fn(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, S, H, KV, D, window,
+                        out.data_ptr(), B, S, H, KV, D, window, *chunk,
                         swa._score_mult(D, cap), cap, _build.stream_of(q)),
                         "sliding_window_attention")
                 row[name] = timed(call)

@@ -8,8 +8,10 @@ time, on one GPU.
                                             [--gemm-source OLD.cu]
 
 Builds a full-width model as ``chip_smoke.py`` does (random weights from
-seed 0, MLPs packed at 0.75 block sparsity), prefills ``rows`` prompts of
-ragged length into a paged fp pool (qwen2.5-3b: 8 rows of 5 to 900 tokens
+seed 0, MLPs packed at 0.75 block sparsity; ``--layers N`` keeps its first
+N layers), prefills ``rows`` prompts of ragged length into a paged fp pool
+(a contiguous cache for a config with no global layer: mixtral-8x7b, 4
+rows of 5 to 5000 tokens in an 8192-token cache) (qwen2.5-3b: 8 rows of 5 to 900 tokens
 in a 1024-token cache; gemma2-2b: 4 rows of 7 to 6000 tokens in an
 8192-token cache, so its local rings have wrapped; mistral-nemo-12b: 8 rows
 of 5 to 3500 tokens in a 4096-token cache; gemma3-12b: 4 rows of 7 to 7000
@@ -53,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import hashlib
 import json
 import os
@@ -66,7 +69,8 @@ SETUPS = {"qwen2.5-3b": (1024, (5, 37, 64, 130, 300, 511, 700, 900)),
           "gemma2-2b": (8192, (7, 1500, 4700, 6000)),
           "mistral-nemo-12b": (4096, (5, 300, 1000, 2000, 3500, 64, 511,
                                       3000)),
-          "gemma3-12b": (8192, (7, 1500, 4100, 7000))}
+          "gemma3-12b": (8192, (7, 1500, 4100, 7000)),
+          "mixtral-8x7b": (8192, (5, 300, 2000, 5000))}
 GROUPS = (   # kernel-name fragment -> group, first match wins
     ("paged_attention", "paged attention (port)"),
     ("swa_kernel", "sliding-window attention (port)"),
@@ -193,6 +197,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=None,
                     help="default: one row per prompt length of the arch")
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="build the first N layers only (mixtral-8x7b: 6 "
+                         "of its 32 fit one card)")
     ap.add_argument("--prefill", type=int, default=0, metavar="N",
                     help="profile one prefill of an N-token prompt instead")
     ap.add_argument("--gemm-source", default=None,
@@ -223,6 +230,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     cache_len, lens = SETUPS[args.arch]
     if args.prefill:
         if args.prefill > cache_len:
@@ -260,10 +269,12 @@ def main() -> int:
         # each mode on its own rows: the same prompts, prefilled into the
         # loop's own pool; budgets that outlast the run
         loop = DecodeLoop(cfg, params, plan, temperature=0.0, eos_id=-1,
-                          device=dev, paged=True, sync_every=args.steps,
-                          graphs=graphs)
+                          device=dev, paged=plan.paged,
+                          sync_every=args.steps, graphs=graphs)
         state = loop.start(0)
-        table = loop.set_block_table(bt.cpu().numpy())
+        # a plan with no global layer is contiguous: no table
+        table = loop.set_block_table(bt.cpu().numpy()) if plan.paged \
+            else None
         refill_rows(params, cfg, plan, state, toks, lengths,
                     list(range(R)), [cache_len] * R, block_table=table)
         loops[graphs] = loop

@@ -1,6 +1,7 @@
 """Architecture config registry of the port: the architectures it serves
 (the dense decoders ``qwen2.5-3b``, ``gemma2-2b``, ``mistral-nemo-12b`` and
-``gemma3-12b``; the recurrent ``recurrentgemma-2b`` and ``mamba2-130m``)."""
+``gemma3-12b``; the recurrent ``recurrentgemma-2b`` and ``mamba2-130m``;
+the mixture-of-experts ``mixtral-8x7b`` and ``llama4-maverick-400b-a17b``)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "gemma3-12b": "gemma3_12b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "mamba2-130m": "mamba2_130m",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

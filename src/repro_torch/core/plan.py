@@ -546,7 +546,7 @@ def _resolve(cfg, arch: str, rows: int, cache_len: int, *, mean_len: float,
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
     kv_quant = kv_quant if paged else "fp"
-    w_bytes = cfg.param_count() * 2
+    w_bytes = cfg.param_count(active_only=True) * 2
     c_bytes = kvcache.cache_bytes(cfg, max(rows, 1), cache_len)
     cache_share = c_bytes / max(w_bytes + c_bytes, 1)
     kv_n = {
@@ -772,7 +772,7 @@ def replan_spec_k(cfg, base_plan: ServePlan, *, drafted_tokens: int,
         return base_plan
     rate = accepted_tokens / max(drafted_tokens, 1)
     alpha = _alpha_from_acceptance(rate, base_plan.spec_k)
-    w_bytes = cfg.param_count() * 2
+    w_bytes = cfg.param_count(active_only=True) * 2
     c_bytes = kvcache.cache_bytes(cfg, max(base_plan.rows, 1),
                                   base_plan.cache_len)
     cand = {}

@@ -44,7 +44,7 @@ SIGNATURES = {
     "repro_bcsc_mlp": [P, I, I] + [P] * 10 + [I, I, I] + [P] * 4
                       + [I, I, P],
     # q, k, v, out, B, S, H, KV, D, window, sm_scale, softcap, stream
-    "repro_sliding_window_attention": [P] * 4 + [I] * 6 + [F, F, P],
+    "repro_sliding_window_attention": [P] * 4 + [I] * 7 + [F, F, P],
     # x, ldx, w, ldw, bias, act, out, out_bf16, M, K, N, ws, stream
     "repro_rs_matmul": [P, I, P, I, P, I, P, I, I, I, I, P, P],
 }

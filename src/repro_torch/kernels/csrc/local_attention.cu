@@ -1,7 +1,11 @@
 // Causal sliding-window GQA attention (prefill): q (B, S, H, D), k and v
 // (B, S, KV, D), all bf16; out (B, S, H, D) fp32. A query at position p
 // attends to the keys at positions t with 0 <= p - t < window; a window of
-// S is plain causal attention.
+// S is plain causal attention. A chunk c > 0 adds the test t / c == p / c:
+// chunked attention (llama4's), causal within chunks of c positions.
+//
+// Replaces as well, in chunk mode: the chunk mode of the XLA flash forward
+// (src/repro/models/flash.py, _mask's "chunk" branch).
 //
 // Replaces: src/repro/kernels/local_attention.py::sliding_window_attention_raw
 // (Pallas body _swa_kernel), and on the port's prefill path the XLA flash
@@ -47,7 +51,12 @@
 // thread at D 256); it leaves them once, divided by max(l, 1e-30), for the
 // fp32 output. D is padded to a multiple of 64 with zeros in shared memory.
 // Blocks are launched longest first: q tiles in descending order, since causal
-// tiles have from 1 to S / 64 key tiles. The masking convention is the
+// tiles have from 1 to S / 64 key tiles. In chunk mode a block's band starts
+// at the later of the window's far edge and its first position's chunk
+// start; a key tile that starts before the chunk start of the q tile's last
+// position straddles a chunk boundary for some row, so it counts as an edge
+// tile and is masked element by element. The chunk mode is a template
+// argument: the kernels without it compile to what they were before it. The masking convention is the
 // reference's: NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2, and
 // the output is acc / max(l, 1e-30).
 //
@@ -151,11 +160,11 @@ __device__ __forceinline__ float fast_ex2(float x) {
   return y;
 }
 
-template <int kNb>   // D padded to 64 * kNb
+template <int kNb, bool kChunked>   // D padded to 64 * kNb; chunk > 0
 __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, float* __restrict__ out, int B, int S, int H,
-    int KV, int D, int window, float score_mult, float softcap) {
+    int KV, int D, int window, int chunk, float score_mult, float softcap) {
   constexpr int kTile = kNb * kSwaBlock;
   constexpr int kChunks = kNb * 8;            // 16-byte chunks per row
   extern __shared__ unsigned char smem_raw[];
@@ -177,14 +186,19 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   const int g = (int)(blockIdx.x % rows_kv) % KV;
   const int b = (int)(blockIdx.x % rows_kv) / KV;
   const int q0 = qt * per_block;
-  const int t_first = max(0, q0 - window + 1) / kSwaKeys;
+  // the first key a position p sees: its window's far edge or its chunk start
+  auto first_key = [&](int p) {
+    return kChunked ? max(max(0, p - window + 1), p / chunk * chunk)
+                    : max(0, p - window + 1);
+  };
+  const int t_first = first_key(q0) / kSwaKeys;
   const int t_last = (min(q0 + per_block, S) - 1) / kSwaKeys;
   const int tid = threadIdx.x, lane = tid & 31;
   const int wg = tid >> 7, warp = (tid >> 5) & 3;
   // this warpgroup's own q tile and band; it skips the block's other tiles
   const int qw0 = q0 + wg * per_wg;
   const int qw_last = min(qw0 + per_wg, S) - 1;
-  const int tw_first = max(0, qw0 - window + 1) / kSwaKeys;
+  const int tw_first = first_key(qw0) / kSwaKeys;
   const int tw_last = qw_last / kSwaKeys;
   unsigned char* qw = qs + wg * kTile;
 
@@ -274,7 +288,8 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
       // log2 units: y = score * log2(e), p = 2^(y - m) = e^(score - m / log2 e)
       const int key0 = t * kSwaKeys;
       const bool edge = key0 + kSwaKeys - 1 > qw0 ||
-                        key0 <= qw_last - window || key0 + kSwaKeys > S;
+                        key0 <= qw_last - window || key0 + kSwaKeys > S ||
+                        (kChunked && key0 < qw_last / chunk * chunk);
       float mx0 = kSwaNegInf, mx1 = kSwaNegInf;
       // the score exactly as before (the library's tanhf, which the plain
       // version's torch.tanh also calls), then in log2 units
@@ -288,7 +303,8 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
         for (int i = 0; i < 32; ++i) {
           const int key = key0 + 8 * (i >> 2) + cq + (i & 1);
           const int pos = (i & 2) ? p1 : p0;
-          if (!(key <= pos && pos - key < window && key < S && pos < S))
+          if (!(key <= pos && pos - key < window && key < S && pos < S &&
+                (!kChunked || key / chunk == pos / chunk)))
             s[i] = kSwaNegInf;
         }
       }
@@ -385,48 +401,64 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   }
 }
 
-template <int kNb>
+template <int kNb, bool kChunked>
 int launch_swa(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int KV, int D, int window, float score_mult,
-               float softcap, cudaStream_t st) {
+               int S, int H, int KV, int D, int window, int chunk,
+               float score_mult, float softcap, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      swa_kernel<kNb>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swa_kernel<kNb, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)swa_smem_bytes(kNb));
   if (attr != cudaSuccess) return (int)attr;
   const int per_block = kSwaWgs * (kSwaRows / (H / KV));
   const long blocks = (long)((S + per_block - 1) / per_block) * B * KV;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  swa_kernel<kNb><<<(unsigned)blocks, kSwaThreads, swa_smem_bytes(kNb),
+  swa_kernel<kNb, kChunked><<<(unsigned)blocks, kSwaThreads,
+                             swa_smem_bytes(kNb),
                     st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                          (float*)out, B, S, H, KV, D, window, score_mult,
-                          softcap);
+                          (float*)out, B, S, H, KV, D, window, chunk,
+                          score_mult, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro
 
 // q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32. H / KV
-// at most 64, D a multiple of 16 up to 256, 1 <= window <= S. Scores
+// at most 64, D a multiple of 16 up to 256, 1 <= window <= S, chunk 0 (none)
+// or the chunk width of chunked attention. Scores
 // are q.k * score_mult, then tanh(.) * softcap when softcap > 0: the caller
 // passes 1/sqrt(D), or with a softcap the fp32 (1/sqrt(D)) / softcap, the
 // one multiply XLA makes of the reference's q.k * scale / softcap.
 extern "C" int repro_sliding_window_attention(
     const void* q, const void* k, const void* v, void* out, int B, int S,
-    int H, int KV, int D, int window, float score_mult, float softcap,
-    void* stream) {
+    int H, int KV, int D, int window, int chunk, float score_mult,
+    float softcap, void* stream) {
   using namespace repro;
   if (KV < 1 || H % KV || H / KV > kSwaRows || D % 16 || D > 256 ||
-      D < 16 || window < 1 || S < 1 || B < 1)
+      D < 16 || window < 1 || chunk < 0 || S < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch ((D + 63) / 64) {
-    case 1: return launch_swa<1>(q, k, v, out, B, S, H, KV, D, window,
-                                 score_mult, softcap, st);
-    case 2: return launch_swa<2>(q, k, v, out, B, S, H, KV, D, window,
-                                 score_mult, softcap, st);
-    case 3: return launch_swa<3>(q, k, v, out, B, S, H, KV, D, window,
-                                 score_mult, softcap, st);
-    default: return launch_swa<4>(q, k, v, out, B, S, H, KV, D, window,
-                                  score_mult, softcap, st);
+  const int nb = (D + 63) / 64;
+  if (chunk > 0) {
+    switch (nb) {
+      case 1: return launch_swa<1, true>(q, k, v, out, B, S, H, KV, D, window,
+                                         chunk, score_mult, softcap, st);
+      case 2: return launch_swa<2, true>(q, k, v, out, B, S, H, KV, D, window,
+                                         chunk, score_mult, softcap, st);
+      case 3: return launch_swa<3, true>(q, k, v, out, B, S, H, KV, D, window,
+                                         chunk, score_mult, softcap, st);
+      default: return launch_swa<4, true>(q, k, v, out, B, S, H, KV, D,
+                                          window, chunk, score_mult, softcap,
+                                          st);
+    }
+  }
+  switch (nb) {
+    case 1: return launch_swa<1, false>(q, k, v, out, B, S, H, KV, D, window,
+                                        0, score_mult, softcap, st);
+    case 2: return launch_swa<2, false>(q, k, v, out, B, S, H, KV, D, window,
+                                        0, score_mult, softcap, st);
+    case 3: return launch_swa<3, false>(q, k, v, out, B, S, H, KV, D, window,
+                                        0, score_mult, softcap, st);
+    default: return launch_swa<4, false>(q, k, v, out, B, S, H, KV, D, window,
+                                         0, score_mult, softcap, st);
   }
 }

@@ -5,6 +5,8 @@ Counterpart of ``repro.kernels.local_attention`` (the Pallas band kernel
 function: a query at position p attends to the keys at positions t with
 ``0 <= p - t < window``. ``window >= S`` is plain causal attention, so one
 kernel serves the local layers of gemma2 and every global layer's prefill.
+A ``chunk`` c > 0 (with ``window >= S``) adds ``t // c == p // c``: llama4's
+chunked attention, flash's chunk mode.
 
 ``sliding_window_attention_plain`` repeats ``flash._fwd_impl``'s numerics and
 block schedule: blocks of ``block_size(S)`` tokens, fp32 scores scaled by
@@ -12,8 +14,8 @@ block schedule: blocks of ``block_size(S)`` tokens, fp32 scores scaled by
 softmax (NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2,
 out = acc / max(l, 1e-30)) and p and v rounded to bf16 for the PV product
 with fp32 accumulation. kv blocks are visited in flash's order (ascending in
-causal mode, descending from the diagonal in window mode), so its fp32 sums
-are the reference's.
+causal mode, descending from the diagonal in window and chunk mode, as many
+as flash's ``_offsets`` gives), so its fp32 sums are the reference's.
 Blocks that the mask empties entirely are skipped: they leave (m, l, acc)
 exactly as they were. ``sliding_window_attention_cuda`` launches the
 hand-written kernel in ``csrc/local_attention.cu``.
@@ -93,17 +95,25 @@ def _score_mult(D: int, softcap: float) -> float:
 
 
 def sliding_window_attention_plain(q, k, v, *, window: int,
-                                   softcap: float = 0.0):
+                                   softcap: float = 0.0, chunk: int = 0):
     """q (B,S,H,D); k, v (B,S,KV,D), head h reading KV head h // (H // KV).
-    Returns (B,S,H,D) fp32; causal when ``window >= S``."""
+    Returns (B,S,H,D) fp32; causal when ``window >= S``, causal within
+    chunks of ``chunk`` positions when that is > 0."""
     _check_shapes(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]
     R = H // KV
-    causal = window >= S
+    if chunk and window < S:
+        raise ValueError(f"chunk {chunk} takes a window >= S, got {window}")
+    causal = window >= S and not chunk
     blk = block_size(S)
     nb = -(-S // blk)
-    noff = nb if causal else min((window - 1 + blk) // blk + 1, nb)
+    if causal:
+        noff = nb
+    elif chunk:
+        noff = min(chunk // blk + (1 if chunk % blk else 0) + 1, nb)
+    else:
+        noff = min((window - 1 + blk) // blk + 1, nb)
     pad = nb * blk - S
     dev = q.device
     qf = F.pad(q.float().reshape(B, S, KV, R, D).permute(0, 2, 3, 1, 4),
@@ -117,6 +127,8 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
     ar = torch.arange(blk, device=dev)
     for i in range(nb):
         qpos = i * blk + ar
+        # the block's first key: its window's far edge or its chunk start
+        first = i * blk // chunk * chunk if chunk else i * blk - window + 1
         qi = qf[:, :, :, i * blk:(i + 1) * blk]
         m = torch.full((B, KV, R, blk), NEG_INF, device=dev)
         l = torch.zeros((B, KV, R, blk), device=dev)
@@ -126,7 +138,7 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
             lo = j_log * blk
             # a block the mask empties is a no-op of the online softmax
             if lo > min(i * blk + blk - 1, S - 1) or lo + blk - 1 < 0 or (
-                    not causal and lo + blk - 1 <= i * blk - window):
+                    not causal and lo + blk - 1 < first):
                 continue
             kpos = lo + ar
             s = torch.einsum("bgrqd,bgkd->bgrqk", qi,
@@ -135,7 +147,9 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
                 s = torch.tanh(s) * softcap
             msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S) \
                 & (qpos[:, None] < S)
-            if not causal:
+            if chunk:
+                msk &= (qpos[:, None] // chunk) == (kpos[None, :] // chunk)
+            elif not causal:
                 msk &= (qpos[:, None] - kpos[None, :]) < window
             s = torch.where(msk, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
@@ -152,7 +166,7 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
 
 
 def sliding_window_attention_cuda(q, k, v, *, window: int,
-                                  softcap: float = 0.0):
+                                  softcap: float = 0.0, chunk: int = 0):
     """The same function through the CUDA kernel: bf16 q, k, v on the card,
     at most 256 head dimensions (a multiple of 16) and H // KV at most 64
     (a ratio that does not divide 64 leaves each tile's last
@@ -160,10 +174,11 @@ def sliding_window_attention_cuda(q, k, v, *, window: int,
     _check_shapes(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]
-    if H // KV > TILE_ROWS or D % 16 or D > 256 or window < 1:
+    if H // KV > TILE_ROWS or D % 16 or D > 256 or window < 1 or chunk < 0:
         raise ValueError(f"the kernel takes H // KV up to {TILE_ROWS}, "
-                         f"head_dim a multiple of 16 up to 256 and a window "
-                         f">= 1; got H {H}, KV {KV}, D {D}, window {window}")
+                         f"head_dim a multiple of 16 up to 256, a window "
+                         f">= 1 and a chunk >= 0; got H {H}, KV {KV}, D {D}, "
+                         f"window {window}, chunk {chunk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.dtype != torch.bfloat16 \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -172,7 +187,7 @@ def sliding_window_attention_cuda(q, k, v, *, window: int,
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     code = _build.library().repro_sliding_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KV, D, min(window, S), _score_mult(D, softcap),
+        KV, D, min(window, S), chunk, _score_mult(D, softcap),
         float(softcap or 0.0), _build.stream_of(q))
     _build.check(code, "sliding_window_attention")
     sliding_window_attention_cuda.launches += 1

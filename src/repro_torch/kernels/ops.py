@@ -251,15 +251,17 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
 
 
 def sliding_window_attention(q, k, v, *, window: int, softcap: float = 0.0,
-                             impl: Optional[str] = None):
+                             chunk: int = 0, impl: Optional[str] = None):
     """Causal sliding-window GQA attention. q (B,S,H,D) bf16; k, v
-    (B,S,KV,D) bf16. Returns (B,S,H,D) fp32; ``window >= S`` is causal."""
+    (B,S,KV,D) bf16. Returns (B,S,H,D) fp32; ``window >= S`` is causal.
+    ``chunk`` > 0 (with ``window >= S``) is chunked attention: causal
+    within chunks of that many positions."""
     if _use_kernel(q, impl):
         return _swa.sliding_window_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), window=window,
-            softcap=softcap)
+            softcap=softcap, chunk=chunk)
     return _swa.sliding_window_attention_plain(q, k, v, window=window,
-                                               softcap=softcap)
+                                               softcap=softcap, chunk=chunk)
 
 
 def flash_attention(q, k, v, *, softcap: float = 0.0,

@@ -1,6 +1,7 @@
 """KV and recurrent-state caches, single-token decode and batched prefill
-for global and sliding-window (local) attention, RG-LRU and Mamba-2 SSD
-layers (counterpart of ``repro.models.decoding``).
+for global, sliding-window (local) and chunked attention, RG-LRU and
+Mamba-2 SSD layers, each followed by a dense or MoE MLP (counterpart of
+``repro.models.decoding``).
 
 Caches keep the reference's layout: entries of the stacked layers sit on a
 leading period axis (``cache["blocks"]["slot{j}"]``, one per slot of the
@@ -14,9 +15,10 @@ exact lengths only. A global entry is either a contiguous ``(periods, rows,
 cache_len, KV, D)`` K/V or a paged one, ``(periods, num_pages, page_size,
 KV, D)`` pools (``pk``, ``pv``) plus, in the int8 format, ``(periods,
 num_pages, KV)`` fp32 amax scales. A local entry is a per-row bf16 ring of
-``min(window, cache_len)`` slots in both layouts: slot ``i`` holds the token
-at the largest position ``p = i (mod cap)`` with ``p <= pos``, and validity
-is recomputed from ``pos`` at every step.
+``min(window, cache_len)`` slots in both layouts (a chunked one of
+``min(chunk_size, cache_len)``): slot ``i`` holds the token at the largest
+position ``p = i (mod cap)`` with ``p <= pos``, and validity is recomputed
+from ``pos`` at every step.
 
 Unlike the reference, which returns new caches, every function here writes
 the cache it is given in place and returns it (a recurrent layer's decode
@@ -36,7 +38,8 @@ import torch
 
 from repro_torch.core import dataflow
 from repro_torch.kernels import ops
-from repro_torch.models import layers, rglru as rglru_lib, ssm as ssm_lib
+from repro_torch.models import layers, moe as moe_lib, rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
 
@@ -45,7 +48,11 @@ RECURRENT_KINDS = ("ssm", "rglru")
 
 # ------------------------------------------------------------------ caches
 def _attn_cache_capacity(cfg, kind: str, cache_len: int) -> int:
-    return min(cfg.window_size, cache_len) if kind == "local" else cache_len
+    if kind == "local":
+        return min(cfg.window_size, cache_len)
+    if kind == "chunked":
+        return min(cfg.chunk_size, cache_len)
+    return cache_len
 
 
 def _init_entry(cfg, kind: str, rows: int, cache_len: int, device,
@@ -304,15 +311,19 @@ def _paged_append(entry, k_tok, v_tok, block_table, posv):
 def _valid_mask(cfg, kind: str, cap: int, pos):
     """Slots of a contiguous entry that hold a token at time ``pos`` (scalar
     or (B,)): ``i <= pos`` for a global entry; for a ring, the slots whose
-    position ``pos - ((pos - i) mod cap)`` is not negative."""
+    position ``pos - ((pos - i) mod cap)`` is not negative (local) or not
+    before ``pos``'s chunk start (chunked)."""
     p = torch.as_tensor(pos)[..., None]
     i = torch.arange(cap, device=p.device)
     if kind == "global":
         m = i <= p
-    elif kind == "local":
-        m = p - torch.remainder(p - i, cap) >= 0
     else:
-        raise NotImplementedError(f"{kind} layers are not ported yet")
+        slot_pos = p - torch.remainder(p - i, cap)
+        if kind == "local":
+            m = slot_pos >= 0
+        else:
+            m = slot_pos >= torch.div(p, cfg.chunk_size,
+                                      rounding_mode="floor") * cfg.chunk_size
     return m if m.dim() == 2 else m[None, :]
 
 
@@ -365,9 +376,16 @@ def _residual(x, y, p, post: str, cfg):
 
 
 def _mlp_residual(p, x, cfg, plan, impl):
+    """The layer's MLP after its pre-norm: an MoE layer is one whose params
+    hold ``moe`` (``init_params`` puts it on the slots ``cfg.is_moe_layer``
+    names), which takes ``moe.moe_layer`` (its aux loss dropped); a dense
+    one ``layers.mlp``."""
     h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
-    return _residual(x, layers.mlp(p["mlp"], h, cfg, plan, impl=impl), p,
-                     "post_norm_mlp", cfg)
+    if "moe" in p:
+        y, _ = moe_lib.moe_layer(p["moe"], h, cfg)
+    else:
+        y = layers.mlp(p["mlp"], h, cfg, plan, impl=impl)
+    return _residual(x, y, p, "post_norm_mlp", cfg)
 
 
 def _recurrent_decode(p, h, kind, entry, cfg):
@@ -508,6 +526,8 @@ def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
     k = layers.rope(k, positions, theta)
     if kind == "local":
         ctx = layers.local_attention(q, k, v, cfg, impl)
+    elif kind == "chunked":
+        ctx = layers.chunked_attention(q, k, v, cfg, impl)
     else:
         ctx = layers.full_causal_attention(q, k, v, cfg, impl)
     cap = _attn_cache_capacity(cfg, kind, cache_len)

@@ -162,6 +162,19 @@ def local_attention(q, k, v, cfg, impl: Optional[str] = None):
         impl=impl).to(COMPUTE_DTYPE)
 
 
+def chunked_attention(q, k, v, cfg, impl: Optional[str] = None):
+    """llama4's chunked attention: causal within chunks of
+    ``cfg.chunk_size`` positions (a query at p sees the keys t <= p with
+    t // c == p // c); plain causal when the sequence fits in one chunk,
+    as in the reference."""
+    c = cfg.chunk_size
+    if q.shape[1] <= c:
+        return full_causal_attention(q, k, v, cfg, impl)
+    return ops.sliding_window_attention(
+        q, k, v, window=q.shape[1], chunk=c,
+        softcap=cfg.attn_logit_softcap, impl=impl).to(COMPUTE_DTYPE)
+
+
 def decode_attention(q, k_cache, v_cache, valid_mask, cfg):
     """One-token attention against a contiguous cache.
     q (B,1,H,D); k/v_cache (B,T,KV,D); valid_mask (B,T) bool."""

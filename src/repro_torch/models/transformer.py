@@ -7,8 +7,10 @@ holds slot ``j`` of every pattern period on a leading period axis (gemma2:
 with a Python loop where the reference scans. Layers past the last whole
 period (recurrentgemma's 26 = 8 x 3 + 2) sit unstacked in
 ``params["rem"]["rem{j}"]``, remainder layer ``j`` of kind ``slot{j}``'s.
-A layer is attention (global or local), an RG-LRU block or a Mamba-2 SSD
-block (``ssm``, which has no MLP after it).
+A layer is attention (global, sliding-window ``local`` or ``chunked``), an
+RG-LRU block or a Mamba-2 SSD block (``ssm``, which has no MLP after it);
+its MLP is dense (``p["mlp"]``) or a mixture of experts (``p["moe"]``, on
+the slots ``cfg.is_moe_layer`` names).
 """
 from __future__ import annotations
 
@@ -17,15 +19,17 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.models import layers, rglru as rglru_lib, ssm as ssm_lib
+from repro_torch.models import layers, moe as moe_lib, rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 
 # weight matrices (as opposed to norm scales and biases); the port may keep
 # bf16 copies of exactly these. The recurrent blocks' convolutions, gates,
-# Lambda, A_log, D and dt_bias run in fp32 in the reference and stay fp32
+# Lambda, A_log, D and dt_bias run in fp32 in the reference and stay fp32.
+# The MoE router is cast per call in the reference, so its copy is exact
 MATRIX_KEYS = ("embed", "lm_head", "wq", "wk", "wv", "wo",
-               "wg", "wu", "wd", "w1", "w2",
+               "wg", "wu", "wd", "w1", "w2", "router",
                "in_x", "in_gate", "in_proj", "out_proj")
-ATTN_KINDS = ("global", "local")
+ATTN_KINDS = ("global", "local", "chunked")
 
 
 def scan_period(cfg) -> int:
@@ -50,15 +54,11 @@ def slot_kinds(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port serves decoders of global and sliding-window (local)
-    attention, RG-LRU and Mamba-2 SSD layers, with rope and one codebook.
-    Chunked attention, MoE layers, frontends, cross-attention, sinusoidal
+    """The port serves decoders of global, sliding-window (local) and
+    chunked attention, RG-LRU and Mamba-2 SSD layers, with dense or MoE
+    MLPs, rope and one codebook. Frontends, cross-attention, sinusoidal
     positions and multi-codebook heads are ROADMAP item 8's."""
-    kinds = {k for k, _ in slot_kinds(cfg)}
-    missing = [f"{k} attention" if k == "chunked" else f"{k} layers"
-               for k in sorted(kinds - {"global", "local", "ssm", "rglru"})]
-    if cfg.moe:
-        missing.append("MoE layers")
+    missing = []
     if cfg.frontend != "none":
         missing.append(f"the {cfg.frontend} frontend")
     if cfg.cross_attn_cond:
@@ -70,9 +70,7 @@ def check_supported(cfg) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not serve {', '.join(missing)} yet "
-            "(ROADMAP item 8"
-            + ("; an MoE model at full width also waits for sharded "
-               "serving, item 9)" if cfg.moe else ")"))
+            "(ROADMAP item 8)")
 
 
 def slot_names(cfg):
@@ -124,9 +122,10 @@ def init_params(cfg, generator: torch.Generator,
     check_supported(cfg)
     dev = torch.device(device) if device is not None else generator.device
     d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    ff = cfg.d_ff
+    # the dense MLPs of a model with MoE layers are dense_d_ff wide
+    ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
 
-    def block(kind, lead):
+    def block(kind, is_moe, lead):
         def dense(shape, fan_in):
             return layers.dense_init(generator, lead + shape, fan_in, dev)
 
@@ -149,22 +148,27 @@ def init_params(cfg, generator: torch.Generator,
         elif kind == "rglru":
             p["rglru"] = rglru_lib.init_rglru_params(cfg, generator, dev,
                                                      lead)
-        if kind != "ssm":
-            if cfg.mlp_gated:
-                p["mlp"] = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
-                            "wd": dense((ff, d), ff)}
-            else:
-                p["mlp"] = {"w1": dense((d, ff), d),
-                            "w2": dense((ff, d), ff)}
+        if kind == "ssm":
+            return p
+        if is_moe:
+            p["moe"] = moe_lib.init_moe_params(cfg, generator, dev, lead)
+        elif cfg.mlp_gated:
+            p["mlp"] = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
+                        "wd": dense((ff, d), ff)}
+        else:
+            p["mlp"] = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
         return p
 
+    kinds = slot_kinds(cfg)
     params = {}
     if num_scan_periods(cfg):
-        params["blocks"] = {name: block(kind, (num_scan_periods(cfg),))
-                            for name, kind in slot_names(cfg)}
+        params["blocks"] = {f"slot{j}": block(kind, is_moe,
+                                              (num_scan_periods(cfg),))
+                            for j, (kind, is_moe) in enumerate(kinds)}
     if num_remainder(cfg):
-        params["rem"] = {name: block(kind, ()) for name, kind
-                         in rem_names(cfg)}
+        params["rem"] = {f"rem{j}": block(kind, is_moe, ())
+                         for j, (kind, is_moe)
+                         in enumerate(kinds[:num_remainder(cfg)])}
     params["embed"] = torch.randn((cfg.vocab_padded, d), generator=generator,
                                   device=dev)
     params["final_norm"] = torch.zeros(d, device=dev)

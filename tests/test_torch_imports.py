@@ -49,7 +49,7 @@ def test_port_files_exist():
                  "runtime/fault_tolerance.py", "core/eyexam.py",
                  "core/reuse.py",
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py",
-                 "models/rglru.py", "models/ssm.py"):
+                 "models/rglru.py", "models/ssm.py", "models/moe.py"):
         assert need in names
 
 

@@ -886,21 +886,22 @@ def _swa_case(S, B=2, KV=2, R=2, D=16, seed=0):
             _bf16(rng, (B, S, KV, D)))
 
 
-def _flash_fp32(ref, q, k, v, window, softcap):
+def _flash_fp32(ref, q, k, v, window, softcap, chunk=0):
     """``models.flash``'s forward in fp32 (before its bf16 cast), in the
-    mode and block size that ``models.layers._flash_call`` picks."""
+    mode and block size that ``models.layers._flash_call`` picks (chunk
+    mode when ``chunk`` is given)."""
     jnp = ref.jnp
     B, S, H, D = q.shape
     KV = k.shape[2]
     blk = pswa.block_size(S)
-    mode = "causal" if window >= S else "window"
+    mode = "chunk" if chunk else "causal" if window >= S else "window"
     qf = jnp.asarray(q, jnp.bfloat16).reshape(B, S, KV, H // KV, D) \
         .transpose(0, 2, 3, 1, 4)
     kf = jnp.asarray(k, jnp.bfloat16).transpose(0, 2, 1, 3)
     vf = jnp.asarray(v, jnp.bfloat16).transpose(0, 2, 1, 3)
+    msize = {"chunk": chunk, "window": window}.get(mode, S)
     out, _ = ref.flash._fwd_impl(qf, kf, vf, jnp.arange(S, dtype=jnp.int32),
-                                 mode, window if mode == "window" else S,
-                                 softcap, blk, blk)
+                                 mode, msize, softcap, blk, blk)
     return np.asarray(out).transpose(0, 3, 1, 2, 4).reshape(B, S, H, D)
 
 
@@ -1005,6 +1006,38 @@ def test_sliding_window_row_map_covers_each_row_once(R, S):
     kv = torch.zeros(1, 4, 1, 16, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="up to 64"):
         pswa.sliding_window_attention_cuda(q, kv, kv, window=4)
+
+
+@pytest.mark.parametrize("S,chunk,R", [(100, 32, 2), (300, 96, 5),
+                                       (130, 64, 10)])
+def test_sliding_window_plain_chunk_mode(ref, S, chunk, R):
+    """The chunk mode (a query at p sees the keys t <= p with t // c ==
+    p // c) at S not a multiple of the block, chunks that do and do not
+    divide the block: against a naive masked softmax in fp32 (q, k, v the
+    same bf16 values, p kept fp32 where the port rounds it to bf16 for the
+    PV product: 1e-2 of max |out|), and against flash's chunk mode, whose
+    block schedule the plain version repeats (within 1e-5 but for the bf16
+    p roundings that torch's exp and XLA's may part on, as in
+    ``test_sliding_window_plain_matches_flash``)."""
+    q, k, v = _swa_case(S, R=R, seed=S + chunk + R)
+    got = _port_swa(q, k, v, S, 0.0, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    qf, kf, vf = (torch.from_numpy(a).bfloat16().float() for a in (q, k, v))
+    kr, vr = kf.repeat_interleave(R, 2), vf.repeat_interleave(R, 2)
+    pos = torch.arange(S)
+    mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] // chunk == pos[:, None] // chunk)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) / np.sqrt(q.shape[-1])
+    naive = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+        s.masked_fill(~mask, -np.inf), dim=-1), vr)
+    torch.testing.assert_close(got, naive, rtol=0,
+                               atol=1e-2 * float(naive.abs().max()))
+    want = _flash_fp32(ref, q, k, v, S, 0.0, chunk=chunk)
+    diff = np.abs(got.numpy() - want)
+    assert (diff <= 1e-5).mean() >= 0.99
+    assert (diff.max(-1) <= 2e-3 * np.abs(want).max(-1)).all()
+    with pytest.raises(ValueError, match="window >= S"):
+        _port_swa(q, k, v, S - 1, 0.0, chunk=chunk)
 
 
 def test_flash_attention_entry_is_causal_window(ref):
@@ -1262,6 +1295,28 @@ def test_cuda_sliding_window_tile_edges(cuda, S, window, R, D, softcap):
                                         softcap=softcap)
     want = pops.sliding_window_attention(q, k, v, window=window,
                                          softcap=softcap, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,chunk,R,D", [(300, 96, 5, 128), (300, 64, 5, 128),
+                                         (300, 100, 2, 64),
+                                         (130, 40, 10, 256),
+                                         (1000, 250, 8, 128),
+                                         (4097, 2048, 4, 128)])
+def test_cuda_sliding_window_chunk_tile_edges(cuda, S, chunk, R, D):
+    """The chunk mode where chunk starts fall inside key tiles (96, 100,
+    40, 250: a tile that straddles a start is masked element by element)
+    and on tile bounds (64, 2048), at head ratios with and without dead
+    rows: 1e-3 of max |out| against the plain version."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, B=1 if S > 1000 else 2, KV=2, R=R, D=D,
+                                  seed=S + chunk + R))
+    got = pops.sliding_window_attention(q, k, v, window=S, chunk=chunk)
+    want = pops.sliding_window_attention(q, k, v, window=S, chunk=chunk,
+                                         impl="plain")
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))

@@ -22,8 +22,8 @@ reference.
 * ``ArchConfig.param_count``, ``kvcache.cache_bytes``,
   ``paged_cache_bytes``, ``max_slots`` and ``report`` (with a pager after
   the same allocations) equal the reference's;
-* the architectures still to port (MoE, chunked attention, frontends,
-  cross-attention, codebooks) are refused with ROADMAP item 8 named;
+* the architectures still to port (frontends, cross-attention, codebooks)
+  are refused with ROADMAP item 8 named;
 * the plan-less front door: ``LLM(cfg, params)`` resolves the reference's
   default plan and serves a short stream with the reference's tokens (or a
   parting at a reference near-tie, ``torch_dense_parity.compare_streams``);
@@ -62,9 +62,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 REDUCED = "qwen2.5-3b-reduced"
 V5E = eyexam.TPU_V5E
 RECURRENT = ("recurrentgemma-2b", "mamba2-130m")
+MOE = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
 CONFIGS = ("qwen2.5-3b", "gemma2-2b", "mistral-nemo-12b",
-           "gemma3-12b") + RECURRENT
-REDUCED_ALL = (REDUCED,) + tuple(a + "-reduced" for a in RECURRENT)
+           "gemma3-12b") + RECURRENT + MOE
+REDUCED_ALL = (REDUCED,) + tuple(a + "-reduced" for a in RECURRENT + MOE)
 
 
 # ------------------------------------------------------------------- mesh
@@ -152,6 +153,21 @@ PINNED_CASES = [
                                  expected_batch=1,
                                  expected_len_dist=[10, 20, 64],
                                  sync_every=4)),
+    # the MoE archs: mixtral all local (contiguous), llama4 one global
+    # layer in four (paged, sharing on, spec off: not all global)
+    ("mixtral-8x7b", dict(hbm_budget_bytes=8 << 30, expected_batch=4,
+                          expected_len_dist={"mean": 1024, "max": 8192})),
+    ("llama4-maverick-400b-a17b", dict(hbm_budget_bytes=8 << 30,
+                                       expected_batch=1,
+                                       expected_len_dist={"mean": 512,
+                                                          "max": 2048})),
+    ("mixtral-8x7b-reduced", dict(hbm_budget_bytes=1 << 30,
+                                  expected_batch=2,
+                                  expected_len_dist={"mean": 24,
+                                                     "max": 96})),
+    ("llama4-maverick-400b-a17b-reduced", dict(
+        hbm_budget_bytes=1 << 30, expected_batch=4,
+        expected_len_dist=[10, 40, 96], page_size=8)),
 ]
 
 
@@ -163,7 +179,8 @@ def test_plan_json_and_explain_match_reference(arch, kw):
     assert mine.explain().splitlines() == ref.explain().splitlines()
 
 
-@pytest.mark.parametrize("arch", RECURRENT + REDUCED_ALL[1:])
+@pytest.mark.parametrize("arch", RECURRENT + tuple(a + "-reduced"
+                                                for a in RECURRENT))
 def test_recurrent_plans_match_reference(arch):
     """``plan_for_scheduler`` and ``plan_for_engine`` for the recurrent
     archs at the reference's rates: contiguous, exact-length prefill, no
@@ -178,6 +195,28 @@ def test_recurrent_plans_match_reference(arch):
         assert mine.explain().splitlines() == ref.explain().splitlines()
         assert not mine.paged and mine.prefill_exact
         assert "int8_kv" not in mine.degrade and mine.spec_k == 0
+
+
+@pytest.mark.parametrize("arch", MOE + tuple(a + "-reduced" for a in MOE))
+def test_moe_plans_match_reference(arch):
+    """``plan_for_scheduler`` and ``plan_for_engine`` for the MoE archs at
+    the reference's rates, ``to_json()`` and ``explain()`` equal: power-of-
+    two prefill tiers, no speculation; the scheduler's plan contiguous for
+    mixtral (no global layer) and paged with prefix sharing for llama4,
+    the engine's contiguous for both."""
+    cfg, rcfg = get_config(arch), rget_config(arch)
+    sched = pplan.plan_for_scheduler(cfg, rows=4, cache_len=4096, rates=V5E)
+    eng = pplan.plan_for_engine(cfg, slots=4, cache_len=4096, rates=V5E)
+    for mine, ref in (
+            (sched, rplan.plan_for_scheduler(rcfg, rows=4, cache_len=4096)),
+            (eng, rplan.plan_for_engine(rcfg, slots=4, cache_len=4096))):
+        assert mine.to_json() == ref.to_json()
+        assert mine.explain().splitlines() == ref.explain().splitlines()
+        assert not mine.prefill_exact and mine.tier(37) == 64
+        assert mine.spec_k == 0
+    llama4 = arch.startswith("llama4")
+    assert sched.paged == sched.share_prefix == llama4
+    assert not eng.paged
 
 
 def test_explain_shows_each_spec_branch():
@@ -317,19 +356,16 @@ def test_param_count_and_cache_bytes_match_reference(arch):
             rkv.cache_bytes(rcfg, rows, cache_len)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-maverick-400b-a17b",
-                                  "internvl2-26b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["internvl2-26b", "musicgen-large"])
 def test_remaining_archs_are_refused(arch):
-    """MoE, chunked attention, frontends, cross-attention and codebooks
-    are not served yet: ``LLM`` raises, naming ROADMAP item 8 (and item 9
-    for an MoE model at full width), on the reduced and the full config
-    (the reference's fields in the port's schema)."""
+    """Frontends, cross-attention and codebooks are not served yet: ``LLM``
+    raises, naming ROADMAP item 8, on the reduced and the full config (the
+    reference's fields in the port's schema)."""
     from repro_torch.configs.base import ArchConfig
     for name in (arch + "-reduced", arch):
         cfg = ArchConfig(**dataclasses.asdict(rget_config(name)))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8") as e:
+        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
             LLM(cfg, {}, device="cpu")
-        assert ("item 9" in str(e.value)) == cfg.moe
 
 
 # ------------------------------------------------------------- kvcache
