@@ -35,7 +35,15 @@ Phases, each of which must pass:
    heads), causal and in window mode; its chunk mode (llama4's chunked
    attention) at llama4's attention shape (40 heads over 8, S 16384, two
    chunks of 8192: time, plain time, SDPA with a block-diagonal causal
-   mask, bound) and where chunk starts fall inside key tiles.
+   mask, bound) and where chunk starts fall inside key tiles. At the
+   frontend models' shapes (``phase_kernels_frontends``): the ungated
+   fused MLP at musicgen-large's widths (tanh-gelu, 2048 -> 8192 -> 2048)
+   at M 4 and its plan's fused maximum (128) against the dense bf16
+   ``gelu(x·w1)·w2`` through cuBLAS, the GEMM at musicgen's prefill rows
+   (M 1024, w1 and w2) against ``torch.matmul``, the fused MLP at
+   internvl2-26b's (silu, 6144 -> 16384 -> 6144) at M 4, and the sliding
+   window causal at musicgen's 32 / 32 heads of 64 over 4096 positions
+   against SDPA with a boolean causal mask.
    Each kernel's launch configuration (paged attention's split, the
    sliding window's blocks, stages and shared memory, the fused MLP's
    grid, rings and phase-2 split, the GEMV's grid, split and rings,
@@ -184,7 +192,29 @@ Phases, each of which must pass:
     products); the graphed step's device time beside its bound (every
     expert's weights read per step, as the reference's dense decode reads
     them);
-12. report: prefill and decode tokens/s, the wall time of each phase, one
+12. serve the frontend architectures (``phase_serve_frontends``), after
+    mixtral was freed, through ``serve.engine.make_generate_fn`` (the
+    serving loops do not serve them, as the reference's do not):
+    musicgen-large at full width and depth (48 layers; each attention
+    layer followed by cross-attention to 64 conditioning embeddings from
+    ``models.frontend.synth_cond_embeds``; four codebooks, sinusoidal
+    positions, ungated tanh-gelu MLPs packed at 0.75), passes
+    ``MUSICGEN_PASSES`` (4 rows x 256 tokens x 4 codebooks, 128 new; 1 x
+    4000, 32 new), and internvl2-26b at full width and
+    ``INTERNVL_LAYERS`` (24) of its 48 layers (256 patches from
+    ``synth_patch_embeds`` before the text), passes ``INTERNVL_PASSES`` (4
+    x 64, 32 new; 1 x 1024, 16 new); each load's peak and resident
+    memory; the first pass's prefill and first decode logits, kernels
+    against ``impl="plain"`` (5e-2); per pass the greedy streams of the
+    kernel path and the plain path equal or parted at near-ties, the
+    launches exactly as the plan's routes give them (the sliding window
+    once per layer per prefill at head dims 64 and 128, the GEMM 2
+    (musicgen) or 3 (internvl2) per layer per prefill past the fused
+    route, the fused MLP, ungated for musicgen, once per layer per decode
+    step, paged attention, the GEMV and ``rs_matmul`` never), prefill and
+    decode tokens/s (eager), and one decode step's device ms (captured as
+    a CUDA graph) against its bound;
+13. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -323,6 +353,22 @@ MIXTRAL_GENERATE_LENS = (5, 300, 2000, 5000)
 # chunk starts (96, 192, 288) fall inside 64-key tiles
 LLAMA4_CHUNK = (1, 16384, 40, 8, 128, 8192)
 CHUNK_EDGE = (2, 300, 40, 8, 128, 96)
+# the frontend phase: musicgen-large at its 48 layers, conditioned on its
+# 64 embeddings, internvl2-26b at full width and INTERNVL_LAYERS of its 48
+# (all 48 in fp32 would be 79.4e9 B at initialisation), 256 patches before
+# each prompt; each model's make_generate_fn passes as (rows, prompt tokens
+# per row, new tokens per row; a musicgen token is a step of its four
+# codebooks), their plan geometry; the kernel phase's musicgen GEMM rows
+# (the first pass's prefill, 4 x 256) and sliding-window length
+MUSICGEN = "musicgen-large"
+MUSICGEN_PLAN = dict(rows=4, cache_len=4096, page_size=64)
+MUSICGEN_PASSES = ((4, 256, 128), (1, 4000, 32))
+INTERNVL = "internvl2-26b"
+INTERNVL_LAYERS = 24
+INTERNVL_PLAN = dict(rows=4, cache_len=2048, page_size=64)
+INTERNVL_PASSES = ((4, 64, 32), (1, 1024, 16))
+MUSICGEN_GEMM_M = 1024
+MUSICGEN_SWA_S = 4096
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
 DEVICE = "cuda"
@@ -567,7 +613,8 @@ def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
     """Hold the fused MLP against its plain version on x (rows M, zero rows
     past M to the kernel's multiple of 8), check that two calls give equal
     bits, and time the kernel, the plain version and the dense bf16 MLP
-    through cuBLAS on the decoded weights; returns (record, log line)."""
+    through cuBLAS on the decoded weights; returns (record, log line).
+    ``packs`` is (gate, up, down), up None for an ungated MLP."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -578,7 +625,7 @@ def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
     n_real = int(counts.sum())
 
     def trip(p, key):
-        return (p["blocks"], p["row_ids"], p[key])
+        return None if p is None else (p["blocks"], p["row_ids"], p[key])
 
     def cu():
         return bmlp.bcsc_mlp_cuda(
@@ -597,7 +644,7 @@ def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
     judge.check(f"bcsc_mlp[{tag}: M={M}]: the same bits on a second run",
                 bool(torch.equal(got, cu())), "fixed sum order")
     wdense = torch.cat([bm._dense_weight(*trip(p, "col_ids"), d, ff)
-                        for p in (wg, wu)], 1).bfloat16()
+                        for p in (wg, wu) if p is not None], 1).bfloat16()
     wdown = bm._dense_weight(*trip(wd, "col_ids"), ff, d).bfloat16()
     xm = x[:M]
 
@@ -606,13 +653,15 @@ def _mlp_line(tag, x, M, packs, counts, ff, act, flush, judge):
 
     def library():
         gu = torch.matmul(xm, wdense)
-        return torch.matmul(act_fn(gu[:, :ff]) * gu[:, ff:], wdown)
+        h = act_fn(gu) if wu is None else act_fn(gu[:, :ff]) * gu[:, ff:]
+        return torch.matmul(h, wdown)
     rec = dict(max_abs_err=abs_err, ms=time_ms(cu, flush),
                plain_ms=time_ms(plain, flush),
                library_ms=time_ms(library, flush),
                bound=bound(M * d * 2 + n_real * BLOCK_BYTES + M * d * 4,
                            2 * M * 256 * n_real),
-               shape=f"{tag}: M {M}, {d} -> {ff} -> {d}, {act}, {n_real} "
+               shape=f"{tag}: M {M}, {d} -> {ff} -> {d}, {act}"
+                     f"{'' if wu is not None else ' (ungated)'}, {n_real} "
                      "real blocks")
     lc = bmlp.launch_config(Mp, ff, d, _build.sm_count(0))
     ms, by = rec["bound"]
@@ -1250,6 +1299,123 @@ def phase_kernels_dense(flush, judge, records):
             f"ms, bound {ms:.4f} ms ({by})")
         if M == 512:
             records["rs_matmul"] = rec
+
+
+def phase_kernels_frontends(flush, judge):
+    """The three kernels of the frontend models' path at their shapes,
+    each against its plain version (the tolerances of the other models'
+    lines) and for equal bits on a second call, timed beside its plain
+    version, its library call and its bound: the ungated fused MLP at
+    musicgen-large's widths (tanh-gelu, 2048 -> 8192 -> 2048) at its
+    decode rows and at its plan's fused maximum, against the dense bf16
+    ``gelu(x·w1)·w2`` through cuBLAS; the GEMM at musicgen's prefill rows
+    (``MUSICGEN_GEMM_M``), w1 and w2, against ``torch.matmul``; the fused
+    MLP at internvl2-26b's (silu, 6144 -> 16384 -> 6144) at 4 rows; the
+    sliding window causal at musicgen's 32 / 32 heads of 64 over
+    ``MUSICGEN_SWA_S`` positions, against SDPA with a boolean causal mask.
+    Returns the log lines."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import plan_for_scheduler
+    from repro_torch.kernels import bcsc_matmul as bm
+    from repro_torch.kernels import local_attention as swa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    log(f"kernels: fused MLP, GEMM and sliding window at {MUSICGEN} and "
+        f"{INTERNVL} widths")
+    lines = []
+
+    def rows(M, d):
+        # the kernel takes rows in eights: fewer come zero-padded
+        x = torch.zeros(-(-M // 8) * 8, d, device=dev, dtype=torch.bfloat16)
+        x[:M] = torch.randn(M, d, generator=gen, device=dev).bfloat16()
+        return x
+
+    mg = get_config(MUSICGEN)
+    d, ff = mg.d_model, mg.d_ff
+    fused = plan_for_scheduler(mg, **MUSICGEN_PLAN).mlp_fused_m_max
+    w1 = _packed_weight(d, ff, 0.75, gen)
+    w2 = _packed_weight(ff, d, 0.75, gen)
+    counts = torch.stack([w1["nnzb"], torch.zeros_like(w1["nnzb"]),
+                          w2["nnzb"]])
+    for M in (MUSICGEN_PASSES[0][0], fused):
+        lines.append(_mlp_line(MUSICGEN, rows(M, d), M, (w1, None, w2),
+                               counts, ff, "gelu", flush, judge)[1])
+    for name, K, N, w in (("w1", d, ff, w1), ("w2", ff, d, w2)):
+        x = torch.randn(MUSICGEN_GEMM_M, K, generator=gen,
+                        device=dev).bfloat16()
+
+        def cu():
+            return bm.bcsc_matmul_cuda(x, w["blocks"], w["row_ids"],
+                                       w["col_ptr"], n_out=N)
+
+        def plain():
+            return bm.bcsc_matmul_plain(x, w["blocks"], w["row_ids"],
+                                        w["col_ids"], n_out=N)
+        got = cu()
+        what = f"bcsc_matmul[{MUSICGEN} {name}: {MUSICGEN_GEMM_M}x{K}->{N}]"
+        judge(what, errors(got, plain())[1], 1e-3, "relative to max |out|: "
+              "tensor-core fp32 accumulation of the same bf16 products in "
+              "another order")
+        judge.check(f"{what}: the same bits on a second run",
+                    bool(torch.equal(got, cu())), "fixed sum order")
+        lines.append(_gemm_line(f"{MUSICGEN} {name}", x, w, N, cu, plain,
+                                flush)[1])
+        del x, got
+    vl = get_config(INTERNVL)
+    d, ff = vl.d_model, vl.d_ff
+    packs = tuple(_packed_weight(K, N, 0.75, gen)
+                  for K, N in ((d, ff), (d, ff), (ff, d)))
+    counts = torch.stack([p["nnzb"] for p in packs])
+    M = INTERNVL_PASSES[0][0]
+    lines.append(_mlp_line(INTERNVL, rows(M, d), M, packs, counts, ff,
+                           "silu", flush, judge)[1])
+    del packs, w1, w2
+
+    B, S = 1, MUSICGEN_SWA_S
+    H, KV, D = mg.num_heads, mg.num_kv_heads, mg.head_dim
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+    k = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+    v = torch.randn(B, S, KV, D, generator=gen, device=dev).bfloat16()
+
+    def cu_swa():
+        return swa.sliding_window_attention_cuda(q, k, v, window=S)
+
+    def plain_swa():
+        return swa.sliding_window_attention_plain(q, k, v, window=S)
+    got, want = cu_swa(), plain_swa()
+    tag = f"{MUSICGEN} causal"
+    judge(f"sliding_window_attention[{tag}: H {H}, KV {KV}, D {D}]",
+          row_errors(got, want), 1e-2, "per (position, head) row, relative "
+          "to that row's max |out|: keys walked in another order than "
+          "flash's, so p rounds to bf16 against another running max, 2^-9 "
+          "of each term")
+    judge.check(f"sliding_window_attention[{tag}]: the same bits on a "
+                "second run", bool(torch.equal(got, cu_swa())),
+                "fixed key order")
+    del got, want
+    pos = torch.arange(S, device=dev)
+    causal = pos[None, :] <= pos[:, None]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = band_pairs(S, S)
+    ms, by = bound(2 * B * S * H * D + 2 * 2 * B * S * KV * D
+                   + 4 * B * S * H * D, 4 * B * pairs * H * D)
+    lc = swa.launch_config(B, S, H, KV, D)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=causal), flush)
+    lines.append(
+        f"sliding_window_attention ({tag}: B {B}, S {S}, H {H}, KV {KV}, D "
+        f"{D}, {pairs} pairs per head; {lc['blocks']} blocks of "
+        f"{lc['threads']} threads, {lc['stages']} K/V stages of "
+        f"{lc['key_tile']} keys, {lc['smem_bytes']} bytes of shared "
+        f"memory): {time_ms(cu_swa, flush):.4f} ms, plain "
+        f"{time_ms(plain_swa, flush):.4f} ms, SDPA (boolean causal mask) "
+        f"{sdpa_ms:.4f} ms, bound {ms:.4f} ms ({by})")
+    for line in lines:
+        log(f"  {line}")
+    return lines
 
 
 def _check_logits(llm, judge, lengths=(37, 64), tier=64):
@@ -3237,6 +3403,335 @@ def phase_serve_moe(judge):
     return total, lines
 
 
+def _frontend_inputs(llm, rows: int, length: int):
+    """A pass's prompts ((rows, length), or (rows, K, length) for K
+    codebooks) and the frontend's embeddings (``cond`` or
+    ``patch_embeds``, bf16 N(0, 1) x 0.02), from SEED."""
+    import torch
+    from repro_torch.models import frontend
+    cfg, dev = llm.cfg, llm.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 + length)
+    K = cfg.num_codebooks
+    toks = torch.randint(0, cfg.vocab_size,
+                         (rows, K, length) if K > 1 else (rows, length),
+                         generator=gen, device=dev)
+    extra = {}
+    if cfg.cross_attn_cond:
+        extra["cond"] = frontend.synth_cond_embeds(gen, rows, cfg, dev)
+    if cfg.frontend == "vision":
+        extra["patch_embeds"] = frontend.synth_patch_embeds(gen, rows, cfg,
+                                                            dev)
+    return toks, extra
+
+
+def _positions_of(cfg, length: int) -> int:
+    """Positions of a prompt of ``length`` tokens (patches before it)."""
+    return length + (cfg.num_patches if cfg.frontend == "vision" else 0)
+
+
+def _plain_stream(llm, toks, extra, new: int):
+    """The plain path's greedy stream (``impl="plain"``: every kernel's
+    plain version on the card) and its logits at each step: (tokens (B,
+    new[, K]), [the (B[, K], V) logits each token was taken from])."""
+    import torch
+    from repro_torch.models import decoding
+    cfg, plan = llm.cfg, llm.plan
+    n = _positions_of(cfg, toks.shape[-1])
+    logits, cache = decoding.prefill(llm.params, toks, cfg, n + new,
+                                     plan=plan, impl="plain", **extra)
+    pos = torch.full((toks.shape[0],), n, dtype=torch.long,
+                     device=toks.device)
+    out, seen = [], []
+    for _ in range(new):
+        last = logits[:, -1, ..., :cfg.vocab_size]
+        seen.append(last)
+        out.append(last.argmax(-1))
+        logits, cache = decoding.serve_step(
+            llm.params, cache, out[-1][..., None], pos, cfg, plan=plan,
+            cond=extra.get("cond"), impl="plain")
+        pos = pos + 1
+    return torch.stack(out, dim=1), seen
+
+
+def _stream_partings(got, want, seen):
+    """Where the kernel path's stream ``got`` parts from the plain path's
+    ``want`` (B, T[, K]): per row, the first step where any codebook
+    differs and, at it, the plain logits' largest top-2 margin share over
+    the parting codebooks; the row is compared no further."""
+    import torch
+    out = []
+    for b in range(got.shape[0]):
+        differ = (got[b] != want[b]).reshape(got.shape[1], -1)
+        steps = torch.nonzero(differ.any(-1)).flatten()
+        if not len(steps):
+            continue
+        t = int(steps[0])
+        rows = seen[t][b].reshape(-1, seen[t].shape[-1])[differ[t]].float()
+        top = torch.topk(rows, 2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]) / rows.abs().amax(-1)
+        out.append((b, t, float(margin.max())))
+    return out
+
+
+def _frontend_launches(cfg, plan, m_prefill: int, rows: int, steps: int):
+    """Launches of one ``make_generate_fn`` call by the plan's routes: the
+    sliding window once per layer in the prefill; each MLP (prefill M
+    ``m_prefill``, then ``steps`` decode steps of M ``rows``) one fused
+    launch a layer on the fused route, else its 2 (ungated) or 3 (gated)
+    products through the GEMV or the GEMM; paged attention never (a
+    contiguous cache)."""
+    from repro_torch.kernels import ops
+    n, mats = cfg.num_layers, 3 if cfg.mlp_gated else 2
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want["sliding_window_attention"] = n
+    for M, times in ((m_prefill, 1), (rows, steps)):
+        if plan.mlp_route(M) == "fused":
+            want["bcsc_mlp"] += n * times
+        else:
+            key = "bcsc_gemv" if plan.matmul_route(M) == "gemv" \
+                else "bcsc_matmul"
+            want[key] += mats * n * times
+    return want
+
+
+def _kernel_groups(graph, n: int = 8):
+    """Device ms per replay of ``graph`` by kernel group, from a profiler
+    trace of ``n`` replays read as raw kineto events (the event tree of
+    thousands of kernels would take long to build): the port's kernels,
+    cuBLAS, PyTorch's elementwise kernels, its reductions, the rest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+    groups = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name()
+        group = ("port kernels" if "repro" in name else
+                 "cuBLAS" if "nvjet" in name or "gemm" in name.lower()
+                 or "cutlass" in name else
+                 "elementwise" if "elementwise" in name else
+                 "reductions" if "reduce" in name.lower() else "other")
+        groups[group] = groups.get(group, 0.0) + e.duration_ns() / 1e6 / n
+    return groups
+
+
+def _step_device_ms(fn, n: int = 16):
+    """(device ms, host ms, device ms by kernel group) of one decode step
+    ``fn`` (a ``serve_step`` on fixed tensors, eager): the host clock
+    around one synchronised eager call; then ``fn`` captured as a CUDA
+    graph (two warm-up calls on the capture stream first, as
+    ``serve.graphs.StepGraph`` does) and ``n`` replays back to back between
+    CUDA events, which time the device's work with no gap for the host's
+    launches (an eager step's thousands of launches fill the launch queue,
+    so the device would run at the host's pace); then ``_kernel_groups``.
+    The capture's launch counts are taken back out. Device ms and groups
+    None on the CPU."""
+    import torch
+    from repro_torch.kernels import ops
+    sync()
+    t0 = time.perf_counter()
+    fn()
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if DEVICE != "cuda":
+        return None, host_ms, None
+    before = ops.launch_counts()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    ops.set_launches(before)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, host_ms, _kernel_groups(graph)
+
+
+def _frontend_check_logits(llm, judge, toks, extra):
+    """The prefill and first decode step's logits of the kernel path
+    against ``impl="plain"`` on the same weights and inputs (the kernel
+    path's greedy tokens fed to both). Returns the two gaps."""
+    import torch
+    from repro_torch.models import decoding
+    cfg, plan = llm.cfg, llm.plan
+    n = _positions_of(cfg, toks.shape[-1])
+    pos = torch.full((toks.shape[0],), n, dtype=torch.long,
+                     device=toks.device)
+    out, nxt = {}, None
+    for impl in (None, "plain"):
+        logits, cache = decoding.prefill(llm.params, toks, cfg, n + 1,
+                                         plan=plan, impl=impl, **extra)
+        if nxt is None:
+            nxt = logits[:, -1, ..., :cfg.vocab_size].argmax(-1)[..., None]
+        step, _ = decoding.serve_step(llm.params, cache, nxt, pos, cfg,
+                                      plan=plan, cond=extra.get("cond"),
+                                      impl=impl)
+        out[impl] = (logits[..., :cfg.vocab_size],
+                     step[..., :cfg.vocab_size])
+        del cache
+    sync()
+    gaps = []
+    for i, what in enumerate(("prefill", "decode")):
+        got, want = out[None][i], out["plain"][i]
+        judge.check(f"{cfg.name} {what} logits finite",
+                    bool(torch.isfinite(got).all()), f"{tuple(got.shape)}")
+        gaps.append(errors(got, want)[1])
+        judge(f"{cfg.name} {what} logits, kernels vs plain", gaps[-1], 5e-2,
+              f"relative to max |logit| after {cfg.num_layers} layers at "
+              f"{tuple(toks.shape)} tokens: sums in another order flip bf16 "
+              "roundings, which the layers carry forward")
+    return gaps
+
+
+def _frontend_pass(llm, judge, rows: int, length: int, new: int):
+    """One ``make_generate_fn`` pass of ``rows`` prompts of ``length``
+    tokens and ``new`` new tokens: one decode step on the cache of a
+    ``make_prefill_step`` prefill, its device ms (``_step_device_ms``)
+    against its bound; then the generate call with the launch counts
+    zeroed just before and read just after (the main path's run), held to
+    ``_frontend_launches``, its prefill timed inside it (synchronised on
+    both sides) and the rest counted as decode; its stream against the
+    plain path's (equal, or parted at near-ties). Returns (launch counts,
+    line)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoding
+    from repro_torch.serve.engine import make_generate_fn, make_prefill_step
+    cfg, plan = llm.cfg, llm.plan
+    tag = f"{cfg.name} {rows} x {length} + {new}"
+    toks, extra = _frontend_inputs(llm, rows, length)
+    n = _positions_of(cfg, length)
+    logits, cache = make_prefill_step(cfg, n + new, plan)(llm.params, toks,
+                                                           **extra)
+    nxt = logits[:, -1, ..., :cfg.vocab_size].argmax(-1)[..., None]
+    pos = torch.full((rows,), n, dtype=torch.long, device=llm.device)
+    step_ms, step_host_ms, groups = _step_device_ms(
+        lambda: decoding.serve_step(llm.params, cache, nxt, pos, cfg,
+                                    plan=plan, cond=extra.get("cond")))
+    del cache, logits
+    _reset_peak()
+    generate = make_generate_fn(cfg, new, plan=plan)
+    prefill, marks = decoding.prefill, {}
+
+    def timed_prefill(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = prefill(*args, **kw)
+        sync()
+        marks["prefill_s"] = time.perf_counter() - t0
+        return out
+    decoding.prefill = timed_prefill
+    try:
+        sync()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = generate(llm.params, toks, **extra)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        decoding.prefill = prefill
+    prefill_s = marks["prefill_s"]
+    peak = _memory("peak of the generate call")
+    shape = (rows, new, cfg.num_codebooks) if cfg.num_codebooks > 1 \
+        else (rows, new)
+    judge.check(f"{tag}: tokens", tuple(got.shape) == shape and bool(
+        ((got >= 0) & (got < cfg.vocab_size)).all()),
+        f"{tuple(got.shape)} in-vocab tokens")
+    want = _frontend_launches(cfg, plan, rows * n, rows, new)
+    judge.check(f"{tag}: launches by the plan's routes", counts == want,
+                f"{counts} vs {want}")
+    plain, seen = _plain_stream(llm, toks, extra, new)
+    parts = _stream_partings(got, plain, seen)
+    judge.check(f"{tag}: kernel and plain streams equal, or parted only at "
+                "a near-tie", all(m < NEAR_TIE for _, _, m in parts),
+                f"partings (row, step, top-2 margin / max |logit|): "
+                f"{parts or 'none'}")
+    del plain, seen
+    # the step's bound: its weights as stored (packs with their pads; the
+    # embedding, of which a step reads a row per token, left out) and the
+    # K/V it reads at the memory rate, against its products (2 flops per
+    # row per bf16 weight; musicgen's cross-attention recomputes the
+    # conditioning's K and V each step) at the bf16 peak
+    KV, D, layers = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    weights = [t for key, part in llm.params.items() if key != "embed"
+               for t in _leaves(part)]
+    w_bytes = sum(t.numel() * t.element_size() for t in weights)
+    kv_bytes = rows * (n + 1) * layers * 2 * KV * D * 2
+    flops = 2 * rows * sum(t.numel() for t in weights
+                           if t.dtype == torch.bfloat16)
+    if cfg.cross_attn_cond:
+        flops += (2 * rows * cfg.cross_attn_cond * cfg.d_model
+                  * 2 * cfg.num_heads * D * layers)
+    bound_ms, by = bound(w_bytes + kv_bytes, flops)
+    decode_s = max(wall - prefill_s, 1e-9)
+    line = (f"{tag} (make_generate_fn): prefill {rows * n / prefill_s:.1f} "
+            f"positions/s ({rows} x {n}"
+            + (f", {cfg.num_patches} patches each" if n != length else "")
+            + f", {prefill_s * 1e3:.1f} ms); decode "
+            f"{rows * new / decode_s:.1f} tokens/s ({rows} rows x {new} steps"
+            + (f" of {cfg.num_codebooks} codebooks" if cfg.num_codebooks > 1
+               else "")
+            + f" in {decode_s:.2f} s, eager); one decode step "
+            + (f"{step_ms:.3f} ms on the device (captured, 16 replays; by "
+               "kernel group, traced: " + ", ".join(
+                   f"{g} {t:.3f}" for g, t in sorted(
+                       groups.items(), key=lambda kv: -kv[1])) + ")"
+               if step_ms is not None else "not measured on a device (CPU)")
+            + f", {step_host_ms:.1f} ms of host clock eager; bound "
+            f"{bound_ms:.3f} ms ({by}: {w_bytes / 1e9:.2f} GB of weights, "
+            f"{kv_bytes / 1e6:.1f} MB of K/V, {flops / 1e9:.1f} GFLOP); "
+            f"wall {wall:.2f} s; {peak}")
+    log(f"  {line}")
+    return counts, line
+
+
+def phase_serve_frontends(judge):
+    """musicgen-large at full width and depth (48 layers, cross-attention
+    to ``cond`` of 64 embeddings, four codebooks, sinusoidal positions,
+    ungated tanh-gelu MLPs packed at 0.75) and internvl2-26b at full width
+    and ``INTERNVL_LAYERS`` layers (256 vision patches before the text,
+    GQA 48 / 8 heads of 128, gated silu MLPs packed at 0.75), each after
+    the previous model was freed, through ``make_generate_fn`` (the
+    serving loops do not serve them, as the reference's do not): the
+    logits check on the first pass's inputs, then each pass of
+    ``MUSICGEN_PASSES`` / ``INTERNVL_PASSES`` (``_frontend_pass``).
+    Returns (the main-path runs' summed launch counts, lines of rates)."""
+    lines, total = [], None
+    for arch, plan_kw, layers, passes in (
+            (MUSICGEN, MUSICGEN_PLAN, 0, MUSICGEN_PASSES),
+            (INTERNVL, INTERNVL_PLAN, INTERNVL_LAYERS, INTERNVL_PASSES)):
+        llm = _load(arch, plan_kw, layers)
+        rows, length, _ = passes[0]
+        gaps = _frontend_check_logits(llm, judge,
+                                      *_frontend_inputs(llm, rows, length))
+        lines.append(f"{arch} ({llm.cfg.num_layers} layers): kernels vs "
+                     f"plain logits gap {gaps[0]:.3e} (prefill), "
+                     f"{gaps[1]:.3e} (decode)")
+        log(f"  {lines[-1]}")
+        for rows, length, new in passes:
+            counts, line = _frontend_pass(llm, judge, rows, length, new)
+            lines.append(line)
+            total = counts if total is None else \
+                {k: total[k] + counts[k] for k in total}
+        del llm
+    return total, lines
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3261,6 +3756,8 @@ def main() -> int:
             timed(f"kernels ({arch} widths)", phase_kernels_model, flush,
                   judge, arch)
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
+        timed("kernels (frontend widths)", phase_kernels_frontends, flush,
+              judge)
         del flush
         launches, rates, llm = timed("serve qwen2.5-3b", phase_serve, judge)
         counts, more = timed("serve qwen2.5-3b guarded", phase_serve_guarded,
@@ -3286,7 +3783,9 @@ def main() -> int:
                             ("serve gemma3-12b", phase_serve_gemma3),
                             ("serve recurrentgemma-2b + mamba2-130m",
                              phase_serve_recurrent),
-                            ("serve mixtral-8x7b", phase_serve_moe)):
+                            ("serve mixtral-8x7b", phase_serve_moe),
+                            ("serve musicgen-large + internvl2-26b",
+                             phase_serve_frontends)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}

@@ -1,7 +1,10 @@
 """Architecture config registry of the port: the architectures it serves
 (the dense decoders ``qwen2.5-3b``, ``gemma2-2b``, ``mistral-nemo-12b`` and
 ``gemma3-12b``; the recurrent ``recurrentgemma-2b`` and ``mamba2-130m``;
-the mixture-of-experts ``mixtral-8x7b`` and ``llama4-maverick-400b-a17b``)."""
+the mixture-of-experts ``mixtral-8x7b`` and ``llama4-maverick-400b-a17b``;
+the frontend architectures ``internvl2-26b``, vision patches prepended to
+the text, and ``musicgen-large``, four codebooks, sinusoidal positions and
+cross-attention to a conditioning sequence)."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +21,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "mamba2-130m": "mamba2_130m",
     "mixtral-8x7b": "mixtral_8x7b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "internvl2-26b": "internvl2_26b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)

@@ -1,7 +1,10 @@
 """KV and recurrent-state caches, single-token decode and batched prefill
 for global, sliding-window (local) and chunked attention, RG-LRU and
 Mamba-2 SSD layers, each followed by a dense or MoE MLP (counterpart of
-``repro.models.decoding``).
+``repro.models.decoding``). The frontend configs' inputs come in beside
+the tokens: vision patch embeddings prepended by ``prefill``, and the
+conditioning sequence (``cond``) that every attention layer of a config
+with cross-attention reads after its self-attention.
 
 Caches keep the reference's layout: entries of the stacked layers sit on a
 leading period axis (``cache["blocks"]["slot{j}"]``, one per slot of the
@@ -85,7 +88,6 @@ def _cache_tree(cfg, entry) -> Dict:
 def init_cache(cfg, batch: int, cache_len: int, device=None) -> Dict:
     """Contiguous K/V for global layers, rings for local ones, per-row
     state for recurrent ones."""
-    tfm.check_supported(cfg)
     return _cache_tree(cfg, lambda kind, lead: _init_entry(
         cfg, kind, batch, cache_len, device, lead))
 
@@ -111,7 +113,6 @@ def init_paged_cache(cfg, rows: int, cache_len: int, num_pages: int,
     period axis), bf16 or int8 with per-(page, KV head) fp32 scales; local
     layers keep their per-row rings and recurrent ones their per-row state,
     whose memory never grows with the context."""
-    tfm.check_supported(cfg)
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
     return _cache_tree(cfg, lambda kind, lead: _init_paged_entry(
@@ -340,9 +341,10 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    theta = tfm._rope_theta_for(cfg, kind)
-    q = layers.rope(q, posv[:, None], theta)
-    k = layers.rope(k, posv[:, None], theta)
+    if cfg.pos_embed == "rope":
+        theta = tfm._rope_theta_for(cfg, kind)
+        q = layers.rope(q, posv[:, None], theta)
+        k = layers.rope(k, posv[:, None], theta)
     if is_paged_entry(entry):
         if block_table is None:
             raise ValueError("a paged cache entry needs a block table")
@@ -375,6 +377,20 @@ def _residual(x, y, p, post: str, cfg):
     return x + y
 
 
+def _cross_residual(p, x, kind, cond, cfg):
+    """An attention layer's cross-attention residual when the config has
+    one (musicgen): x + cross_attention(rms_norm(x), cond); else x."""
+    if not cfg.cross_attn_cond or kind not in tfm.ATTN_KINDS:
+        return x
+    if cond is None:
+        raise ValueError(
+            f"{cfg.name} cross-attends to a conditioning sequence: pass "
+            f"cond, (B, {cfg.cross_attn_cond}, {cfg.d_model}) embeddings "
+            "(models.frontend.synth_cond_embeds makes random ones)")
+    h = rms_norm(x, p["pre_norm_cross"], cfg.norm_eps)
+    return x + layers.cross_attention(p["cross_attn"], h, cond, cfg)
+
+
 def _mlp_residual(p, x, cfg, plan, impl):
     """The layer's MLP after its pre-norm: an MoE layer is one whose params
     hold ``moe`` (``init_params`` puts it on the slots ``cfg.is_moe_layer``
@@ -401,41 +417,49 @@ def _recurrent_decode(p, h, kind, entry, cfg):
 
 
 def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
-                  split_rows: Optional[int] = None):
-    """One layer: pre-norm mixer (attention or a recurrent block), then
-    the MLP (none after an ssm layer)."""
+                  split_rows: Optional[int] = None, cond=None):
+    """One layer: pre-norm mixer (attention or a recurrent block), the
+    cross-attention of a config with one, then the MLP (none after an ssm
+    layer)."""
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind in RECURRENT_KINDS:
         y = _recurrent_decode(p, h, kind, entry, cfg)
     else:
         y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table,
                          impl, split_rows)
-    x = _residual(x, y, p, "post_norm", cfg)
+    x = _cross_residual(p, _residual(x, y, p, "post_norm", cfg), kind, cond,
+                        cfg)
     if kind == "ssm":
         return x
     return _mlp_residual(p, x, cfg, plan, impl)
 
 
 def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
-               impl: Optional[str] = None, split_rows: Optional[int] = None):
-    """One decode step over every row. tokens (B,1); pos scalar or (B,)
-    per-row positions; ``block_table`` (B, max_pages) int32 routes paged
-    entries through the paged-attention kernel. Writes the new token's K/V
-    into ``cache`` in place. Returns (logits fp32 (B,1,Vp), cache).
-    ``impl`` is passed on to ``kernels.ops`` (None: by device);
-    ``split_rows`` to paged attention (``verify_step``'s real rows)."""
+               cond=None, impl: Optional[str] = None,
+               split_rows: Optional[int] = None):
+    """One decode step over every row. tokens (B,1), or (B,K,1) for K
+    codebooks; pos scalar or (B,) per-row positions; ``block_table`` (B,
+    max_pages) int32 routes paged entries through the paged-attention
+    kernel; ``cond`` (B,T,d) is the conditioning sequence of a config with
+    cross-attention. Writes the new token's K/V into ``cache`` in place.
+    Returns (logits fp32 (B,1,Vp) or (B,1,K,Vp), cache). ``impl`` is
+    passed on to ``kernels.ops`` (None: by device); ``split_rows`` to paged
+    attention (``verify_step``'s real rows)."""
     x = tfm.embed_tokens(params, tokens, cfg)
     B = x.shape[0]
     posv = _positions(pos, B, x.device)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + layers.sinusoidal_pos(posv[:, None], cfg.d_model).to(
+            COMPUTE_DTYPE)
     for p, entry, kind in tfm.layers_in_order(params, cache, cfg):
         x = _block_decode(p, x, kind, entry, posv, cfg, plan, block_table,
-                          impl, split_rows)
+                          impl, split_rows, cond)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return tfm.lm_logits(params, x, cfg), cache
 
 
 def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
-                impl: Optional[str] = None):
+                cond=None, impl: Optional[str] = None):
     """Score k candidate tokens per row in one step: the speculative
     verifier (the reference's ``verify_step``).
 
@@ -450,7 +474,9 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
     the pages as for the B real rows. int8 pools take k sequential steps
     instead: a louder later token requantizes its whole page, so the order
     of appends is visible there. Only all-global-attention configs on a
-    paged cache: a ring's per-row state cannot be replicated."""
+    paged cache: a ring's per-row state cannot be replicated. ``cond``
+    (B,T,d), the conditioning of a config with cross-attention, is
+    repeated for each row's k virtual rows."""
     if block_table is None:
         raise ValueError("verify_step needs a paged cache and its block "
                          "table")
@@ -466,15 +492,17 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
         for i in range(k):
             lg, cache = serve_step(params, cache, tokens[:, i:i + 1],
                                    posv + i, cfg, plan=plan,
-                                   block_table=block_table, impl=impl)
+                                   block_table=block_table, cond=cond,
+                                   impl=impl)
             outs.append(lg)
         return torch.cat(outs, dim=1), cache
     posf = (posv[:, None] + torch.arange(k, device=posv.device)[None, :]
             ).reshape(-1)
-    logits, cache = serve_step(params, cache, tokens.reshape(-1, 1), posf,
-                               cfg, plan=plan,
-                               block_table=block_table.repeat_interleave(
-                                   k, dim=0), impl=impl, split_rows=B)
+    logits, cache = serve_step(
+        params, cache, tokens.reshape(-1, 1), posf, cfg, plan=plan,
+        block_table=block_table.repeat_interleave(k, dim=0),
+        cond=None if cond is None else cond.repeat_interleave(k, dim=0),
+        impl=impl, split_rows=B)
     return logits.reshape((B, k) + logits.shape[2:]), cache
 
 
@@ -521,9 +549,10 @@ def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
     if cfg.qk_norm:
         q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    theta = tfm._rope_theta_for(cfg, kind)
-    q = layers.rope(q, positions, theta)
-    k = layers.rope(k, positions, theta)
+    if cfg.pos_embed == "rope":
+        theta = tfm._rope_theta_for(cfg, kind)
+        q = layers.rope(q, positions, theta)
+        k = layers.rope(k, positions, theta)
     if kind == "local":
         ctx = layers.local_attention(q, k, v, cfg, impl)
     elif kind == "chunked":
@@ -551,7 +580,7 @@ def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
 
 
 def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
-                   paged, plan, impl):
+                   paged, plan, impl, cond=None):
     h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
     if kind in RECURRENT_KINDS:
         block = ssm_lib.ssm_block if kind == "ssm" else rglru_lib.rglru_block
@@ -562,7 +591,8 @@ def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
     else:
         y, e = _attn_prefill(p["attn"], h, kind, positions, cfg, cache_len,
                              lengths, entry, paged, impl)
-    x = _residual(x, y, p, "post_norm", cfg)
+    x = _cross_residual(p, _residual(x, y, p, "post_norm", cfg), kind, cond,
+                        cfg)
     if kind == "ssm":
         return x, e
     return _mlp_residual(p, x, cfg, plan, impl), e
@@ -570,15 +600,20 @@ def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
 
 def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
                   paged: Optional[PagedPrefill] = None,
-                  impl: Optional[str] = None):
+                  impl: Optional[str] = None, patch_embeds=None, cond=None):
     x = tfm.embed_tokens(params, tokens, cfg)
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(COMPUTE_DTYPE), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + layers.sinusoidal_pos(positions, cfg.d_model).to(
+            COMPUTE_DTYPE)
     entries = []
     for p, entry, kind in tfm.layers_in_order(
             params, paged.cache if paged is not None else None, cfg):
         x, e = _block_prefill(p, x, kind, positions, cfg, cache_len,
-                              lengths, entry, paged, plan, impl)
+                              lengths, entry, paged, plan, impl, cond)
         entries.append(e)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
@@ -617,7 +652,7 @@ def _check_exact(cfg, tokens, lengths) -> None:
 
 
 def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
-                    paged: Optional[PagedPrefill] = None,
+                    paged: Optional[PagedPrefill] = None, cond=None,
                     impl: Optional[str] = None):
     """Batched prefill over right-padded prompts of unequal length.
 
@@ -626,25 +661,37 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
     Without ``paged`` the cache is a fresh contiguous one (global slots
     (periods, B, cache_len, KV, D), local slots per-row rings); with it,
     global K/V land in ``paged.cache``'s pools and rings in its rows at
-    ``paged.slots`` (in place).
+    ``paged.slots`` (in place). ``cond`` is the conditioning sequence of a
+    config with cross-attention. A vision config is refused, as the
+    reference's assert refuses it: the per-row last position and the ring
+    gathers do not carry the patches' offset; ``prefill`` takes patches.
     ``impl`` is passed on to ``kernels.ops`` (None: by device)."""
-    tfm.check_supported(cfg)
+    if cfg.frontend == "vision" and cfg.num_patches:
+        raise ValueError(
+            f"{cfg.name}: prefill_batched does not take vision patches "
+            "(its per-row lengths do not carry their offset); prefill "
+            "(patch_embeds=) does")
     if is_recurrent(cfg):
         _check_exact(cfg, tokens, lengths)
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
-                         paged=paged, impl=impl)
+                         paged=paged, impl=impl, cond=cond)
 
 
-def prefill(params, tokens, cfg, cache_len: int, *, plan,
-            impl: Optional[str] = None):
-    """Forward over (B, S) prompts of one length S, building a fresh
-    contiguous cache (global slots (periods, B, cache_len, KV, D), local
-    slots rings at pos = S - 1). Returns (last-position logits fp32
-    (B,1,Vp), cache). The single-length case of ``prefill_batched``."""
-    tfm.check_supported(cfg)
-    B, S = tokens.shape
+def prefill(params, tokens, cfg, cache_len: int, *, plan, patch_embeds=None,
+            cond=None, impl: Optional[str] = None):
+    """Forward over (B, S) prompts of one length S ((B, K, S) for K
+    codebooks), building a fresh contiguous cache (global slots (periods,
+    B, cache_len, KV, D), local slots rings at the last position).
+    ``patch_embeds`` (B, P, d) of a vision config are prepended to the
+    text (S + P positions); ``cond`` (B, T, d) is the conditioning of a
+    config with cross-attention. Returns (last-position logits fp32
+    (B,1,Vp) or (B,1,K,Vp), cache). The single-length case of
+    ``prefill_batched``."""
+    B, S = tokens.shape[0], tokens.shape[-1]
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        S += patch_embeds.shape[1]
     lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
-                         impl=impl)
+                         impl=impl, patch_embeds=patch_embeds, cond=cond)

@@ -68,6 +68,16 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos(positions, d_model: int):
+    """(..., S) int positions -> (..., S, d_model) fp32 table (musicgen):
+    ``[sin, cos]`` halves of position x 10000^(-i / half)."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # -------------------------------------------- init, conv and recurrences
 def dense_init(generator: torch.Generator, shape, fan_in: int, device):
     """Weights ~ N(0, 1/fan_in), the reference's ``dense_init`` scale."""
@@ -189,6 +199,27 @@ def decode_attention(q, k_cache, v_cache, valid_mask, cfg):
     p = torch.softmax(s, dim=-1)
     ctx = torch.einsum("bgrst,btgd->bsgrd", p, v_cache.float())
     return ctx.reshape(B, 1, H, D).to(COMPUTE_DTYPE)
+
+
+def cross_attention(params, x, cond, cfg):
+    """Attention of x (B,S,d) to a conditioning sequence cond (B,T,d), all
+    T positions visible (no mask, softcap or RoPE): q, k and v rounded to
+    bf16 from fp32 sums, fp32 scores scaled by 1/sqrt(D) and softmax, the
+    probabilities rounded to bf16 before the context product, as the
+    reference orders it. ``wk``/``wv`` are (d, H, D). Returns (B,S,d)
+    bf16."""
+    H, D = cfg.num_heads, cfg.head_dim
+
+    def heads(t, w):
+        y = matmul(t, params[w].reshape(params[w].shape[0], H * D))
+        return y.reshape(t.shape[:-1] + (H, D)).to(COMPUTE_DTYPE)
+
+    q, k, v = heads(x, "wq"), heads(cond, "wk"), heads(cond, "wv")
+    s = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) \
+        * (1.0 / math.sqrt(D))
+    p = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE)
+    ctx = torch.einsum("bhst,bthk->bshk", p.float(), v.float())
+    return attn_out(params, ctx.to(COMPUTE_DTYPE))
 
 
 # ---------------------------------------------------------------------- MLP

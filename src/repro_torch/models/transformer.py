@@ -9,8 +9,10 @@ period (recurrentgemma's 26 = 8 x 3 + 2) sit unstacked in
 ``params["rem"]["rem{j}"]``, remainder layer ``j`` of kind ``slot{j}``'s.
 A layer is attention (global, sliding-window ``local`` or ``chunked``), an
 RG-LRU block or a Mamba-2 SSD block (``ssm``, which has no MLP after it);
-its MLP is dense (``p["mlp"]``) or a mixture of experts (``p["moe"]``, on
-the slots ``cfg.is_moe_layer`` names).
+in a config with ``cross_attn_cond`` every attention layer then
+cross-attends to a conditioning sequence (``p["cross_attn"]``); its MLP is
+dense (``p["mlp"]``) or a mixture of experts (``p["moe"]``, on the slots
+``cfg.is_moe_layer`` names).
 """
 from __future__ import annotations
 
@@ -51,26 +53,6 @@ def slot_kinds(cfg):
     """Static (kind, is_moe) for each slot of a period."""
     return [(cfg.layer_kind(j), cfg.is_moe_layer(j))
             for j in range(scan_period(cfg))]
-
-
-def check_supported(cfg) -> None:
-    """The port serves decoders of global, sliding-window (local) and
-    chunked attention, RG-LRU and Mamba-2 SSD layers, with dense or MoE
-    MLPs, rope and one codebook. Frontends, cross-attention, sinusoidal
-    positions and multi-codebook heads are ROADMAP item 8's."""
-    missing = []
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.cross_attn_cond:
-        missing.append("cross-attention")
-    if cfg.pos_embed != "rope":
-        missing.append(f"{cfg.pos_embed} positions")
-    if cfg.num_codebooks != 1:
-        missing.append(f"{cfg.num_codebooks} codebooks")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not serve {', '.join(missing)} yet "
-            "(ROADMAP item 8)")
 
 
 def slot_names(cfg):
@@ -118,8 +100,10 @@ def init_params(cfg, generator: torch.Generator,
     """Random parameters with the reference's shapes and init scales:
     normal embeddings, dense weights ~ N(0, 1/fan_in) (``wo``'s fan-in is
     its head axis, as in the reference), zero norms and biases. The values
-    differ from JAX's for the same seed."""
-    check_supported(cfg)
+    differ from JAX's for the same seed. With ``cfg.cross_attn_cond`` every
+    attention layer also holds ``cross_attn`` (``wk``/``wv`` at (d, H, D))
+    and ``pre_norm_cross``; with K = ``cfg.num_codebooks`` > 1 the
+    embedding is (K, Vp, d) and the head (K, d, Vp)."""
     dev = torch.device(device) if device is not None else generator.device
     d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     # the dense MLPs of a model with MoE layers are dense_d_ff wide
@@ -143,6 +127,11 @@ def init_params(cfg, generator: torch.Generator,
             if cfg.qk_norm:
                 attn.update(q_norm=zeros(D), k_norm=zeros(D))
             p["attn"] = attn
+            if cfg.cross_attn_cond:
+                p["cross_attn"] = {
+                    "wq": dense((d, H, D), d), "wk": dense((d, H, D), d),
+                    "wv": dense((d, H, D), d), "wo": dense((H, D, d), H)}
+                p["pre_norm_cross"] = zeros(d)
         elif kind == "ssm":
             p["ssm"] = ssm_lib.init_ssm_params(cfg, generator, dev, lead)
         elif kind == "rglru":
@@ -169,11 +158,12 @@ def init_params(cfg, generator: torch.Generator,
         params["rem"] = {f"rem{j}": block(kind, is_moe, ())
                          for j, (kind, is_moe)
                          in enumerate(kinds[:num_remainder(cfg)])}
-    params["embed"] = torch.randn((cfg.vocab_padded, d), generator=generator,
-                                  device=dev)
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    params["embed"] = torch.randn(books + (cfg.vocab_padded, d),
+                                  generator=generator, device=dev)
     params["final_norm"] = torch.zeros(d, device=dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn((d, cfg.vocab_padded),
+        params["lm_head"] = torch.randn(books + (d, cfg.vocab_padded),
                                         generator=generator,
                                         device=dev) / math.sqrt(d)
     return params
@@ -182,12 +172,17 @@ def init_params(cfg, generator: torch.Generator,
 def compute_copy(params) -> Dict:
     """The params tree with every dense weight matrix stored once as its
     bf16 copy (the cast the reference repeats per call); norm scales,
-    biases and packed weights are left as they are."""
+    biases and packed weights are left as they are. A multi-codebook
+    embedding (K, Vp, d) stays fp32: the reference sums the K gathered
+    fp32 rows before its one rounding, which rows rounded first would
+    not reproduce."""
     def conv(tree):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
                 out[k] = conv(v)
+            elif k == "embed" and v.dim() == 3:
+                out[k] = v
             elif k in MATRIX_KEYS and v.is_floating_point():
                 out[k] = layers.cast_compute(v)
             else:
@@ -204,16 +199,30 @@ def to_device(tree, device):
 
 # ----------------------------------------------------------- embed / head
 def embed_tokens(params, tokens, cfg):
-    """tokens (B,S) -> (B,S,d) bf16."""
-    x = params["embed"][tokens.long()].float()
+    """tokens (B,S), or (B,K,S) for K codebooks, -> (B,S,d) bf16. The K
+    codebooks' rows are summed in fp32 (codebook 0 first, from zero) and
+    rounded once, as the reference sums them."""
+    if cfg.num_codebooks > 1:
+        tok = tokens.long()
+        x = torch.zeros(tok.shape[:1] + tok.shape[2:] + (cfg.d_model,),
+                        device=tok.device)
+        for k in range(cfg.num_codebooks):
+            x = x + params["embed"][k].float()[tok[:, k]]
+    else:
+        x = params["embed"][tokens.long()].float()
     if cfg.embed_scale:
         x = x * math.sqrt(cfg.d_model)
     return x.to(layers.COMPUTE_DTYPE)
 
 
 def lm_logits(params, x, cfg):
-    """x (B,S,d) -> fp32 logits (B,S,Vp), pad vocab masked to NEG_INF."""
-    if cfg.tie_embeddings:
+    """x (B,S,d) -> fp32 logits (B,S,Vp), or (B,S,K,Vp) for K codebooks,
+    pad vocab masked to NEG_INF."""
+    if cfg.num_codebooks > 1:
+        w = params["lm_head"]                                  # (K,d,Vp)
+        logits = torch.stack([layers.matmul(x, w[k])
+                              for k in range(w.shape[0])], dim=-2)
+    elif cfg.tie_embeddings:
         logits = layers.matmul(x, layers.cast_compute(params["embed"]).t())
     else:
         logits = layers.matmul(x, params["lm_head"])

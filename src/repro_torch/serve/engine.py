@@ -38,7 +38,6 @@ import torch
 
 from repro_torch.core import plan as plan_lib
 from repro_torch.models import decoding
-from repro_torch.models import transformer as tfm
 from repro_torch.serve import telemetry as telemetry_mod
 from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.guard import RequestOutcome
@@ -56,18 +55,55 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def serving_refusal(cfg) -> Optional[str]:
+    """Why the serving loops (``LLM.stream`` and ``LLM.generate``,
+    ``DecodeEngine``, ``ContinuousBatchingScheduler``) do not serve
+    ``cfg``, or None when they do. They serve one-codebook text decoders:
+    their refill prefills batches of (rows, tokens) prompts with no vision
+    patches and no conditioning, as the reference's loops do (its
+    ``prefill_batched`` asserts there are no patches, and its refill
+    passes no ``cond``)."""
+    what = [w for w, on in (
+        (f"{cfg.num_patches} vision patches", cfg.frontend == "vision"),
+        (f"an {cfg.frontend} frontend", cfg.frontend not in ("none",
+                                                             "vision")),
+        ("cross-attention to a conditioning sequence",
+         bool(cfg.cross_attn_cond)),
+        (f"{cfg.num_codebooks} codebooks", cfg.num_codebooks > 1)) if on]
+    if not what:
+        return None
+    return (f"{cfg.name} has {', '.join(what)}: the serving loops "
+            "(LLM.stream, LLM.generate, DecodeEngine, the scheduler) do not "
+            "serve it, as the reference's do not; serve it through "
+            "serve.engine.make_generate_fn (or make_prefill_step and "
+            "make_serve_step, or models.decoding.prefill(patch_embeds=, "
+            "cond=) and serve_step(cond=))")
+
+
+def check_servable(cfg) -> None:
+    """Raise ``ValueError`` with ``serving_refusal(cfg)`` when there is
+    one."""
+    why = serving_refusal(cfg)
+    if why is not None:
+        raise ValueError(why)
+
+
 def make_serve_step(cfg, plan) -> Callable:
-    """(params, cache, tokens, pos[, block_table]) -> (logits, cache)."""
-    def serve_step(params, cache, tokens, pos, block_table=None):
+    """(params, cache, tokens, pos[, cond, block_table]) -> (logits,
+    cache)."""
+    def serve_step(params, cache, tokens, pos, cond=None, block_table=None):
         return decoding.serve_step(params, cache, tokens, pos, cfg,
-                                   plan=plan, block_table=block_table)
+                                   plan=plan, block_table=block_table,
+                                   cond=cond)
     return serve_step
 
 
 def make_prefill_step(cfg, cache_len: int, plan) -> Callable:
-    """(params, tokens (B, S)) -> (last logits, fresh contiguous cache)."""
-    def prefill_step(params, tokens):
-        return decoding.prefill(params, tokens, cfg, cache_len, plan=plan)
+    """(params, tokens (B, S) or (B, K, S)[, patch_embeds, cond]) -> (last
+    logits, fresh contiguous cache)."""
+    def prefill_step(params, tokens, patch_embeds=None, cond=None):
+        return decoding.prefill(params, tokens, cfg, cache_len, plan=plan,
+                                patch_embeds=patch_embeds, cond=cond)
     return prefill_step
 
 
@@ -78,30 +114,46 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
 def sample_temperature(logits: torch.Tensor, temperature: float = 0.0,
                        generator: Optional[torch.Generator] = None):
     """Greedy (the first argmax) at temperature <= 0, else a categorical
-    draw from softmax(logits / temperature) with ``generator``."""
+    draw from softmax(logits / temperature) with ``generator``, one per
+    row of the last axis ((B, V) -> (B,), (B, K, V) -> (B, K))."""
     if temperature <= 0:
         return sample_greedy(logits)
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    draws = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                              generator=generator)
+    return draws.reshape(logits.shape[:-1])
 
 
 def make_generate_fn(cfg, num_steps: int, temperature: float = 0.0, *,
                      plan) -> Callable:
-    """Prefill, then ``num_steps`` decode steps, for (B, S) prompts of one
-    length (the reference's ``make_generate_fn``, its scan as a loop).
-    Returns generate(params, tokens, generator=None) -> (B, num_steps)."""
-    def generate(params, tokens, generator=None):
-        prompt_len = tokens.shape[-1]
-        logits, cache = decoding.prefill(params, tokens, cfg,
-                                         prompt_len + num_steps, plan=plan)
+    """Prefill, then ``num_steps`` decode steps, for prompts of one length
+    (the reference's ``make_generate_fn``, its scan as an eager loop).
+    Returns generate(params, tokens, generator=None, patch_embeds=None,
+    cond=None): tokens (B, S), or (B, K, S) for K codebooks; a vision
+    config's patches (B, P, d) count into the prompt and cache lengths;
+    ``cond`` (B, T, d) is read by every step of a config with
+    cross-attention. Returns (B, num_steps) tokens, or (B, num_steps, K):
+    at K > 1 each codebook is sampled from the last position's (B, K, Vp)
+    logits and the (B, K, 1) tokens fed back, as the reference's
+    ``make_decode_step`` samples them (its ``make_generate_fn`` indexes
+    the codebook axis there and raises)."""
+    def generate(params, tokens, generator=None, patch_embeds=None,
+                 cond=None):
+        patches = patch_embeds.shape[1] \
+            if cfg.frontend == "vision" and patch_embeds is not None else 0
+        prompt_len = tokens.shape[-1] + patches
+        logits, cache = decoding.prefill(
+            params, tokens, cfg, prompt_len + num_steps, plan=plan,
+            patch_embeds=patch_embeds, cond=cond)
         pos = torch.full((tokens.shape[0],), prompt_len, dtype=torch.long,
                          device=tokens.device)
         out = []
         for _ in range(num_steps):
             nxt = sample_temperature(logits[:, -1], temperature, generator)
             out.append(nxt)
-            logits, cache = decoding.serve_step(params, cache, nxt[:, None],
-                                                pos, cfg, plan=plan)
+            logits, cache = decoding.serve_step(params, cache, nxt[..., None],
+                                                pos, cfg, plan=plan,
+                                                cond=cond)
             pos = pos + 1
         return torch.stack(out, dim=1)
     return generate
@@ -608,7 +660,7 @@ class DecodeEngine:
                 sync_every=8 if sync_every is None else sync_every)
         if plan.rows < 1:
             raise ValueError(f"slots must be >= 1, got {plan.rows}")
-        tfm.check_supported(cfg)
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.plan = plan

@@ -44,7 +44,8 @@ import torch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.eyexam import H100_SXM, DeviceRates
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.engine import DecodeEngine, Request, resolve_device
+from repro_torch.serve.engine import (DecodeEngine, Request, check_servable,
+                                      resolve_device, serving_refusal)
 from repro_torch.serve.guard import GuardConfig
 from repro_torch.serve.replica import ReplicaSet
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
@@ -82,7 +83,11 @@ class LLM:
     the first ``stream`` and the drain engine (built at the first
     ``generate``) its own; both are reused across calls.
     ``decode_graphs`` is read only on the card: False runs the eager
-    decode step there."""
+    decode step there. A config that the serving loops do not serve
+    (vision patches, cross-attention, codebooks: ``engine.check_servable``)
+    still gets its plan and its weights on the device, and ``stream`` and
+    ``generate`` raise ``ValueError`` before any work, naming the entry
+    points that serve it."""
 
     def __init__(self, cfg, params,
                  plan: Optional[plan_lib.ServePlan] = None, *,
@@ -127,15 +132,16 @@ class LLM:
         self.temperature = temperature
         self.decode_graphs = decode_graphs
         self.params = tfm.compute_copy(tfm.to_device(params, self.device))
+        serve = serving_refusal(cfg) is None
         self._scheduler = ContinuousBatchingScheduler(
             cfg, self.params, plan, eos_id=eos_id, temperature=temperature,
             device=self.device, graphs=decode_graphs, guard=guard,
-            telemetry=self._telemetry) if replicas == 1 else None
+            telemetry=self._telemetry) if serve and replicas == 1 else None
         self._fleet = ReplicaSet(
             cfg, self.params, plan, replicas=replicas, eos_id=eos_id,
             temperature=temperature, guard=guard, telemetry=self._telemetry,
             device=self.device, graphs=decode_graphs) \
-            if replicas > 1 else None
+            if serve and replicas > 1 else None
         self._engine: Optional[DecodeEngine] = None
         self._last_run = None                # engine behind the last call
 
@@ -181,6 +187,7 @@ class LLM:
         ``DecodeEngine`` (built at the first call, then reused); returns the
         finished requests ordered by rid, ``r.out`` holding each one's
         tokens and ``r.outcome`` its ``RequestOutcome``."""
+        check_servable(self.cfg)
         reqs = self._normalize(requests, Request)
         if self._engine is None:
             self._engine = DecodeEngine(
@@ -203,6 +210,7 @@ class LLM:
         own, falling back to the constructor's. ``chaos`` takes a
         ``serve.chaos.ChaosConfig`` for deterministic fault injection or,
         with ``replicas`` >= 2, a ``ReplicaChaosConfig``."""
+        check_servable(self.cfg)
         on_token = on_token if on_token is not None else self.on_token
         on_outcome = on_outcome if on_outcome is not None \
             else self.on_outcome

@@ -72,8 +72,8 @@ from repro_torch.serve import chaos as chaos_mod
 from repro_torch.serve import guard as guard_mod
 from repro_torch.serve import telemetry as telemetry_mod
 from repro_torch.serve.engine import (DecodeLoop, build_tier_batch,
-                                      refill_rows, resolve_device,
-                                      resume_suffix)
+                                      check_servable, refill_rows,
+                                      resolve_device, resume_suffix)
 from repro_torch.serve.graphs import StepGraph
 from repro_torch.serve.kvcache import SlotAllocator
 from repro_torch.serve.paging import PageAllocator
@@ -145,7 +145,7 @@ class ContinuousBatchingScheduler:
                  telemetry: Optional[telemetry_mod.Telemetry] = None,
                  slot: int = -1):
         check_plan(plan)
-        tfm.check_supported(cfg)
+        check_servable(cfg)
         self.cfg = cfg
         self.params = params
         self.plan = plan

@@ -403,6 +403,28 @@ def test_bcsc_mlp_packed_padded_counts(ref, M):
                                atol=2e-3 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("M", [4, 16])
+def test_bcsc_mlp_packed_ungated_gelu(ref, M):
+    """The ungated MLP (musicgen: tanh-gelu(x · w1) · w2, no second up
+    projection) against the Pallas kernel in interpret mode, at the decode
+    rows of a musicgen pass (4) and a short prefill (16). The hidden is
+    rounded to bf16 in both: 2e-3 of max |out|, as for the gated MLP."""
+    rng = np.random.default_rng(20 + M)
+    w1, p1 = _packed_pair(ref, 64, 256, 0.75, seed=M)
+    w2, p2 = _packed_pair(ref, 256, 64, 0.75, seed=M + 1)
+    x = _bf16(rng, (M, 64))
+    jnp = ref.jnp
+    want = np.asarray(ref.ops.bcsc_mlp_packed(
+        jnp.asarray(x, jnp.bfloat16), w1, None, w2, d_ff=256, n_out=64,
+        activation="gelu"))
+    got = pops.bcsc_mlp_packed(torch.from_numpy(x).bfloat16(), p1, None, p2,
+                               d_ff=256, n_out=64, plan=_plan(ref),
+                               activation="gelu")
+    assert got.shape == (M, 64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=2e-3 * np.abs(want).max())
+
+
 # ------------------------------------------------------- the GEMM's walk
 def _pack_with_empty_cols(K, N, sparsity, seed, empty, device="cpu"):
     """A port pack whose block-columns ``empty`` hold no block at all (not
@@ -967,6 +989,23 @@ def test_sliding_window_plain_matches_pallas_and_oracle(ref, S, window,
                                    atol=2e-2 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("S,window", [(40, 40), (100, 100), (100, 33)])
+def test_sliding_window_plain_matches_pallas_at_head_dim_64(ref, S, window):
+    """Head dim 64 with one query head per KV head (musicgen-large: 32 /
+    32 heads of 64), causal and in window mode, against the Pallas band
+    kernel in interpret mode and the exact oracle (both keep p in fp32):
+    2e-2 of max |out|, as at head dim 16."""
+    jnp = ref.jnp
+    q, k, v = _swa_case(S, KV=2, R=1, D=64, seed=S + window)
+    args = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    got = _port_swa(q, k, v, window, 0.0).numpy()
+    for want in (ref.ops.sliding_window_attention(*args, window=window),
+                 ref.oracles.sliding_window_attention_ref(*args, window)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2e-2 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("R", [1, 2, 5, 6, 8, 10])
 @pytest.mark.parametrize("S", [1, 70, 300])
 def test_sliding_window_row_map_covers_each_row_once(R, S):
@@ -1479,3 +1518,46 @@ def test_cuda_bcsc_gemv_edges(cuda, case, M):
                 got[:M], want[:M], rtol=0,
                 atol=1e-4 * float(want[:M].abs().max()))
             assert torch.equal(got, again) and torch.equal(got, other)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,M", [("musicgen-large", 4),
+                                    ("musicgen-large", 64),
+                                    ("internvl2-26b", 4)])
+def test_cuda_bcsc_mlp_at_frontend_widths(cuda, arch, M):
+    """The fused MLP at the widths of the frontend models' MLPs, packed at
+    0.75: musicgen-large's ungated tanh-gelu 2048 -> 8192 -> 2048 at its
+    decode rows (4) and a prefill on the fused route, internvl2-26b's
+    gated silu 6144 -> 16384 -> 6144 at 4 rows; 2e-3 of max |out|."""
+    cfg = get_config(arch)
+    d, ff = cfg.d_model, cfg.d_ff
+    names = ((d, ff, 1), (d, ff, 2), (ff, d, 3)) if cfg.mlp_gated \
+        else ((d, ff, 1), (ff, d, 3))
+    packs = [_port_pack(K, N, 0.75, s, cuda) for K, N, s in names]
+    if not cfg.mlp_gated:
+        packs.insert(1, None)
+    x = torch.randn(M, d, device=cuda).bfloat16()
+    act = "silu" if cfg.mlp_act == "silu" else "gelu"
+    kw = dict(d_ff=ff, n_out=d, plan=_plan(), activation=act)
+    got = pops.bcsc_mlp_packed(x, *packs, **kw)
+    want = pops.bcsc_mlp_packed(x, *packs, impl="plain", **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,KV,D", [(1024, 32, 32, 64),
+                                      (300, 48, 8, 128)])
+def test_cuda_sliding_window_at_frontend_heads(cuda, S, H, KV, D):
+    """Causal prefill attention at musicgen-large's heads (32 / 32 of 64)
+    and internvl2-26b's (48 / 8 of 128), against the plain version: 1e-3
+    of max |out|."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(_bf16(rng, (1, S, n, D))).bfloat16()
+               .to(cuda) for n in (H, KV, KV))
+    got = pops.sliding_window_attention(q, k, v, window=S)
+    want = pops.sliding_window_attention(q, k, v, window=S, impl="plain")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * float(want.abs().max()))

@@ -22,8 +22,11 @@ reference.
 * ``ArchConfig.param_count``, ``kvcache.cache_bytes``,
   ``paged_cache_bytes``, ``max_slots`` and ``report`` (with a pager after
   the same allocations) equal the reference's;
-* the architectures still to port (frontends, cross-attention, codebooks)
-  are refused with ROADMAP item 8 named;
+* the frontend architectures (internvl2-26b, musicgen-large) get the
+  reference's plans, and the port's serving loops (``LLM.stream`` and
+  ``generate``, ``DecodeEngine``, the scheduler) refuse them with a
+  ``ValueError`` naming the entry points that serve them, as the
+  reference's loops cannot serve them;
 * the plan-less front door: ``LLM(cfg, params)`` resolves the reference's
   default plan and serves a short stream with the reference's tokens (or a
   parting at a reference near-tie, ``torch_dense_parity.compare_streams``);
@@ -63,9 +66,11 @@ REDUCED = "qwen2.5-3b-reduced"
 V5E = eyexam.TPU_V5E
 RECURRENT = ("recurrentgemma-2b", "mamba2-130m")
 MOE = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+FRONTENDS = ("internvl2-26b", "musicgen-large")
 CONFIGS = ("qwen2.5-3b", "gemma2-2b", "mistral-nemo-12b",
-           "gemma3-12b") + RECURRENT + MOE
-REDUCED_ALL = (REDUCED,) + tuple(a + "-reduced" for a in RECURRENT + MOE)
+           "gemma3-12b") + RECURRENT + MOE + FRONTENDS
+REDUCED_ALL = (REDUCED,) + tuple(a + "-reduced"
+                                 for a in RECURRENT + MOE + FRONTENDS)
 
 
 # ------------------------------------------------------------------- mesh
@@ -356,16 +361,53 @@ def test_param_count_and_cache_bytes_match_reference(arch):
             rkv.cache_bytes(rcfg, rows, cache_len)
 
 
-@pytest.mark.parametrize("arch", ["internvl2-26b", "musicgen-large"])
-def test_remaining_archs_are_refused(arch):
-    """Frontends, cross-attention and codebooks are not served yet: ``LLM``
-    raises, naming ROADMAP item 8, on the reduced and the full config (the
-    reference's fields in the port's schema)."""
-    from repro_torch.configs.base import ArchConfig
+@pytest.mark.parametrize("entry", ["stream", "generate", "DecodeEngine",
+                                   "scheduler"])
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_frontend_archs_are_refused_by_the_serving_loops(arch, entry):
+    """Vision patches, cross-attention and codebooks are served through
+    ``make_generate_fn`` / ``prefill`` / ``serve_step``, not by the serving
+    loops, whose refill prefills 2-D token batches with no patches or
+    conditioning (the reference's cannot serve them either): each raises a
+    ``ValueError`` naming those entry points, on the reduced and the full
+    config, before any work. ``LLM`` itself still builds its plan."""
+    from repro_torch.serve.engine import DecodeEngine
+    from repro_torch.serve.scheduler import ContinuousBatchingScheduler
     for name in (arch + "-reduced", arch):
-        cfg = ArchConfig(**dataclasses.asdict(rget_config(name)))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            LLM(cfg, {}, device="cpu")
+        cfg = get_config(name)
+        plan = pplan.plan_for_engine(cfg, slots=2, cache_len=64)
+        with pytest.raises(ValueError, match="make_generate_fn") as err:
+            if entry in ("stream", "generate"):
+                llm = LLM(cfg, {}, device="cpu")
+                assert llm.plan.rows >= 1
+                getattr(llm, entry)([([1, 2, 3], 2)])
+            elif entry == "DecodeEngine":
+                DecodeEngine(cfg, {}, plan, device="cpu")
+            else:
+                ContinuousBatchingScheduler(cfg, {}, plan, device="cpu")
+        assert cfg.name in str(err.value)
+
+
+@pytest.mark.parametrize("arch", FRONTENDS + tuple(a + "-reduced"
+                                                for a in FRONTENDS))
+def test_frontend_plans_match_reference(arch):
+    """``plan_for_scheduler``, ``plan_for_engine`` and ``plan_serve`` for
+    internvl2-26b and musicgen-large at the reference's rates:
+    ``to_json()`` and ``explain()`` equal, field for field (every layer
+    global, so the scheduler's plan is paged)."""
+    cfg, rcfg = get_config(arch), rget_config(arch)
+    kw = dict(hbm_budget_bytes=8 << 30, expected_batch=4,
+              expected_len_dist={"mean": 256, "max": 1024})
+    for mine, ref in (
+            (pplan.plan_for_scheduler(cfg, rows=4, cache_len=4096, rates=V5E),
+             rplan.plan_for_scheduler(rcfg, rows=4, cache_len=4096)),
+            (pplan.plan_for_engine(cfg, slots=4, cache_len=4096, rates=V5E),
+             rplan.plan_for_engine(rcfg, slots=4, cache_len=4096)),
+            (pplan.plan_serve(cfg, rates=V5E, **kw),
+             rplan.plan_serve(rcfg, **kw))):
+        assert mine.to_json() == ref.to_json()
+        assert mine.explain().splitlines() == ref.explain().splitlines()
+    assert pplan.plan_for_scheduler(cfg, rows=4, cache_len=4096).paged
 
 
 # ------------------------------------------------------------- kvcache
