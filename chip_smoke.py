@@ -43,7 +43,14 @@ Phases, each of which must pass:
    (M 1024, w1 and w2) against ``torch.matmul``, the fused MLP at
    internvl2-26b's (silu, 6144 -> 16384 -> 6144) at M 4, and the sliding
    window causal at musicgen's 32 / 32 heads of 64 over 4096 positions
-   against SDPA with a boolean causal mask.
+   against SDPA with a boolean causal mask. The training kernels
+   (``phase_kernels_backward``, ``BACKWARD_SHAPES``): the sliding window's
+   log-sum-exp against the plain one, its output the same bits with and
+   without it (both timed), and the flash backward kernel's dq, dk, dv
+   against its plain version at qwen2.5-3b's causal, gemma2-2b's local
+   (softcap, D 256), llama4's chunked and musicgen's (D 64) shapes, timed
+   beside the plain version, its bound and SDPA's backward where SDPA
+   computes the same function.
    Each kernel's launch configuration (paged attention's split, the
    sliding window's blocks, stages and shared memory, the fused MLP's
    grid, rings and phase-2 split, the GEMV's grid, split and rings,
@@ -214,7 +221,20 @@ Phases, each of which must pass:
     step, paged attention, the GEMV and ``rs_matmul`` never), prefill and
     decode tokens/s (eager), and one decode step's device ms (captured as
     a CUDA graph) against its bound;
-13. report: prefill and decode tokens/s, the wall time of each phase, one
+13. train qwen2.5-3b (``phase_train``), after the frontends were freed, at
+    published width and depth (36 layers, 3.09e9 fp32 parameters and
+    their AdamW state on the card): one forward and backward with the
+    kernels against one with ``impl="plain"`` attention (loss within
+    1e-3, global grad norm within 1e-2), then ``TRAIN_WARMUP`` +
+    ``TRAIN_STEPS`` steps of ``train.loop.make_train_step`` (remat
+    ``TRAIN_REMAT``, the reference's AdamW defaults) on one repeated
+    synthetic batch of ``TRAIN_SEQ`` tokens: the loss finite and falling,
+    tokens/s against the step's bound, the peaks of device memory; the
+    timed steps launch the sliding window twice (the forward and its
+    recomputation) and the flash backward once per layer per step, no
+    other kernel and never a plain version; then one step at remat
+    "none" and its peak;
+14. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -228,6 +248,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -371,6 +392,28 @@ MUSICGEN_GEMM_M = 1024
 MUSICGEN_SWA_S = 4096
 # the serve phases' device; a CPU rehearsal of their control flow sets
 # DEVICE = "cpu", the reduced archs and smaller gemma2 geometry
+# the training phase (phase_train): qwen2.5-3b at published width and depth,
+# one synthetic sequence of TRAIN_SEQ tokens a step (batch 1), repeated;
+# TRAIN_WARMUP + TRAIN_STEPS AdamW steps at the reference's defaults, remat
+# TRAIN_REMAT; the kernel phase's backward shapes (B, S, H, KV, D, window,
+# chunk, softcap): qwen2.5-3b causal, gemma2-2b local, llama4's chunks,
+# musicgen's heads of 64
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SEQ = 2048
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+TRAIN_REMAT = "full"
+# phase_train's attention gradients, kernels vs plain, per layer and leaf:
+# normwise and elementwise of max. On an H100 the worst of both is qwen's
+# bk of layer 0 (1.5e-2, 2.2e-2): the softmax is blind to a key bias but
+# for RoPE's rotation, so its gradient is a sum that nearly cancels.
+ATTN_GRAD_TOL = (5e-2, 1e-1)
+BACKWARD_SHAPES = {
+    "qwen2.5-3b causal": (1, 2048, 16, 2, 128, 2048, 0, 0.0),
+    "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 0, 50.0),
+    "llama4 chunked": (1, 16384, 40, 8, 128, 16384, 8192, 0.0),
+    "musicgen-large causal": (1, 4096, 32, 32, 64, 4096, 0, 0.0),
+}
 DEVICE = "cuda"
 BLOCK_BYTES = 16 * 16 * 2 + 4      # one packed bf16 block and its row id
 
@@ -388,6 +431,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "src/repro/kernels/local_attention.py:82"),
     ("rs_matmul", "src/repro_torch/kernels/csrc/rs_matmul.cu",
      "src/repro/kernels/rs_matmul.py:52"),
+    # no TPU kernel: the backward of the reference's flash custom VJP
+    ("flash_backward", "src/repro_torch/kernels/csrc/flash_backward.cu",
+     "src/repro/models/flash.py:132"),
 )
 
 
@@ -1301,6 +1347,305 @@ def phase_kernels_dense(flush, judge, records):
             records["rs_matmul"] = rec
 
 
+def _sdpa_backward_ms(q, k, v, dout, window: int, chunk: int, flush):
+    """ms of ``scaled_dot_product_attention``'s backward alone (the
+    forward's graph kept) for the same attention as the flash backward:
+    causal through ``is_causal`` and ``enable_gqa``; chunk mode through a
+    block-diagonal causal boolean mask on K and V repeated to the query
+    heads inside the graph (the same mask as ``_swa_chunks``; the repeat's
+    backward sums dk and dv back to the KV heads)."""
+    import torch
+    import torch.nn.functional as F
+    S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    if window < S:
+        raise ValueError("SDPA has no sliding-window mode here; the "
+                         "backward shapes give a window only with a softcap")
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    if chunk:
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] // chunk == pos[:, None] // chunk)
+        o = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(H // KV, 1),
+            vt.repeat_interleave(H // KV, 1), attn_mask=mask)
+    else:
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+    do = dout.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(
+        o, (qt, kt, vt), do, retain_graph=True), flush)
+
+
+def phase_kernels_backward(flush, judge, records):
+    """The flash backward kernel and the forward's log-sum-exp against their
+    plain versions at ``BACKWARD_SHAPES``: the lse (1e-5 of max |lse|), the
+    forward's output with and without the lse pointer (the same bits, and
+    both timed), dq, dk and dv as a share of each one's max |value|; the
+    backward's ms per launch, plain ms, bound (the band's 10·D flops a pair
+    and head against q, k, v, out16, dout and lse read and fp32 dq, dk, dv
+    written once) and, without a softcap, SDPA's backward alone (the
+    forward's graph kept; ``_sdpa_backward_ms``). Records the qwen2.5-3b
+    line as ``records["flash_backward"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_backward as fb
+    from repro_torch.kernels import local_attention as swa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    log("kernels: the flash backward and the forward's log-sum-exp")
+    for tag, (B, S, H, KV, D, window, chunk, cap) in BACKWARD_SHAPES.items():
+        q, k, v = (torch.randn(B, S, n, D, generator=gen,
+                               device=dev).bfloat16() for n in (H, KV, KV))
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        kw = dict(window=window, chunk=chunk, softcap=cap)
+        out, lse = swa.sliding_window_attention_cuda(q, k, v, return_lse=True,
+                                                     **kw)
+        _, want_lse = swa.sliding_window_attention_plain(
+            q, k, v, return_lse=True, **kw)
+        judge(f"log-sum-exp[{tag}]", errors(lse, want_lse)[1], 1e-5,
+              "relative to max |lse|: ex2 and log against exp and log")
+        judge.check(f"sliding_window_attention[{tag}]: the same bits with "
+                    "and without the lse", bool(torch.equal(
+                        out, swa.sliding_window_attention_cuda(q, k, v,
+                                                               **kw))),
+                    "the lse write touches nothing else")
+        del want_lse
+        fwd_ms = time_ms(lambda: swa.sliding_window_attention_cuda(
+            q, k, v, **kw), flush)
+        fwd_lse_ms = time_ms(lambda: swa.sliding_window_attention_cuda(
+            q, k, v, return_lse=True, **kw), flush)
+        out16 = out.bfloat16()
+        del out
+        args = (q, k, v, out16, lse, dout)
+
+        def cu():
+            return fb.flash_backward_cuda(*args, **kw)
+
+        def plain():
+            return fb.flash_backward_plain(*args, **kw)
+        got, want = cu(), plain()
+        worst = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = errors(g, w)[1]
+            worst = max(worst, errors(g, w)[0])
+            judge(f"flash_backward[{tag}] {name}", rel, 2e-3,
+                  "relative to max |value|: ex2 and tanhf move a bf16 "
+                  "rounding of p or ds by one step, fp32 sums in another "
+                  "order")
+        judge.check(f"flash_backward[{tag}]: the same bits on a second run",
+                    all(torch.equal(a, b) for a, b in zip(got, cu())),
+                    "no atomics")
+        del got, want
+        lc = fb.launch_config(B, S, H, KV, D)
+        flops = fb.band_flops(S, window, chunk, H, D, B)
+        n_bytes = 2 * (3 * B * S * H * D + 2 * B * S * KV * D) \
+            + 4 * B * S * H + 4 * (B * S * H * D + 2 * B * S * KV * D)
+        rec = dict(max_abs_err=worst, ms=time_ms(cu, flush),
+                   plain_ms=time_ms(plain, flush, reps=3),
+                   bound=bound(n_bytes, flops), library_ms=None,
+                   shape=f"{tag}: B {B}, S {S}, H {H}, KV {KV}, D {D}, "
+                         f"window {window}, chunk {chunk}, softcap {cap:g}; "
+                         f"{flops:.4g} flops (10·D a pair and head)")
+        if cap == 0.0:
+            rec["library_ms"] = _sdpa_backward_ms(q, k, v, dout, window,
+                                                  chunk, flush)
+        ms, by = rec["bound"]
+        lib = "none (softcap)" if rec["library_ms"] is None \
+            else f"{rec['library_ms']:.4f} ms"
+        log(f"  flash_backward {rec['shape']}: {rec['ms']:.4f} ms "
+            f"({lc['blocks']} blocks of {lc['threads']} threads per kernel, "
+            f"{lc['parts']} column part(s), {lc['smem_bytes']} bytes of "
+            f"shared memory), plain {rec['plain_ms']:.4f} ms, SDPA backward "
+            f"{lib}, bound {ms:.4f} ms ({by}); forward {fwd_ms:.4f} ms "
+            f"without the lse, {fwd_lse_ms:.4f} ms with it")
+        if tag == "qwen2.5-3b causal":
+            records["flash_backward"] = rec
+        del q, k, v, dout, out16, lse, args
+
+
+def _train_flops(cfg, tokens: int) -> float:
+    """A train step's least operations: 6 x params x tokens, plus the
+    attention band's 12·D flops a (query, key) pair and head (QKᵀ and PV
+    forward; dP, dV, dQ and dK backward) in every attention layer."""
+    from repro_torch.kernels import flash_backward as fb
+    band = fb.band_flops(tokens, tokens, 0, cfg.num_heads, cfg.head_dim) \
+        // 10 * 12
+    return 6.0 * cfg.param_count() * tokens + band * cfg.num_layers
+
+
+def _peak_gib() -> float:
+    """The peak of device memory allocated since the last ``_reset_peak``,
+    in GiB (nan off the card)."""
+    import torch
+    if DEVICE != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _grad_norm(params, batch, cfg, impl):
+    """The loss, the global gradient norm and the attention leaves'
+    gradients (``blocks/<slot>/attn/<leaf>``, stacked over the layers) of
+    one forward and backward (remat ``TRAIN_REMAT``), with no update."""
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    loss, _, grads = train_loop.value_and_grad(
+        train_loop.make_loss_fn(cfg, TRAIN_REMAT, impl=impl), params, batch)
+    attn = {f"{slot}/{name}": g for slot, block in grads["blocks"].items()
+            for name, g in block["attn"].items()}
+    return float(loss), float(opt_lib.global_norm(grads)), attn
+
+
+def _attn_grad_errors(got, want):
+    """Over every layer of every attention leaf: the worst normwise error
+    |got - want| / |want| and the worst elementwise error as a share of
+    the layer's max |want|, each with its leaf and layer."""
+    fro, top = (0.0, ""), (0.0, "")
+    for name, g in got.items():
+        for layer, (a, b) in enumerate(zip(g, want[name])):
+            d = a - b
+            where = f"{name}[{layer}]"
+            fro = max(fro, (float(d.norm() / b.norm()), where))
+            top = max(top, (float(d.abs().max() / b.abs().max()), where))
+    return fro, top
+
+
+def phase_train(judge):
+    """qwen2.5-3b at published width and depth trained for ``TRAIN_WARMUP``
+    + ``TRAIN_STEPS`` AdamW steps (``train.loop.make_train_step``, the
+    reference's optimizer defaults, remat ``TRAIN_REMAT``) on one repeated
+    synthetic batch of ``TRAIN_SEQ`` tokens (``data.pipeline``): the loss
+    finite and falling, tokens/s over the timed steps against the step's
+    bound, load and step peaks of device memory. Before the steps, one
+    forward and backward with the kernels and one with ``impl="plain"``
+    attention from the same params: the loss within 1e-3 relative, the
+    global gradient norm within 1e-2, and each layer of each attention
+    leaf's gradient within ``ATTN_GRAD_TOL`` (normwise, and elementwise as
+    a share of its max). The timed steps are the main path:
+    each attention layer launches the forward kernel twice a step (the
+    forward, and its recomputation under the remat) and the backward
+    kernel once; the plain versions never run. Last, one step at remat
+    "none" and its peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.kernels import flash_backward as fb
+    from repro_torch.kernels import local_attention as swa
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    _free()
+    cfg = get_config(TRAIN_ARCH)
+    log(f"train {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_count():.4g} "
+        f"parameters; batch 1 x {TRAIN_SEQ} tokens, remat {TRAIN_REMAT}")
+    _reset_peak()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params, opt = train_loop.init_train_state(cfg, gen, DEVICE)
+    sync()
+    log("  " + _memory("params and AdamW state (fp32), load peak"))
+    batch = data_lib.to_torch(data_lib.synth_batch(data_lib.DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=1, vocab_size=cfg.vocab_size,
+        seed=SEED), 0), DEVICE)
+
+    loss_k, norm_k, attn_k = _grad_norm(params, batch, cfg, None)
+    loss_p, norm_p, attn_p = _grad_norm(params, batch, cfg, "plain")
+    judge("train: loss, kernels vs plain attention",
+          abs(loss_k - loss_p) / abs(loss_p), 1e-3,
+          "relative; bf16 roundings of p and of the attention output")
+    judge("train: global grad norm, kernels vs plain attention",
+          abs(norm_k - norm_p) / norm_p, 1e-2,
+          "relative; the backward kernel's bf16 roundings of p and ds")
+    (fro, fro_at), (top, top_at) = _attn_grad_errors(attn_k, attn_p)
+    del attn_k, attn_p
+    judge(f"train: attention gradients, kernels vs plain attention, worst "
+          f"layer and leaf normwise ({fro_at})", fro, ATTN_GRAD_TOL[0],
+          "|kernels - plain| / |plain| per layer of every attn leaf: bf16 "
+          "roundings of p and ds the layers below carry forward")
+    judge(f"train: attention gradients, kernels vs plain attention, worst "
+          f"layer and leaf elementwise ({top_at})", top, ATTN_GRAD_TOL[1],
+          "relative to the layer's max |value|: the same roundings")
+    log(f"  kernels: loss {loss_k:.6f}, grad norm {norm_k:.6f}; plain "
+        f"attention: loss {loss_p:.6f}, grad norm {norm_p:.6f}")
+
+    step = train_loop.make_train_step(cfg, opt_lib.OptimizerConfig(),
+                                      remat_policy=TRAIN_REMAT)
+    plain_calls = {"forward": 0, "backward": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            plain_calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+    swa_plain, fb_plain = (swa.sliding_window_attention_plain,
+                           fb.flash_backward_plain)
+    losses, times = [], []
+    _reset_peak()
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:      # the main path: the timed steps
+            ops.reset_launches()
+            swa.sliding_window_attention_plain = counted("forward", swa_plain)
+            fb.flash_backward_plain = counted("backward", fb_plain)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        log(f"  step {i}: loss {losses[-1]:.6f}, loss_total "
+            f"{float(m['loss_total']):.6f}, grad_norm "
+            f"{float(m['grad_norm']):.6f}, lr {float(m['lr']):.4e}, "
+            f"{1e3 * times[-1]:.1f} ms")
+    counts = ops.launch_counts()
+    swa.sliding_window_attention_plain = swa_plain
+    fb.flash_backward_plain = fb_plain
+    peak = _peak_gib()
+    judge.check("train: loss finite", all(map(math.isfinite, losses)),
+                f"losses {[round(x, 4) for x in losses]}")
+    judge.check("train: the loss falls on the repeated batch",
+                losses[-1] < losses[0],
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    layers = cfg.num_layers
+    fwd_per = 2 if TRAIN_REMAT == "full" else 1
+    want = {name: 0 for name in counts}
+    want["sliding_window_attention"] = fwd_per * layers * TRAIN_STEPS
+    want["flash_backward"] = layers * TRAIN_STEPS
+    judge.check("train: launches", counts == want,
+                f"{counts} (want the forward {fwd_per} and the backward 1 "
+                f"per layer per step, nothing else)")
+    judge.check("train: the plain versions never ran",
+                plain_calls == {"forward": 0, "backward": 0},
+                f"{plain_calls}")
+    step_s = sum(times[TRAIN_WARMUP:]) / TRAIN_STEPS
+    flops = _train_flops(cfg, TRAIN_SEQ)
+    bound_s = flops / BF16_FLOP_PER_S
+    rate = TRAIN_SEQ / step_s
+    log(f"  {TRAIN_STEPS} timed steps: {1e3 * step_s:.1f} ms a step, "
+        f"{rate:.1f} tokens/s; bound {1e3 * bound_s:.2f} ms "
+        f"({flops:.4g} flops at {BF16_FLOP_PER_S:.4g} FLOP/s: "
+        f"{bound_s / step_s:.3f} of it); step peak {peak:.2f} GiB "
+        f"(remat {TRAIN_REMAT})")
+
+    step_none = train_loop.make_train_step(cfg, opt_lib.OptimizerConfig(),
+                                           remat_policy="none")
+    _reset_peak()
+    params, opt, m = step_none(params, opt, batch)
+    sync()
+    peak_none = _peak_gib()
+    judge.check("train: a step at remat none", math.isfinite(
+        float(m["loss"])), f"loss {float(m['loss']):.6f}")
+    log(f"  step peaks: remat {TRAIN_REMAT} {peak:.2f} GiB, remat none "
+        f"{peak_none:.2f} GiB")
+    lines = [f"train {cfg.name} (batch 1 x {TRAIN_SEQ}, remat "
+             f"{TRAIN_REMAT}): {rate:.1f} tokens/s, {1e3 * step_s:.1f} ms a "
+             f"step against a {1e3 * bound_s:.2f} ms bound, peak {peak:.2f} "
+             f"GiB (remat none {peak_none:.2f} GiB), loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}"]
+    del params, opt, batch, step, step_none
+    return counts, lines
+
+
 def phase_kernels_frontends(flush, judge):
     """The three kernels of the frontend models' path at their shapes,
     each against its plain version (the tolerances of the other models'
@@ -1499,13 +1844,13 @@ def _layer_errors(llm, judge, lengths=(37, 64), tier=64):
             a = {impl: dec._attn_prefill(p["attn"], h, kind, pos, cfg,
                                          cache_len, lens, impl=impl)[0]
                  for impl in both}
-            x2 = dec._residual(x_p, a["plain"], p, "post_norm", cfg)
+            x2 = tfm.residual(x_p, a["plain"], p, "post_norm", cfg)
             h2 = rms_norm(x2, p["pre_norm_mlp"], eps)
             m = {impl: layers.mlp(p["mlp"], h2, cfg, plan, impl=impl)
                  for impl in both}
             x_k, _ = dec._block_prefill(p, x_k, kind, pos, cfg, cache_len,
                                         lens, None, None, plan, None)
-            x_p = dec._residual(x2, m["plain"], p, "post_norm_mlp", cfg)
+            x_p = tfm.residual(x2, m["plain"], p, "post_norm_mlp", cfg)
             pre.append((kind, rel(a[None], a["plain"]),
                         rel(m[None], m["plain"]), rel(x_k, x_p)))
     # each path's logits at the last real positions, with and without the
@@ -1551,11 +1896,11 @@ def _layer_errors(llm, judge, lengths=(37, 64), tier=64):
             h = rms_norm(x_p, p["pre_norm"], eps)
             a = {impl: dec._attn_decode(p["attn"], h, kind, entry, posv, cfg,
                                         bt, impl) for impl in both}
-            x2 = dec._residual(x_p, a["plain"], p, "post_norm", cfg)
+            x2 = tfm.residual(x_p, a["plain"], p, "post_norm", cfg)
             h2 = rms_norm(x2, p["pre_norm_mlp"], eps)
             m = {impl: layers.mlp(p["mlp"], h2, cfg, plan, impl=impl)
                  for impl in both}
-            x_p = dec._residual(x2, m["plain"], p, "post_norm_mlp", cfg)
+            x_p = tfm.residual(x2, m["plain"], p, "post_norm_mlp", cfg)
             dec_rows.append((rel(a[None], a["plain"], one),
                              rel(m[None], m["plain"], one),
                              rel(x_k, x_p, one)))
@@ -3758,6 +4103,8 @@ def main() -> int:
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
         timed("kernels (frontend widths)", phase_kernels_frontends, flush,
               judge)
+        timed("kernels (flash backward)", phase_kernels_backward, flush,
+              judge, records)
         del flush
         launches, rates, llm = timed("serve qwen2.5-3b", phase_serve, judge)
         counts, more = timed("serve qwen2.5-3b guarded", phase_serve_guarded,
@@ -3785,7 +4132,8 @@ def main() -> int:
                              phase_serve_recurrent),
                             ("serve mixtral-8x7b", phase_serve_moe),
                             ("serve musicgen-large + internvl2-26b",
-                             phase_serve_frontends)):
+                             phase_serve_frontends),
+                            ("train qwen2.5-3b", phase_train)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}
@@ -3803,9 +4151,11 @@ def main() -> int:
     for name, source, replaces in KERNELS:
         rec = records[name]
         ms, by = rec["bound"]
+        lib = "none" if rec["library_ms"] is None \
+            else f"{rec['library_ms']:.4f} ms"
         log(f"{name} ({rec['shape']}): {rec['ms']:.4f} ms per launch, bound "
             f"{ms:.4f} ms ({by}), plain {rec['plain_ms']:.4f} ms, library "
-            f"{rec['library_ms']:.4f} ms, {launches[name]} launches")
+            f"{lib}, {launches[name]} launches")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -414,17 +414,22 @@ def main() -> int:
                 fn = getattr(libs[(key, "swa")] if key == "parent"
                              else libs[("swa", "tree")],
                              "repro_sliding_window_attention")
-                # a source from before the chunk mode takes no chunk
-                chunked = "int window, int chunk" in open(path).read()
-                fn.argtypes = _build.SIGNATURES[
-                    "repro_sliding_window_attention"][:11 if chunked else 10] \
-                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                # a source from before the chunk mode takes no chunk, one
+                # from before the lse output no lse pointer (null: unwritten)
+                text = open(path).read()
+                chunked = "int window, int chunk" in text
+                with_lse = "void* lse" in text
+                P, I = ctypes.c_void_p, ctypes.c_int
+                fn.argtypes = [P] * (5 if with_lse else 4) \
+                    + [I] * (7 if chunked else 6) \
+                    + [ctypes.c_float, ctypes.c_float, P]
                 fn.restype = ctypes.c_int
 
-                def call(fn=fn, chunk=(0,) if chunked else ()):
+                def call(fn=fn, chunk=(0,) if chunked else (),
+                         lse=(None,) if with_lse else ()):
                     _build.check(fn(
                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), B, S, H, KV, D, window, *chunk,
+                        out.data_ptr(), *lse, B, S, H, KV, D, window, *chunk,
                         swa._score_mult(D, cap), cap, _build.stream_of(q)),
                         "sliding_window_attention")
                 row[name] = timed(call)

@@ -19,7 +19,11 @@ plan resolved by the reference (``plan.as_dict()``) loads here through
 differ on purpose:
 
 * the plan is an argument of whatever reads it (``layers.mlp``,
-  ``kernels.ops``, the scheduler), never a context variable;
+  ``kernels.ops``, the scheduler); the reference's context variable
+  (:func:`activate`, :func:`active_plan`) is read only where a caller
+  passes none, and the route lookups (:func:`route_matmul`,
+  :func:`route_mlp`, :func:`tile_m`, ...) take the given plan first,
+  then the active one, then the ``core.dataflow`` rules;
 * the MLP roofline's seconds divide by a named device's rates (``rates=``,
   ``core.eyexam.H100_SXM`` by default; ``TPU_V5E`` gives the reference's);
 * a mesh other than one device raises ``NotImplementedError``: the mesh
@@ -34,6 +38,8 @@ CLI::
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import json
 from typing import Dict, Optional, Tuple
@@ -221,6 +227,12 @@ class ServePlan:
                 for x in kw["decisions"])
         return cls(**kw)
 
+    # ------------------------------------------------------------- context
+    def activate(self):
+        """Context manager making this plan the active dispatch source
+        (see :func:`activate`)."""
+        return activate(self)
+
     # -------------------------------------------------------------- report
     def explain(self, drift=None) -> str:
         """Render the per-decision rationale, the Eyexam-style report: every
@@ -263,6 +275,74 @@ class ServePlan:
                 f"{len(drift.findings)} compared over {drift.windows} "
                 "measured window(s)")
         return "\n".join(lines)
+
+
+# ----------------------------------------------------------- active context
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("serve_plan",
+                                                         default=None)
+
+
+def active_plan() -> Optional[ServePlan]:
+    """The plan made active by :func:`activate`, or None."""
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def activate(plan: ServePlan):
+    """Make ``plan`` the dispatch source of calls inside the block that are
+    given no plan."""
+    token = _ACTIVE.set(plan)
+    try:
+        yield plan
+    finally:
+        _ACTIVE.reset(token)
+
+
+def _dispatch(plan: Optional[ServePlan]) -> Optional[ServePlan]:
+    """The plan a call routes by: the one it was given, else the active
+    one, else None (the ``core.dataflow`` rules)."""
+    return plan if plan is not None else active_plan()
+
+
+def route_matmul(M: int, plan: Optional[ServePlan] = None) -> str:
+    """Plan-first matmul dispatch ('gemv' | 'gemm')."""
+    pl = _dispatch(plan)
+    return pl.matmul_route(M) if pl is not None else dataflow.matmul_path(M)
+
+
+def tile_m(M: int, plan: Optional[ServePlan] = None) -> int:
+    pl = _dispatch(plan)
+    return pl.bcsc_bm(M) if pl is not None else dataflow.bcsc_tile_m(M)
+
+
+def gemv_bm(plan: Optional[ServePlan] = None) -> int:
+    pl = _dispatch(plan)
+    return pl.gemv_bm if pl is not None else dataflow.GEMV_BM
+
+
+def route_mlp(M: int, d_ff: int, n_out: int, gated: bool = True,
+              plan: Optional[ServePlan] = None) -> str:
+    """Plan-first MLP dispatch ('fused' | 'two_call')."""
+    pl = _dispatch(plan)
+    if pl is not None:
+        return pl.mlp_route(M)
+    return dataflow.mlp_path(M, d_ff, n_out, gated=gated)
+
+
+def bcsc_chunk(plan: Optional[ServePlan] = None) -> int:
+    """Plan-first BCSC payload chunk stride (pack-time padding unit)."""
+    pl = _dispatch(plan)
+    return pl.bcsc_chunk if pl is not None else dataflow.BCSC_CHUNK
+
+
+def page_size_default(cache_len: int,
+                      plan: Optional[ServePlan] = None) -> int:
+    """Plan-first KV page size (``dataflow.PAGE_SIZE`` clamped to the
+    cache)."""
+    pl = _dispatch(plan)
+    if pl is not None:
+        return pl.page_size
+    return min(dataflow.PAGE_SIZE, cache_len)
 
 
 def _pow2_tiers(cache_len: int) -> Tuple[int, ...]:

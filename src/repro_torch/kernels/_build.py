@@ -21,7 +21,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("paged_attention.cu", "bcsc_matmul.cu", "bcsc_mlp.cu",
-           "local_attention.cu", "rs_matmul.cu")
+           "local_attention.cu", "rs_matmul.cu", "flash_backward.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -43,8 +43,12 @@ SIGNATURES = {
     # stream
     "repro_bcsc_mlp": [P, I, I] + [P] * 10 + [I, I, I] + [P] * 4
                       + [I, I, P],
-    # q, k, v, out, B, S, H, KV, D, window, sm_scale, softcap, stream
-    "repro_sliding_window_attention": [P] * 4 + [I] * 7 + [F, F, P],
+    # q, k, v, out, lse (or null), B, S, H, KV, D, window, chunk,
+    # score_mult, softcap, stream
+    "repro_sliding_window_attention": [P] * 5 + [I] * 7 + [F, F, P],
+    # q, k, v, out16, lse, dout, dq, dk, dv, drow, dk_part, dv_part, B, S,
+    # H, KV, D, window, chunk, score_mult, softcap, scale, stream
+    "repro_flash_backward": [P] * 12 + [I] * 7 + [F, F, F, P],
     # x, ldx, w, ldw, bias, act, out, out_bf16, M, K, N, ws, stream
     "repro_rs_matmul": [P, I, P, I, P, I, P, I, I, I, I, P, P],
 }

@@ -1,5 +1,10 @@
 // Causal sliding-window GQA attention (prefill): q (B, S, H, D), k and v
-// (B, S, KV, D), all bf16; out (B, S, H, D) fp32. A query at position p
+// (B, S, KV, D), all bf16; out (B, S, H, D) fp32 and, when the caller asks
+// for it (the training forward), each row's log-sum-exp lse (B, S, H) fp32
+// in natural-log units, flash's m + log(max(l, 1e-30)), converted once from
+// the kernel's log2 units at the write. The write is a template argument:
+// the kernels without it compile to what they were before it (a runtime
+// test of the pointer cost the serving path 2 % on an H100). A query at position p
 // attends to the keys at positions t with 0 <= p - t < window; a window of
 // S is plain causal attention. A chunk c > 0 adds the test t / c == p / c:
 // chunked attention (llama4's), causal within chunks of c positions.
@@ -160,11 +165,13 @@ __device__ __forceinline__ float fast_ex2(float x) {
   return y;
 }
 
-template <int kNb, bool kChunked>   // D padded to 64 * kNb; chunk > 0
+// D padded to 64 * kNb; chunk > 0; the lse written
+template <int kNb, bool kChunked, bool kLse>
 __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, float* __restrict__ out, int B, int S, int H,
-    int KV, int D, int window, int chunk, float score_mult, float softcap) {
+    const bf16* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int B, int S, int H, int KV, int D, int window,
+    int chunk, float score_mult, float softcap) {
   constexpr int kTile = kNb * kSwaBlock;
   constexpr int kChunks = kNb * 8;            // 16-byte chunks per row
   extern __shared__ unsigned char smem_raw[];
@@ -382,6 +389,14 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
 
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
   const long h0 = (long)g * R;
+  if (kLse && (lane & 3) == 0) {
+    // m is in log2 units: m ln 2 + ln(max(l, 1e-30)), one lane per row
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (r0 < live && p0 < S)
+      lse[((long)b * S + p0) * H + h0 + r0 % R] = m0 * kLn2 + logf(d0);
+    if (r1 < live && p1 < S)
+      lse[((long)b * S + p1) * H + h0 + r1 % R] = m1 * kLn2 + logf(d1);
+  }
 #pragma unroll
   for (int nb = 0; nb < kNb; ++nb) {
 #pragma unroll
@@ -401,36 +416,37 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   }
 }
 
-template <int kNb, bool kChunked>
-int launch_swa(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int H, int KV, int D, int window, int chunk,
-               float score_mult, float softcap, cudaStream_t st) {
+template <int kNb, bool kChunked, bool kLse>
+int launch_swa(const void* q, const void* k, const void* v, void* out,
+               void* lse, int B, int S, int H, int KV, int D, int window,
+               int chunk, float score_mult, float softcap, cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      swa_kernel<kNb, kChunked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)swa_smem_bytes(kNb));
+      swa_kernel<kNb, kChunked, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)swa_smem_bytes(kNb));
   if (attr != cudaSuccess) return (int)attr;
   const int per_block = kSwaWgs * (kSwaRows / (H / KV));
   const long blocks = (long)((S + per_block - 1) / per_block) * B * KV;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  swa_kernel<kNb, kChunked><<<(unsigned)blocks, kSwaThreads,
+  swa_kernel<kNb, kChunked, kLse><<<(unsigned)blocks, kSwaThreads,
                              swa_smem_bytes(kNb),
                     st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                          (float*)out, B, S, H, KV, D, window, chunk,
-                          score_mult, softcap);
+                          (float*)out, (float*)lse, B, S, H, KV, D, window,
+                          chunk, score_mult, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro
 
-// q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32. H / KV
+// q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32; lse
+// (B, S, H) fp32 or null (not written). H / KV
 // at most 64, D a multiple of 16 up to 256, 1 <= window <= S, chunk 0 (none)
 // or the chunk width of chunked attention. Scores
 // are q.k * score_mult, then tanh(.) * softcap when softcap > 0: the caller
 // passes 1/sqrt(D), or with a softcap the fp32 (1/sqrt(D)) / softcap, the
 // one multiply XLA makes of the reference's q.k * scale / softcap.
 extern "C" int repro_sliding_window_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int S,
-    int H, int KV, int D, int window, int chunk, float score_mult,
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int S, int H, int KV, int D, int window, int chunk, float score_mult,
     float softcap, void* stream) {
   using namespace repro;
   if (KV < 1 || H % KV || H / KV > kSwaRows || D % 16 || D > 256 ||
@@ -438,27 +454,27 @@ extern "C" int repro_sliding_window_attention(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = (D + 63) / 64;
+#define REPRO_SWA(NB, CH)                                                   \
+  return lse != nullptr                                                     \
+             ? launch_swa<NB, CH, true>(q, k, v, out, lse, B, S, H, KV, D,  \
+                                        window, CH ? chunk : 0, score_mult, \
+                                        softcap, st)                        \
+             : launch_swa<NB, CH, false>(q, k, v, out, lse, B, S, H, KV, D, \
+                                         window, CH ? chunk : 0,            \
+                                         score_mult, softcap, st)
   if (chunk > 0) {
     switch (nb) {
-      case 1: return launch_swa<1, true>(q, k, v, out, B, S, H, KV, D, window,
-                                         chunk, score_mult, softcap, st);
-      case 2: return launch_swa<2, true>(q, k, v, out, B, S, H, KV, D, window,
-                                         chunk, score_mult, softcap, st);
-      case 3: return launch_swa<3, true>(q, k, v, out, B, S, H, KV, D, window,
-                                         chunk, score_mult, softcap, st);
-      default: return launch_swa<4, true>(q, k, v, out, B, S, H, KV, D,
-                                          window, chunk, score_mult, softcap,
-                                          st);
+      case 1: REPRO_SWA(1, true);
+      case 2: REPRO_SWA(2, true);
+      case 3: REPRO_SWA(3, true);
+      default: REPRO_SWA(4, true);
     }
   }
   switch (nb) {
-    case 1: return launch_swa<1, false>(q, k, v, out, B, S, H, KV, D, window,
-                                        0, score_mult, softcap, st);
-    case 2: return launch_swa<2, false>(q, k, v, out, B, S, H, KV, D, window,
-                                        0, score_mult, softcap, st);
-    case 3: return launch_swa<3, false>(q, k, v, out, B, S, H, KV, D, window,
-                                        0, score_mult, softcap, st);
-    default: return launch_swa<4, false>(q, k, v, out, B, S, H, KV, D, window,
-                                         0, score_mult, softcap, st);
+    case 1: REPRO_SWA(1, false);
+    case 2: REPRO_SWA(2, false);
+    case 3: REPRO_SWA(3, false);
+    default: REPRO_SWA(4, false);
   }
+#undef REPRO_SWA
 }

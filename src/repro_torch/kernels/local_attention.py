@@ -9,7 +9,7 @@ A ``chunk`` c > 0 (with ``window >= S``) adds ``t // c == p // c``: llama4's
 chunked attention, flash's chunk mode.
 
 ``sliding_window_attention_plain`` repeats ``flash._fwd_impl``'s numerics and
-block schedule: blocks of ``block_size(S)`` tokens, fp32 scores scaled by
+block schedule (``band_schedule``): blocks of ``block_size(S)`` tokens, fp32 scores scaled by
 ``1/sqrt(D)`` and optionally tanh-capped (``_score_mult``), an fp32 online
 softmax (NEG_INF = -2e38, p = exp(s - m) only where s > NEG_INF / 2,
 out = acc / max(l, 1e-30)) and p and v rounded to bf16 for the PV product
@@ -94,17 +94,10 @@ def _score_mult(D: int, softcap: float) -> float:
     return (torch.tensor(scale) / softcap).item()
 
 
-def sliding_window_attention_plain(q, k, v, *, window: int,
-                                   softcap: float = 0.0, chunk: int = 0):
-    """q (B,S,H,D); k, v (B,S,KV,D), head h reading KV head h // (H // KV).
-    Returns (B,S,H,D) fp32; causal when ``window >= S``, causal within
-    chunks of ``chunk`` positions when that is > 0."""
-    _check_shapes(q, k, v)
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    R = H // KV
-    if chunk and window < S:
-        raise ValueError(f"chunk {chunk} takes a window >= S, got {window}")
+def band_schedule(S: int, window: int, chunk: int):
+    """flash's block schedule for a band: (block, blocks, kv blocks a q
+    block visits, causal). A q block ``i`` visits kv blocks ``r`` (causal)
+    or ``i - r`` (window and chunk mode) for r < the third value."""
     causal = window >= S and not chunk
     blk = block_size(S)
     nb = -(-S // blk)
@@ -114,6 +107,46 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
         noff = min(chunk // blk + (1 if chunk % blk else 0) + 1, nb)
     else:
         noff = min((window - 1 + blk) // blk + 1, nb)
+    return blk, nb, noff, causal
+
+
+def band_mask(qpos, kpos, S: int, window: int, chunk: int, causal: bool):
+    """flash's ``_mask`` over (q positions, key positions)."""
+    msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S) \
+        & (qpos[:, None] < S)
+    if chunk:
+        msk &= (qpos[:, None] // chunk) == (kpos[None, :] // chunk)
+    elif not causal:
+        msk &= (qpos[:, None] - kpos[None, :]) < window
+    return msk
+
+
+def block_is_empty(i: int, j_log: int, blk: int, S: int, window: int,
+                   chunk: int, causal: bool) -> bool:
+    """Whether the mask empties kv block ``j_log`` for q block ``i``:
+    then the online softmax leaves (m, l, acc) as they were and the
+    backward adds exact zeros, so both skip it."""
+    lo = j_log * blk
+    first = i * blk // chunk * chunk if chunk else i * blk - window + 1
+    return lo > min(i * blk + blk - 1, S - 1) or lo + blk - 1 < 0 or (
+        not causal and lo + blk - 1 < first)
+
+
+def sliding_window_attention_plain(q, k, v, *, window: int,
+                                   softcap: float = 0.0, chunk: int = 0,
+                                   return_lse: bool = False):
+    """q (B,S,H,D); k, v (B,S,KV,D), head h reading KV head h // (H // KV).
+    Returns (B,S,H,D) fp32; causal when ``window >= S``, causal within
+    chunks of ``chunk`` positions when that is > 0. With ``return_lse``
+    also the log-sum-exp of each row's scores, (B,S,H) fp32 in natural-log
+    units, flash's ``m + log(max(l, 1e-30))``."""
+    _check_shapes(q, k, v)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    R = H // KV
+    if chunk and window < S:
+        raise ValueError(f"chunk {chunk} takes a window >= S, got {window}")
+    blk, nb, noff, causal = band_schedule(S, window, chunk)
     pad = nb * blk - S
     dev = q.device
     qf = F.pad(q.float().reshape(B, S, KV, R, D).permute(0, 2, 3, 1, 4),
@@ -124,33 +157,25 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
     capped = bool(softcap) and softcap > 0.0
     mult = _score_mult(D, softcap)
     out = torch.empty((B, KV, R, nb * blk, D), device=dev)
+    lse = torch.empty((B, KV, R, nb * blk), device=dev)
     ar = torch.arange(blk, device=dev)
     for i in range(nb):
         qpos = i * blk + ar
-        # the block's first key: its window's far edge or its chunk start
-        first = i * blk // chunk * chunk if chunk else i * blk - window + 1
         qi = qf[:, :, :, i * blk:(i + 1) * blk]
         m = torch.full((B, KV, R, blk), NEG_INF, device=dev)
         l = torch.zeros((B, KV, R, blk), device=dev)
         acc = torch.zeros((B, KV, R, blk, D), device=dev)
         for r in range(noff):
             j_log = r if causal else i - r
-            lo = j_log * blk
-            # a block the mask empties is a no-op of the online softmax
-            if lo > min(i * blk + blk - 1, S - 1) or lo + blk - 1 < 0 or (
-                    not causal and lo + blk - 1 < first):
+            if block_is_empty(i, j_log, blk, S, window, chunk, causal):
                 continue
+            lo = j_log * blk
             kpos = lo + ar
             s = torch.einsum("bgrqd,bgkd->bgrqk", qi,
                              kf[:, :, lo:lo + blk]) * mult
             if capped:
                 s = torch.tanh(s) * softcap
-            msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S) \
-                & (qpos[:, None] < S)
-            if chunk:
-                msk &= (qpos[:, None] // chunk) == (kpos[None, :] // chunk)
-            elif not causal:
-                msk &= (qpos[:, None] - kpos[None, :]) < window
+            msk = band_mask(qpos, kpos, S, window, chunk, causal)
             s = torch.where(msk, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]),
@@ -160,17 +185,24 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
             acc = acc * corr[..., None] + torch.matmul(
                 p.to(torch.bfloat16).float(), vf[:, :, None, lo:lo + blk])
             m = m_new
-        out[:, :, :, i * blk:(i + 1) * blk] = \
-            acc / torch.clamp_min(l, 1e-30)[..., None]
-    return out[:, :, :, :S].permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+        l_safe = torch.clamp_min(l, 1e-30)
+        out[:, :, :, i * blk:(i + 1) * blk] = acc / l_safe[..., None]
+        lse[:, :, :, i * blk:(i + 1) * blk] = m + torch.log(l_safe)
+    out = out[:, :, :, :S].permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    if not return_lse:
+        return out
+    return out, lse[:, :, :, :S].permute(0, 3, 1, 2).reshape(B, S, H)
 
 
 def sliding_window_attention_cuda(q, k, v, *, window: int,
-                                  softcap: float = 0.0, chunk: int = 0):
+                                  softcap: float = 0.0, chunk: int = 0,
+                                  return_lse: bool = False):
     """The same function through the CUDA kernel: bf16 q, k, v on the card,
     at most 256 head dimensions (a multiple of 16) and H // KV at most 64
     (a ratio that does not divide 64 leaves each tile's last
-    ``TILE_ROWS % (H // KV)`` rows dead). Returns (B,S,H,D) fp32."""
+    ``TILE_ROWS % (H // KV)`` rows dead). Returns (B,S,H,D) fp32, and with
+    ``return_lse`` the (B,S,H) fp32 log-sum-exp (the kernel writes it only
+    when given the pointer)."""
     _check_shapes(q, k, v)
     B, S, H, D = q.shape
     KV = k.shape[2]
@@ -185,13 +217,15 @@ def sliding_window_attention_cuda(q, k, v, *, window: int,
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"bf16 CUDA tensor, got {t.dtype} on {t.device}")
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     code = _build.library().repro_sliding_window_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        KV, D, min(window, S), chunk, _score_mult(D, softcap),
-        float(softcap or 0.0), _build.stream_of(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _build.ptr(lse), B, S, H, KV, D, min(window, S), chunk,
+        _score_mult(D, softcap), float(softcap or 0.0), _build.stream_of(q))
     _build.check(code, "sliding_window_attention")
     sliding_window_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 sliding_window_attention_cuda.launches = 0

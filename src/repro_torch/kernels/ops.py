@@ -1,9 +1,9 @@
 """Padding and dispatch around the port's kernels (counterpart of
 ``repro.kernels.ops``).
 
-Each entry point picks its route from the ServePlan it is given (the
-general BCSC entry points, ``bcsc_matmul`` and ``bcsc_gemv``, from the
-``core.dataflow`` rule when given none), pads the rows to the route's tile,
+Each entry point picks its route from the ServePlan it is given, else from
+the active one (``core.plan.activate``), else from the ``core.dataflow``
+rules (``core.plan.route_matmul``, ``tile_m``, ``gemv_bm``), pads the rows to the route's tile,
 and runs the kernel's plain version for a tensor on the CPU or launches the
 CUDA kernel for a tensor on the card. There is no fallback: a CUDA launch
 that fails raises. ``impl="plain"`` forces the plain version on any device;
@@ -18,9 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import dataflow
+from repro_torch.core import plan as plan_lib
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import bcsc_matmul as _bcsc
 from repro_torch.kernels import bcsc_mlp as _bmlp
+from repro_torch.kernels import flash_backward as _fbwd
 from repro_torch.kernels import local_attention as _swa
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import rs_matmul as _rs
@@ -34,6 +36,7 @@ KERNELS = {
     "bcsc_gemv": _bcsc.bcsc_gemv_cuda,
     "sliding_window_attention": _swa.sliding_window_attention_cuda,
     "rs_matmul": _rs.rs_matmul_cuda,
+    "flash_backward": _fbwd.flash_backward_cuda,
 }
 
 
@@ -99,16 +102,16 @@ def _col_ptr(packed, n_cols: int) -> torch.Tensor:
                                                          n_cols)
 
 
-def bcsc_apply_packed(x, packed, *, n_out: int, plan, bias=None,
+def bcsc_apply_packed(x, packed, *, n_out: int, plan=None, bias=None,
                       activation: Optional[str] = None,
                       out_dtype=torch.float32, impl: Optional[str] = None):
     """(M, K) bf16 · packed BCSC -> (M, n_out): the GEMV arm at decode M
     (bias and activation fused into the flush), the GEMM arm otherwise
     (epilogue as a post-op)."""
     M = x.shape[0]
-    return _bcsc_apply(x, packed, n_out=n_out, bm=plan.bcsc_bm(M),
-                       gemv=plan.matmul_route(M) == "gemv",
-                       gemv_bm=plan.gemv_bm, bias=bias,
+    return _bcsc_apply(x, packed, n_out=n_out, bm=plan_lib.tile_m(M, plan),
+                       gemv=plan_lib.route_matmul(M, plan) == "gemv",
+                       gemv_bm=plan_lib.gemv_bm(plan), bias=bias,
                        activation=activation, out_dtype=out_dtype, impl=impl)
 
 
@@ -157,11 +160,11 @@ def bcsc_matmul(x, m: sp.BCSCMatrix, *, bm: int = 0, bias=None,
                 plan=None, impl: Optional[str] = None):
     """Sparse (M, K) · BCSC(K, N) -> (M, N), zero weight blocks skipped.
 
-    The route comes from ``plan`` (a ServePlan), else from the
-    ``core.dataflow`` rule: the GEMV kernel at M <= ``GEMV_M_MAX`` (bias
-    and activation fused into its flush), the GEMM kernel above (epilogue
-    as a post-op). ``bm`` forces the row tile; one that is not the GEMV's
-    takes the GEMM. The blocks are taken in x's dtype, which on the card
+    The route comes from ``plan`` (a ServePlan), else from the active
+    plan, else from the ``core.dataflow`` rule: the GEMV kernel at M <=
+    ``GEMV_M_MAX`` (bias and activation fused into its flush), the GEMM
+    kernel above (epilogue as a post-op). ``bm`` forces the row tile; one
+    that is not the GEMV's takes the GEMM. The blocks are taken in x's dtype, which on the card
     must be bf16, the kernels' input type; on the CPU the plain versions
     accumulate in fp32."""
     if x.shape[1] != m.shape[0]:
@@ -170,14 +173,10 @@ def bcsc_matmul(x, m: sp.BCSCMatrix, *, bm: int = 0, bias=None,
     packed = {"blocks": blocks.to(x.dtype), "row_ids": row_ids,
               "col_ids": col_ids}
     M = x.shape[0]
-    if plan is not None:
-        route, tile, gemv_bm = plan.matmul_route(M), plan.bcsc_bm(M), \
-            plan.gemv_bm
-    else:
-        route, tile, gemv_bm = dataflow.matmul_path(M), \
-            dataflow.bcsc_tile_m(M), dataflow.GEMV_BM
-    return _bcsc_apply(x, packed, n_out=n_out, bm=bm if bm > 0 else tile,
-                       gemv=route == "gemv", gemv_bm=gemv_bm, bias=bias,
+    return _bcsc_apply(x, packed, n_out=n_out,
+                       bm=bm if bm > 0 else plan_lib.tile_m(M, plan),
+                       gemv=plan_lib.route_matmul(M, plan) == "gemv",
+                       gemv_bm=plan_lib.gemv_bm(plan), bias=bias,
                        activation=activation, out_dtype=out_dtype, impl=impl)
 
 
@@ -195,14 +194,14 @@ def bcsc_gemv(x, m: sp.BCSCMatrix, *, bias=None,
 
 
 def bcsc_mlp_packed(x, gate_packed, up_packed, down_packed, *, d_ff: int,
-                    n_out: int, plan, activation: Optional[str] = None,
+                    n_out: int, plan=None, activation: Optional[str] = None,
                     counts=None, out_dtype=torch.float32,
                     impl: Optional[str] = None):
     """The fused sparse MLP over packed dicts (``up_packed`` None when
     ungated). ``counts`` is the pack-time (3,) int32 [n_g, n_u, n_d]
     (``_bcsc_counts``), assembled here when absent."""
     M = x.shape[0]
-    xp = _pad_rows(x, plan.bcsc_bm(M))
+    xp = _pad_rows(x, plan_lib.tile_m(M, plan))
     gated = up_packed is not None
     if counts is None:
         zero = torch.zeros((), dtype=torch.int32, device=x.device)
@@ -251,24 +250,33 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
 
 
 def sliding_window_attention(q, k, v, *, window: int, softcap: float = 0.0,
-                             chunk: int = 0, impl: Optional[str] = None):
+                             chunk: int = 0, impl: Optional[str] = None,
+                             return_lse: bool = False):
     """Causal sliding-window GQA attention. q (B,S,H,D) bf16; k, v
     (B,S,KV,D) bf16. Returns (B,S,H,D) fp32; ``window >= S`` is causal.
     ``chunk`` > 0 (with ``window >= S``) is chunked attention: causal
-    within chunks of that many positions."""
+    within chunks of that many positions. ``return_lse`` also returns the
+    (B,S,H) fp32 log-sum-exp the backward needs."""
+    kw = dict(window=window, softcap=softcap, chunk=chunk,
+              return_lse=return_lse)
     if _use_kernel(q, impl):
         return _swa.sliding_window_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), window=window,
-            softcap=softcap, chunk=chunk)
-    return _swa.sliding_window_attention_plain(q, k, v, window=window,
-                                               softcap=softcap, chunk=chunk)
+            q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    return _swa.sliding_window_attention_plain(q, k, v, **kw)
 
 
-def flash_attention(q, k, v, *, softcap: float = 0.0,
-                    impl: Optional[str] = None):
-    """Full causal attention: the sliding window with window = S."""
-    return sliding_window_attention(q, k, v, window=q.shape[1],
-                                    softcap=softcap, impl=impl)
+def flash_backward(q, k, v, out16, lse, dout, *, window: int,
+                   softcap: float = 0.0, chunk: int = 0,
+                   impl: Optional[str] = None):
+    """The backward of ``sliding_window_attention`` from its bf16 output
+    and log-sum-exp: fp32 (dq (B,S,H,D), dk, dv (B,S,KV,D)) for the bf16
+    cotangent ``dout`` of the output (``kernels/flash_backward.py``)."""
+    args = (q, k, v, out16, lse, dout)
+    kw = dict(window=window, softcap=softcap, chunk=chunk)
+    if _use_kernel(q, impl):
+        return _fbwd.flash_backward_cuda(*(t.contiguous() for t in args),
+                                         **kw)
+    return _fbwd.flash_backward_plain(*args, **kw)
 
 
 def rs_matmul(x, w, *, bias=None, activation: Optional[str] = None,

@@ -40,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import dataflow
+from repro_torch.core import plan as plan_lib
 from repro_torch.kernels import ops
-from repro_torch.models import layers, moe as moe_lib, rglru as rglru_lib
+from repro_torch.models import layers, rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
@@ -107,12 +108,20 @@ def _init_paged_entry(cfg, num_pages: int, page_size: int, kv_quant: str,
 
 
 def init_paged_cache(cfg, rows: int, cache_len: int, num_pages: int,
-                     page_size: int, kv_quant: str = "fp",
-                     device=None) -> Dict:
+                     page_size: Optional[int] = None,
+                     kv_quant: Optional[str] = None, device=None) -> Dict:
     """Global layers as (num_pages, page_size, KV, D) pools (stacked on the
     period axis), bf16 or int8 with per-(page, KV head) fp32 scales; local
     layers keep their per-row rings and recurrent ones their per-row state,
-    whose memory never grows with the context."""
+    whose memory never grows with the context. ``page_size`` and
+    ``kv_quant`` default to the active plan's, else to the
+    ``core.dataflow`` page clamped to the cache and fp, as the reference
+    defaults them."""
+    if page_size is None:
+        page_size = plan_lib.page_size_default(cache_len)
+    if kv_quant is None:
+        pl = plan_lib.active_plan()
+        kv_quant = pl.kv_quant if pl is not None else "fp"
     if kv_quant not in dataflow.KV_QUANT_DTYPES:
         raise ValueError(f"kv_quant must be one of {dataflow.KV_QUANT_DTYPES}")
     return _cache_tree(cfg, lambda kind, lead: _init_paged_entry(
@@ -337,14 +346,7 @@ def _positions(pos, B: int, device) -> torch.Tensor:
 
 def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
                  impl: Optional[str] = None, split_rows: Optional[int] = None):
-    q, k, v = layers.attn_qkv(p, x, cfg)               # q (B,1,H,D)
-    if cfg.qk_norm:
-        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.pos_embed == "rope":
-        theta = tfm._rope_theta_for(cfg, kind)
-        q = layers.rope(q, posv[:, None], theta)
-        k = layers.rope(k, posv[:, None], theta)
+    q, k, v = tfm.attn_project(p, x, kind, posv[:, None], cfg)  # (B,1,H,D)
     if is_paged_entry(entry):
         if block_table is None:
             raise ValueError("a paged cache entry needs a block table")
@@ -370,40 +372,6 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
     return layers.attn_out(p, ctx)
 
 
-def _residual(x, y, p, post: str, cfg):
-    """x + y, y first through gemma2's post-norm when the config has one."""
-    if cfg.use_post_norm:
-        y = rms_norm(y, p[post], cfg.norm_eps)
-    return x + y
-
-
-def _cross_residual(p, x, kind, cond, cfg):
-    """An attention layer's cross-attention residual when the config has
-    one (musicgen): x + cross_attention(rms_norm(x), cond); else x."""
-    if not cfg.cross_attn_cond or kind not in tfm.ATTN_KINDS:
-        return x
-    if cond is None:
-        raise ValueError(
-            f"{cfg.name} cross-attends to a conditioning sequence: pass "
-            f"cond, (B, {cfg.cross_attn_cond}, {cfg.d_model}) embeddings "
-            "(models.frontend.synth_cond_embeds makes random ones)")
-    h = rms_norm(x, p["pre_norm_cross"], cfg.norm_eps)
-    return x + layers.cross_attention(p["cross_attn"], h, cond, cfg)
-
-
-def _mlp_residual(p, x, cfg, plan, impl):
-    """The layer's MLP after its pre-norm: an MoE layer is one whose params
-    hold ``moe`` (``init_params`` puts it on the slots ``cfg.is_moe_layer``
-    names), which takes ``moe.moe_layer`` (its aux loss dropped); a dense
-    one ``layers.mlp``."""
-    h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
-    if "moe" in p:
-        y, _ = moe_lib.moe_layer(p["moe"], h, cfg)
-    else:
-        y = layers.mlp(p["mlp"], h, cfg, plan, impl=impl)
-    return _residual(x, y, p, "post_norm_mlp", cfg)
-
-
 def _recurrent_decode(p, h, kind, entry, cfg):
     """One token through an RG-LRU or SSD block; its new state is copied
     into ``entry``'s tensors (a captured step replays against them)."""
@@ -427,22 +395,24 @@ def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
     else:
         y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table,
                          impl, split_rows)
-    x = _cross_residual(p, _residual(x, y, p, "post_norm", cfg), kind, cond,
-                        cfg)
+    x = tfm.cross_residual(p, tfm.residual(x, y, p, "post_norm", cfg), kind,
+                           cond, cfg)
     if kind == "ssm":
         return x
-    return _mlp_residual(p, x, cfg, plan, impl)
+    return tfm.mlp_residual(p, x, cfg, plan, impl)[0]
 
 
-def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
-               cond=None, impl: Optional[str] = None,
+def serve_step(params, cache, tokens, pos, cfg, *, plan=None,
+               block_table=None, cond=None, impl: Optional[str] = None,
                split_rows: Optional[int] = None):
     """One decode step over every row. tokens (B,1), or (B,K,1) for K
     codebooks; pos scalar or (B,) per-row positions; ``block_table`` (B,
     max_pages) int32 routes paged entries through the paged-attention
     kernel; ``cond`` (B,T,d) is the conditioning sequence of a config with
     cross-attention. Writes the new token's K/V into ``cache`` in place.
-    Returns (logits fp32 (B,1,Vp) or (B,1,K,Vp), cache). ``impl`` is
+    Returns (logits fp32 (B,1,Vp) or (B,1,K,Vp), cache). ``plan`` None
+    routes by the active plan, else by the ``core.dataflow`` rules, as the
+    reference's plan-less call does (``core.plan.route_mlp``). ``impl`` is
     passed on to ``kernels.ops`` (None: by device); ``split_rows`` to paged
     attention (``verify_step``'s real rows)."""
     x = tfm.embed_tokens(params, tokens, cfg)
@@ -458,7 +428,7 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan, block_table=None,
     return tfm.lm_logits(params, x, cfg), cache
 
 
-def verify_step(params, cache, tokens, pos, cfg, *, plan, block_table,
+def verify_step(params, cache, tokens, pos, cfg, *, plan=None, block_table,
                 cond=None, impl: Optional[str] = None):
     """Score k candidate tokens per row in one step: the speculative
     verifier (the reference's ``verify_step``).
@@ -545,20 +515,8 @@ def _merge_rows(entry, row_entry, slots) -> None:
 def _attn_prefill(p, x, kind, positions, cfg, cache_len: int, lengths,
                   entry=None, paged: Optional[PagedPrefill] = None,
                   impl: Optional[str] = None):
-    q, k, v = layers.attn_qkv(p, x, cfg)
-    if cfg.qk_norm:
-        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.pos_embed == "rope":
-        theta = tfm._rope_theta_for(cfg, kind)
-        q = layers.rope(q, positions, theta)
-        k = layers.rope(k, positions, theta)
-    if kind == "local":
-        ctx = layers.local_attention(q, k, v, cfg, impl)
-    elif kind == "chunked":
-        ctx = layers.chunked_attention(q, k, v, cfg, impl)
-    else:
-        ctx = layers.full_causal_attention(q, k, v, cfg, impl)
+    q, k, v = tfm.attn_project(p, x, kind, positions, cfg)
+    ctx = tfm.attend(q, k, v, kind, cfg, impl)
     cap = _attn_cache_capacity(cfg, kind, cache_len)
     if paged is not None and is_paged_entry(entry):
         paged_prefill_write(entry, k, v, paged.block_table_rows, lengths,
@@ -591,24 +549,18 @@ def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
     else:
         y, e = _attn_prefill(p["attn"], h, kind, positions, cfg, cache_len,
                              lengths, entry, paged, impl)
-    x = _cross_residual(p, _residual(x, y, p, "post_norm", cfg), kind, cond,
-                        cfg)
+    x = tfm.cross_residual(p, tfm.residual(x, y, p, "post_norm", cfg), kind,
+                           cond, cfg)
     if kind == "ssm":
         return x, e
-    return _mlp_residual(p, x, cfg, plan, impl), e
+    return tfm.mlp_residual(p, x, cfg, plan, impl)[0], e
 
 
 def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
                   paged: Optional[PagedPrefill] = None,
                   impl: Optional[str] = None, patch_embeds=None, cond=None):
-    x = tfm.embed_tokens(params, tokens, cfg)
-    if cfg.frontend == "vision" and patch_embeds is not None:
-        x = torch.cat([patch_embeds.to(COMPUTE_DTYPE), x], dim=1)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + layers.sinusoidal_pos(positions, cfg.d_model).to(
-            COMPUTE_DTYPE)
+    x, positions = tfm.embed_inputs(params, tokens, cfg, patch_embeds)
+    B = x.shape[0]
     entries = []
     for p, entry, kind in tfm.layers_in_order(
             params, paged.cache if paged is not None else None, cfg):
@@ -651,7 +603,8 @@ def _check_exact(cfg, tokens, lengths) -> None:
             f"{S} tokens); pad tokens would enter the state")
 
 
-def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
+def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *,
+                    plan=None,
                     paged: Optional[PagedPrefill] = None, cond=None,
                     impl: Optional[str] = None):
     """Batched prefill over right-padded prompts of unequal length.
@@ -679,7 +632,8 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *, plan,
                          paged=paged, impl=impl, cond=cond)
 
 
-def prefill(params, tokens, cfg, cache_len: int, *, plan, patch_embeds=None,
+def prefill(params, tokens, cfg, cache_len: int, *, plan=None,
+            patch_embeds=None,
             cond=None, impl: Optional[str] = None):
     """Forward over (B, S) prompts of one length S ((B, K, S) for K
     codebooks), building a fresh contiguous cache (global slots (periods,

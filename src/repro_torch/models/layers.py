@@ -14,7 +14,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import plan as plan_lib
 from repro_torch.kernels import ops
+from repro_torch.models import flash
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -2.0e38
@@ -24,18 +26,64 @@ def cast_compute(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == COMPUTE_DTYPE else x.to(COMPUTE_DTYPE)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b with fp32 accumulation and an fp32 result: bf16 operands on
+    the card (``torch.mm``'s ``out_dtype``), an fp32 product of the same
+    values on the CPU, or of fp32 operands anywhere."""
+    if a.is_cuda and a.dtype == b.dtype == COMPUTE_DTYPE:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _cotangent(g: torch.Tensor) -> torch.Tensor:
+    """A product's fp32 cotangent as its backward products take it: in
+    fp32 on the CPU, as XLA's CPU backend takes it; on the card rounded to
+    bf16 first (bf16 tensor-core products with fp32 accumulation, the
+    TPU's default precision for the reference's mixed products)."""
+    return g.to(COMPUTE_DTYPE) if g.is_cuda else g
+
+
+class _Matmul(torch.autograd.Function):
+    """(M, K) · (K, N) on bf16 operands with fp32 accumulation, fp32 out,
+    and the reference's backward of a bf16 einsum with an fp32 result:
+    each operand's cotangent is the fp32 sum rounded once to bf16 (its
+    dtype). The weight is taken as stored (fp32 params, or a bf16 copy)
+    and cast in both passes, so that no bf16 copy of it is kept for the
+    backward. The fp32 cotangent reaches the products through
+    ``_cotangent``."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, cast_compute(w))
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        w2 = cast_compute(w)
+        g = _cotangent(g)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, w2.t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x2.t(), g).to(COMPUTE_DTYPE).to(w.dtype)
+        return dx, dw
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            out_dtype=torch.float32) -> torch.Tensor:
     """x (..., K) · w (K, N) with bf16 operands and fp32 accumulation,
-    returned as ``out_dtype`` (one rounding of the fp32 sum)."""
+    returned as ``out_dtype`` (one rounding of the fp32 sum).
+    Differentiable (``_Matmul``); without autograd recording it is the
+    same product."""
     lead = x.shape[:-1]
     x2 = cast_compute(x).reshape(-1, x.shape[-1])
-    w2 = cast_compute(w)
-    if x2.is_cuda:
-        y = torch.mm(x2, w2, out_dtype=torch.float32) \
-            if out_dtype == torch.float32 else torch.mm(x2, w2)
+    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        y = _Matmul.apply(x2, w)
+    elif x2.is_cuda and out_dtype != torch.float32:
+        y = torch.mm(x2, cast_compute(w))      # one rounding, in cuBLAS
     else:
-        y = x2.float() @ w2.float()
+        y = _mm_f32(x2, cast_compute(w))
     return y.to(out_dtype).reshape(lead + (w.shape[-1],))
 
 
@@ -152,13 +200,30 @@ def attn_out(params, ctx):
                   wo.reshape(H * D, d), out_dtype=COMPUTE_DTYPE)
 
 
+def _band_attention(q, k, v, cfg, window: int, chunk: int,
+                    impl: Optional[str]):
+    """The sliding-window kernel (``ops.sliding_window_attention``) as
+    prefill attention, (B,S,H,D) bf16. While autograd records a graph
+    through q, k or v it runs as ``models.flash.flash_attention``: the same
+    forward, which also writes its log-sum-exp, and the flash backward
+    kernel (the reference's custom VJP). Serving calls it without, as
+    before: no log-sum-exp is written."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash.flash_attention(q, k, v, window=window, chunk=chunk,
+                                     softcap=cfg.attn_logit_softcap,
+                                     impl=impl)
+    return ops.sliding_window_attention(
+        q, k, v, window=window, chunk=chunk, softcap=cfg.attn_logit_softcap,
+        impl=impl).to(COMPUTE_DTYPE)
+
+
 def full_causal_attention(q, k, v, cfg, impl: Optional[str] = None):
-    """Causal prefill attention through ``ops.flash_attention`` (the
-    reference's ``_flash_call`` onto ``models/flash.py``): the CUDA kernel
-    on the card, its plain version (flash's numerics and block schedule) on
-    the CPU. q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D) bf16."""
-    return ops.flash_attention(q, k, v, softcap=cfg.attn_logit_softcap,
-                               impl=impl).to(COMPUTE_DTYPE)
+    """Causal prefill attention through the sliding window with window S
+    (the reference's ``_flash_call`` onto ``models/flash.py``): the CUDA
+    kernel on the card, its plain version (flash's numerics and block
+    schedule) on the CPU. q (B,S,H,D); k, v (B,S,KV,D) -> (B,S,H,D) bf16."""
+    return _band_attention(q, k, v, cfg, q.shape[1], 0, impl)
 
 
 def local_attention(q, k, v, cfg, impl: Optional[str] = None):
@@ -167,9 +232,7 @@ def local_attention(q, k, v, cfg, impl: Optional[str] = None):
     w = cfg.window_size
     if q.shape[1] <= w:
         return full_causal_attention(q, k, v, cfg, impl)
-    return ops.sliding_window_attention(
-        q, k, v, window=w, softcap=cfg.attn_logit_softcap,
-        impl=impl).to(COMPUTE_DTYPE)
+    return _band_attention(q, k, v, cfg, w, 0, impl)
 
 
 def chunked_attention(q, k, v, cfg, impl: Optional[str] = None):
@@ -180,9 +243,7 @@ def chunked_attention(q, k, v, cfg, impl: Optional[str] = None):
     c = cfg.chunk_size
     if q.shape[1] <= c:
         return full_causal_attention(q, k, v, cfg, impl)
-    return ops.sliding_window_attention(
-        q, k, v, window=q.shape[1], chunk=c,
-        softcap=cfg.attn_logit_softcap, impl=impl).to(COMPUTE_DTYPE)
+    return _band_attention(q, k, v, cfg, q.shape[1], c, impl)
 
 
 def decode_attention(q, k_cache, v_cache, valid_mask, cfg):
@@ -223,7 +284,7 @@ def cross_attention(params, x, cond, cfg):
 
 
 # ---------------------------------------------------------------------- MLP
-def _packed_proj(x, packed, n_out: int, plan,
+def _packed_proj(x, packed, n_out: int, plan=None,
                  activation: Optional[str] = None, impl: Optional[str] = None):
     """(B,S,d) · packed BCSC weight -> (B,S,n_out) fp32 via the sparse
     kernels (GEMV arm at decode M, GEMM arm otherwise)."""
@@ -233,12 +294,14 @@ def _packed_proj(x, packed, n_out: int, plan,
     return y.reshape(B, S, n_out)
 
 
-def mlp(params, x, cfg, plan, d_ff: Optional[int] = None,
+def mlp(params, x, cfg, plan=None, d_ff: Optional[int] = None,
         impl: Optional[str] = None):
     """Gated (SwiGLU/GeGLU) or plain MLP. When every projection is packed
     and the plan routes M = B·S 'fused', the whole MLP is one fused sparse
     kernel; packed projections otherwise take the two-call sparse arm, and
-    dense ones the bf16 matmuls. ``impl`` is passed on to ``kernels.ops``."""
+    dense ones the bf16 matmuls. ``plan`` None routes by the active plan,
+    else by the ``core.dataflow`` rule (``core.plan.route_mlp``). ``impl``
+    is passed on to ``kernels.ops``."""
     act_name = "silu" if cfg.mlp_act == "silu" else "gelu"
     ff = d_ff or (cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff)
     d = x.shape[-1]
@@ -249,8 +312,8 @@ def mlp(params, x, cfg, plan, d_ff: Optional[int] = None,
             else F.gelu(t, approximate="tanh")
 
     names = ("wg", "wu", "wd") if cfg.mlp_gated else ("w1", "w2")
-    if all(ops.is_packed(params[n]) for n in names) \
-            and plan.mlp_route(B * S) == "fused":
+    if all(ops.is_packed(params[n]) for n in names) and plan_lib.route_mlp(
+            B * S, ff, d, gated=cfg.mlp_gated, plan=plan) == "fused":
         up2 = params["wu"] if cfg.mlp_gated else None
         y = ops.bcsc_mlp_packed(
             x.reshape(B * S, d), params[names[0]], up2, params[names[-1]],

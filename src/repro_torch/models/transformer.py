@@ -13,16 +13,32 @@ in a config with ``cross_attn_cond`` every attention layer then
 cross-attends to a conditioning sequence (``p["cross_attn"]``); its MLP is
 dense (``p["mlp"]``) or a mixture of experts (``p["moe"]``, on the slots
 ``cfg.is_moe_layer`` names).
+
+The training forward lives here too: :func:`apply_block` (one layer in the
+prefill form, whose pieces ``models.decoding`` shares), :func:`forward`
+with the reference's remat policies, and the chunked cross-entropy
+:func:`loss_from_hidden` behind :func:`loss_fn`. Autograd differentiates
+it: the attention through ``models.flash`` (the sliding-window kernel
+forward with its log-sum-exp, the flash backward kernel), the products
+through ``layers.matmul``'s bf16 backward.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers, moe as moe_lib, rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
+
+MOE_AUX_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+LOSS_CHUNK = 512          # positions per chunk of the vocab-sized logits
+REMAT_POLICIES = ("none", "full", "dots", "dots_no_batch")
 
 # weight matrices (as opposed to norm scales and biases); the port may keep
 # bf16 copies of exactly these. The recurrent blocks' convolutions, gates,
@@ -232,3 +248,226 @@ def lm_logits(params, x, cfg):
             >= cfg.vocab_size
         logits = logits.masked_fill(pad, layers.NEG_INF)
     return logits
+
+
+# --------------------------------------------------------- block pieces
+def attn_project(p, x, kind, positions, cfg):
+    """q (B,S,H,D), k, v (B,S,KV,D) bf16 of an attention layer: the
+    projections, then qk-norm and RoPE (at ``positions`` (B,S)) where the
+    config has them. Shared by prefill, decode and training."""
+    q, k, v = layers.attn_qkv(p, x, cfg)
+    if cfg.qk_norm:
+        q = layers.head_rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = layers.head_rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos_embed == "rope":
+        theta = _rope_theta_for(cfg, kind)
+        q = layers.rope(q, positions, theta)
+        k = layers.rope(k, positions, theta)
+    return q, k, v
+
+
+def attend(q, k, v, kind, cfg, impl: Optional[str] = None):
+    """Prefill-form attention of a layer of ``kind`` (B,S,H,D) bf16."""
+    if kind == "local":
+        return layers.local_attention(q, k, v, cfg, impl)
+    if kind == "chunked":
+        return layers.chunked_attention(q, k, v, cfg, impl)
+    return layers.full_causal_attention(q, k, v, cfg, impl)
+
+
+def residual(x, y, p, post: str, cfg):
+    """x + y, y first through gemma2's post-norm when the config has one."""
+    if cfg.use_post_norm:
+        y = rms_norm(y, p[post], cfg.norm_eps)
+    return x + y
+
+
+def cross_residual(p, x, kind, cond, cfg):
+    """An attention layer's cross-attention residual when the config has
+    one (musicgen): x + cross_attention(rms_norm(x), cond); else x."""
+    if not cfg.cross_attn_cond or kind not in ATTN_KINDS:
+        return x
+    if cond is None:
+        raise ValueError(
+            f"{cfg.name} cross-attends to a conditioning sequence: pass "
+            f"cond, (B, {cfg.cross_attn_cond}, {cfg.d_model}) embeddings "
+            "(models.frontend.synth_cond_embeds makes random ones)")
+    h = rms_norm(x, p["pre_norm_cross"], cfg.norm_eps)
+    return x + layers.cross_attention(p["cross_attn"], h, cond, cfg)
+
+
+def mlp_residual(p, x, cfg, plan=None, impl: Optional[str] = None):
+    """The layer's MLP after its pre-norm, and its aux loss (fp32; None
+    for a dense MLP): an MoE layer is one whose params hold ``moe``
+    (``init_params`` puts it on the slots ``cfg.is_moe_layer`` names),
+    which takes ``moe.moe_layer``; a dense one ``layers.mlp``."""
+    h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
+    if "moe" in p:
+        y, aux = moe_lib.moe_layer(p["moe"], h, cfg)
+    else:
+        y, aux = layers.mlp(p["mlp"], h, cfg, plan, impl=impl), None
+    return residual(x, y, p, "post_norm_mlp", cfg), aux
+
+
+def embed_inputs(params, tokens, cfg, patch_embeds=None):
+    """The first residual stream (B,S,d) bf16 and its positions (B,S): the
+    tokens' embedding after a vision config's patches, plus the
+    sinusoidal table where the config has one."""
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.frontend == "vision" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(COMPUTE_DTYPE), x], dim=1)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cfg.pos_embed == "sinusoidal":
+        x = x + layers.sinusoidal_pos(positions, cfg.d_model).to(
+            COMPUTE_DTYPE)
+    return x, positions
+
+
+# ------------------------------------------------------------ training
+def apply_block(p, x, cond, kind, is_moe, cfg, positions, *, plan=None,
+                impl: Optional[str] = None):
+    """One decoder block in the training / prefill form. x (B,S,d) ->
+    (x, the MoE aux loss fp32, or None without one). ``is_moe`` is the reference's argument; the port reads
+    the layer's kind of MLP from its params (``mlp_residual``)."""
+    h = rms_norm(x, p["pre_norm"], cfg.norm_eps)
+    if kind == "ssm":
+        y = ssm_lib.ssm_block(p["ssm"], h, cfg)
+    elif kind == "rglru":
+        y = rglru_lib.rglru_block(p["rglru"], h, cfg)
+    else:
+        q, k, v = attn_project(p["attn"], h, kind, positions, cfg)
+        y = layers.attn_out(p["attn"], attend(q, k, v, kind, cfg, impl))
+    x = cross_residual(p, residual(x, y, p, "post_norm", cfg), kind, cond,
+                       cfg)
+    if kind == "ssm":
+        return x, None
+    return mlp_residual(p, x, cfg, plan, impl)
+
+
+def _saved_ops(batched: bool):
+    """The ops whose outputs a "dots" remat keeps: the matrix products
+    (``aten.mm``, and with batch dimensions ``aten.bmm``), the reference's
+    ``checkpoint_dots`` / ``checkpoint_dots_with_no_batch_dims``."""
+    ops = {torch.ops.aten.mm, torch.ops.aten.addmm}
+    if batched:
+        ops.add(torch.ops.aten.bmm)
+    return ops
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the remat policy: recomputed in the backward in full
+    ("full"), or all but its matrix products ("dots", "dots_no_batch")."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
+    saved = _saved_ops(policy == "dots")
+
+    def decide(ctx, func, *args, **kwargs):
+        return ckpt.CheckpointPolicy.MUST_SAVE \
+            if func.overloadpacket in saved \
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, decide))
+
+
+def forward(params, tokens, cfg, *, patch_embeds=None, cond=None,
+            remat_policy: str = "none", plan=None,
+            impl: Optional[str] = None):
+    """Training / prefill forward. Returns (final hidden states (B,S,d)
+    bf16, the MoE aux losses summed, fp32). ``remat_policy`` recomputes
+    each pattern period in the backward: "full" everything
+    (``torch.utils.checkpoint``), "dots" / "dots_no_batch" all but the
+    matrix products (a selective-checkpoint policy), the reference's
+    ``jax.checkpoint`` policies. The reference's ``hints`` (sharding
+    constraints) have no single-device meaning and are not taken."""
+    x, positions = embed_inputs(params, tokens, cfg, patch_embeds)
+    kinds = slot_kinds(cfg)
+
+    def period_fn(x, i):
+        aux = torch.zeros((), device=x.device)
+        for j, (kind, is_moe) in enumerate(kinds):
+            x, a = apply_block(layer(params["blocks"][f"slot{j}"], i), x,
+                               cond, kind, is_moe, cfg, positions,
+                               plan=plan, impl=impl)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    period = _remat(period_fn, remat_policy)
+    aux_total = torch.zeros((), device=x.device)
+    if "blocks" in params:
+        auxs = []
+        for i in range(num_scan_periods(cfg)):
+            x, a = period(x, i)
+            auxs.append(a)
+        aux_total = aux_total + torch.stack(auxs).sum()
+    for j, (kind, is_moe) in enumerate(kinds[:num_remainder(cfg)]):
+        x, a = apply_block(params["rem"][f"rem{j}"], x, cond, kind, is_moe,
+                           cfg, positions, plan=plan, impl=impl)
+        if a is not None:
+            aux_total = aux_total + a
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
+
+
+def _xent_chunk(params, x_chunk, labels_chunk, cfg):
+    """Summed nll, z-loss (lse squared), valid count and correct argmax
+    count of one chunk of positions; labels < 0 are ignored."""
+    logits = lm_logits(params, x_chunk, cfg)                  # fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    lbl = labels_chunk.transpose(1, 2) if cfg.num_codebooks > 1 \
+        else labels_chunk                                     # (B,c[,K])
+    valid = lbl >= 0
+    lbl_safe = lbl.clamp_min(0).long()
+    picked = torch.gather(logits, -1, lbl_safe[..., None])[..., 0]
+    zero = torch.zeros((), device=logits.device)
+    nll = torch.where(valid, lse - picked, zero)
+    zloss = torch.where(valid, torch.square(lse), zero)
+    hit = valid & (torch.argmax(logits, dim=-1) == lbl)
+    return nll.sum(), zloss.sum(), valid.sum(), hit.sum()
+
+
+def loss_from_hidden(params, x, labels, cfg):
+    """Chunked softmax cross-entropy over the vocabulary, never holding
+    the whole (B,S,V) logits: ``LOSS_CHUNK`` positions at a time (halved
+    until they divide S), each chunk recomputed in the backward so that
+    its logits are not kept for it. Returns (mean nll, mean z-loss,
+    accuracy) over the valid labels, fp32."""
+    B, S = x.shape[:2]
+    c = min(LOSS_CHUNK, S)
+    while S % c:
+        c //= 2
+    xent = functools.partial(ckpt.checkpoint, _xent_chunk, use_reentrant=False)
+    zero = torch.zeros((), device=x.device)
+    nll, zl, cnt, acc = zero, zero, zero, zero
+    for i in range(S // c):
+        n, z, k, a = xent(params, x[:, i * c:(i + 1) * c],
+                          labels[..., i * c:(i + 1) * c], cfg)
+        nll, zl, cnt, acc = nll + n, zl + z, cnt + k, acc + a
+    cnt = torch.clamp_min(cnt, 1.0)
+    return nll / cnt, zl / cnt, acc / cnt
+
+
+def loss_fn(params, batch, cfg, *, remat_policy: str = "none", plan=None,
+            impl: Optional[str] = None):
+    """The full training loss. ``batch``: ``tokens`` and ``labels`` (and
+    ``patch_embeds`` / ``cond`` for the frontend configs). Returns (total,
+    metrics): total = nll + ``Z_LOSS_WEIGHT`` z-loss + ``MOE_AUX_WEIGHT``
+    aux; the loss is taken on the text positions only."""
+    x, aux = forward(params, batch["tokens"], cfg,
+                     patch_embeds=batch.get("patch_embeds"),
+                     cond=batch.get("cond"), remat_policy=remat_policy,
+                     plan=plan, impl=impl)
+    if cfg.frontend == "vision":
+        x = x[:, cfg.num_patches:]
+    loss, zloss, acc = loss_from_hidden(params, x, batch["labels"], cfg)
+    total = loss + Z_LOSS_WEIGHT * zloss + MOE_AUX_WEIGHT * aux
+    return total, {"loss": loss, "z_loss": zloss, "moe_aux": aux,
+                   "accuracy": acc}

@@ -1,22 +1,49 @@
-"""Retry pacing and straggler detection (the port's copy of
-``repro.runtime.fault_tolerance``'s ``backoff_delay`` and
-``StragglerDetector``; the reference's supervised train loop is not
-ported)."""
+"""Fault tolerance: the supervised train loop with checkpoint/restart,
+heartbeat and straggler detection, and the retry pacing serving shares
+(the port's copy of ``repro.runtime.fault_tolerance``).
+
+The :class:`Supervisor` drives a step function over a stateless-indexable
+data function: periodic checkpoints (``checkpoint.CheckpointManager``), a
+retry budget with exponential backoff (a failed step restarts from the
+last durable checkpoint), straggler detection against the running median
+(``on_straggler`` when persistent) and a heartbeat file in the telemetry
+schema. Failure injection (``failure_injector(step, attempt)``) is for
+tests.
+"""
 from __future__ import annotations
 
+import dataclasses
+import json
 import statistics
-from typing import Dict, List, Optional
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+from repro_torch.checkpoint.manager import CheckpointManager
 
 
 def backoff_delay(attempt: int, base_s: float) -> float:
     """Exponential backoff: ``base_s * 2**(attempt-1)`` seconds for attempt
-    >= 1 (attempts below 1 count as 1). The serving guard paces its
-    transient decode-step retries with it, and the fleet its migrations."""
+    >= 1 (attempts below 1 count as 1). The train loop's Supervisor paces
+    its retries with it, the serving guard its transient decode-step
+    retries, and the fleet its migrations."""
     return base_s * (2 ** (max(attempt, 1) - 1))
 
 
+@dataclasses.dataclass
+class FaultToleranceConfig:
+    checkpoint_dir: str
+    checkpoint_every: int = 50
+    keep: int = 3
+    max_retries: int = 3
+    backoff_s: float = 0.1
+    straggler_factor: float = 3.0
+    straggler_patience: int = 3
+    heartbeat_path: Optional[str] = None
+
+
 class StragglerDetector:
-    """Median-based straggler detector (the fleet's heartbeat audit,
+    """Median-based straggler detector (the train loop's
+    :class:`Supervisor` and the fleet's heartbeat audit,
     ``serve.replica.ReplicaSupervisor``).
 
     ``observe(step, dt)`` flags ``dt`` once it exceeds ``factor`` times the
@@ -63,3 +90,89 @@ class StragglerDetector:
     @property
     def persistent(self) -> bool:
         return self.strikes >= self.patience
+
+
+class Supervisor:
+    """Drives (step_fn, data_fn) with checkpoint/restart and the straggler
+    policy.
+
+    step_fn(state, batch) -> (state, metrics); data_fn(step) -> batch,
+    stateless-indexable (``data.pipeline`` is). The port's train step
+    updates the state in place, so a failed step leaves no durable state
+    behind it: a retry restores the last checkpoint into a fresh
+    ``init_state_fn()`` (or starts from that when there is none), as the
+    reference's does."""
+
+    def __init__(self, cfg: FaultToleranceConfig, step_fn: Callable,
+                 data_fn: Callable, init_state_fn: Callable,
+                 on_straggler: Optional[Callable] = None,
+                 failure_injector: Optional[Callable] = None):
+        self.cfg = cfg
+        self.step_fn = step_fn
+        self.data_fn = data_fn
+        self.init_state_fn = init_state_fn
+        self.on_straggler = on_straggler or (lambda det: None)
+        self.failure_injector = failure_injector
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep)
+        self.detector = StragglerDetector(cfg.straggler_factor,
+                                          cfg.straggler_patience)
+        self.restarts = 0
+        # the heartbeat's clocks, injectable so tests control both readings
+        self.wall_clock: Callable[[], float] = time.time
+        self.mono_clock: Callable[[], float] = time.monotonic
+
+    # -------------------------------------------------------------- plumbing
+    def _heartbeat(self, step: int):
+        if self.cfg.heartbeat_path:
+            # the serving telemetry's schema; imported here, since the
+            # serving side imports this module (backoff_delay)
+            from repro_torch.serve.telemetry import heartbeat_record
+            with open(self.cfg.heartbeat_path, "w") as f:
+                json.dump(heartbeat_record(
+                    step, wall_time=self.wall_clock(),
+                    mono_s=self.mono_clock(), restarts=self.restarts), f)
+
+    def _restore_or_init(self):
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return 0, self.init_state_fn()
+        restored, _ = self.ckpt.restore(self.init_state_fn(), step=latest)
+        return latest + 1, restored
+
+    # ------------------------------------------------------------------ run
+    def run(self, num_steps: int) -> Dict[str, Any]:
+        start, state = self._restore_or_init()
+        metrics_log: List[Dict] = []
+        step = start
+        while step < num_steps:
+            batch = self.data_fn(step)
+            attempt = 0
+            while True:
+                try:
+                    if self.failure_injector is not None:
+                        self.failure_injector(step, attempt)
+                    t0 = time.monotonic()
+                    state, metrics = self.step_fn(state, batch)
+                    dt = time.monotonic() - t0
+                    break
+                except Exception as e:  # noqa: BLE001 (a node failure)
+                    attempt += 1
+                    self.restarts += 1
+                    if attempt > self.cfg.max_retries:
+                        raise RuntimeError(
+                            f"step {step}: retry budget exhausted") from e
+                    time.sleep(backoff_delay(attempt, self.cfg.backoff_s))
+                    step, state = self._restore_or_init()
+                    batch = self.data_fn(step)
+            if self.detector.observe(step, dt) and self.detector.persistent:
+                self.on_straggler(self.detector)
+            metrics_log.append({"step": step, **{k: float(v) for k, v in
+                                                 metrics.items()}})
+            if (step + 1) % self.cfg.checkpoint_every == 0 or \
+                    step == num_steps - 1:
+                self.ckpt.save(step, state)
+            self._heartbeat(step)
+            step += 1
+        return {"metrics": metrics_log, "restarts": self.restarts,
+                "straggler_events": self.detector.events,
+                "final_step": step - 1}

@@ -88,9 +88,10 @@ def check_servable(cfg) -> None:
         raise ValueError(why)
 
 
-def make_serve_step(cfg, plan) -> Callable:
+def make_serve_step(cfg, plan=None) -> Callable:
     """(params, cache, tokens, pos[, cond, block_table]) -> (logits,
-    cache)."""
+    cache). ``plan`` None routes by the active plan, else by the
+    ``core.dataflow`` rules (the reference's plan-less factory)."""
     def serve_step(params, cache, tokens, pos, cond=None, block_table=None):
         return decoding.serve_step(params, cache, tokens, pos, cfg,
                                    plan=plan, block_table=block_table,
@@ -98,9 +99,9 @@ def make_serve_step(cfg, plan) -> Callable:
     return serve_step
 
 
-def make_prefill_step(cfg, cache_len: int, plan) -> Callable:
+def make_prefill_step(cfg, cache_len: int, plan=None) -> Callable:
     """(params, tokens (B, S) or (B, K, S)[, patch_embeds, cond]) -> (last
-    logits, fresh contiguous cache)."""
+    logits, fresh contiguous cache); ``plan`` as in ``make_serve_step``."""
     def prefill_step(params, tokens, patch_embeds=None, cond=None):
         return decoding.prefill(params, tokens, cfg, cache_len, plan=plan,
                                 patch_embeds=patch_embeds, cond=cond)
@@ -125,12 +126,15 @@ def sample_temperature(logits: torch.Tensor, temperature: float = 0.0,
 
 
 def make_generate_fn(cfg, num_steps: int, temperature: float = 0.0, *,
-                     plan) -> Callable:
+                     plan=None) -> Callable:
     """Prefill, then ``num_steps`` decode steps, for prompts of one length
-    (the reference's ``make_generate_fn``, its scan as an eager loop).
-    Returns generate(params, tokens, generator=None, patch_embeds=None,
-    cond=None): tokens (B, S), or (B, K, S) for K codebooks; a vision
-    config's patches (B, P, d) count into the prompt and cache lengths;
+    (the reference's ``make_generate_fn``, its scan as an eager loop;
+    ``plan`` as in ``make_serve_step``). Returns generate(params, tokens,
+    generator=None, patch_embeds=None, cond=None): tokens (B, S), or (B, K,
+    S) for K codebooks; a vision config's ``cfg.num_patches`` count into
+    the prompt and cache lengths whether or not patches (B, P, d) are
+    given, as the reference counts them (without patches the first step
+    decodes at position S + P);
     ``cond`` (B, T, d) is read by every step of a config with
     cross-attention. Returns (B, num_steps) tokens, or (B, num_steps, K):
     at K > 1 each codebook is sampled from the last position's (B, K, Vp)
@@ -139,8 +143,7 @@ def make_generate_fn(cfg, num_steps: int, temperature: float = 0.0, *,
     the codebook axis there and raises)."""
     def generate(params, tokens, generator=None, patch_embeds=None,
                  cond=None):
-        patches = patch_embeds.shape[1] \
-            if cfg.frontend == "vision" and patch_embeds is not None else 0
+        patches = cfg.num_patches if cfg.frontend == "vision" else 0
         prompt_len = tokens.shape[-1] + patches
         logits, cache = decoding.prefill(
             params, tokens, cfg, prompt_len + num_steps, plan=plan,
@@ -179,20 +182,28 @@ def length_tier(plen: int, recurrent: bool, cache_len: int = 0) -> int:
     return min(tier, cache_len) if cache_len else tier
 
 
-def make_decode_step(cfg, plan, temperature: float, eos_id: int) -> Callable:
+def make_decode_step(cfg, temperature: float, eos_id: int,
+                     plan=None) -> Callable:
     """One decode step over every row: sample -> EOS/budget masks ->
-    ``serve_step``. carry = (cache, last, pos, live, budget[, hist]); a
-    draft history rides along untouched."""
+    ``serve_step`` (``plan`` as in ``make_serve_step``). carry = (cache,
+    last, pos, live, budget[, hist]); a draft history rides along
+    untouched. ``last`` is (B, V), or (B, K, V) for K codebooks: each
+    codebook is sampled, the first carries EOS, and the (B, K, 1) tokens
+    are fed back, as the reference's step does. ``cond`` is passed on to
+    ``serve_step`` (the reference's step takes none, so it cannot run a
+    config with cross-attention)."""
+    K = cfg.num_codebooks
 
-    def step(params, carry, generator=None, block_table=None):
+    def step(params, carry, generator=None, block_table=None, cond=None):
         cache, last, pos, live, budget = carry[:5]
         nxt = sample_temperature(last, temperature, generator)
+        head = nxt[:, 0] if K > 1 else nxt
         emit = live
         budget = budget - emit.to(budget.dtype)
-        live = live & (nxt != eos_id) & (budget > 0)
+        live = live & (head != eos_id) & (budget > 0)
         logits, cache = decoding.serve_step(
-            params, cache, nxt[:, None], pos, cfg, plan=plan,
-            block_table=block_table)
+            params, cache, nxt[..., None], pos, cfg, plan=plan,
+            block_table=block_table, cond=cond)
         return (cache, logits[:, -1], pos + 1, live, budget) \
             + tuple(carry[5:]), (nxt, emit)
 
@@ -281,7 +292,7 @@ def make_step_in_place(cfg, plan, temperature: float, eos_id: int,
     ``emit`` are then (rows, k)), otherwise a ``make_decode_step`` step,
     which leaves ``hist`` as it is. The body a StepGraph captures."""
     step = make_spec_decode_step(cfg, plan, eos_id, spec_k) if spec_k \
-        else make_decode_step(cfg, plan, temperature, eos_id)
+        else make_decode_step(cfg, temperature, eos_id, plan)
 
     def body(params, state, nxt, emit, generator=None, block_table=None):
         new, (tok, em) = step(params, state, generator, block_table)

@@ -10,11 +10,12 @@ holds each layer's real counts for the fused MLP.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import dataflow
+from repro_torch.core import plan as plan_lib
 from repro_torch.core import sparsity as sp
 from repro_torch.kernels import bcsc_matmul as _bcsc
 from repro_torch.kernels.ops import is_packed
@@ -35,10 +36,13 @@ def packed_bytes(params) -> int:
 
 
 def pack_weight(w: torch.Tensor, bk: int, bn: int,
-                store_dtype=None, chunk: int = dataflow.BCSC_CHUNK
+                store_dtype=None, chunk: Optional[int] = None
                 ) -> Dict[str, torch.Tensor]:
     """Encode one (K, N) weight, every block-column non-empty, the payload
-    padded to a multiple of ``chunk`` blocks."""
+    padded to a multiple of ``chunk`` blocks (by default the active plan's
+    ``bcsc_chunk``, else ``dataflow.BCSC_CHUNK``: ``core.plan.bcsc_chunk``,
+    as the reference pads)."""
+    chunk = plan_lib.bcsc_chunk() if chunk is None else chunk
     m = _bcsc.ensure_nonempty_cols(sp.bcsc_encode(w, bk, bn))
     blocks = m.blocks if store_dtype is None else m.blocks.to(store_dtype)
     packed = {"blocks": blocks, "row_ids": m.row_ids,

@@ -27,6 +27,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import plan as pplan
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as pops
+from repro_torch.models import decoding as pdec
 from repro_torch.models import transformer as ptfm
 from repro_torch.serve import LLM, DecodeEngine, Request, StreamRequest
 from repro_torch.serve import engine as peng
@@ -213,6 +214,89 @@ def test_prefill_and_generate_fn_match_reference(ref, weights, arch):
     np.testing.assert_array_equal(mine.numpy(), np.asarray(rgen))
 
 
+def test_planless_entry_points_match_reference(ref, weights):
+    """The reference's plan-less calls run in the port: on MLPs packed at
+    0.5, ``decoding.prefill(params, tokens, cfg, cache_len)``,
+    ``serve_step(params, cache, tokens, pos, cfg)`` and
+    ``make_generate_fn(cfg, n)`` route by the ``core.dataflow`` rules as
+    the reference's do (logits within 1e-2 of max |logit|, equal argmax,
+    equal greedy tokens). Where ``plan_for_engine``'s routes agree with
+    the rules, the calls given that plan, and the plan-less calls under
+    ``core.plan.activate(plan)``, are bit-equal to the plan-less ones.
+    One arch: the routes do not depend on the layer kinds, and the
+    reference's packed generate loop compiles its kernels in interpret
+    mode."""
+    arch = ARCHS[0]
+    rcfg, params = weights[arch]
+    cfg = get_config(arch)
+    rparams = params["packed"]
+    tree = ptfm.compute_copy(_bridged(ref, rparams))
+    toks = np.random.default_rng(4).integers(2, rcfg.vocab_size, (2, 9))
+    rtoks = toks.astype(np.int32)
+    want, rcache = ref.decoding.prefill(rparams, rtoks, rcfg, 40)
+    got, cache = pdec.prefill(tree, torch.from_numpy(toks), cfg, 40)
+    want = np.asarray(want, np.float32)[..., :rcfg.vocab_size]
+    np.testing.assert_allclose(got.numpy()[..., :cfg.vocab_size], want,
+                               rtol=0, atol=1e-2 * np.abs(want).max())
+    assert (got.numpy()[..., :cfg.vocab_size].argmax(-1)
+            == want.argmax(-1)).all()
+    nxt = want[:, -1].argmax(-1)[:, None]
+    want_step, _ = ref.decoding.serve_step(rparams, rcache,
+                                           nxt.astype(np.int32), np.int32(9),
+                                           rcfg)
+    step, _ = pdec.serve_step(tree, cache, torch.from_numpy(nxt),
+                              torch.tensor(9), cfg)
+    want_step = np.asarray(want_step, np.float32)[..., :rcfg.vocab_size]
+    np.testing.assert_allclose(step.numpy()[..., :cfg.vocab_size],
+                               want_step, rtol=0,
+                               atol=1e-2 * np.abs(want_step).max())
+    rgen = ref.engine.make_generate_fn(rcfg, 4)(rparams, rtoks,
+                                                ref.jax.random.PRNGKey(0))
+    mine = peng.make_generate_fn(cfg, 4)(tree, torch.from_numpy(toks))
+    np.testing.assert_array_equal(mine.numpy(), np.asarray(rgen))
+
+    plan = pplan.plan_for_engine(cfg, slots=2, cache_len=40)
+    ff, d = cfg.d_ff, cfg.d_model
+    for M in (18, 2):
+        assert plan.mlp_route(M) == pplan.route_mlp(M, ff, d)
+        assert plan.matmul_route(M) == pplan.route_matmul(M)
+    with_plan, _ = pdec.prefill(tree, torch.from_numpy(toks), cfg, 40,
+                                plan=plan)
+    with pplan.activate(plan):
+        active, _ = pdec.prefill(tree, torch.from_numpy(toks), cfg, 40)
+        assert pplan.active_plan() is plan
+    assert pplan.active_plan() is None
+    assert torch.equal(with_plan, got) and torch.equal(active, got)
+    assert torch.equal(peng.make_generate_fn(cfg, 4, plan=plan)(
+        tree, torch.from_numpy(toks)), mine)
+
+
+def test_route_lookups_match_reference(ref):
+    """``core.plan``'s plan-first lookups against the reference's, with no
+    plan active and with one active (the reference's plan, loaded into the
+    port by ``ServePlan.from_dict``)."""
+    rcfg = ref.get_config("qwen2.5-3b")
+    rplan = ref.plan.plan_for_scheduler(rcfg, rows=8, cache_len=1024)
+    plan = pplan.ServePlan.from_dict(rplan.as_dict())
+    for active in (False, True):
+        with (ref.plan.activate(rplan) if active else _null()), \
+                (pplan.activate(plan) if active else _null()):
+            for M in (1, 8, 9, 64, 65, 700):
+                assert pplan.route_matmul(M) == ref.plan.route_matmul(M)
+                assert pplan.tile_m(M) == ref.plan.tile_m(M)
+                assert pplan.route_mlp(M, 11008, 2048) \
+                    == ref.plan.route_mlp(M, 11008, 2048)
+            assert pplan.gemv_bm() == ref.plan.gemv_bm()
+            assert pplan.bcsc_chunk() == ref.plan.bcsc_chunk()
+            assert pplan.page_size_default(40) \
+                == ref.plan.page_size_default(40)
+
+
+def _null():
+    import contextlib
+    return contextlib.nullcontext()
+
+
 def _loop_case(arch, paged, kv_quant, temperature, device, packed=False,
                fused_m_max="plan", graphs=False, params=None):
     """A DecodeLoop of three rows and 64 tokens (pages of 4, so a row
@@ -287,7 +371,7 @@ def test_step_in_place_matches_functional(arch, paged, kv_quant,
                                          "cpu")
     state, _ = _fill(cfg, params, plan, loop)
     carry = _clone(state)
-    step = peng.make_decode_step(cfg, plan, temperature, -1)
+    step = peng.make_decode_step(cfg, temperature, -1, plan)
     gen = torch.Generator().manual_seed(3)
     for c in range(3):
         bt = None

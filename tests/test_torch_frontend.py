@@ -368,6 +368,53 @@ def test_generate_fn_matches_reference_musicgen(cases, reference_runs):
     _streams_agree(got.numpy(), fed, want, case.cfg)
 
 
+def test_generate_fn_counts_patches_without_them(cases):
+    """A vision config's ``cfg.num_patches`` count into the prompt and
+    cache lengths even with no patches given, as the reference counts
+    them: the port's plan-less ``make_generate_fn(cfg, n)`` decodes from
+    position S + P and gives the reference's greedy tokens (both without
+    patches; the reference compiled strict)."""
+    case = cases[INTERNVL]
+    rgen = _strict(lambda p, t, r: reng.make_generate_fn(case.rcfg, STEPS)(
+        p, t, r))(case.rparams, jnp.asarray(case.toks),
+                  jax.random.PRNGKey(0))
+    got = peng.make_generate_fn(case.cfg, STEPS)(
+        case.params, torch.from_numpy(case.toks))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(rgen))
+
+
+def test_decode_step_first_codebook_carries_eos(cases):
+    """``make_decode_step`` at four codebooks: every codebook is sampled
+    from the (B, K, Vp) last logits, only the first one's token ends a
+    row (EOS), and the (B, K, 1) tokens are fed back: the step's logits
+    equal ``serve_step`` on them."""
+    case = cases[MUSICGEN]
+    cfg, params = case.cfg, case.params
+    cond = case.port_extra()["cond"]
+    toks = torch.from_numpy(case.toks)
+    logits, cache = pdec.prefill(params, toks, cfg, CACHE, cond=cond)
+    last = logits[:, -1]                                    # (B, K, Vp)
+    heads = last.argmax(-1)                                 # (B, K)
+    # row 0's first codebook token is EOS; a later codebook's token equal
+    # to EOS in row 1 must not end it
+    eos = int(heads[0, 0])
+    assert int(heads[1, 0]) != eos
+    pos = torch.full((B,), S, dtype=torch.long)
+    live = torch.ones(B, dtype=torch.bool)
+    budget = torch.full((B,), 5, dtype=torch.int32)
+    twin = {k: {n: {m: t.clone() for m, t in e.items()}
+                for n, e in part.items()} for k, part in cache.items()}
+    step = peng.make_decode_step(cfg, 0.0, eos)
+    carry, (nxt, emit) = step(params, (cache, last, pos, live, budget),
+                              cond=cond)
+    assert torch.equal(nxt, heads) and emit.all()
+    assert carry[3].tolist() == [False, True]
+    want, _ = pdec.serve_step(params, twin, heads[..., None], pos, cfg,
+                              cond=cond)
+    assert torch.equal(carry[1], want[:, -1])
+    assert carry[1].shape == (B, cfg.num_codebooks, cfg.vocab_padded)
+
+
 def test_generate_fn_samples_each_codebook(cases):
     """At temperature > 0 every codebook draws its own token, from one
     seeded generator: the same seed gives the same (B, T, K) tokens."""

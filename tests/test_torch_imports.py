@@ -19,6 +19,7 @@ PORT = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 FILES = PORT + [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "profile_decode_torch.py",
                 ROOT / "scripts" / "ablate_kernels_torch.py",
+                ROOT / "scripts" / "profile_train_torch.py",
                 ROOT / "examples" / "torch_serve_lm.py",
                 ROOT / "examples" / "torch_sparse_inference.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -51,7 +52,10 @@ def test_port_files_exist():
                  "kernels/ops.py", "kernels/_build.py", "models/decoding.py",
                  "models/rglru.py", "models/ssm.py", "models/moe.py",
                  "models/frontend.py", "configs/musicgen_large.py",
-                 "configs/internvl2_26b.py"):
+                 "configs/internvl2_26b.py", "models/flash.py",
+                 "kernels/flash_backward.py", "train/optimizer.py",
+                 "train/loop.py", "data/pipeline.py",
+                 "checkpoint/manager.py", "launch/train.py"):
         assert need in names
 
 
@@ -62,7 +66,13 @@ def test_port_files_exist():
                                     "repro_torch.serve.telemetry",
                                     "repro_torch.serve.router",
                                     "repro_torch.serve.replica",
-                                    "repro_torch.runtime.fault_tolerance"])
+                                    "repro_torch.runtime.fault_tolerance",
+                                    "repro_torch.models.flash",
+                                    "repro_torch.kernels.flash_backward",
+                                    "repro_torch.train.loop",
+                                    "repro_torch.data.pipeline",
+                                    "repro_torch.checkpoint.manager",
+                                    "repro_torch.launch.train"])
 def test_decode_loop_modules_import_without_a_card(module):
     """The graph, guard, chaos and telemetry modules import on a machine
     without CUDA: a graph is captured only when a decode loop first runs
@@ -80,6 +90,15 @@ def test_llm_defaults_to_the_card(monkeypatch):
         LLM(cfg, {}, plan)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LLM(cfg, {}, plan, device="cuda")
+
+
+def test_train_launch_defaults_to_the_card(monkeypatch):
+    """The training CLI resolves its device as ``LLM`` does: the card
+    unless ``--device cpu`` is given, raising without one."""
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "qwen2.5-3b", "--reduced", "--steps", "1"])
 
 
 def test_scheduler_defaults_to_the_card(monkeypatch):

@@ -27,6 +27,7 @@ from repro_torch.kernels import local_attention as pswa
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import paged_attention as ppa
 from repro_torch.kernels import rs_matmul as prs
+from repro_torch.models import layers as players
 from repro_torch.serve import sparse as psparse
 
 
@@ -1080,10 +1081,13 @@ def test_sliding_window_plain_chunk_mode(ref, S, chunk, R):
 
 
 def test_flash_attention_entry_is_causal_window(ref):
+    """Full causal prefill attention (``layers.full_causal_attention``) is
+    the sliding window with window = S."""
     q, k, v = _swa_case(24, seed=3)
-    got = pops.flash_attention(*(torch.from_numpy(a).bfloat16()
-                                 for a in (q, k, v)), softcap=30.0)
-    assert torch.equal(got, _port_swa(q, k, v, 24, 30.0))
+    got = players.full_causal_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        types.SimpleNamespace(attn_logit_softcap=30.0))
+    assert torch.equal(got, _port_swa(q, k, v, 24, 30.0).bfloat16())
 
 
 # -------------------------------------------------------------- rs_matmul
@@ -1359,6 +1363,91 @@ def test_cuda_sliding_window_chunk_tile_edges(cuda, S, chunk, R, D):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window,chunk,R,D,softcap", [
+    (300, 300, 0, 4, 128, 0.0), (200, 96, 0, 2, 256, 50.0),
+    (260, 260, 100, 5, 64, 0.0)])
+def test_cuda_sliding_window_lse_matches_plain(cuda, S, window, chunk, R, D,
+                                               softcap):
+    """The forward's log-sum-exp (written only when asked for) against the
+    plain version's: 1e-5 of max |lse| (the kernel's ex2 and log against
+    torch's exp and log); the output is the same bits with and without
+    it."""
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, KV=2, R=R, D=D, seed=S + R))
+    kw = dict(window=window, chunk=chunk, softcap=softcap)
+    out, lse = pops.sliding_window_attention(q, k, v, return_lse=True, **kw)
+    _, want = pops.sliding_window_attention(q, k, v, return_lse=True,
+                                            impl="plain", **kw)
+    bare = pops.sliding_window_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert lse.shape == (2, S, 2 * R)
+    torch.testing.assert_close(lse, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(out, bare)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window,chunk,KV,R,D,softcap", [
+    (300, 300, 0, 2, 8, 128, 0.0), (200, 96, 0, 2, 2, 256, 50.0),
+    (260, 260, 100, 2, 5, 64, 0.0)])
+def test_cuda_flash_backward_matches_plain(cuda, S, window, chunk, KV, R, D,
+                                           softcap):
+    """The backward kernel against its plain version on the same inputs
+    (the kernel forward's bf16 output and log-sum-exp): dq, dk and dv
+    within 2e-3 of each one's max |value| (the kernel's ex2 and tanhf can
+    move a bf16 rounding of p or ds by one step, and its fp32 sums run in
+    another order); a second call gives the same bits (no atomics)."""
+    rng = np.random.default_rng(S + R + D)
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, B=2, KV=KV, R=R, D=D, seed=S + R))
+    dout = torch.from_numpy(_bf16(rng, (2, S, KV * R, D))).bfloat16().to(
+        cuda)
+    kw = dict(window=window, chunk=chunk, softcap=softcap)
+    out, lse = pops.sliding_window_attention(q, k, v, return_lse=True, **kw)
+    out16 = out.bfloat16()
+    got = pops.flash_backward(q, k, v, out16, lse, dout, **kw)
+    again = pops.flash_backward(q, k, v, out16, lse, dout, **kw)
+    want = pops.flash_backward(q, k, v, out16, lse, dout, impl="plain", **kw)
+    torch.cuda.synchronize()
+    for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=2e-3 * float(w.abs().max()),
+                                   msg=name)
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(2048, 2048, 256), (300, 96, 1000)])
+def test_cuda_matmul_backward_matches_fp64(cuda, M, K, N):
+    """``layers.matmul``'s backward as the card runs it (the fp32
+    cotangent rounded to bf16, bf16 products with fp32 sums, each operand's
+    cotangent rounded once to bf16) against fp64 products of the forward's
+    bf16 operands and the unrounded cotangent: dx and dw within 8e-3 of
+    each one's max |value| and 3e-3 in Frobenius norm (two bf16 roundings,
+    the cotangent's and the result's, each within 2^-9 relative, about
+    1.1e-3 rms). The first shape is qwen2.5-3b's k projection over 2048
+    positions."""
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, device=cuda, generator=gen).bfloat16()
+    w = torch.randn(K, N, device=cuda, generator=gen) / K ** 0.5
+    g = torch.randn(M, N, device=cuda, generator=gen)
+    x.requires_grad_()
+    w.requires_grad_()
+    y = players.matmul(x, w)
+    assert y.dtype == torch.float32
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    assert torch.equal(dw, dw.bfloat16().float())
+    xd, wd, gd = (t.detach().double() for t in (x, w.bfloat16(), g))
+    for name, got, want in (("dx", dx, gd @ wd.t()), ("dw", dw, xd.t() @ gd)):
+        diff = got.double() - want
+        err = float(diff.abs().max() / want.abs().max())
+        fro = float(torch.linalg.norm(diff) / torch.linalg.norm(want))
+        assert err <= 8e-3 and fro <= 3e-3, (name, err, fro)
 
 
 @pytest.mark.gpu
