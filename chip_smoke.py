@@ -51,6 +51,13 @@ Phases, each of which must pass:
    (softcap, D 256), llama4's chunked and musicgen's (D 64) shapes, timed
    beside the plain version, its bound and SDPA's backward where SDPA
    computes the same function.
+   Paged attention's tensor-parallel shards (``phase_kernels_shards``,
+   ``SHARD_KERNEL_SHAPES``): at gemma2-2b's fp and qwen2.5-3b's int8
+   decode shapes, two launches over the unsliced pools (``kv_offset``,
+   split as for all heads), concatenated, must equal one launch bit for
+   bit, also split as the speculative verifier splits (``split_rows``),
+   and the plain version at 1e-4; one shard is timed beside its bound, its plain version and SDPA over its gathered
+   pages, against the launch over all heads.
    Each kernel's launch configuration (paged attention's split, the
    sliding window's blocks, stages and shared memory, the fused MLP's
    grid, rings and phase-2 split, the GEMV's grid, split and rings,
@@ -64,7 +71,8 @@ Phases, each of which must pass:
    int8 KV pages with the two-call MLP route (the GEMV and GEMM arms), then
    8 requests of 64 new tokens through ``LLM.generate`` on
    ``plan_for_engine(slots=8, cache_len=1024)`` (the drain engine's
-   contiguous cache);
+   contiguous cache); between them the sharded pass (``_sharded_pass``)
+   at tp=2 on int8 pages and the GEMV route;
    every serve pass runs under ``LLM``'s defaults, the serving guard
    (``GuardConfig()``) and the tracer;
 5. serve qwen2.5-3b guarded (``phase_serve_guarded``, on the model phase 4
@@ -150,6 +158,14 @@ Phases, each of which must pass:
    1024 wrapping in decode, then 4 requests on int8 KV pages on the
    default MLP route;
    every request must return its budget of in-vocabulary tokens;
+   gemma2-2b then serves a sharded pass at tp=2 (``_sharded_pass``: the
+   plan of the pass's geometry from ``plan_serve`` with ``mesh="tp=2"``
+   and without a mesh, under ``LLM``'s defaults, graphed, in turns: equal
+   streams, paged attention once per shard per global layer per decode
+   step and everything else as on one device, one device-to-host copy a
+   chunk, no lockstep divergence, per-device pool bytes of 1/tp, the
+   ``collective_*`` counters equal to ``chunk_collectives``' model, decode
+   tokens/s and the graphed step's device ms of both);
    every pass of 4 and 8 runs three times in turns (``_turns``): with the
    decode step captured as a CUDA graph (the first run captures it), with
    the eager step (``decode_graphs=False``), with the graph again. The
@@ -198,7 +214,8 @@ Phases, each of which must pass:
     batch and no other port kernel (the expert products are torch matrix
     products); the graphed step's device time beside its bound (every
     expert's weights read per step, as the reference's dense decode reads
-    them);
+    them); then its sharded pass at tp=2,ep=4 (``_sharded_pass``, the
+    rings' attention in two halves, the experts in four slices);
 12. serve the frontend architectures (``phase_serve_frontends``), after
     mixtral was freed, through ``serve.engine.make_generate_fn`` (the
     serving loops do not serve them, as the reference's do not):
@@ -369,6 +386,11 @@ MIXTRAL_LENS = (5, 37, 300, 511, 2000, 5000, 64, 300)
 MIXTRAL_NEW = 32
 MIXTRAL_CHECK = (300, 5000)
 MIXTRAL_GENERATE_LENS = (5, 300, 2000, 5000)
+# the sharded passes (``_sharded_pass``): prompts and new tokens
+SHARDED_GEMMA_LENS = (300, 1500, 4100, 6000)
+SHARDED_MIXTRAL_LENS = (37, 300, 2000, 5000)
+SHARDED_QWEN_LENS = (5, 130, 300, 511, 64, 37, 900, 222)
+SHARDED_NEW = 24
 # llama4's chunked attention in the kernel phase: its attention heads
 # (40 over 8 KV heads of 128) at two chunks of 8192, and a shape whose
 # chunk starts (96, 192, 288) fall inside 64-key tiles
@@ -930,6 +952,14 @@ MODEL_KERNEL_SHAPES = {
 }
 
 
+# paged attention's shards: arch, geometry, lengths, pages, tp
+SHARD_KERNEL_SHAPES = (
+    (GEMMA, GEMMA_PLAN, MODEL_KERNEL_SHAPES[GEMMA][1], "fp", 2),
+    (ARCH, dict(rows=8, cache_len=1024, page_size=64),
+     (1024, 1, 63, 64, 65, 300, 777, 1000), "int8", 2),
+)
+
+
 def _virtual_line(cfg, tag, rows, k, start, gen, flush, judge):
     """Paged attention at the flattened verifier's shape: ``rows`` real
     rows of 16 pages of 64, each repeated as ``k`` virtual rows of lengths
@@ -975,14 +1005,12 @@ def _virtual_line(cfg, tag, rows, k, start, gen, flush, judge):
             f"{ms:.4f} ms ({by})")
 
 
-def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
-    """Paged attention at a model's decode shape (its pass's rows, ragged
-    lengths, a random block table with never-touched tails), fp or int8
-    pages: held against the plain version, equal bits on a second call,
-    timed against the plain version, SDPA over gathered (dequantized) pages
-    and the bound; returns the log line."""
+def _paged_args(cfg, geometry, lengths, kv, gen):
+    """Paged attention's inputs at a model's decode shape (its pass's rows,
+    ragged lengths, a random block table with never-touched tails), fp or
+    int8 pages. Returns ((q, k_pool, v_pool, table, lengths), the scales
+    (none for fp), the pools dequantized to bf16, bytes per element)."""
     import torch
-    from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     KV, D, ps = cfg.num_kv_heads, cfg.head_dim, geometry["page_size"]
     R, MP = cfg.num_heads // KV, geometry["cache_len"] // ps
@@ -997,18 +1025,29 @@ def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
     if kv == "fp":
         kp = torch.randn(shape, generator=gen, device=dev).bfloat16()
         vp = torch.randn(shape, generator=gen, device=dev).bfloat16()
-        sc, kd, vd, elem = {}, kp, vp, 2
-    else:
-        kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
-                           dtype=torch.int8)
-        vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
-                           dtype=torch.int8)
-        sc = dict(k_scale=torch.rand(P, KV, generator=gen, device=dev) * 4,
-                  v_scale=torch.rand(P, KV, generator=gen, device=dev) * 4)
-        kd, vd = ((p.float() * s[:, None, :, None] / 127).bfloat16()
-                  for p, s in ((kp, sc["k_scale"]), (vp, sc["v_scale"])))
-        elem = 1
-    args = (q, kp, vp, bt, lengths)
+        return (q, kp, vp, bt, lengths), {}, (kp, vp), 2
+    kp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    vp = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                       dtype=torch.int8)
+    sc = dict(k_scale=torch.rand(P, KV, generator=gen, device=dev) * 4,
+              v_scale=torch.rand(P, KV, generator=gen, device=dev) * 4)
+    deq = tuple((p.float() * s[:, None, :, None] / 127).bfloat16()
+                for p, s in ((kp, sc["k_scale"]), (vp, sc["v_scale"])))
+    return (q, kp, vp, bt, lengths), sc, deq, 1
+
+
+def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
+    """Paged attention at a model's decode shape (``_paged_args``): held
+    against the plain version, equal bits on a second call, timed against
+    the plain version, SDPA over gathered (dequantized) pages and the
+    bound; returns the log line."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    args, sc, (kd, vd), elem = _paged_args(cfg, geometry, lengths, kv, gen)
+    q, kp, vp, bt, lengths = args
+    B, KV, R, D = q.shape
+    MP = bt.shape[1]
     cap = cfg.attn_logit_softcap
     log("  " + _split_line(B, KV, MP))
 
@@ -1036,6 +1075,89 @@ def _paged_line(cfg, geometry, lengths, kv, gen, flush, judge):
             f"{time_ms(cu, flush):.4f} ms, plain {time_ms(plain, flush):.4f} "
             f"ms, SDPA over gathered pages (no softcap) "
             f"{time_ms(sdpa, flush):.4f} ms, bound {ms:.4f} ms ({by})")
+
+
+def _shard_line(cfg, geometry, lengths, kv, tp, gen, flush, judge):
+    """Paged attention split over ``tp`` KV-head shards, as a sharded
+    decode step launches it: shard s reads heads [s KV/tp, (s + 1) KV/tp)
+    of the unsliced pools (``kv_offset``) with the split of the launch over
+    all heads. The shards concatenated must equal one launch bit for bit,
+    also at the speculative verifier's split (``split_rows`` 1: the rows
+    as one real row's virtual rows), and the plain version at 1e-4; one
+    shard is timed
+    beside its bound, its plain version and SDPA over its gathered pages,
+    against the launch over all heads. Returns the log line."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import paged_attention as pa
+    args, sc, (kd, vd), elem = _paged_args(cfg, geometry, lengths, kv, gen)
+    q, kp, vp, bt, lens = args
+    B, KV, R, D = q.shape
+    per, MP, cap = KV // tp, bt.shape[1], cfg.attn_logit_softcap
+
+    def full(rows=None):
+        return pa.paged_attention_cuda(*args, softcap=cap, split_rows=rows,
+                                       **sc)
+
+    def shard(s, rows=None):
+        qs = q[:, s * per:(s + 1) * per].contiguous()
+        return lambda: pa.paged_attention_cuda(
+            qs, kp, vp, bt, lens, softcap=cap, kv_offset=s * per,
+            split_rows=rows, **sc)
+    what = f"paged_attention[{cfg.name}: {kv}, tp {tp} shards]"
+    for rows in (None, 1):
+        got = torch.cat([shard(s, rows)() for s in range(tp)], dim=1)
+        judge.check(f"{what}: the shards concatenated equal one launch bit "
+                    f"for bit, split as for {rows or B} rows",
+                    bool(torch.equal(got, full(rows))),
+                    f"{tp} launches of {per} KV heads vs one of {KV}")
+    abs_err, _ = errors(got, pa.paged_attention_plain(*args, softcap=cap,
+                                                      **sc))
+    judge(what, abs_err, 1e-4, "absolute on outputs of order 1: fp32 online "
+          "softmax vs one masked softmax, sums in another order")
+    tokens = int(lens.sum())
+    n_sm = _build.sm_count(0)
+
+    def bound_of(heads):
+        n_bytes = (B * heads * R * D * 2 + 2 * tokens * heads * D * elem
+                   + bt.numel() * 4 + B * 4 + B * heads * R * D * 4
+                   + (2 * B * MP * heads * 4 if sc else 0))
+        return bound(n_bytes, 4 * tokens * heads * R * D)
+    (s_ms, s_by), (f_ms, f_by) = bound_of(per), bound_of(KV)
+    pages, n_split = pa.split_plan(B, KV, MP, n_sm)
+    own = pa.split_plan(B, per, MP, n_sm)
+    q0 = q[:, :per].contiguous()       # shard 0: pool heads [0, per)
+
+    def plain0():
+        return pa.paged_attention_plain(q0, kp, vp, bt, lens, softcap=cap,
+                                        kv_offset=0, **sc)
+    sdpa0 = _sdpa_over_pages(q0, kd[:, :, :per], vd[:, :, :per], bt, lens)
+    return (f"paged_attention shard ({cfg.name}: {kv} pages, tp {tp}: {per} "
+            f"of {KV} KV heads a launch, B {B}, R {R}, D {D}, softcap "
+            f"{cap:g}, {tokens} tokens; split as for {KV} heads: {pages} "
+            f"pages x {n_split} (its own heads would give {own[0]} x "
+            f"{own[1]})): one shard {time_ms(shard(0), flush):.4f} ms (bound "
+            f"{s_ms:.4f} ms, {s_by}; plain {time_ms(plain0, flush):.4f} ms; "
+            f"SDPA over its gathered pages, no softcap "
+            f"{time_ms(sdpa0, flush):.4f} ms), the launch over all heads "
+            f"{time_ms(full, flush):.4f} ms (bound {f_ms:.4f} ms, {f_by})")
+
+
+def phase_kernels_shards(flush, judge):
+    """Paged attention's tensor-parallel shards (``_shard_line``) at
+    gemma2-2b's fp decode shape (4 KV heads, head_dim 256, softcap) and
+    qwen2.5-3b's int8 one (2 KV heads, the serve pass's rows 8, cache
+    1024), tp 2 each; returns the log lines."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    log("kernels: paged attention in tensor-parallel shards")
+    lines = [_shard_line(get_config(arch), geometry, lengths, kv, tp, gen,
+                         flush, judge)
+             for arch, geometry, lengths, kv, tp in SHARD_KERNEL_SHAPES]
+    for line in lines:
+        log(f"  {line}")
+    return lines
 
 
 def phase_kernels_model(flush, judge, arch):
@@ -2173,6 +2295,126 @@ def _per_step_checks(judge, tag, counts, layers, n_global, steps,
                 "steps (plus short prefills)")
 
 
+def _mesh_plan(llm, mesh, kv_quant="fp", **change):
+    """``plan_serve`` at ``llm``'s plan's geometry (rows, cache, page size,
+    attention path, sync cadence) on a 40e9 B budget, the pool fully
+    provisioned (no preemption, no int8 rung), speculation off, over
+    ``mesh`` (None: one device); ``change`` replaces plan fields after."""
+    from repro_torch.core.plan import plan_serve
+    p = llm.plan
+    plan = plan_serve(
+        llm.cfg, hbm_budget_bytes=int(40e9), expected_batch=p.rows,
+        expected_len_dist={"mean": p.cache_len / 2, "max": p.cache_len},
+        page_size=p.page_size,
+        num_pages=p.rows * p.max_pages if p.paged else None,
+        attn_path=p.attn_path, kv_quant=kv_quant, sync_every=p.sync_every,
+        spec_k=0, mesh=mesh)
+    return dataclasses.replace(plan, **change) if change else plan
+
+
+def _sharded_pass(llm, judge, tag, mesh, lens, new, kv_quant="fp",
+                  **change):
+    """A sharded ``LLM.stream`` pass on ``llm``'s weights, under the
+    reference's defaults (guard and tracer on, prefix sharing on a paged
+    plan), graphed, beside the same plan on one device (``_mesh_plan``):
+    both capture their step first, then run in turns (one device, the
+    mesh, the mesh, one device) and the mesh once more under the profiler.
+    Every run gives the one-device streams; each timed mesh run launches
+    what the one-device run does, except paged attention tp times as
+    often (once per shard per global layer per decode step); the card
+    runs one device-to-host copy per decode chunk; ``sharding_report()``
+    shows no lockstep divergence and per-device pool bytes of 1/tp; the
+    ``collective_*`` counters equal ``chunk_collectives``' model for the
+    run (these two are consistency checks: the bytes are a division and
+    the scheduler counts the collectives with that model). Returns (the last timed mesh run's launch counts, the line of
+    rates: decode tokens/s of both, graphed step device ms of both)."""
+    from repro_torch.core.plan import num_global_layers
+    from repro_torch.serve import LLM, shard
+    cfg = llm.cfg
+    plans = {m: _mesh_plan(llm, m, kv_quant, **change) for m in (None, mesh)}
+    sharded = plans[mesh]
+    tp = sharded.tp
+    llms = {m: LLM(cfg, llm.params, p, eos_id=-1, device=DEVICE)
+            for m, p in plans.items()}
+    runs = {None: [], mesh: []}
+    _reset_peak()
+    for m in (None, mesh, None, mesh, mesh, None):
+        runs[m].append(_guarded_run(llms[m], _requests(cfg, lens, new,
+                                                       [0] * len(lens))))
+    traced = _guarded_run(llms[mesh], _requests(cfg, lens, new,
+                                                [0] * len(lens)),
+                          transfers=True)
+    want = [r.out for r in runs[None][0].done.values()]
+    ok = all(len(o) == new and all(0 <= t < cfg.vocab_size for t in o)
+             for o in want)
+    judge.check(f"{tag}: tokens", ok, f"{len(lens)} requests x {new}")
+    streams = [[r.out for r in run.done.values()]
+               for run in runs[None] + runs[mesh] + [traced]]
+    judge.check(f"{tag}: {mesh} streams equal one device's token for token",
+                all(o == want for o in streams),
+                f"{len(streams)} runs, {sum(len(o) for o in want)} tokens "
+                "each")
+    judge.check(f"{tag}: every outcome ok and kv {kv_quant} throughout",
+                all(r.outcome.ok for run in runs[mesh] + [traced]
+                    for r in run.done.values())
+                and all(run.st["kv_quant"] == kv_quant
+                        for run in runs[None] + runs[mesh]),
+                f"{len(lens)} requests a run")
+    one, many = runs[None][-1], runs[mesh][-1]
+    steps = one.st["decode_steps"]
+    n_global = num_global_layers(cfg) if plans[None].paged else 0
+    expect = dict(one.counts, paged_attention=tp * one.counts[
+        "paged_attention"])
+    judge.check(f"{tag}: paged attention once per global layer per decode "
+                "step on one device",
+                one.counts["paged_attention"] == n_global * steps,
+                f"{one.counts['paged_attention']} = {n_global} x {steps}")
+    judge.check(f"{tag}: the mesh launches paged attention once per shard "
+                "per global layer per step, the rest as one device",
+                many.counts == expect and many.st["decode_steps"] == steps,
+                f"{many.counts} vs {expect}: +{(tp - 1) * n_global} per "
+                "step")
+    _transfer_check(judge, f"{tag} [graphed, profiled]", traced,
+                    traced.st["decode_chunks"], "decode chunks")
+    rep = llms[mesh].sharding_report()
+    counters = llms[mesh].telemetry().metrics.snapshot().counters
+    model = shard.chunk_collectives(sharded, steps=traced.st["decode_steps"],
+                                    tokens=counters["tokens_emitted"])
+    judge.check(f"{tag}: sharding report (divergence; per-device KV "
+                "bytes x tp = the whole, a consistency check)",
+                rep.get("lockstep_divergence", 0) == 0
+                and rep["kv_bytes_per_device"] * tp
+                == rep["kv_bytes_single_device"]
+                and (rep.get("shards") == tp) == sharded.paged,
+                f"{rep}")
+    judge.check(f"{tag}: collective counters equal the mesh decision's "
+                "model (a consistency check: the scheduler counts with it)", counters["collective_allgather_bytes"] > 0
+                and all(counters[k] == v for k, v in model.items()),
+                f"{ {k: counters[k] for k in model} } vs {model}")
+    rate = {m: [sum(len(r.out) for r in run.done.values())
+                / max(run.st["decode_s"], 1e-9) for run in runs[m][1:]]
+            for m in runs}
+    mean = {m: sum(v) / len(v) for m, v in rate.items()}
+    line = (f"{tag} ({cfg.name}, {cfg.num_layers} layers, {mesh} against one "
+            f"device, {kv_quant} KV, graphed, in turns): decode "
+            f"{mean[mesh]:.1f} tokens/s ("
+            + ", ".join(f"{v:.1f}" for v in rate[mesh])
+            + f") against {mean[None]:.1f} ("
+            + ", ".join(f"{v:.1f}" for v in rate[None])
+            + f"), {mean[mesh] / mean[None]:.3f}x")
+    if DEVICE == "cuda":
+        ms = {m: _graph_step(llms[m]._scheduler.graph)[0] for m in llms}
+        line += (f"; graphed step {ms[mesh]:.3f} ms on the device against "
+                 f"{ms[None]:.3f} ms")
+    line += (f"; paged-attention launches a step {tp * n_global} against "
+             f"{n_global}; collective bytes {counters['collective_allgather_bytes']}"
+             f" ({counters['collective_ops']} gathers); "
+             f"{_memory('peak of the pass')}")
+    log(f"  {line}")
+    del llms
+    return many.counts, line
+
+
 def phase_serve(judge):
     """Full-width, full-depth qwen2.5-3b: through ``LLM.stream`` a paged fp
     pass on the default plan and an int8 pass on the two-call MLP route,
@@ -2212,6 +2454,10 @@ def phase_serve(judge):
                      mlp="bcsc_gemv", mlp_per_layer=3)
     lines.append(line)
     del llm8
+    counts_s, line = _sharded_pass(
+        llm, judge, "qwen int8 tp=2 pass", "tp=2", SHARDED_QWEN_LENS,
+        SHARDED_NEW, kv_quant="int8", mlp_fused_m_max=0)
+    lines.append(line)
     llm_g = LLM(cfg, llm.params, plan_for_engine(cfg, slots=8,
                                                  cache_len=1024),
                 eos_id=-1, device=DEVICE)
@@ -2230,7 +2476,8 @@ def phase_serve(judge):
                 f"{counts_g['bcsc_mlp']} >= {layers} x "
                 f"{_decode_steps(llm_g, st_g)} steps")
     lines.append(line + f"; host_syncs {st_g['decode_chunks']} a run")
-    total = {k: launches[k] + counts8[k] + counts_g[k] for k in launches}
+    total = {k: launches[k] + counts8[k] + counts_g[k] + counts_s[k]
+             for k in launches}
     return total, lines, llm
 
 
@@ -3412,7 +3659,10 @@ def phase_serve_gemma(judge):
              f"{generated / max(st['decode_s'], 1e-9):.1f} tokens/s "
              f"({generated} tokens, {st['decode_s']:.2f} s), wall "
              f"{wall:.2f} s (the graphed run)")
-    return counts, [line, rates]
+    counts_s, sharded = _sharded_pass(llm, judge, "gemma2 tp=2 pass", "tp=2",
+                                      SHARDED_GEMMA_LENS, SHARDED_NEW)
+    return {k: counts[k] + counts_s[k] for k in counts}, \
+        [line, rates, sharded]
 
 
 def phase_serve_nemo(judge):
@@ -3745,7 +3995,11 @@ def phase_serve_moe(judge):
             f"wall {wall:.2f} s (the graphed run)")
         total = counts if total is None else \
             {k: total[k] + counts[k] for k in total}
-    return total, lines
+    counts, line = _sharded_pass(llm, judge, "mixtral tp=2,ep=4 pass",
+                                 "tp=2,ep=4", SHARDED_MIXTRAL_LENS,
+                                 SHARDED_NEW)
+    lines.append(line)
+    return {k: total[k] + counts[k] for k in total}, lines
 
 
 def _frontend_inputs(llm, rows: int, length: int):
@@ -4101,6 +4355,7 @@ def main() -> int:
             timed(f"kernels ({arch} widths)", phase_kernels_model, flush,
                   judge, arch)
         timed("kernels (dense)", phase_kernels_dense, flush, judge, records)
+        timed("kernels (tp shards)", phase_kernels_shards, flush, judge)
         timed("kernels (frontend widths)", phase_kernels_frontends, flush,
               judge)
         timed("kernels (flash backward)", phase_kernels_backward, flush,

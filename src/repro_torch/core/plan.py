@@ -15,7 +15,7 @@ numbers it was resolved from; :meth:`ServePlan.explain` renders them and
 
 The plan carries the reference's dispatch fields and route queries, so a
 plan resolved by the reference (``plan.as_dict()``) loads here through
-:meth:`ServePlan.from_dict` and routes every call identically. Three things
+:meth:`ServePlan.from_dict` and routes every call identically. Two things
 differ on purpose:
 
 * the plan is an argument of whatever reads it (``layers.mlp``,
@@ -25,9 +25,12 @@ differ on purpose:
   :func:`route_mlp`, :func:`tile_m`, ...) take the given plan first,
   then the active one, then the ``core.dataflow`` rules;
 * the MLP roofline's seconds divide by a named device's rates (``rates=``,
-  ``core.eyexam.H100_SXM`` by default; ``TPU_V5E`` gives the reference's);
-* a mesh other than one device raises ``NotImplementedError``: the mesh
-  stage belongs to sharded serving, which is not ported.
+  ``core.eyexam.H100_SXM`` by default; ``TPU_V5E`` gives the reference's).
+
+A ``mesh`` (``"tp=2,ep=4"``) runs the reference's mesh stage: tensor- and
+expert-parallel degrees, one ``core.hmmesh.Mode`` decision per data type
+and the per-device pool; ``serve.shard`` and ``sharding.tensor_parallel``
+serve such a plan shard by shard on the one serving device.
 
 The dispatch constants behind the prose (``core.dataflow``) are still the
 TPU-derived ones, so the prose speaks of VMEM scratch and the MXU.
@@ -44,7 +47,7 @@ import dataclasses
 import json
 from typing import Dict, Optional, Tuple
 
-from repro_torch.core import dataflow
+from repro_torch.core import dataflow, hmmesh
 from repro_torch.core.eyexam import H100_SXM, RATES, DeviceRates
 
 # the serving roofline's terms a decision may cite (the reference's BOUNDS)
@@ -63,6 +66,10 @@ SNAPSHOT_BUDGET_BYTES = 2 << 30          # 2 GiB
 SNAPSHOT_BATCH = 8
 SNAPSHOT_LEN_DIST = {"mean": 1024, "max": 2048}
 SNAPSHOT_SPARSITY = {"sparsity": 0.75, "packing_efficiency": 0.93}
+# the canonical sharded snapshots: the MoE configs at two mesh shapes each
+# (the reference's, under "__sharded__" in scripts/golden_plans.json)
+SHARDED_SNAPSHOT_CONFIGS = ("mixtral-8x7b", "llama4-maverick-400b-a17b")
+SHARDED_SNAPSHOT_MESHES = ("tp=2,ep=4", "tp=4,ep=2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +209,13 @@ class ServePlan:
 
     @property
     def sharded(self) -> bool:
+        """True when the mesh stage chose more than one device."""
         return self.tp > 1 or self.ep > 1
+
+    @property
+    def mesh_devices(self) -> int:
+        """Devices the resolved mesh spans (1 for a one-device plan)."""
+        return self.tp * self.ep
 
     # ------------------------------------------------------- serialization
     def as_dict(self) -> Dict:
@@ -335,6 +348,13 @@ def bcsc_chunk(plan: Optional[ServePlan] = None) -> int:
     return pl.bcsc_chunk if pl is not None else dataflow.BCSC_CHUNK
 
 
+def mesh_degrees(plan: Optional[ServePlan] = None) -> Tuple[int, int]:
+    """Plan-first ``(tp, ep)``: the mesh a call shards by, (1, 1) with no
+    plan."""
+    pl = _dispatch(plan)
+    return (pl.tp or 1, pl.ep or 1) if pl is not None else (1, 1)
+
+
 def page_size_default(cache_len: int,
                       plan: Optional[ServePlan] = None) -> int:
     """Plan-first KV page size (``dataflow.PAGE_SIZE`` clamped to the
@@ -398,15 +418,6 @@ def parse_mesh(mesh) -> Tuple[int, int]:
     return tp, ep
 
 
-def _one_device(mesh) -> None:
-    """Every spelling of one device passes; a larger mesh raises."""
-    tp, ep = parse_mesh(mesh)
-    if tp * ep > 1:
-        raise NotImplementedError(
-            f"mesh={mesh!r} (tp={tp}, ep={ep}): sharded serving is not "
-            "ported yet")
-
-
 def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
                        num_pages: int = 0, attn_path: Optional[str] = None,
                        share_prefix: Optional[bool] = None,
@@ -415,8 +426,9 @@ def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
                        rates: DeviceRates = H100_SXM) -> ServePlan:
     """The streaming scheduler's plan from explicit geometry: the same
     dispatch fields and decisions the reference's ``plan_for_scheduler``
-    resolves, for one device (tp = ep = 1). It never speculates
-    (``spec_k`` pinned 0): speculation is :func:`plan_serve`'s."""
+    resolves, for one device (tp = ep = 1; a mesh is :func:`plan_serve`'s).
+    It never speculates (``spec_k`` pinned 0): speculation is
+    :func:`plan_serve`'s."""
     return _resolve(cfg, cfg.name, rows, cache_len, mean_len=cache_len / 2,
                     page_size=page_size, num_pages=num_pages,
                     attn_path=attn_path, share_prefix=share_prefix,
@@ -426,15 +438,18 @@ def plan_for_scheduler(cfg, *, rows: int, cache_len: int, page_size: int = 0,
 
 
 def plan_for_engine(cfg, *, slots: int, cache_len: int,
-                    sync_every: int = 8,
-                    rates: DeviceRates = H100_SXM) -> ServePlan:
+                    sync_every: int = 8, rates: DeviceRates = H100_SXM,
+                    mesh=None) -> ServePlan:
     """The drain engine's plan (the reference's ``plan_for_engine``): a
     dense per-slot cache, contiguous attention, no pages, every other
-    dispatch field resolved by the same rules as ``plan_for_scheduler``."""
+    dispatch field resolved by the same rules as ``plan_for_scheduler``.
+    The drain engine is single-device: a ``mesh`` of more than one device
+    raises the reference's ``ValueError``."""
     return _resolve(cfg, cfg.name, slots, cache_len, mean_len=cache_len / 2,
                     page_size=0, num_pages=0, attn_path=None,
                     share_prefix=None, kv_quant=None, sync_every=sync_every,
-                    sparsity_stats=None, drain_only=True, rates=rates)
+                    sparsity_stats=None, drain_only=True, rates=rates,
+                    mesh=mesh)
 
 
 def plan_serve(cfg, *, hbm_budget_bytes: int, expected_batch: int,
@@ -448,7 +463,7 @@ def plan_serve(cfg, *, hbm_budget_bytes: int, expected_batch: int,
                spec_k: Optional[int] = None, mesh=None,
                rates: DeviceRates = H100_SXM) -> ServePlan:
     """A plan from a serving budget, as the reference's ``plan_serve``
-    resolves it on one device.
+    resolves it.
 
     ``expected_len_dist`` ({'mean', 'max'} or an iterable of total lengths,
     prompt plus generation) gives ``cache_len`` (its max) and the expected
@@ -463,11 +478,12 @@ def plan_serve(cfg, *, hbm_budget_bytes: int, expected_batch: int,
     paged plan, when the modelled gain reaches ``SPEC_MIN_GAIN``); an int
     pins it. The keyword overrides pin single decisions. ``arch`` names the
     plan (the config's name by default). ``mesh`` takes every spelling
-    :func:`parse_mesh` reads; one that is not one device raises
-    ``NotImplementedError``: sharded serving is not ported."""
+    :func:`parse_mesh` reads; one of more than one device runs the mesh
+    stage (tensor- and expert-parallel degrees, one ``hmmesh.Mode``
+    decision per data type, the per-device pool), and raises the
+    reference's ``ValueError`` where the config cannot take it."""
     from repro_torch.serve import kvcache
 
-    _one_device(mesh)
     mean_len, cache_len = _normalize_len_dist(expected_len_dist)
     slot_bytes = kvcache.cache_bytes(cfg, 1, cache_len)
     fit_rows = int(hbm_budget_bytes // max(slot_bytes, 1))
@@ -488,7 +504,7 @@ def plan_serve(cfg, *, hbm_budget_bytes: int, expected_batch: int,
                     attn_path=attn_path, share_prefix=share_prefix,
                     kv_quant=kv_quant, sync_every=sync_every,
                     sparsity_stats=sparsity_stats, drain_only=False,
-                    spec_k=spec_k, rates=rates,
+                    spec_k=spec_k, rates=rates, mesh=mesh,
                     capacity_numbers={
                         "hbm_budget_bytes": int(hbm_budget_bytes),
                         "expected_batch": int(expected_batch),
@@ -503,10 +519,12 @@ def _resolve(cfg, arch: str, rows: int, cache_len: int, *, mean_len: float,
              kv_quant: Optional[str], sync_every: int,
              sparsity_stats: Optional[Dict], drain_only: bool,
              rates: DeviceRates, spec_k: Optional[int] = None,
-             capacity_numbers: Optional[Dict] = None) -> ServePlan:
-    """The reference's ``_resolve`` for one device: every decision from the
-    ``core.dataflow`` rule it centralizes, with the reference's prose.
-    ``drain_only`` (the drain engine) never pages."""
+             capacity_numbers: Optional[Dict] = None,
+             mesh=None) -> ServePlan:
+    """The reference's ``_resolve``: every decision from the
+    ``core.dataflow`` rule it centralizes, with the reference's prose, and
+    the mesh stage when ``mesh`` spans more than one device.
+    ``drain_only`` (the drain engine) never pages and never shards."""
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import kvcache
 
@@ -775,6 +793,18 @@ def _resolve(cfg, arch: str, rows: int, cache_len: int, *, mean_len: float,
          "length spread while batched prefill amortizes over the cohort"),
         {"n_tiers": len(tiers), "sync_every": sync_every}))
 
+    # ---- mesh resolution (collective): the hierarchical-mesh stage ----
+    # decisions appear only when a mesh is requested; per data type, the
+    # multicast pattern that matches its reuse (the paper's per-data-type
+    # NoC reconfiguration, at cluster scale)
+    tp, ep = parse_mesh(mesh)
+    if tp > 1 or ep > 1:
+        decisions += _mesh_decisions(
+            cfg, arch, tp, ep, drain_only=drain_only, recurrent=recurrent,
+            w_bytes=w_bytes, c_bytes=c_bytes, paged=paged, rows=rows,
+            cache_len=cache_len, num_pages=np_, page_size=ps,
+            kv_quant=kv_quant)
+
     return ServePlan(
         arch=arch, rows=rows, cache_len=cache_len, sync_every=sync_every,
         gemv_m_max=dataflow.GEMV_M_MAX, gemv_bm=dataflow.GEMV_BM,
@@ -785,7 +815,129 @@ def _resolve(cfg, arch: str, rows: int, cache_len: int, *, mean_len: float,
         num_pages=np_, share_prefix=share_prefix, kv_quant=kv_quant,
         prefill_exact=recurrent, prefill_tiers=tiers,
         degrade=tuple(ladder), num_pages_int8=np_int8, spec_k=spec_choice,
-        decisions=tuple(decisions))
+        tp=tp, ep=ep, decisions=tuple(decisions))
+
+
+def _mesh_decisions(cfg, arch: str, tp: int, ep: int, *, drain_only: bool,
+                    recurrent: bool, w_bytes: int, c_bytes: int, paged: bool,
+                    rows: int, cache_len: int, num_pages: int,
+                    page_size: int, kv_quant: str) -> list:
+    """The reference's mesh stage: validation (its ``ValueError``s), then
+    the ``mesh``, ``noc_weights``, ``noc_kv``, ``noc_acts``,
+    ``noc_experts`` (ep > 1) and ``pool_shard`` (paged) decisions with its
+    numbers and prose."""
+    from repro_torch.serve import kvcache
+
+    if drain_only:
+        raise ValueError("mesh sharding serves through the streaming "
+                         "scheduler — the drain engine is single-device")
+    if recurrent and tp > 1:
+        raise ValueError(
+            f"tp={tp} shards attention KV heads; {arch} carries "
+            "recurrent (ssm/rglru) state that has no head axis — "
+            "serve it single-device or dp-replicated")
+    if tp > 1 and cfg.num_kv_heads % tp != 0:
+        raise ValueError(
+            f"tp={tp} must divide num_kv_heads={cfg.num_kv_heads} — "
+            "the paged-attention kernel reads whole local KV-head "
+            "shards (hmmesh.divisible)")
+    if ep > 1 and not getattr(cfg, "moe", False):
+        raise ValueError(
+            f"ep={ep} shards the MoE expert axis but {arch} has no "
+            "experts — use tp (or dp replicas) instead")
+    if ep > 1 and cfg.num_experts % ep != 0:
+        raise ValueError(
+            f"ep={ep} must divide num_experts={cfg.num_experts} — "
+            "expert shards are contiguous slices of the expert axis")
+    devices = tp * ep
+    n_attn = sum(1 for i in range(cfg.num_layers)
+                 if cfg.layer_kind(i) in ("global", "local", "chunked"))
+    n_moe = sum(1 for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+    # per-token collective traffic: each device produces a 1/tp slice of
+    # every layer's head context and receives the other (tp-1)/tp
+    ctx_bytes = cfg.num_heads * cfg.head_dim * 2
+    ag_bytes_tok = int(n_attn * ctx_bytes * (tp - 1) / max(tp, 1))
+    per_dev_hbm = w_bytes + c_bytes // max(tp, 1)
+    out = [Decision(
+        "mesh", f"tp={tp} ep={ep} ({devices} devices)", "collective",
+        f"{cfg.num_kv_heads} KV heads partition over tp={tp} "
+        f"({cfg.num_kv_heads // tp} local heads/device)"
+        + (f"; {cfg.num_experts} experts over ep={ep} "
+           f"({cfg.num_experts // ep} local experts/device)"
+           if ep > 1 else "")
+        + f" — {ag_bytes_tok} collective B/token vs "
+        f"{per_dev_hbm} HBM B/step per device: the all-gather is "
+        "negligible next to the weight stream, so sharding converts "
+        "mesh width into cache capacity at full occupancy",
+        {"tp": tp, "ep": ep, "devices": devices,
+         "allgather_bytes_per_token": ag_bytes_tok,
+         "hbm_bytes_per_step_per_device": per_dev_hbm})]
+    out.append(Decision(
+        "noc_weights", hmmesh.Mode.BROADCAST.name, "HBM",
+        f"dense weights replicate to all {devices} devices "
+        f"({w_bytes} B each): decode is weight-stream bound, and a "
+        f"sharded store would re-gather {(tp - 1) * w_bytes // max(tp, 1)}"
+        " B per step onto the critical path — replication trades idle "
+        "HBM capacity for zero collective bytes per step",
+        {"mode": hmmesh.Mode.BROADCAST.value,
+         "weight_bytes_per_device": w_bytes,
+         "allgather_bytes_avoided_per_step":
+             (tp - 1) * w_bytes // max(tp, 1)}))
+    out.append(Decision(
+        "noc_kv", f"{hmmesh.Mode.GROUPED_MC.name} (local shards)", "HBM",
+        f"KV pages shard by head over tp={tp}: every device streams "
+        f"only its {c_bytes // max(tp, 1)} B local slice per step "
+        f"(1/{tp} of {c_bytes} B) and the paged-attention kernel never "
+        "reads a remote page — attention is per-KV-head local, so the "
+        "cache stream divides with zero collective bytes",
+        {"mode": hmmesh.Mode.GROUPED_MC.value, "tp": tp,
+         "cache_stream_bytes_per_device": c_bytes // max(tp, 1),
+         "cache_stream_bytes_single": c_bytes}))
+    out.append(Decision(
+        "noc_acts", "all-gather -> " + hmmesh.Mode.BROADCAST.name,
+        "collective",
+        f"head contexts are produced {hmmesh.Mode.UNICAST.name} (a "
+        f"unique 1/{tp} slice per device) and all-gathered to full "
+        f"width before the output projection: {ag_bytes_tok} B/token "
+        f"received per device across {n_attn} attention layer(s) — "
+        "the only per-step mesh traffic, and it is token-sized, not "
+        "cache-sized",
+        {"allgather_bytes_per_token": ag_bytes_tok,
+         "attn_layers": n_attn, "ctx_bytes_per_layer": ctx_bytes}))
+    if ep > 1:
+        nmats = 3 if cfg.mlp_gated else 2
+        e_bytes = cfg.num_experts * nmats * cfg.d_model * cfg.d_ff * 2 \
+            * max(n_moe, 1)
+        out.append(Decision(
+            "noc_experts",
+            f"{hmmesh.Mode.INTERLEAVED_MC.name} "
+            f"({cfg.num_experts // ep}/{cfg.num_experts} per device)",
+            "HBM",
+            f"expert weights shard over ep={ep}: {e_bytes // ep} B "
+            f"resident per device instead of {e_bytes} B — the expert "
+            "axis is a batch axis in the decode einsums, so each shard "
+            "computes its slice and the gate-weighted combine runs on "
+            "the gathered full-E tensor (router stays replicated)",
+            {"mode": hmmesh.Mode.INTERLEAVED_MC.value, "ep": ep,
+             "expert_bytes_per_device": e_bytes // ep,
+             "expert_bytes_total": e_bytes, "moe_layers": n_moe}))
+    if paged:
+        pool_b = kvcache.paged_cache_bytes(cfg, rows, cache_len, num_pages,
+                                           page_size, kv_quant)
+        out.append(Decision(
+            "pool_shard",
+            f"{num_pages} pages x 1/{tp} heads per device", "occupancy",
+            f"every device runs its own PageAllocator over {num_pages} "
+            f"pages holding the local KV-head slice: "
+            f"{pool_b // max(tp, 1)} B pool per device (1/{tp} of the "
+            f"{pool_b} B single-device pool), same block tables on every "
+            "shard — the block table IS the distributed address space, "
+            "so CoW sharing and the degrade ladder operate per device "
+            "pool in lockstep",
+            {"num_pages_per_device": num_pages,
+             "pool_bytes_per_device": pool_b // max(tp, 1),
+             "pool_bytes_single": pool_b, "tp": tp}))
+    return out
 
 
 def replan_from_lengths(cfg, base_plan: ServePlan, lengths, *,
@@ -909,6 +1061,21 @@ def snapshot_plan(arch: str, rates: DeviceRates = H100_SXM) -> ServePlan:
                       rates=rates)
 
 
+def snapshot_sharded_plan(arch: str, mesh: str,
+                          rates: DeviceRates = H100_SXM) -> ServePlan:
+    """The canonical sharded plan of a config at one mesh shape: the
+    :func:`snapshot_plan` inputs plus the mesh stage, which reads no device
+    count. At ``TPU_V5E`` rates it is the plan
+    ``scripts/golden_plans.json`` records under ``"__sharded__"``."""
+    from repro_torch.configs import get_config
+    return plan_serve(get_config(arch),
+                      hbm_budget_bytes=SNAPSHOT_BUDGET_BYTES,
+                      expected_batch=SNAPSHOT_BATCH,
+                      expected_len_dist=dict(SNAPSHOT_LEN_DIST),
+                      sparsity_stats=dict(SNAPSHOT_SPARSITY), arch=arch,
+                      rates=rates, mesh=mesh)
+
+
 # ----------------------------------------------------------------------- CLI
 def _parse_bytes(s: str) -> int:
     s = s.strip()
@@ -958,7 +1125,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sparsity", type=float,
                     default=SNAPSHOT_SPARSITY["sparsity"])
     ap.add_argument("--mesh", default=None,
-                    help="mesh shape; only one device ('tp=1') is served")
+                    help="mesh shape, e.g. 'tp=2,ep=4' — adds the mesh "
+                         "resolution stage (NoC mode per data type, "
+                         "per-device pool)")
     ap.add_argument("--rates", choices=sorted(RATES), default=H100_SXM.name,
                     help="the device whose rates the MLP roofline divides "
                          "by")
@@ -967,18 +1136,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     arch = _resolve_arch_name(args.cfg)
-    try:
-        plan = plan_serve(
-            get_config(arch),
-            hbm_budget_bytes=_parse_bytes(args.hbm),
-            expected_batch=args.batch,
-            expected_len_dist={"mean": args.mean_len, "max": args.max_len},
-            sparsity_stats={"sparsity": args.sparsity,
-                            "packing_efficiency":
-                                SNAPSHOT_SPARSITY["packing_efficiency"]},
-            arch=arch, mesh=args.mesh, rates=RATES[args.rates])
-    except NotImplementedError as e:
-        ap.exit(2, f"{ap.prog}: {e}\n")
+    plan = plan_serve(
+        get_config(arch),
+        hbm_budget_bytes=_parse_bytes(args.hbm),
+        expected_batch=args.batch,
+        expected_len_dist={"mean": args.mean_len, "max": args.max_len},
+        sparsity_stats={"sparsity": args.sparsity,
+                        "packing_efficiency":
+                            SNAPSHOT_SPARSITY["packing_efficiency"]},
+        arch=arch, mesh=args.mesh, rates=RATES[args.rates])
     print(plan.to_json() if args.json else plan.explain())
     return 0
 

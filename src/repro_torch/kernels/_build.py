@@ -31,9 +31,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, block_table, lengths, out, ws,
-    # B, KV, R, D, P, ps, MP, pages_per_split, n_split, sm_scale, softcap,
-    # stream
-    "repro_paged_attention": [P] * 9 + [I] * 9 + [F, F, P],
+    # B, KV, KVp, kv_offset, R, D, P, ps, MP, pages_per_split, n_split,
+    # sm_scale, softcap, stream
+    "repro_paged_attention": [P] * 9 + [I] * 11 + [F, F, P],
     # x, M, K, blocks, row_ids, col_ptr, out, ws, N, bm, split, stream
     "repro_bcsc_gemm": [P, I, I, P, P, P, P, P, I, I, I, P],
     # x, K, blocks, row_ids, col_ptr, bias, act, out, N, split, stream

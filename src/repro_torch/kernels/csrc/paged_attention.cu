@@ -42,6 +42,13 @@
 // masking convention is the reference's: NEG_INF = -2e38, p = exp(s - m)
 // only where s > NEG_INF / 2, and the output is acc / max(l, 1e-30).
 //
+// Tensor-parallel shards: a call may take a slice of the pool's KV heads.
+// The pools and scales stay unsliced (``KVp`` heads, no copy); the call
+// reads heads [kv_offset, kv_offset + KV) of them and its q, out and
+// workspace hold those KV heads only. Each (row, head) block computes what
+// it computes in a launch over all heads, so shards launched with the full
+// launch's pages_per_split, concatenated, equal it bit for bit.
+//
 // What still holds it back: at the served shapes a call is ~10 us of fixed
 // cost (two launches, the q and page-list reads, the combine's dependent
 // reads) before its tiles; then the copies: one block per SM at D 256 (a
@@ -72,7 +79,8 @@ struct PaArgs {
   float* ws_acc;
   float* ws_m;
   float* ws_l;
-  int KV, R, P, ps, MP, pages_per_split;
+  int KV, KVp, kv_offset;  // the call's heads, the pool's, the first one
+  int R, P, ps, MP, pages_per_split;
   float sm_scale, softcap;
 };
 
@@ -120,7 +128,7 @@ __device__ __forceinline__ void chunk_to_float(const unsigned char* p,
 template <int kD, int kR, bool kQ>
 __global__ void __launch_bounds__(kPaThreads) paged_attention_split_kernel(
     const PaArgs a) {
-  const int KV = a.KV, R = a.R, P = a.P, ps = a.ps;
+  const int KV = a.KV, KVp = a.KVp, R = a.R, P = a.P, ps = a.ps;
   const float sm_scale = a.sm_scale, softcap = a.softcap;
   constexpr int kEb = kQ ? 1 : 2;              // bytes per element
   constexpr int kE = 16 / kEb;                 // elements per 16-byte chunk
@@ -147,6 +155,7 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_split_kernel(
   int* pg_s = reinterpret_cast<int*>(c_s + kPaMaxR);   // the run's pages
 
   const int b = blockIdx.x, g = blockIdx.y, split = blockIdx.z;
+  const int gp = a.kv_offset + g;   // the pool's head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = a.lengths[b];
   const int n_pages = occupied_pages(len, ps, a.MP);
@@ -179,15 +188,17 @@ __global__ void __launch_bounds__(kPaThreads) paged_attention_split_kernel(
       long off = 0;
       if (ok) {
         page = pg_s[pos / ps - j0];
-        off = (((long)page * ps + pos % ps) * KV + g) * (kD * kEb) + c * 16;
+        off = (((long)page * ps + pos % ps) * KVp + gp) * (kD * kEb) + c * 16;
       }
       cp_async16(kd + t * kRow + c * 16,
                  reinterpret_cast<const unsigned char*>(a.k_pool) + off, ok);
       cp_async16(vd + t * kRow + c * 16,
                  reinterpret_cast<const unsigned char*>(a.v_pool) + off, ok);
       if (kQ && c == 0) {
-        cp_async4(ksc + st * kPaTile + t, a.k_scale + (long)page * KV + g, ok);
-        cp_async4(vsc + st * kPaTile + t, a.v_scale + (long)page * KV + g, ok);
+        cp_async4(ksc + st * kPaTile + t, a.k_scale + (long)page * KVp + gp,
+                  ok);
+        cp_async4(vsc + st * kPaTile + t, a.v_scale + (long)page * KVp + gp,
+                  ok);
       }
     }
   };
@@ -424,18 +435,21 @@ int launch_r(dim3 grid, cudaStream_t st, const PaArgs& a) {
 
 }  // namespace repro
 
-// q (B, KV, R, D) bf16; pools (P, ps, KV, D) bf16, or int8 with (P, KV)
-// fp32 scales; block_table (B, MP) int32; lengths (B,) int32; out
-// (B, KV, R, D) fp32. ``ws`` holds B * KV * n_split * R * (D + 2) floats:
-// the splits' acc, then m, then l. R <= 16; D one of 16, 32, 64, 128, 256.
-// Launches the split kernel on grid (B, KV, n_split), then the combine.
+// q (B, KV, R, D) bf16; pools (P, ps, KVp, D) bf16, or int8 with (P, KVp)
+// fp32 scales, of which heads [kv_offset, kv_offset + KV) are read;
+// block_table (B, MP) int32; lengths (B,) int32; out (B, KV, R, D) fp32.
+// ``ws`` holds B * KV * n_split * R * (D + 2) floats: the splits' acc, then
+// m, then l. R <= 16; D one of 16, 32, 64, 128, 256. Launches the split
+// kernel on grid (B, KV, n_split), then the combine.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_table,
-    const void* lengths, void* out, void* ws, int B, int KV, int R, int D,
-    int P, int ps, int MP, int pages_per_split, int n_split, float sm_scale,
-    float softcap, void* stream) {
+    const void* lengths, void* out, void* ws, int B, int KV, int KVp,
+    int kv_offset, int R, int D, int P, int ps, int MP, int pages_per_split,
+    int n_split, float sm_scale, float softcap, void* stream) {
   using namespace repro;
+  if (kv_offset < 0 || kv_offset + KV > KVp)
+    return (int)cudaErrorInvalidValue;
   if (R < 1 || R > kPaMaxR || B < 1 || KV < 1 || P < 1 || ps < 1 ||
       MP < 1 || pages_per_split < 1 || pages_per_split > kPaMaxRun ||
       n_split < 1 || (long)pages_per_split * n_split < MP || n_split > 65535)
@@ -448,8 +462,8 @@ extern "C" int repro_paged_attention(
   float* l = m + (size_t)B * KV * n_split * R;
   const PaArgs a = {(const bf16*)q, k_pool, v_pool, (const float*)k_scale,
                     (const float*)v_scale, (const int*)block_table,
-                    (const int*)lengths, acc, m, l, KV, R, P, ps, MP,
-                    pages_per_split, sm_scale, softcap};
+                    (const int*)lengths, acc, m, l, KV, KVp, kv_offset, R, P,
+                    ps, MP, pages_per_split, sm_scale, softcap};
   const dim3 grid(B, KV, n_split);
   int code;
   switch (D) {

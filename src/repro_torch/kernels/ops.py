@@ -230,15 +230,23 @@ def bcsc_mlp_packed(x, gate_packed, up_packed, down_packed, *, d_ff: int,
 def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
                     k_scale=None, v_scale=None, softcap: float = 0.0,
                     split_rows: Optional[int] = None,
+                    kv_offset: Optional[int] = None,
+                    kv_heads: Optional[int] = None,
                     impl: Optional[str] = None):
     """Decode attention through a block table. q (B,1,H,D) bf16; pools
     (P,ps,KV,D); block_table (B,MP) int32 (-1 = no page); lengths (B,)
     int32. Returns (B,1,H,D) fp32. ``split_rows`` sets the kernel's split
-    as for that many rows (the plain version has no split)."""
+    as for that many rows (the plain version has no split). A
+    tensor-parallel shard passes the query heads of its ``kv_heads`` pool
+    heads from ``kv_offset`` on; the pools stay whole, and the kernel
+    splits the pages as for all of their heads
+    (``kernels.paged_attention``). Without ``kv_offset`` q must hold the
+    query heads of every pool head."""
     B, _, H, D = q.shape
-    KV = k_pool.shape[2]
+    KV = kv_heads or k_pool.shape[2]
     qr = q.reshape(B, KV, H // KV, D).contiguous()
-    kw = dict(k_scale=k_scale, v_scale=v_scale, softcap=softcap)
+    kw = dict(k_scale=k_scale, v_scale=v_scale, softcap=softcap,
+              kv_offset=kv_offset)
     if _use_kernel(qr, impl):
         out = _paged.paged_attention_cuda(qr, k_pool, v_pool, block_table,
                                           lengths, split_rows=split_rows,

@@ -25,6 +25,13 @@ combines the splits' (m, l, acc) in a fixed order. What still holds it
 back: ~10 us of fixed cost per call (two launches, dependent reads), one
 block per SM at head_dim 256, and, at short rows, splits that find no
 page.
+
+A tensor-parallel shard (``sharding.tensor_parallel``) calls either version
+on the unsliced pools with ``kv_offset``: its q holds the query heads of
+pool heads ``[kv_offset, kv_offset + KV)``, and only those are read (the
+plain version slices a view, the kernel strides over the pool's full head
+count, so nothing is copied). Without ``kv_offset`` q must hold every pool
+head.
 """
 from __future__ import annotations
 
@@ -62,30 +69,41 @@ def work_steps(lengths, page_size: int) -> int:
     return sum(int(row_work_steps(int(n), page_size)) for n in lengths)
 
 
-def _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale):
+def _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale,
+                  kv_offset: Optional[int]):
     B, KV, R, D = q.shape
     P, ps, KVp, Dp = k_pool.shape
-    if (KV, D) != (KVp, Dp) or v_pool.shape != k_pool.shape:
-        raise ValueError(f"q {tuple(q.shape)} vs pools {tuple(k_pool.shape)}"
-                         f" / {tuple(v_pool.shape)}")
+    heads_ok = KV == KVp if kv_offset is None \
+        else 0 <= kv_offset <= KVp - KV
+    if D != Dp or not heads_ok or v_pool.shape != k_pool.shape:
+        raise ValueError(f"q {tuple(q.shape)} at head {kv_offset} vs pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or tuple(lengths.shape) != (B,):
         raise ValueError(f"block_table {tuple(block_table.shape)} / lengths "
                          f"{tuple(lengths.shape)} for {B} rows")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
-    if k_scale is not None and (tuple(k_scale.shape) != (P, KV)
-                                or tuple(v_scale.shape) != (P, KV)):
-        raise ValueError(f"scales must be {(P, KV)}")
+    if k_scale is not None and (tuple(k_scale.shape) != (P, KVp)
+                                or tuple(v_scale.shape) != (P, KVp)):
+        raise ValueError(f"scales must be {(P, KVp)}")
 
 
 def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
-                          k_scale=None, v_scale=None, softcap: float = 0.0):
-    """q (B,KV,R,D); pools (P,ps,KV,D) bf16, or int8 with (P,KV) fp32
-    scales (value = q · scale / 127); block_table (B,MP) int32, entries
-    clamped into [0, P - 1]; lengths (B,) int32. Returns (B,KV,R,D) fp32."""
-    _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
+                          k_scale=None, v_scale=None, softcap: float = 0.0,
+                          kv_offset: Optional[int] = None):
+    """q (B,KV,R,D); pools (P,ps,KVp,D) bf16, or int8 with (P,KVp) fp32
+    scales (value = q · scale / 127), of which heads [kv_offset, kv_offset
+    + KV) are read (all of them, KV == KVp, without ``kv_offset``);
+    block_table (B,MP) int32, entries clamped into [0, P - 1]; lengths (B,)
+    int32. Returns (B,KV,R,D) fp32."""
+    _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale,
+                  kv_offset)
     B, KV, R, D = q.shape
+    heads = slice(kv_offset or 0, (kv_offset or 0) + KV)
+    k_pool, v_pool = k_pool[:, :, heads], v_pool[:, :, heads]
+    if k_scale is not None:
+        k_scale, v_scale = k_scale[:, heads], v_scale[:, heads]
     P, ps = k_pool.shape[:2]
     MP = block_table.shape[1]
     bt = block_table.long().clamp(0, P - 1)
@@ -113,16 +131,22 @@ def paged_attention_plain(q, k_pool, v_pool, block_table, lengths, *,
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
                          k_scale=None, v_scale=None, softcap: float = 0.0,
-                         split_rows: Optional[int] = None):
+                         split_rows: Optional[int] = None,
+                         kv_offset: Optional[int] = None):
     """The same function through the CUDA kernels (tensors on the card):
     the split kernel on grid (B, KV, n_split) of ``split_plan``, then the
     combine, both on the current stream; one launch as counted.
     ``split_rows`` (default B) is the row count ``split_plan`` is asked
     about: the speculative verifier's B·k virtual rows pass the B real
-    rows, so each reduces its pages in the splits a sequential step would."""
-    _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
+    rows, so each reduces its pages in the splits a sequential step would.
+    ``split_plan`` is always asked about the pool's head count, not q's: a
+    tensor-parallel shard (``kv_offset``) must reduce each row's pages in
+    the splits of the launch over all heads, so that the shards'
+    outputs, concatenated, equal that launch bit for bit."""
+    _check_shapes(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale,
+                  kv_offset)
     B, KV, R, D = q.shape
-    P, ps = k_pool.shape[:2]
+    P, ps, KVp = k_pool.shape[:3]
     MP = block_table.shape[1]
     quantized = k_scale is not None
     want_pool = torch.int8 if quantized else torch.bfloat16
@@ -139,7 +163,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
         raise ValueError(f"at most 16 query heads per KV head, got {R}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim must be one of {HEAD_DIMS}, got {D}")
-    pages, n_split = split_plan(split_rows or B, KV, MP,
+    pages, n_split = split_plan(split_rows or B, KVp, MP,
                                  _build.sm_count(q.device.index or 0))
     out = torch.empty((B, KV, R, D), dtype=torch.float32, device=q.device)
     ws = torch.empty(B * KV * n_split * R * (D + 2), dtype=torch.float32,
@@ -147,8 +171,9 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, lengths, *,
     code = _build.library().repro_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         _build.ptr(k_scale), _build.ptr(v_scale), block_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, KV, R, D, P,
-        ps, MP, pages, n_split, 1.0 / math.sqrt(D), float(softcap),
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, KV, KVp,
+        kv_offset or 0, R, D, P, ps, MP, pages, n_split, 1.0 / math.sqrt(D),
+        float(softcap),
         _build.stream_of(q))
     _build.check(code, "paged_attention")
     paged_attention_cuda.launches += 1

@@ -30,6 +30,12 @@ tensors of a serving run and are never copied. Writes that the reference
 drops (positions past a row's length, table entries of -1) are masked here
 without reading anything back to the host, so a decode chunk stays free of
 device-to-host transfers.
+
+Under a plan with tp > 1 (``core.plan.mesh_degrees``: the given plan, else
+the active one) a decode step runs every attention layer over tp KV-head
+shards, and with ep > 1 the MoE experts over ep expert shards
+(``sharding.tensor_parallel``); the result is the one-device result bit
+for bit. Prefill attention is not sharded, as in the reference.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.models import layers, rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
+from repro_torch.sharding import tensor_parallel
 
 RECURRENT_KINDS = ("ssm", "rglru")
 
@@ -345,7 +352,12 @@ def _positions(pos, B: int, device) -> torch.Tensor:
 
 
 def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
-                 impl: Optional[str] = None, split_rows: Optional[int] = None):
+                 impl: Optional[str] = None, split_rows: Optional[int] = None,
+                 tp: int = 1):
+    """One token's attention: the paged entry through the paged kernel,
+    a ring or dense slot through ``layers.decode_attention``; ``tp`` > 1
+    runs either over tp KV-head shards (``sharding.tensor_parallel``), bit
+    for bit the same."""
     q, k, v = tfm.attn_project(p, x, kind, posv[:, None], cfg)  # (B,1,H,D)
     if is_paged_entry(entry):
         if block_table is None:
@@ -354,10 +366,10 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
         scales = {}
         if is_quantized_entry(entry):
             scales = dict(k_scale=entry["pk_scale"], v_scale=entry["pv_scale"])
-        ctx = ops.paged_attention(q, entry["pk"], entry["pv"], block_table,
-                                  (posv + 1).to(torch.int32),
-                                  softcap=cfg.attn_logit_softcap,
-                                  split_rows=split_rows, impl=impl, **scales)
+        ctx = tensor_parallel.sharded_paged_attention(
+            q, entry["pk"], entry["pv"], block_table,
+            (posv + 1).to(torch.int32), tp, softcap=cfg.attn_logit_softcap,
+            split_rows=split_rows, impl=impl, **scales)
         return layers.attn_out(p, ctx.to(COMPUTE_DTYPE))
     cap = entry["k"].shape[1]
     B = x.shape[0]
@@ -367,8 +379,8 @@ def _attn_decode(p, x, kind, entry, posv, cfg, block_table=None,
     entry["k"][rows, idx] = k[:, 0]
     entry["v"][rows, idx] = v[:, 0]
     mask = _valid_mask(cfg, kind, cap, posv)
-    ctx = layers.decode_attention(q, entry["k"], entry["v"],
-                                  mask.expand(B, cap), cfg)
+    ctx = tensor_parallel.sharded_decode_attention(
+        q, entry["k"], entry["v"], mask.expand(B, cap), cfg, tp)
     return layers.attn_out(p, ctx)
 
 
@@ -394,7 +406,7 @@ def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
         y = _recurrent_decode(p, h, kind, entry, cfg)
     else:
         y = _attn_decode(p["attn"], h, kind, entry, posv, cfg, block_table,
-                         impl, split_rows)
+                         impl, split_rows, plan_lib.mesh_degrees(plan)[0])
     x = tfm.cross_residual(p, tfm.residual(x, y, p, "post_norm", cfg), kind,
                            cond, cfg)
     if kind == "ssm":

@@ -20,8 +20,11 @@ Precision is the reference's: router logits and softmax in fp32, expert
 products with bf16 operands and fp32 sums, the decode path's down
 projection fp32 and the sort path's bf16. The expert products are plain
 ``torch`` matrix products, one expert at a time (the reference's are
-``jnp.einsum``, outside any Pallas kernel). Sharding over experts is not
-ported (ROADMAP item 9).
+``jnp.einsum``, outside any Pallas kernel). Under a plan with ep > 1 the
+decode path runs the experts in ep contiguous slices
+(``sharding.tensor_parallel.sharded_expert_mlp``, one slice at ep=1) and
+combines the gathered outputs in the same expert order, so the result is
+the one-device result bit for bit.
 """
 from __future__ import annotations
 
@@ -83,7 +86,7 @@ def _one_hot(eids, E: int):
     return (eids[..., None] == torch.arange(E, device=eids.device)).float()
 
 
-def _gated(x, wg, wu, wd, act, down_dtype):
+def gated_mlp(x, wg, wu, wd, act, down_dtype):
     """A gated MLP on x (..., d): fp32 gate and up products, bf16 hidden,
     the down projection in ``down_dtype``."""
     h = (act(layers.matmul(x, wg)) * layers.matmul(x, wu)).to(COMPUTE_DTYPE)
@@ -91,7 +94,7 @@ def _gated(x, wg, wu, wd, act, down_dtype):
 
 
 def _expert(p, e: int, x, act, down_dtype):
-    return _gated(x, p["wg"][e], p["wu"][e], p["wd"][e], act, down_dtype)
+    return gated_mlp(x, p["wg"][e], p["wu"][e], p["wd"][e], act, down_dtype)
 
 
 def _shared(params, x, y, cfg):
@@ -99,21 +102,25 @@ def _shared(params, x, y, cfg):
     if not cfg.shared_expert:
         return y
     sp = params["shared"]
-    return y + _gated(x, sp["wg"], sp["wu"], sp["wd"], _act(cfg),
+    return y + gated_mlp(x, sp["wg"], sp["wu"], sp["wd"], _act(cfg),
                       COMPUTE_DTYPE)
 
 
-def moe_layer_decode(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_layer_decode(params, x, cfg,
+                     ep: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) bf16 -> (y (B,S,d) bf16, zero aux loss): all experts on
-    every token, combined by the gates in fp32."""
+    every token, combined by the gates in fp32, expert by expert. The
+    experts run in ``ep`` shards (``ep`` dividing them) first."""
+    from repro_torch.sharding import tensor_parallel
+
     E = cfg.num_experts
     _, gates, eids = _route(params, x, cfg)
     gates_full = (_one_hot(eids, E) * gates[..., None]).sum(dim=-2)
-    act = _act(cfg)
+    outs = tensor_parallel.sharded_expert_mlp(
+        x, params["wg"], params["wu"], params["wd"], act=_act(cfg), ep=ep)
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(E):
-        y = y + _expert(params, e, x, act, torch.float32) \
-            * gates_full[..., e:e + 1]
+        y = y + outs[e] * gates_full[..., e:e + 1]
     y = _shared(params, x, y.to(COMPUTE_DTYPE), cfg)
     return y, torch.zeros((), device=x.device)
 
@@ -160,13 +167,14 @@ def _combine(expert_out, meta, gates, S: int):
     return out.reshape(B, S, d)
 
 
-def moe_layer(params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_layer(params, x, cfg,
+              ep: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) bf16 -> (y (B,S,d) bf16, aux load-balance loss fp32 (the
     Switch / Mixtral form, unused by serving)). S <= 8 takes
-    ``moe_layer_decode``."""
+    ``moe_layer_decode``, with the plan's ``ep``."""
     B, S, d = x.shape
     if S <= 8:
-        return moe_layer_decode(params, x, cfg)
+        return moe_layer_decode(params, x, cfg, ep)
     E = cfg.num_experts
     C = expert_capacity(S, cfg)
     probs, gates, eids = _route(params, x, cfg)

@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.core import plan as plan_lib
 from repro_torch.models import layers, moe as moe_lib, rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import COMPUTE_DTYPE, rms_norm
@@ -300,10 +301,12 @@ def mlp_residual(p, x, cfg, plan=None, impl: Optional[str] = None):
     """The layer's MLP after its pre-norm, and its aux loss (fp32; None
     for a dense MLP): an MoE layer is one whose params hold ``moe``
     (``init_params`` puts it on the slots ``cfg.is_moe_layer`` names),
-    which takes ``moe.moe_layer``; a dense one ``layers.mlp``."""
+    which takes ``moe.moe_layer`` (over the plan's ep expert shards); a
+    dense one ``layers.mlp``."""
     h = rms_norm(x, p["pre_norm_mlp"], cfg.norm_eps)
     if "moe" in p:
-        y, aux = moe_lib.moe_layer(p["moe"], h, cfg)
+        y, aux = moe_lib.moe_layer(p["moe"], h, cfg,
+                                   ep=plan_lib.mesh_degrees(plan)[1])
     else:
         y, aux = layers.mlp(p["mlp"], h, cfg, plan, impl=impl), None
     return residual(x, y, p, "post_norm_mlp", cfg), aux

@@ -636,7 +636,9 @@ class DecodeEngine:
     keys.
 
     Construction is plan-driven: pass a ``core.plan.ServePlan``
-    (``plan_for_engine`` for explicit slots/cache_len); slots, cache_len,
+    (``plan_for_engine`` for explicit slots/cache_len; a sharded plan
+    raises ``ValueError``, as the reference's drain engine is
+    single-device); slots, cache_len,
     sync cadence, tiers and kernel routes come from it. The legacy
     ``slots=``/``cache_len=`` kwargs build the same single-decision plan,
     with a DeprecationWarning. ``telemetry`` (a ``serve.telemetry.
@@ -671,6 +673,9 @@ class DecodeEngine:
                 sync_every=8 if sync_every is None else sync_every)
         if plan.rows < 1:
             raise ValueError(f"slots must be >= 1, got {plan.rows}")
+        if plan.sharded:
+            raise ValueError("mesh sharding serves through the streaming "
+                             "scheduler — the drain engine is single-device")
         check_servable(cfg)
         self.cfg = cfg
         self.params = params

@@ -26,7 +26,9 @@ resolves the reference's default, ``plan_serve`` over half of the device's
 memory (``rates.hbm_cap``: 40e9 B on an H100) for ``DEFAULT_BATCH`` rows of
 ``DEFAULT_LEN_DIST`` tokens; ``stream`` serves what it
 resolves, copy-on-write prefix sharing (on for a paged plan by default) and
-greedy speculative decoding (``spec_k`` >= 2) included. With
+greedy speculative decoding (``spec_k`` >= 2) included; a plan with a
+mesh (``plan_serve(..., mesh="tp=2")``) serves its shards one after
+another on this device (``mesh``, ``sharding_report``). With
 ``replicas=N`` (N >= 2) ``stream`` serves through the fleet,
 ``serve.replica.ReplicaSet``: N schedulers on the one device and the one
 copy of the weights, router placement, heartbeat supervision, failover,
@@ -47,6 +49,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import (DecodeEngine, Request, check_servable,
                                       resolve_device, serving_refusal)
 from repro_torch.serve.guard import GuardConfig
+from repro_torch.serve import shard as shard_lib
 from repro_torch.serve.replica import ReplicaSet
 from repro_torch.serve.scheduler import (ContinuousBatchingScheduler,
                                          StreamRequest)
@@ -148,6 +151,24 @@ class LLM:
     def explain(self) -> str:
         """The plan's per-decision Eyexam rationale."""
         return self.plan.explain()
+
+    @property
+    def mesh(self) -> shard_lib.ServeMesh:
+        """The plan's resolved serving mesh (``tp=1 ep=1`` for a one-device
+        plan). ``stream`` serves a sharded plan shard by shard on this
+        LLM's device (``sharding.tensor_parallel``); ``generate`` (the
+        single-device drain engine) refuses it."""
+        return shard_lib.ServeMesh.from_plan(self.plan, self.device)
+
+    def sharding_report(self) -> Dict:
+        """The mesh and its pool: tp and ep, whether this device's backend
+        has a device per shard, single- and per-device KV pool bytes, and,
+        after a sharded paged ``stream``, the live per-shard occupancy and
+        the lockstep divergence (``serve.shard.sharding_stats``)."""
+        pool = self._scheduler.pager if self._scheduler is not None \
+            else None
+        return shard_lib.sharding_stats(self.cfg, self.plan, pool=pool,
+                                        device=self.device)
 
     def _normalize(self, requests: Sequence, cls,
                    on_token: Optional[Callable] = None) -> List:

@@ -63,6 +63,9 @@ class PageAllocator:
     def table(self, rid: int) -> List[int]:
         return list(self._tables[rid])
 
+    def live_requests(self) -> List[int]:
+        return sorted(self._tables)
+
     def pages_for(self, n_tokens: int) -> int:
         return dataflow.pages_for(n_tokens, self.page_size)
 

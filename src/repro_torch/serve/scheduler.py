@@ -53,8 +53,13 @@ replica, adds requests to a run in progress with
 unfinished requests from ``_live`` and returns its device memory with
 :meth:`~ContinuousBatchingScheduler.release`.
 
-Not ported yet, and refused rather than ignored (``check_plan``):
-tensor/expert-parallel plans.
+A sharded plan (tp KV-head shards, ep expert shards: ``core.plan``'s mesh
+stage) serves through the same loop: the pool is a ``serve.shard.
+ShardedPagePool`` (one allocator per tp shard in lockstep), the decode step
+runs shard by shard (``sharding.tensor_parallel``; on the card the step
+graph captures every shard's launches), and every chunk counts its
+analytic collective traffic (``shard.chunk_collectives``) under the
+``collective_*`` metrics with a ``collective_chunk`` trace event.
 """
 from __future__ import annotations
 
@@ -70,6 +75,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.runtime.fault_tolerance import backoff_delay
 from repro_torch.serve import chaos as chaos_mod
 from repro_torch.serve import guard as guard_mod
+from repro_torch.serve import shard as shard_mod
 from repro_torch.serve import telemetry as telemetry_mod
 from repro_torch.serve.engine import (DecodeLoop, build_tier_batch,
                                       check_servable, refill_rows,
@@ -117,10 +123,7 @@ class StreamRequest:
 
 
 def check_plan(plan) -> None:
-    """Raise NotImplementedError for plan features the port does not serve."""
-    if plan.tp * plan.ep > 1:
-        raise NotImplementedError(
-            f"sharded serving (tp={plan.tp}, ep={plan.ep}) is not ported yet")
+    """Raise ValueError for a plan the scheduler cannot serve."""
     if plan.rows < 1:
         raise ValueError(f"rows must be >= 1, got {plan.rows}")
 
@@ -189,7 +192,10 @@ class ContinuousBatchingScheduler:
                                 paged=self.paged, sync_every=self.sync_every,
                                 graphs=graphs,
                                 spec_k=self.spec_k if self.spec_on else 0)
-        self.pager: Optional[PageAllocator] = None
+        # a sharded paged plan gets one allocator per tp shard, in lockstep
+        # over one block table; every run starts a fresh pool
+        self.pager: Optional[PageAllocator] = shard_mod.make_pool(plan) \
+            if self.paged else None
         self.phase_stats: Dict = {}
         self._live: Optional[Dict] = None    # a run's lists (start_gen)
 
@@ -365,7 +371,7 @@ class ContinuousBatchingScheduler:
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         waiting: List[StreamRequest] = []
         done: List[StreamRequest] = []
-        pager = self.pager = PageAllocator(self.num_pages, self.page_size) \
+        pager = self.pager = shard_mod.make_pool(self.plan, self.num_pages) \
             if self.paged else None
         for r in [r for r in pending if r.max_new <= 0]:
             pending.remove(r)
@@ -899,6 +905,16 @@ class ContinuousBatchingScheduler:
                 tr.event("spec_chunk", clock, cat="spec", slot=slot,
                          drafted=drafted, accepted=emitted)
             m.count("tokens_emitted", emitted)
+            if self.plan.sharded:
+                # the chunk's analytic collective traffic, which drift
+                # detection holds against the mesh decision's model
+                cc = shard_mod.chunk_collectives(self.plan, steps=T,
+                                                 tokens=emitted)
+                for key, val in cc.items():
+                    m.count(key, val)
+                if cc:
+                    tr.event("collective_chunk", clock, cat="collective",
+                             slot=slot, **cc)
             freed_rows: List[int] = []
             for row in list(active):
                 row_pos[row] += int(emits_h[:, row].sum()) if spec else T

@@ -55,7 +55,9 @@ def test_port_files_exist():
                  "configs/internvl2_26b.py", "models/flash.py",
                  "kernels/flash_backward.py", "train/optimizer.py",
                  "train/loop.py", "data/pipeline.py",
-                 "checkpoint/manager.py", "launch/train.py"):
+                 "checkpoint/manager.py", "launch/train.py",
+                 "launch/serve.py", "serve/shard.py", "core/hmmesh.py",
+                 "core/planner.py", "sharding/tensor_parallel.py"):
         assert need in names
 
 
@@ -72,7 +74,11 @@ def test_port_files_exist():
                                     "repro_torch.train.loop",
                                     "repro_torch.data.pipeline",
                                     "repro_torch.checkpoint.manager",
-                                    "repro_torch.launch.train"])
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.serve",
+                                    "repro_torch.serve.shard",
+                                    "repro_torch.sharding.tensor_parallel",
+                                    "repro_torch.core.planner"])
 def test_decode_loop_modules_import_without_a_card(module):
     """The graph, guard, chaos and telemetry modules import on a machine
     without CUDA: a graph is captured only when a decode loop first runs
@@ -99,6 +105,16 @@ def test_train_launch_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--arch", "qwen2.5-3b", "--reduced", "--steps", "1"])
+
+
+def test_serve_launch_defaults_to_the_card(monkeypatch):
+    """The serving CLI resolves its device as ``LLM`` does: the card
+    unless ``--device cpu`` is given, raising without one."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen2.5-3b", "--reduced", "--requests", "1"])
+    assert serve.parse_args(["--arch", "qwen2.5-3b"]).device == "cuda"
 
 
 def test_scheduler_defaults_to_the_card(monkeypatch):

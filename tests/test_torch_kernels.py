@@ -1197,6 +1197,89 @@ def test_cuda_paged_attention_split_edges(cuda, R, D, int8, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("KV,R,D,tp,int8,softcap", [
+    (4, 2, 256, 2, False, 50.0),     # gemma2-2b at tp=2
+    (2, 8, 128, 2, True, 0.0),       # qwen2.5-3b, int8 pages, at tp=2
+    (8, 4, 128, 2, False, 0.0),      # mixtral-8x7b at tp=2
+    (8, 4, 128, 4, True, 30.0)])
+def test_cuda_paged_attention_shards_equal_one_launch(cuda, KV, R, D, tp,
+                                                      int8, softcap):
+    """tp launches over the unsliced pools (``kv_offset``, split as for the
+    pool's head count), one per KV-head shard, concatenated, equal one
+    launch over every head bit for bit (each (row, head) reduces its pages
+    in the same splits), also at the speculative verifier's split
+    (``split_rows``), and the plain version within 1e-4."""
+    from repro_torch.sharding import tensor_parallel as tpar
+    ps, B, MP = 64, 5, 96
+    lengths = [0, 1, 700, 3000, 6000]
+    q, kp, vp, bt, lens, sc = _paged_case(lengths, ps, KV=KV, R=R, D=D,
+                                          int8=int8)
+    table = np.full((B, MP), -1, np.int32)
+    table[:, :bt.shape[1]] = bt
+    dt = torch.int8 if int8 else torch.bfloat16
+    args = (torch.from_numpy(q).bfloat16().to(cuda),
+            torch.from_numpy(kp).to(dt).to(cuda),
+            torch.from_numpy(vp).to(dt).to(cuda),
+            torch.from_numpy(table).to(cuda), torch.from_numpy(lens).to(cuda))
+    kw = {} if sc is None else dict(
+        k_scale=torch.from_numpy(sc[0]).to(cuda),
+        v_scale=torch.from_numpy(sc[1]).to(cuda))
+    full = pops.paged_attention(*args, softcap=softcap, **kw)
+    before = ppa.paged_attention_cuda.launches
+    got = tpar.sharded_paged_attention(*args, tp, softcap=softcap, **kw)
+    assert ppa.paged_attention_cuda.launches - before == tp
+    plain = tpar.sharded_paged_attention(*args, tp, softcap=softcap,
+                                         impl="plain", **kw)
+    # the verify step: the rows as one real row's virtual rows
+    full1 = pops.paged_attention(*args, softcap=softcap, split_rows=1, **kw)
+    got1 = tpar.sharded_paged_attention(*args, tp, softcap=softcap,
+                                        split_rows=1, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full)
+    assert torch.equal(got1, full1)
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got1, plain, rtol=0, atol=1e-4)
+
+
+@pytest.fixture
+def cards():
+    """Every CUDA device, when there are two or more."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: ServeMesh.device_mesh places "
+                    "one shard per card")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.gpu
+def test_cuda_device_mesh_places_shards_on_cards(cards):
+    """With a card per shard ``ServeMesh.device_mesh`` names them in (ep,
+    tp) order; each shard's KV heads of a pool, placed on its card, give
+    that shard's contexts there (plain version, against the first card's
+    whole call within 1e-5)."""
+    from repro_torch.serve.shard import ServeMesh
+    from repro_torch.sharding import tensor_parallel as tpar
+    mesh = ServeMesh(tp=2)
+    assert mesh.backed and mesh.device_mesh() == [cards[:2]]
+    q, kp, vp, bt, lens, _ = _paged_case([5, 30, 17], 8, KV=4, R=2, D=64)
+    host = (torch.from_numpy(q).bfloat16(), torch.from_numpy(kp).bfloat16(),
+            torch.from_numpy(vp).bfloat16(), torch.from_numpy(bt),
+            torch.from_numpy(lens))
+    want = pops.paged_attention(*(t.to(cards[0]) for t in host),
+                                impl="plain")
+    parts = []
+    for s, dev in enumerate(mesh.device_mesh()[0]):
+        heads = slice(2 * s, 2 * s + 2)
+        local = (tpar.shard_slice(host[0], 2, s, 2), host[1][:, :, heads],
+                 host[2][:, :, heads], host[3], host[4])
+        out = pops.paged_attention(*(t.contiguous().to(dev) for t in local),
+                                   impl="plain")
+        assert out.device == dev
+        parts.append(out.to(cards[0]))
+    torch.testing.assert_close(torch.cat(parts, dim=2), want, rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
 def test_cuda_paged_attention_refuses_what_it_cannot_take(cuda):
     q, kp, vp, bt, lens, _ = _paged_case([5], 8, KV=1, R=17, D=16)
     args = [torch.from_numpy(a).to(cuda) for a in (kp, vp, bt, lens)]

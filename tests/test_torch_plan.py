@@ -104,12 +104,17 @@ def test_parse_mesh_matches_reference(mesh):
 
 
 def test_larger_mesh_is_not_ported():
+    """A mesh of more than one device runs the mesh stage: the reference's
+    plan, or the reference's exception (``ep`` on a dense config)."""
+    kw = dict(hbm_budget_bytes=1 << 30, expected_batch=2,
+              expected_len_dist={"mean": 24, "max": 64})
     for mesh in ("tp=2", {"ep": 2}, (2, 2)):
-        with pytest.raises(NotImplementedError, match="sharded serving"):
-            pplan.plan_serve(get_config(REDUCED), hbm_budget_bytes=1 << 30,
-                             expected_batch=2,
-                             expected_len_dist={"mean": 24, "max": 64},
-                             mesh=mesh)
+        mine = _outcome(lambda: pplan.plan_serve(
+            get_config(REDUCED), rates=V5E, mesh=mesh, **kw).to_json())
+        ref = _outcome(lambda: rplan.plan_serve(
+            rget_config(REDUCED), mesh=mesh, **kw).to_json())
+        assert mine == ref
+    assert mine == ("raises", "ValueError")
 
 
 # -------------------------------------------------------- plan parity
@@ -516,7 +521,10 @@ def test_cli_matches_reference(capsys):
     assert pplan.main(["--cfg", "qwen2.5-3b", "--hbm", "40GB", "--json"]) == 0
     got = json.loads(capsys.readouterr().out)
     assert got["decisions"][0]["numbers"]["hbm_budget_bytes"] == 40 * 10 ** 9
-    with pytest.raises(SystemExit) as e:
-        pplan.main(["--cfg", "qwen2.5-3b", "--mesh", "tp=2"])
-    assert e.value.code == 2
-    assert "sharded serving is not ported" in capsys.readouterr().err
+    argv = ["--cfg", "qwen2.5-3b", "--mesh", "tp=2"]
+    assert rplan.main(argv) == 0
+    want = capsys.readouterr().out
+    assert pplan.main(argv + ["--rates", "tpu-v5e"]) == 0
+    assert capsys.readouterr().out == want
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        pplan.main(["--cfg", "qwen2.5-3b", "--mesh", "tp=4"])

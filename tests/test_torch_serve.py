@@ -160,8 +160,9 @@ def test_plan_for_scheduler_matches_reference(arch, rows, cache_len, kw):
 
 
 def test_sharing_and_spec_plans_serve_sharded_raise(weights):
-    """A plan with prefix sharing on or with ``spec_k=4`` serves, with the
-    base plan's streams; a sharded plan (tp=2) is still refused."""
+    """A plan with prefix sharing on, with ``spec_k=4`` or sharded (tp=2
+    KV-head shards, alone and with both) serves, with the base plan's
+    streams."""
     rcfg, params = weights
     cfg = get_config(ARCH)
     tree = bridge.params_from_numpy(jax.tree.map(np.asarray,
@@ -173,7 +174,8 @@ def test_sharing_and_spec_plans_serve_sharded_raise(weights):
     want = [r.out for r in LLM(cfg, tree, base, eos_id=-1, device="cpu",
                                guard=False).stream(reqs)]
     for change in (dict(share_prefix=True), dict(spec_k=4),
-                   dict(share_prefix=True, spec_k=4)):
+                   dict(share_prefix=True, spec_k=4), dict(tp=2),
+                   dict(tp=2, share_prefix=True, spec_k=4)):
         llm = LLM(cfg, tree, dataclasses.replace(base, **change), eos_id=-1,
                   device="cpu", guard=False)
         assert [r.out for r in llm.stream(reqs)] == want, change
@@ -182,8 +184,6 @@ def test_sharing_and_spec_plans_serve_sharded_raise(weights):
         assert (st["spec_rounds"] > 0) == ("spec_k" in change)
         if change.get("share_prefix"):
             assert st["shared_tokens_admitted"] == 8
-    with pytest.raises(NotImplementedError):
-        LLM(cfg, tree, dataclasses.replace(base, tp=2), device="cpu")
     guarded = LLM(cfg, tree, base, eos_id=-1, device="cpu", guard=True)
     assert [r.outcome.status for r in guarded.stream([([1, 2, 3], 2)])] \
         == ["ok"]

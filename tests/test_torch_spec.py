@@ -298,8 +298,8 @@ def test_plan_spec_pin_validation():
         pplan.plan_serve(get_config("gemma2-2b-reduced"), **kw, spec_k=4)
     with pytest.raises(ValueError, match="cannot hold"):
         pplan.plan_serve(cfg, **{**kw, "hbm_budget_bytes": 10})
-    with pytest.raises(NotImplementedError, match="sharded"):
-        pplan.plan_serve(cfg, **kw, mesh="tp=2")
+    sharded = pplan.plan_serve(cfg, **kw, mesh="tp=2", spec_k=4)
+    assert (sharded.tp, sharded.spec_k) == (2, 4)
     assert pplan.plan_for_scheduler(cfg, rows=2, cache_len=64,
                                     page_size=8).spec_k == 0
 
