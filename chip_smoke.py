@@ -50,7 +50,14 @@ Phases, each of which must pass:
    against its plain version at qwen2.5-3b's causal, gemma2-2b's local
    (softcap, D 256), llama4's chunked and musicgen's (D 64) shapes, timed
    beside the plain version, its bound and SDPA's backward where SDPA
-   computes the same function.
+   computes the same function. Their query-offset mode
+   (``phase_kernels_seqshard``, ``SEQSHARD_SHAPES``: qwen2.5-3b causal,
+   S 2048 in 4 shards of 512, and gemma2-2b local, S 8192 in 8 shards):
+   each shard of the query rows against the whole K and V, both kernels
+   against their plain versions at the same offset, the shards' forward
+   rows, lse and dq bit for bit the whole launch's, their summed dk and
+   dv within 1e-5 of it; each shard timed beside the shards' sum and the
+   whole launch.
    Paged attention's tensor-parallel shards (``phase_kernels_shards``,
    ``SHARD_KERNEL_SHAPES``): at gemma2-2b's fp and qwen2.5-3b's int8
    decode shapes, two launches over the unsliced pools (``kv_offset``,
@@ -251,7 +258,23 @@ Phases, each of which must pass:
     recomputation) and the flash backward once per layer per step, no
     other kernel and never a plain version; then one step at remat
     "none" and its peak;
-14. report: prefill and decode tokens/s, the wall time of each phase, one
+14. train qwen2.5-3b on a mesh (``phase_train_mesh``): the same model on a
+    logical ``TrainMesh(data=2, model=4)`` on this card (the plan
+    fsdp_tp, ``make_hints``; attention sequence-sharded in 4, since 2 KV
+    heads do not divide 4), batch ``MESH_BATCH`` x ``TRAIN_SEQ``, remat
+    ``TRAIN_REMAT``: loss and global grad norm against the one-device step
+    on the same batch (1e-3 / 1e-2), then the mesh and one-device steps in
+    turns (tokens/s, peaks), the mesh step's attention launches exact (4
+    shards x 36 layers x 2 forward, 4 x 36 backward) and no plain
+    version; then the int8 error-feedback data-parallel step
+    (``train.grad_compression``) at data=2 on ``DP_LAYERS`` of the 36
+    layers, one repeated sequence a replica (the loss falls over
+    ``DP_STEPS`` steps, the residuals finite and nonzero, the payload
+    bytes a step); then an elastic round trip (``phase_elastic``): one
+    step at data=2 under the Supervisor, whose ``CheckpointManager``
+    saves it, and ``runtime.elastic.restore_elastic`` at data=1 (every
+    tensor equal, the specs the data=1 plan's);
+15. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -436,6 +459,23 @@ BACKWARD_SHAPES = {
     "llama4 chunked": (1, 16384, 40, 8, 128, 16384, 8192, 0.0),
     "musicgen-large causal": (1, 4096, 32, 32, 64, 4096, 0, 0.0),
 }
+# the query-offset mode (sequence-sharded training attention): (B, S, H,
+# KV, D, window, softcap, shards); qwen's is the mesh step's, gemma2's
+# local layers shard in 8 (its 4 KV heads do not divide 8)
+SEQSHARD_SHAPES = {
+    "qwen2.5-3b causal": (2, 2048, 16, 2, 128, 2048, 0.0, 4),
+    "gemma2-2b local": (1, 8192, 8, 4, 256, 4096, 50.0, 8),
+}
+# phase_train_mesh: the mesh, its batch rows (of TRAIN_SEQ tokens), the
+# timed steps a side in turns; the compressed DP step's depth (24 of 36
+# layers: at data=2 it holds ~26 B a parameter, 80.3e9 B at 36) and steps;
+# the elastic round trip's depth (full width)
+MESH = dict(data=2, model=4)
+MESH_BATCH = 2
+MESH_STEPS = 3
+DP_LAYERS = 24
+DP_STEPS = 4
+ELASTIC_LAYERS = 1
 DEVICE = "cuda"
 BLOCK_BYTES = 16 * 16 * 2 + 4      # one packed bf16 block and its row id
 
@@ -1586,6 +1626,107 @@ def phase_kernels_backward(flush, judge, records):
         del q, k, v, dout, out16, lse, args
 
 
+def phase_kernels_seqshard(flush, judge, records):
+    """The sliding window (with its lse) and the flash backward in their
+    query-offset mode at ``SEQSHARD_SHAPES``: each shard of the query rows
+    (``q_offset``) against the whole K and V. Per shard, both kernels
+    against their plain versions at the same offset (out 1e-3, lse 1e-5,
+    dq, dk, dv 2e-3, each of the whole launch's max |value|); the shards'
+    forward rows, lse and dq bit for bit the whole launch's (each shard's
+    rows a multiple of both kernels' query tiles); their dk and dv shares
+    summed in shard order within 1e-5 of the whole launch's max. Times each
+    shard's forward (with the lse) and backward, their sums and the whole
+    launches, with bounds from the shard's band (``band_pairs``). Records
+    the lines under ``records["seqshard"]``."""
+    import torch
+    from repro_torch.kernels import flash_backward as fb
+    from repro_torch.kernels import local_attention as swa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    log("kernels: the query-offset mode (sequence-sharded attention)")
+    lines = []
+    for tag, (B, S, H, KV, D, window, cap, n) in SEQSHARD_SHAPES.items():
+        q, k, v = (torch.randn(B, S, m, D, generator=gen,
+                               device=dev).bfloat16() for m in (H, KV, KV))
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+        kw = dict(window=window, chunk=0, softcap=cap)
+        out, lse = swa.sliding_window_attention_cuda(q, k, v, return_lse=True,
+                                                     **kw)
+        out16 = out.bfloat16()
+        whole = fb.flash_backward_cuda(q, k, v, out16, lse, dout, **kw)
+        tops = [float(t.abs().max()) for t in (out, lse) + whole]
+        L = S // n
+        worst = dict(fwd=0.0, lse=0.0, bwd=0.0)
+        same = dict(out=True, lse=True, dq=True)
+        dk, dv = torch.zeros_like(whole[1]), torch.zeros_like(whole[2])
+        shard_ms = []
+        for i in range(n):
+            rows, off = slice(i * L, (i + 1) * L), i * L
+            qi = q[:, rows].contiguous()
+            args = (qi, k, v, out16[:, rows].contiguous(),
+                    lse[:, rows].contiguous(), dout[:, rows].contiguous())
+            o_i, l_i = swa.sliding_window_attention_cuda(
+                qi, k, v, return_lse=True, q_offset=off, **kw)
+            po, pl = swa.sliding_window_attention_plain(
+                qi, k, v, return_lse=True, q_offset=off, **kw)
+            got = fb.flash_backward_cuda(*args, q_offset=off, **kw)
+            want = fb.flash_backward_plain(*args, q_offset=off, **kw)
+            worst["fwd"] = max(worst["fwd"], errors(o_i, po)[0] / tops[0])
+            worst["lse"] = max(worst["lse"], errors(l_i, pl)[0] / tops[1])
+            for g, w, top in zip(got, want, tops[2:]):
+                worst["bwd"] = max(worst["bwd"], errors(g, w)[0] / top)
+            same["out"] &= bool(torch.equal(o_i, out[:, rows]))
+            same["lse"] &= bool(torch.equal(l_i, lse[:, rows]))
+            same["dq"] &= bool(torch.equal(got[0], whole[0][:, rows]))
+            dk += got[1]
+            dv += got[2]
+            del po, pl, want
+            fwd_ms = time_ms(lambda: swa.sliding_window_attention_cuda(
+                qi, k, v, return_lse=True, q_offset=off, **kw), flush)
+            bwd_ms = time_ms(lambda: fb.flash_backward_cuda(
+                *args, q_offset=off, **kw), flush)
+            shard_ms.append((fwd_ms, bwd_ms, fb.band_pairs(
+                S, window, 0, off, L)))
+        judge(f"seqshard[{tag}] forward, kernel vs plain at each offset",
+              worst["fwd"], 1e-3, "of the whole launch's max |out|: the "
+              "kernel's key order and tensor-core sums")
+        judge(f"seqshard[{tag}] lse, kernel vs plain", worst["lse"], 1e-5,
+              "of max |lse|: ex2 and log against exp and log")
+        judge(f"seqshard[{tag}] dq, dk, dv, kernel vs plain", worst["bwd"],
+              2e-3, "of the whole launch's max |value|: bf16 roundings of "
+              "p and ds, fp32 sums in another order")
+        judge.check(f"seqshard[{tag}]: the shards' out, lse and dq are the "
+                    f"whole launch's bits", all(same.values()), f"{same}")
+        sums = max(errors(dk, whole[1])[0] / tops[3],
+                   errors(dv, whole[2])[0] / tops[4])
+        judge(f"seqshard[{tag}] the shards' summed dk, dv vs the whole "
+              "launch", sums, 1e-5, "of max |value|: the same fp32 shares "
+              "summed in shard order, not within one block")
+        whole_fwd = time_ms(lambda: swa.sliding_window_attention_cuda(
+            q, k, v, return_lse=True, **kw), flush)
+        whole_bwd = time_ms(lambda: fb.flash_backward_cuda(
+            q, k, v, out16, lse, dout, **kw), flush)
+        per = ", ".join(f"{a:.4f} / {b:.4f}" for a, b, _ in shard_ms)
+        fwd_sum = sum(a for a, _, _ in shard_ms)
+        bwd_sum = sum(b for _, b, _ in shard_ms)
+        # each shard's bound: its band's 4·D (forward) and 10·D (backward)
+        # flops a pair and head at the bf16 peak
+        bounds = [(4 * D * pairs * H * B / BF16_FLOP_PER_S * 1e3,
+                   10 * D * pairs * H * B / BF16_FLOP_PER_S * 1e3)
+                  for _, _, pairs in shard_ms]
+        line = (f"{tag} (B {B}, S {S}, {H} / {KV} heads of {D}, window "
+                f"{window}, softcap {cap:g}) in {n} shards of {L}: forward "
+                f"with lse / backward ms per shard {per}; shards' sums "
+                f"{fwd_sum:.4f} / {bwd_sum:.4f} against the whole launch "
+                f"{whole_fwd:.4f} / {whole_bwd:.4f}; bounds of the shards "
+                f"(operations) {sum(b[0] for b in bounds):.4f} / "
+                f"{sum(b[1] for b in bounds):.4f}")
+        log(f"  {line}")
+        lines.append(line)
+        del q, k, v, dout, out, out16, lse, whole, dk, dv
+    records["seqshard"] = lines
+
+
 def _train_flops(cfg, tokens: int) -> float:
     """A train step's least operations: 6 x params x tokens, plus the
     attention band's 12·D flops a (query, key) pair and head (QKᵀ and PV
@@ -1651,8 +1792,6 @@ def phase_train(judge):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import pipeline as data_lib
-    from repro_torch.kernels import flash_backward as fb
-    from repro_torch.kernels import local_attention as swa
     from repro_torch.kernels import ops
     from repro_torch.train import loop as train_loop
     from repro_torch.train import optimizer as opt_lib
@@ -1693,22 +1832,12 @@ def phase_train(judge):
 
     step = train_loop.make_train_step(cfg, opt_lib.OptimizerConfig(),
                                       remat_policy=TRAIN_REMAT)
-    plain_calls = {"forward": 0, "backward": 0}
-
-    def counted(name, fn):
-        def wrapper(*a, **kw):
-            plain_calls[name] += 1
-            return fn(*a, **kw)
-        return wrapper
-    swa_plain, fb_plain = (swa.sliding_window_attention_plain,
-                           fb.flash_backward_plain)
     losses, times = [], []
     _reset_peak()
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-        if i == TRAIN_WARMUP:      # the main path: the timed steps
-            ops.reset_launches()
-            swa.sliding_window_attention_plain = counted("forward", swa_plain)
-            fb.flash_backward_plain = counted("backward", fb_plain)
+    plain = _PlainCalls()
+
+    def run(i):
+        nonlocal params, opt
         sync()
         t0 = time.perf_counter()
         params, opt, m = step(params, opt, batch)
@@ -1719,9 +1848,13 @@ def phase_train(judge):
             f"{float(m['loss_total']):.6f}, grad_norm "
             f"{float(m['grad_norm']):.6f}, lr {float(m['lr']):.4e}, "
             f"{1e3 * times[-1]:.1f} ms")
+    for i in range(TRAIN_WARMUP):
+        run(i)
+    ops.reset_launches()           # the main path: the timed steps
+    with plain:
+        for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+            run(i)
     counts = ops.launch_counts()
-    swa.sliding_window_attention_plain = swa_plain
-    fb.flash_backward_plain = fb_plain
     peak = _peak_gib()
     judge.check("train: loss finite", all(map(math.isfinite, losses)),
                 f"losses {[round(x, 4) for x in losses]}")
@@ -1737,8 +1870,8 @@ def phase_train(judge):
                 f"{counts} (want the forward {fwd_per} and the backward 1 "
                 f"per layer per step, nothing else)")
     judge.check("train: the plain versions never ran",
-                plain_calls == {"forward": 0, "backward": 0},
-                f"{plain_calls}")
+                plain.calls == {"forward": 0, "backward": 0},
+                f"{plain.calls}")
     step_s = sum(times[TRAIN_WARMUP:]) / TRAIN_STEPS
     flops = _train_flops(cfg, TRAIN_SEQ)
     bound_s = flops / BF16_FLOP_PER_S
@@ -1766,6 +1899,351 @@ def phase_train(judge):
              f"{losses[-1]:.4f}"]
     del params, opt, batch, step, step_none
     return counts, lines
+
+
+class _PlainCalls:
+    """Counts calls of the two attention kernels' plain versions while
+    active: the main path must never take them."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_backward as fb
+        from repro_torch.kernels import local_attention as swa
+        self.calls = {"forward": 0, "backward": 0}
+        self.saved = []
+        for mod, name, kind in (
+                (swa, "sliding_window_attention_plain", "forward"),
+                (fb, "flash_backward_plain", "backward")):
+            real = getattr(mod, name)
+            self.saved.append((mod, name, real))
+            setattr(mod, name, self._counted(real, kind))
+        return self
+
+    def _counted(self, real, kind):
+        def counted(*a, **kw):
+            self.calls[kind] += 1
+            return real(*a, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def _attention_launches(counts, forward: int, backward: int) -> bool:
+    """``counts`` is exactly ``forward`` sliding-window and ``backward``
+    flash-backward launches, and nothing else."""
+    want = {name: 0 for name in counts}
+    want["sliding_window_attention"] = forward
+    want["flash_backward"] = backward
+    return counts == want
+
+
+def _train_batch(cfg, rows: int, seq: int):
+    """The synthetic batch of step 0 (``data.pipeline``) on the card."""
+    from repro_torch.data import pipeline as data_lib
+    return data_lib.to_torch(data_lib.synth_batch(data_lib.DataConfig(
+        seq_len=seq, global_batch=rows, vocab_size=cfg.vocab_size,
+        seed=SEED), 0), DEVICE)
+
+
+def phase_train_mesh(judge):
+    """qwen2.5-3b at published width and depth on a logical
+    ``TrainMesh(**MESH)`` on this card: the reference's plan (fsdp_tp) and
+    ``make_hints``, under which attention runs sequence-sharded (2 KV heads
+    do not divide the model axis), batch ``MESH_BATCH`` x ``TRAIN_SEQ``,
+    remat ``TRAIN_REMAT``. One forward and backward with the hints against
+    one without, from the same params and batch: the loss within 1e-3
+    relative, the global grad norm within 1e-2. Then the mesh and the
+    one-device step in turns (a warm-up each, ``MESH_STEPS`` timed each,
+    mesh first): tokens/s over each side's steps, each step's peak, and
+    its launches, exact (a mesh step: the forward kernel shards x layers x
+    2 under remat "full", the backward shards x layers; a one-device step
+    the same at one shard), the plain versions never run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.sharding import autoshard
+    from repro_torch.sharding.mesh import TrainMesh, mesh_desc
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    _free()
+    cfg = get_config(TRAIN_ARCH)
+    mesh = TrainMesh(device=DEVICE, **MESH)
+    plan = planner.plan_model(cfg, planner.ShapeConfig(
+        "mesh", "train", TRAIN_SEQ, MESH_BATCH), mesh_desc(mesh))
+    hints = autoshard.make_hints(plan, mesh, MESH_BATCH)
+    with layers.hints_context(hints):
+        shards = layers.seq_shards(TRAIN_SEQ, cfg.num_heads,
+                                   cfg.num_kv_heads)
+    log(f"train {cfg.name} on {mesh} (backed by devices: {mesh.backed}): "
+        f"batch {MESH_BATCH} x {TRAIN_SEQ}, remat {TRAIN_REMAT}; plan "
+        f"{plan.describe().splitlines()[0]}; hints act {hints.act}, logits "
+        f"{hints.logits}; attention in {shards} sequence shards")
+    judge.check("train mesh: the plan and the attention shards",
+                plan.param_rule == "fsdp_tp" and shards == mesh.model,
+                f"param_rule {plan.param_rule}, {shards} shards")
+    _reset_peak()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params, opt = train_loop.init_train_state(cfg, gen, DEVICE)
+    batch = _train_batch(cfg, MESH_BATCH, TRAIN_SEQ)
+    sync()
+    log("  " + _memory("params and AdamW state (fp32), load peak"))
+
+    def stats(h):
+        loss, _, grads = train_loop.value_and_grad(
+            train_loop.make_loss_fn(cfg, TRAIN_REMAT, h), params, batch)
+        return float(loss), float(opt_lib.global_norm(grads))
+    loss_1, norm_1 = stats(None)
+    loss_m, norm_m = stats(hints)
+    gaps = (abs(loss_m - loss_1) / abs(loss_1), abs(norm_m - norm_1) / norm_1)
+    judge("train mesh: loss, mesh vs one device", gaps[0], 1e-3,
+          "relative; the shards' dK / dV sums and the same batch")
+    judge("train mesh: global grad norm, mesh vs one device", gaps[1], 1e-2,
+          "relative; bf16 roundings of the summed dK / dV")
+    log(f"  one device: loss {loss_1:.6f}, grad norm {norm_1:.6f}; mesh: "
+        f"loss {loss_m:.6f}, grad norm {norm_m:.6f}")
+
+    steps = {"one device": train_loop.make_train_step(
+        cfg, opt_lib.OptimizerConfig(), remat_policy=TRAIN_REMAT),
+        "mesh": train_loop.make_train_step(
+        cfg, opt_lib.OptimizerConfig(), remat_policy=TRAIN_REMAT,
+        hints=hints)}
+    per = {"one device": 1, "mesh": shards}
+    order = ["one device", "mesh"] + ["mesh", "one device",
+                                      "one device", "mesh"] * MESH_STEPS
+    order = order[:2 + 2 * MESH_STEPS]
+    times = {k: [] for k in steps}
+    peaks = {k: 0.0 for k in steps}
+    total = None
+    losses = []
+    ok = True
+    with _PlainCalls() as plain:
+        for i, side in enumerate(order):
+            ops.reset_launches()
+            _reset_peak()
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = steps[side](params, opt, batch)
+            sync()
+            dt = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            n = per[side] * cfg.num_layers
+            fwd_per = 2 if TRAIN_REMAT == "full" else 1
+            ok &= _attention_launches(counts, fwd_per * n, n)
+            losses.append(float(m["loss"]))
+            if i >= 2:                  # the timed steps: the main path
+                times[side].append(dt)
+                peaks[side] = max(peaks[side], _peak_gib())
+                total = counts if total is None else {
+                    k: total[k] + counts[k] for k in total}
+            log(f"  step {i} ({side}): loss {losses[-1]:.6f}, grad_norm "
+                f"{float(m['grad_norm']):.6f}, {1e3 * dt:.1f} ms, "
+                f"{counts['sliding_window_attention']} / "
+                f"{counts['flash_backward']} attention launches")
+    judge.check("train mesh: launches", ok,
+                f"the forward kernel 2 x shards x {cfg.num_layers} and the "
+                f"backward shards x {cfg.num_layers} a step ({shards} shards "
+                "on the mesh, 1 on one device), nothing else")
+    judge.check("train mesh: the plain versions never ran",
+                plain.calls == {"forward": 0, "backward": 0},
+                f"{plain.calls}")
+    judge.check("train mesh: the loss falls on the repeated batch",
+                all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    tokens = MESH_BATCH * TRAIN_SEQ
+    rate = {k: tokens * len(v) / sum(v) for k, v in times.items()}
+    line = (f"train {cfg.name} on data={mesh.data}, model={mesh.model} "
+            f"(one card; batch {MESH_BATCH} x {TRAIN_SEQ}, remat "
+            f"{TRAIN_REMAT}): {rate['mesh']:.1f} tokens/s against "
+            f"{rate['one device']:.1f} on one device ("
+            f"{rate['mesh'] / rate['one device']:.3f}x; steps "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in times['mesh'])} against "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in times['one device'])} "
+            f"ms, in turns); peaks {peaks['mesh']:.2f} / "
+            f"{peaks['one device']:.2f} GiB; loss gap {gaps[0]:.3e}, grad "
+            f"norm gap {gaps[1]:.3e}")
+    log(f"  {line}")
+    del params, opt, batch, steps
+    return total, [line]
+
+
+def phase_train_compressed(judge):
+    """The int8 error-feedback data-parallel step
+    (``train.grad_compression.make_compressed_dp_train_step``) at data=2:
+    qwen2.5-3b at published width and ``DP_LAYERS`` of its 36 layers (at
+    data=2 the step holds ~26 B a parameter: params 4, moments 8, two
+    residual buffers 8, one replica's fp32 grads 4, two int8 payloads 2),
+    one repeated ``TRAIN_SEQ``-token sequence a replica, ``DP_STEPS``
+    steps, remat ``TRAIN_REMAT``: the loss finite and falling, the
+    residuals finite and nonzero in every leaf, each step's attention
+    launches exact (2 replicas x layers x 2 forward, 2 x layers backward),
+    the payload bytes a step (n_dp x (numel + 4 a leaf)) and the peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.sharding.mesh import TrainMesh
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    _free()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=DP_LAYERS)
+    mesh = TrainMesh(data=2, device=DEVICE)
+    _reset_peak()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params, opt = train_loop.init_train_state(cfg, gen, DEVICE)
+    ef = gc.init_error_feedback(mesh, params)
+    batch = _train_batch(cfg, mesh.dp, TRAIN_SEQ)
+    sync()
+    n_params = sum(p.numel() for p in opt_lib.leaves(params))
+    log(f"train {cfg.name}, {DP_LAYERS} of 36 layers ({n_params:.4g} "
+        f"parameters), compressed data-parallel step at data={mesh.data}: "
+        f"one {TRAIN_SEQ}-token sequence a replica, remat {TRAIN_REMAT}")
+    log("  " + _memory("params, AdamW state and residuals, load peak"))
+    step = gc.make_compressed_dp_train_step(
+        mesh, train_loop.make_loss_fn(cfg, TRAIN_REMAT),
+        opt_lib.OptimizerConfig())
+    losses, times, total, ok = [], [], None, True
+    fwd_per = 2 if TRAIN_REMAT == "full" else 1
+    _reset_peak()
+    with _PlainCalls() as plain:
+        for i in range(DP_STEPS):
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            params, opt, ef, m = step(params, opt, batch, ef)
+            sync()
+            times.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            n = mesh.dp * DP_LAYERS
+            ok &= _attention_launches(counts, fwd_per * n, n)
+            total = counts if total is None else {
+                k: total[k] + counts[k] for k in total}
+            losses.append(float(m["loss"]))
+            log(f"  step {i}: loss {losses[-1]:.6f}, grad_norm "
+                f"{float(m['grad_norm']):.6f}, {1e3 * times[-1]:.1f} ms")
+    peak = _peak_gib()
+    judge.check("train compressed: the loss falls on the repeated batch",
+                all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    bad = [i for i, e in enumerate(opt_lib.leaves(ef))
+           if not bool(torch.isfinite(e).all()) or float(e.abs().max()) == 0]
+    judge.check("train compressed: residuals finite and nonzero", not bad,
+                f"{len(list(opt_lib.leaves(ef)))} leaves, bad {bad}")
+    judge.check("train compressed: launches", ok,
+                f"the forward kernel {fwd_per} x {mesh.dp} replicas x "
+                f"{DP_LAYERS} layers and the backward {mesh.dp} x "
+                f"{DP_LAYERS} a step, nothing else")
+    judge.check("train compressed: the plain versions never ran",
+                plain.calls == {"forward": 0, "backward": 0},
+                f"{plain.calls}")
+    payload = gc.payload_bytes(params, mesh.dp)
+    tokens = mesh.dp * TRAIN_SEQ
+    line = (f"train {cfg.name} ({DP_LAYERS} of 36 layers), int8 "
+            f"error-feedback DP at data={mesh.data} (one card): "
+            f"{tokens * DP_STEPS / sum(times):.1f} tokens/s over "
+            f"{DP_STEPS} steps ({', '.join(f'{1e3 * t:.1f}' for t in times)}"
+            f" ms), peak {peak:.2f} GiB, payload {payload} B a step "
+            f"(against {mesh.dp * 4 * n_params} B of fp32 gradients), loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"  {line}")
+    del params, opt, ef, batch, step
+    return total, [line]
+
+
+def phase_elastic(judge):
+    """An elastic round trip at full width and ``ELASTIC_LAYERS`` layers:
+    one step at data=2 (its hints) under the Supervisor, whose
+    ``CheckpointManager`` saves the state, then
+    ``runtime.elastic.restore_elastic`` at data=1 on this card: every
+    tensor equal to the live state's, the restored specs the data=1
+    plan's (no axis left), where the data=2 plan's name "data"."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import planner
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import elastic
+    from repro_torch.runtime.fault_tolerance import (FaultToleranceConfig,
+                                                     Supervisor)
+    from repro_torch.sharding import autoshard
+    from repro_torch.sharding.mesh import TrainMesh, mesh_desc
+    from repro_torch.sharding.specs import mesh_axis_sizes
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    _free()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=ELASTIC_LAYERS)
+    shape = planner.ShapeConfig("elastic", "train", TRAIN_SEQ, 2)
+    wide, one = TrainMesh(data=2, device=DEVICE), TrainMesh(device=DEVICE)
+    plan = planner.plan_model(cfg, shape, mesh_desc(wide))
+    step_fn = train_loop.make_train_step(
+        cfg, opt_lib.OptimizerConfig(), remat_policy=TRAIN_REMAT,
+        hints=autoshard.make_hints(plan, wide, 2))
+    live = {}
+
+    def wrapped(state, batch):
+        params, opt, m = step_fn(*state, batch)
+        live["state"] = (params, opt)
+        return (params, opt), m
+
+    def init():
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        return train_loop.init_train_state(cfg, gen, DEVICE)
+    batch = _train_batch(cfg, 2, TRAIN_SEQ)
+    ckdir = tempfile.mkdtemp(prefix="elastic-")
+    try:
+        sup = Supervisor(FaultToleranceConfig(checkpoint_dir=ckdir,
+                                              checkpoint_every=1),
+                         step_fn=wrapped, data_fn=lambda step: batch,
+                         init_state_fn=init)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        sup.run(1)
+        sync()
+        counts = ops.launch_counts()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state, manifest = elastic.restore_elastic(
+            sup.ckpt, train_loop.abstract_train_state(cfg), cfg, shape, one)
+        sync()
+        restore_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(ckdir) for f in fs)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    got = list(opt_lib.leaves(state[0])) + list(opt_lib.leaves(
+        state[1].mu)) + list(opt_lib.leaves(state[1].nu)) + [state[1].step]
+    want = list(opt_lib.leaves(live["state"][0])) + list(opt_lib.leaves(
+        live["state"][1].mu)) + list(opt_lib.leaves(
+            live["state"][1].nu)) + [live["state"][1].step]
+    judge.check("elastic: every restored tensor equals the saved state",
+                len(got) == len(want) and all(
+                    a.device.type == DEVICE and torch.equal(a, b.to(a.device))
+                    for a, b in zip(got, want)),
+                f"{len(got)} tensors, step {manifest['step']}")
+    p_specs = manifest["specs"][0]
+    abstract = train_loop.abstract_train_state(cfg)[0]
+    want_one = autoshard.param_specs(abstract, planner.plan_model(
+        cfg, shape, mesh_desc(one)), mesh_axis_sizes(one))
+    want_wide = autoshard.param_specs(abstract, plan, mesh_axis_sizes(wide))
+    def cut(tree):          # the specs that cut a dimension
+        return sum(any(e is not None for e in spec)
+                   for spec in opt_lib.leaves(tree))
+    judge.check("elastic: the specs are the data=1 re-plan's",
+                p_specs == want_one and cut(p_specs) == 0
+                and cut(want_wide) > 0,
+                f"{len(list(opt_lib.leaves(p_specs)))} param specs, none "
+                f"cut at data=1; the data=2 plan cuts {cut(want_wide)}")
+    line = (f"elastic round trip, {cfg.name} at {ELASTIC_LAYERS} layer(s): "
+            f"one step at data=2 and its checkpoint ({n_bytes} B) in "
+            f"{save_s:.1f} s, restore_elastic at data=1 in {restore_s:.1f} "
+            "s, every tensor equal")
+    log(f"  {line}")
+    del state, live
+    return counts, [line]
 
 
 def phase_kernels_frontends(flush, judge):
@@ -4360,6 +4838,8 @@ def main() -> int:
               judge)
         timed("kernels (flash backward)", phase_kernels_backward, flush,
               judge, records)
+        timed("kernels (query offset)", phase_kernels_seqshard, flush, judge,
+              records)
         del flush
         launches, rates, llm = timed("serve qwen2.5-3b", phase_serve, judge)
         counts, more = timed("serve qwen2.5-3b guarded", phase_serve_guarded,
@@ -4388,7 +4868,11 @@ def main() -> int:
                             ("serve mixtral-8x7b", phase_serve_moe),
                             ("serve musicgen-large + internvl2-26b",
                              phase_serve_frontends),
-                            ("train qwen2.5-3b", phase_train)):
+                            ("train qwen2.5-3b", phase_train),
+                            ("train qwen2.5-3b on a mesh", phase_train_mesh),
+                            ("train qwen2.5-3b compressed DP",
+                             phase_train_compressed),
+                            ("elastic round trip", phase_elastic)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}
@@ -4398,7 +4882,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     log(f"{card}:")
-    for line in rates:
+    for line in rates + records["seqshard"]:
         log(f"  {line}")
     log("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                          for k, v in walls.items()))

@@ -112,12 +112,16 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, target: Any, step: Optional[int] = None,
-                device=None) -> Tuple[Any, Dict]:
+                device=None, shardings=None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``target`` (its values are
         ignored; its leaves may be meta tensors). Each leaf lands on
         ``device``, else on the target leaf's device (the CPU for a meta
-        one). Raises ``ValueError`` on a missing checkpoint or a shape
-        that differs from the target's."""
+        one). ``shardings``: an optional congruent tree of
+        ``sharding.specs.Layout`` for the current mesh (an elastic
+        re-shard): each leaf still lands whole on the device, the port
+        running every shard in one process, after its layout is checked to
+        divide it. Raises ``ValueError`` on a missing checkpoint, a shape
+        that differs from the target's or a layout that does not fit."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise ValueError(f"no checkpoint in {self.directory}")
@@ -125,6 +129,8 @@ class CheckpointManager:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         arrays = np.load(os.path.join(path, "arrays.npz"))
+        layouts = {} if shardings is None else {
+            _SEP.join(p): layout for p, layout in _paths(shardings)}
 
         def load(p, leaf):
             key = _SEP.join(p)
@@ -132,6 +138,8 @@ class CheckpointManager:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape}, "
                                  f"target {tuple(leaf.shape)}")
+            if shardings is not None:
+                layouts[key].check(arr.shape)
             dev = device if device is not None else (
                 "cpu" if leaf.device.type == "meta" else leaf.device)
             return tensor_from_numpy(arr, dev)

@@ -29,6 +29,16 @@ BYTES = 2            # bf16
 TRAIN_BACKWARD = 3.0  # the backward ≈ 2x the forward's FLOPs
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape: the port's copy of the reference's
+    ``configs.shapes.ShapeConfig`` (whose module stays JAX-only)."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
 @dataclasses.dataclass
 class MeshDesc:
     pod: int

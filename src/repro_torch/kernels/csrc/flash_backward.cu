@@ -3,6 +3,10 @@
 // output out16 (B, S, H, D), its log-sum-exp lse (B, S, H) fp32 (natural-log
 // units, written by local_attention.cu) and the output's cotangent dout
 // (B, S, H, D) bf16. dq (B, S, H, D), dk and dv (B, S, KV, D) come out fp32.
+// q (with out16, lse and dout) may hold a slice of the rows, positions
+// q_off .. q_off + Sq - 1 of the Sk keys' (the reference's sequence-sharded
+// attention): dq is then the slice's rows, dk and dv the slice's share,
+// and each dk/dv block walks only the slice's q tiles of its band.
 //
 // Replaces no TPU kernel: it is the backward half of the reference's custom
 // VJP (src/repro/models/flash.py, _bwd_impl), which XLA computes there. The
@@ -64,10 +68,11 @@ __device__ __forceinline__ float fb_ex2(float x) {
   return y;
 }
 
-// flash's mask: key t visible from position p.
-__device__ __forceinline__ bool fb_visible(int p, int t, int S, int window,
-                                           int chunk) {
-  return t <= p && p - t < window && p < S &&
+// flash's mask: key t visible from position p (rows at or past q_end are
+// padding).
+__device__ __forceinline__ bool fb_visible(int p, int t, int q_end,
+                                           int window, int chunk) {
+  return t <= p && p - t < window && p < q_end &&
          (chunk == 0 || t / chunk == p / chunk);
 }
 
@@ -159,8 +164,9 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ drow,
-    float* __restrict__ dq, int S, int H, int KV, int D, int Dpad, int parts,
-    int window, int chunk, float score_mult, float softcap, float scale) {
+    float* __restrict__ dq, int Sq, int Sk, int q_off, int H, int KV, int D,
+    int Dpad, int parts, int window, int chunk, float score_mult,
+    float softcap, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rs = Dpad + 8, tile = kFbRows * rs;
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
@@ -168,29 +174,33 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dq_kernel(
   bf16* ks = dos + tile;          // [stage][tile]
   bf16* vs = ks + 2 * tile;
   const int R = H / KV;
-  const int n_qt = (S + kFbRows - 1) / kFbRows;
-  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kFbRows;   // longest first
+  // q, dout, lse, drow and dq hold the rows at positions [q_off, q_end) of
+  // the Sk keys': lq0 is the tile's first row there, q0 its position
+  const int q_end = q_off + Sq;
+  const int n_qt = (Sq + kFbRows - 1) / kFbRows;
+  const int lq0 = (n_qt - 1 - (int)blockIdx.x) * kFbRows;  // longest first
+  const int q0 = q_off + lq0;
   const int h = blockIdx.y / parts, part = blockIdx.y % parts;
   const int g = h / R, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int first = max(0, q0 - window + 1);
   if (chunk > 0) first = max(first, q0 / chunk * chunk);
   const int t_first = first / kFbRows;
-  const int t_last = (min(q0 + kFbRows, S) - 1) / kFbRows;
-  fb_load_tile(qs, q, b, q0, h, H, S, D, Dpad);
-  fb_load_tile(dos, dout, b, q0, h, H, S, D, Dpad);
-  fb_load_tile(ks, k, b, t_first * kFbRows, g, KV, S, D, Dpad);
-  fb_load_tile(vs, v, b, t_first * kFbRows, g, KV, S, D, Dpad);
+  const int t_last = (min(q0 + kFbRows, q_end) - 1) / kFbRows;
+  fb_load_tile(qs, q, b, lq0, h, H, Sq, D, Dpad);
+  fb_load_tile(dos, dout, b, lq0, h, H, Sq, D, Dpad);
+  fb_load_tile(ks, k, b, t_first * kFbRows, g, KV, Sk, D, Dpad);
+  fb_load_tile(vs, v, b, t_first * kFbRows, g, KV, Sk, D, Dpad);
   cp_async_commit();
 
   // this thread's rows r0, r1 = r0 + 8 (positions p0, p1)
   const int r0 = 16 * warp + (lane >> 2);
   const int p0 = q0 + r0, p1 = p0 + 8;
-  const long row0 = ((long)b * S + p0) * H + h, row1 = row0 + 8L * H;
-  const float l0 = p0 < S ? lse[row0] * kFbLog2e : 0.0f;
-  const float l1 = p1 < S ? lse[row1] * kFbLog2e : 0.0f;
-  const float d0 = p0 < S ? drow[row0] : 0.0f;
-  const float d1 = p1 < S ? drow[row1] : 0.0f;
+  const long row0 = ((long)b * Sq + lq0 + r0) * H + h, row1 = row0 + 8L * H;
+  const float l0 = p0 < q_end ? lse[row0] * kFbLog2e : 0.0f;
+  const float l1 = p1 < q_end ? lse[row1] * kFbLog2e : 0.0f;
+  const float d0 = p0 < q_end ? drow[row0] : 0.0f;
+  const float d1 = p1 < q_end ? drow[row1] : 0.0f;
   const bool capped = softcap > 0.0f;
   const int nk16 = D / 16, c0 = part * kPW;
   float acc[kPW / 8][4];
@@ -202,9 +212,9 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dq_kernel(
   for (int t = t_first; t <= t_last; ++t) {
     const int st = (t - t_first) & 1;
     if (t < t_last) {
-      fb_load_tile(ks + (st ^ 1) * tile, k, b, (t + 1) * kFbRows, g, KV, S,
+      fb_load_tile(ks + (st ^ 1) * tile, k, b, (t + 1) * kFbRows, g, KV, Sk,
                    D, Dpad);
-      fb_load_tile(vs + (st ^ 1) * tile, v, b, (t + 1) * kFbRows, g, KV, S,
+      fb_load_tile(vs + (st ^ 1) * tile, v, b, (t + 1) * kFbRows, g, KV, Sk,
                    D, Dpad);
       cp_async_commit();
       cp_async_wait<1>();
@@ -246,7 +256,7 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dq_kernel(
         const float tt = capped ? tanhf(x) : 0.0f;
         const float sc = capped ? tt * softcap : x;
         float ds = 0.0f;
-        if (fb_visible(pos, key, S, window, chunk)) {
+        if (fb_visible(pos, key, q_end, window, chunk)) {
           const float p = fb_ex2(sc * kFbLog2e - ((e & 2) ? l1 : l0));
           ds = p * (dp[j][e] - ((e & 2) ? d1 : d0));
           if (capped) ds *= 1.0f - tt * tt;
@@ -273,10 +283,10 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dq_kernel(
   for (int j = 0; j < kPW / 8; ++j) {
     const int col = c0 + 8 * j + 2 * (lane & 3);
     if (col < D) {
-      if (p0 < S)
+      if (p0 < q_end)
         *reinterpret_cast<float2*>(dq + row0 * D + col) =
             make_float2(acc[j][0] * scale, acc[j][1] * scale);
-      if (p1 < S)
+      if (p1 < q_end)
         *reinterpret_cast<float2*>(dq + row1 * D + col) =
             make_float2(acc[j][2] * scale, acc[j][3] * scale);
     }
@@ -288,9 +298,9 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ drow,
-    float* __restrict__ dk_part, float* __restrict__ dv_part, int S, int H,
-    int KV, int D, int Dpad, int parts, int window, int chunk,
-    float score_mult, float softcap, float scale) {
+    float* __restrict__ dk_part, float* __restrict__ dv_part, int Sq, int Sk,
+    int q_off, int H, int KV, int D, int Dpad, int parts, int window,
+    int chunk, float score_mult, float softcap, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int rs = Dpad + 8, tile = kFbRows * rs;
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
@@ -304,22 +314,28 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dkv_kernel(
   const int h = blockIdx.y / parts, part = blockIdx.y % parts;
   const int g = h / R, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the band's last position: a key's window or chunk end
-  int last = min(S - 1, k0 + kFbRows - 1 + window - 1);
+  // the band's positions among q's rows [q_off, q_end): from the later of
+  // the block's first key and q_off, to a key's window or chunk end; the
+  // block walks only the q tiles (64 of q's rows each, from its first)
+  // that hold them, and none when the band misses q's rows
+  const int q_end = q_off + Sq;
+  int last = min(q_end - 1, k0 + kFbRows - 1 + window - 1);
   if (chunk > 0) last = min(last, ((k0 + kFbRows - 1) / chunk + 1) * chunk - 1);
-  const int t_first = k0 / kFbRows, t_last = last / kFbRows;
+  const int first = max(k0, q_off);
+  const int t_first = (first - q_off) / kFbRows;
+  const int t_last = last >= first ? (last - q_off) / kFbRows : t_first - 1;
   auto load_q = [&](int t, int st) {
-    fb_load_tile(qs + st * tile, q, b, t * kFbRows, h, H, S, D, Dpad);
-    fb_load_tile(dos + st * tile, dout, b, t * kFbRows, h, H, S, D, Dpad);
+    fb_load_tile(qs + st * tile, q, b, t * kFbRows, h, H, Sq, D, Dpad);
+    fb_load_tile(dos + st * tile, dout, b, t * kFbRows, h, H, Sq, D, Dpad);
     if (tid < kFbRows)
-      fb_load_rows(ls + st * kFbRows, lse, b, t * kFbRows, h, H, S, tid);
+      fb_load_rows(ls + st * kFbRows, lse, b, t * kFbRows, h, H, Sq, tid);
     else
-      fb_load_rows(drs + st * kFbRows, drow, b, t * kFbRows, h, H, S,
+      fb_load_rows(drs + st * kFbRows, drow, b, t * kFbRows, h, H, Sq,
                    tid - kFbRows);
   };
-  fb_load_tile(ks, k, b, k0, g, KV, S, D, Dpad);
-  fb_load_tile(vs, v, b, k0, g, KV, S, D, Dpad);
-  load_q(t_first, 0);
+  fb_load_tile(ks, k, b, k0, g, KV, Sk, D, Dpad);
+  fb_load_tile(vs, v, b, k0, g, KV, Sk, D, Dpad);
+  if (t_first <= t_last) load_q(t_first, 0);
   cp_async_commit();
 
   // this thread's keys r0, r1 = r0 + 8
@@ -347,7 +363,7 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dkv_kernel(
     const bf16* dot = dos + st * tile;
     const float* lt = ls + st * kFbRows;
     const float* dt = drs + st * kFbRows;
-    const int q0 = t * kFbRows;
+    const int q0 = q_off + t * kFbRows;
     for (int half = 0; half < 2; ++half) {
       const int n0 = half * 32;
       float s[4][4], dp[4][4];
@@ -382,7 +398,7 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dkv_kernel(
           const float tt = capped ? tanhf(x) : 0.0f;
           const float sc = capped ? tt * softcap : x;
           float p = 0.0f, ds = 0.0f;
-          if (key < S && fb_visible(pos, key, S, window, chunk)) {
+          if (key < Sk && fb_visible(pos, key, q_end, window, chunk)) {
             p = fb_ex2(sc * kFbLog2e - lt[col] * kFbLog2e);
             ds = p * (dp[j][e] - dt[col]);
             if (capped) ds *= 1.0f - tt * tt;
@@ -411,18 +427,18 @@ __global__ void __launch_bounds__(kFbThreads) fbwd_dkv_kernel(
     }
     __syncthreads();   // stage st is loaded again two tiles on
   }
-  const long base0 = ((long)b * S + key0) * H + h, base1 = base0 + 8L * H;
+  const long base0 = ((long)b * Sk + key0) * H + h, base1 = base0 + 8L * H;
 #pragma unroll
   for (int j = 0; j < kPW / 8; ++j) {
     const int col = c0 + 8 * j + 2 * (lane & 3);
     if (col < D) {
-      if (key0 < S) {
+      if (key0 < Sk) {
         *reinterpret_cast<float2*>(dk_part + base0 * D + col) =
             make_float2(dk[j][0] * scale, dk[j][1] * scale);
         *reinterpret_cast<float2*>(dv_part + base0 * D + col) =
             make_float2(dv[j][0], dv[j][1]);
       }
-      if (key1 < S) {
+      if (key1 < Sk) {
         *reinterpret_cast<float2*>(dk_part + base1 * D + col) =
             make_float2(dk[j][2] * scale, dk[j][3] * scale);
         *reinterpret_cast<float2*>(dv_part + base1 * D + col) =
@@ -459,10 +475,10 @@ size_t fbwd_smem_bytes(int Dpad) {
 template <int kPW>
 int launch_fbwd(const bf16* q, const bf16* k, const bf16* v,
                 const bf16* dout, const float* lse, const float* drow,
-                float* dq, float* dk_part, float* dv_part, int B, int S,
-                int H, int KV, int D, int Dpad, int window, int chunk,
-                float score_mult, float softcap, float scale,
-                cudaStream_t st) {
+                float* dq, float* dk_part, float* dv_part, int B, int Sq,
+                int Sk, int q_off, int H, int KV, int D, int Dpad,
+                int window, int chunk, float score_mult, float softcap,
+                float scale, cudaStream_t st) {
   const size_t smem = fbwd_smem_bytes(Dpad);
   static const cudaError_t a1 = cudaFuncSetAttribute(
       fbwd_dq_kernel<kPW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -473,38 +489,46 @@ int launch_fbwd(const bf16* q, const bf16* k, const bf16* v,
   if (a1 != cudaSuccess) return (int)a1;
   if (a2 != cudaSuccess) return (int)a2;
   const int parts = Dpad / kPW;
-  const dim3 grid((S + kFbRows - 1) / kFbRows, H * parts, B);
-  fbwd_dq_kernel<kPW><<<grid, kFbThreads, smem, st>>>(
-      q, k, v, dout, lse, drow, dq, S, H, KV, D, Dpad, parts, window, chunk,
-      score_mult, softcap, scale);
+  // dq: a block per 64 of q's rows; dk / dv: a block per 64 keys
+  const dim3 grid_q((Sq + kFbRows - 1) / kFbRows, H * parts, B);
+  const dim3 grid_k((Sk + kFbRows - 1) / kFbRows, H * parts, B);
+  fbwd_dq_kernel<kPW><<<grid_q, kFbThreads, smem, st>>>(
+      q, k, v, dout, lse, drow, dq, Sq, Sk, q_off, H, KV, D, Dpad, parts,
+      window, chunk, score_mult, softcap, scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  fbwd_dkv_kernel<kPW><<<grid, kFbThreads, smem, st>>>(
-      q, k, v, dout, lse, drow, dk_part, dv_part, S, H, KV, D, Dpad, parts,
-      window, chunk, score_mult, softcap, scale);
+  fbwd_dkv_kernel<kPW><<<grid_k, kFbThreads, smem, st>>>(
+      q, k, v, dout, lse, drow, dk_part, dv_part, Sq, Sk, q_off, H, KV, D,
+      Dpad, parts, window, chunk, score_mult, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro
 
-// q (B, S, H, D), k/v (B, S, KV, D), out16 and dout (B, S, H, D) bf16; lse
-// (B, S, H) fp32; out dq (B, S, H, D), dk/dv (B, S, KV, D) fp32; scratch
-// drow (B, S, H), dk_part and dv_part (B, S, H, D) fp32. H / KV at most 64,
-// D a multiple of 16 up to 256, 1 <= window <= S (S: causal), chunk 0 or
-// the chunk width. score_mult and softcap as for the forward
-// (repro_sliding_window_attention); scale 1/sqrt(D).
+// q (B, Sq, H, D): the rows at positions q_offset .. q_offset + Sq - 1 of
+// k/v (B, Sk, KV, D) (Sq = Sk at offset 0: every row); out16 and dout (B,
+// Sq, H, D) bf16; lse (B, Sq, H) fp32; out dq (B, Sq, H, D), dk/dv (B, Sk,
+// KV, D) fp32 (at an offset: the slice's share of them); scratch drow (B,
+// Sq, H), dk_part and dv_part (B, Sk, H, D) fp32. H / KV at most 64, D a
+// multiple of 16 up to 256, 1 <= window <= Sk (Sk: causal), chunk 0 or the
+// chunk width. score_mult and softcap as for the forward
+// (repro_sliding_window_attention_q); scale 1/sqrt(D). At a q_offset that
+// is a multiple of 64 each dq row has the bits of the launch over all Sk
+// rows (the offset is a runtime argument: at 0 each index is the one the
+// kernels computed before it).
 extern "C" int repro_flash_backward(
     const void* q, const void* k, const void* v, const void* out16,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* drow, void* dk_part, void* dv_part, int B, int S, int H, int KV,
-    int D, int window, int chunk, float score_mult, float softcap,
-    float scale, void* stream) {
+    void* drow, void* dk_part, void* dv_part, int B, int Sq, int Sk,
+    int q_offset, int H, int KV, int D, int window, int chunk,
+    float score_mult, float softcap, float scale, void* stream) {
   using namespace repro;
   if (KV < 1 || H % KV || H / KV > 64 || D % 16 || D > 256 || D < 16 ||
-      window < 1 || chunk < 0 || S < 1 || B < 1)
+      window < 1 || chunk < 0 || Sq < 1 || Sk < 1 || B < 1 ||
+      q_offset < 0 || q_offset > Sk - Sq)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const long rows = (long)B * S * H;
+  const long rows = (long)B * Sq * H;
   fbwd_drow_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       (const bf16*)out16, (const bf16*)dout, (float*)drow, rows, D);
   cudaError_t e = cudaGetLastError();
@@ -515,15 +539,17 @@ extern "C" int repro_flash_backward(
           ? launch_fbwd<64>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                             (const bf16*)dout, (const float*)lse,
                             (const float*)drow, (float*)dq, (float*)dk_part,
-                            (float*)dv_part, B, S, H, KV, D, Dpad, window,
-                            chunk, score_mult, softcap, scale, st)
+                            (float*)dv_part, B, Sq, Sk, q_offset, H, KV, D,
+                            Dpad, window, chunk, score_mult, softcap, scale,
+                            st)
           : launch_fbwd<128>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                              (const bf16*)dout, (const float*)lse,
                              (const float*)drow, (float*)dq, (float*)dk_part,
-                             (float*)dv_part, B, S, H, KV, D, Dpad, window,
-                             chunk, score_mult, softcap, scale, st);
+                             (float*)dv_part, B, Sq, Sk, q_offset, H, KV, D,
+                             Dpad, window, chunk, score_mult, softcap, scale,
+                             st);
   if (code) return code;
-  const long n = (long)B * S * KV * D;
+  const long n = (long)B * Sk * KV * D;
   const long blocks = (n + 255) / 256;
   fbwd_reduce_kernel<<<(unsigned)(blocks < 65536 ? blocks : 65536), 256, 0,
                        st>>>((const float*)dk_part, (const float*)dv_part,

@@ -8,6 +8,10 @@
 // attends to the keys at positions t with 0 <= p - t < window; a window of
 // S is plain causal attention. A chunk c > 0 adds the test t / c == p / c:
 // chunked attention (llama4's), causal within chunks of c positions.
+// q may hold a slice of the rows, positions q_off .. q_off + Sq - 1 of the
+// Sk keys' (the reference's sequence-sharded attention: each shard of the
+// query rows against the whole K and V, flash with qpos): the blocks cover
+// the slice's rows only, and every position is global.
 //
 // Replaces as well, in chunk mode: the chunk mode of the XLA flash forward
 // (src/repro/models/flash.py, _mask's "chunk" branch).
@@ -170,8 +174,8 @@ template <int kNb, bool kChunked, bool kLse>
 __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, float* __restrict__ out,
-    float* __restrict__ lse, int B, int S, int H, int KV, int D, int window,
-    int chunk, float score_mult, float softcap) {
+    float* __restrict__ lse, int B, int Sq, int Sk, int q_off, int H, int KV,
+    int D, int window, int chunk, float score_mult, float softcap) {
   constexpr int kTile = kNb * kSwaBlock;
   constexpr int kChunks = kNb * 8;            // 16-byte chunks per row
   extern __shared__ unsigned char smem_raw[];
@@ -187,24 +191,27 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   const int R = H / KV;
   const int per_wg = kSwaRows / R;                    // positions per tile
   const int per_block = kSwaWgs * per_wg;
-  const int n_qt = (S + per_block - 1) / per_block;
+  // q holds the rows at positions [q_off, q_end) of the Sk keys'; every
+  // position below is global
+  const int q_end = q_off + Sq;
+  const int n_qt = (Sq + per_block - 1) / per_block;
   const int rows_kv = B * KV;
   const int qt = n_qt - 1 - (int)(blockIdx.x / rows_kv);   // longest first
   const int g = (int)(blockIdx.x % rows_kv) % KV;
   const int b = (int)(blockIdx.x % rows_kv) / KV;
-  const int q0 = qt * per_block;
+  const int q0 = q_off + qt * per_block;
   // the first key a position p sees: its window's far edge or its chunk start
   auto first_key = [&](int p) {
     return kChunked ? max(max(0, p - window + 1), p / chunk * chunk)
                     : max(0, p - window + 1);
   };
   const int t_first = first_key(q0) / kSwaKeys;
-  const int t_last = (min(q0 + per_block, S) - 1) / kSwaKeys;
+  const int t_last = (min(q0 + per_block, q_end) - 1) / kSwaKeys;
   const int tid = threadIdx.x, lane = tid & 31;
   const int wg = tid >> 7, warp = (tid >> 5) & 3;
   // this warpgroup's own q tile and band; it skips the block's other tiles
   const int qw0 = q0 + wg * per_wg;
-  const int qw_last = min(qw0 + per_wg, S) - 1;
+  const int qw_last = min(qw0 + per_wg, q_end) - 1;
   const int tw_first = first_key(qw0) / kSwaKeys;
   const int tw_last = qw_last / kSwaKeys;
   unsigned char* qw = qs + wg * kTile;
@@ -216,9 +223,9 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     const int w = i / (kSwaRows * kChunks);
     const int r = (i / kChunks) % kSwaRows, ch = i % kChunks;
     const int pos = q0 + w * per_wg + r / R;
-    const bool ok = r < live && pos < S && ch * 8 < D;
-    const bf16* src = ok ? q + (((long)b * S + pos) * H + (long)g * R +
-                                r % R) * D + ch * 8
+    const bool ok = r < live && pos < q_end && ch * 8 < D;
+    const bf16* src = ok ? q + (((long)b * Sq + pos - q_off) * H +
+                                (long)g * R + r % R) * D + ch * 8
                          : q;
     cp_async16(qs + w * kTile + swz(r, ch), src, ok);
   }
@@ -227,8 +234,8 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     for (int i = tid; i < kSwaKeys * kChunks; i += kSwaThreads) {
       const int row = i / kChunks, ch = i % kChunks;
       const int key = key0 + row;
-      const bool ok = key < S && ch * 8 < D;
-      const long off = ok ? (((long)b * S + key) * KV + g) * D + ch * 8 : 0;
+      const bool ok = key < Sk && ch * 8 < D;
+      const long off = ok ? (((long)b * Sk + key) * KV + g) * D + ch * 8 : 0;
       cp_async16(ks + st * kTile + swz(row, ch), k + off, ok);
       cp_async16(vs + st * kTile + swz(row, ch), v + off, ok);
     }
@@ -274,7 +281,7 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     mbar_wait(&full[st], (j / kSwaStages) & 1);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     // a warpgroup none of whose rows meets this tile only releases it
-    if (qw0 < S && t >= tw_first && t <= tw_last) {
+    if (qw0 < q_end && t >= tw_first && t <= tw_last) {
       // S = Q K^T
       float s[32];
 #pragma unroll
@@ -295,7 +302,7 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
       // log2 units: y = score * log2(e), p = 2^(y - m) = e^(score - m / log2 e)
       const int key0 = t * kSwaKeys;
       const bool edge = key0 + kSwaKeys - 1 > qw0 ||
-                        key0 <= qw_last - window || key0 + kSwaKeys > S ||
+                        key0 <= qw_last - window || key0 + kSwaKeys > Sk ||
                         (kChunked && key0 < qw_last / chunk * chunk);
       float mx0 = kSwaNegInf, mx1 = kSwaNegInf;
       // the score exactly as before (the library's tanhf, which the plain
@@ -310,7 +317,7 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
         for (int i = 0; i < 32; ++i) {
           const int key = key0 + 8 * (i >> 2) + cq + (i & 1);
           const int pos = (i & 2) ? p1 : p0;
-          if (!(key <= pos && pos - key < window && key < S && pos < S &&
+          if (!(key <= pos && pos - key < window && key < Sk && pos < q_end &&
                 (!kChunked || key / chunk == pos / chunk)))
             s[i] = kSwaNegInf;
         }
@@ -392,10 +399,12 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
   if (kLse && (lane & 3) == 0) {
     // m is in log2 units: m ln 2 + ln(max(l, 1e-30)), one lane per row
     constexpr float kLn2 = 0.6931471805599453f;
-    if (r0 < live && p0 < S)
-      lse[((long)b * S + p0) * H + h0 + r0 % R] = m0 * kLn2 + logf(d0);
-    if (r1 < live && p1 < S)
-      lse[((long)b * S + p1) * H + h0 + r1 % R] = m1 * kLn2 + logf(d1);
+    if (r0 < live && p0 < q_end)
+      lse[((long)b * Sq + p0 - q_off) * H + h0 + r0 % R] =
+          m0 * kLn2 + logf(d0);
+    if (r1 < live && p1 < q_end)
+      lse[((long)b * Sq + p1 - q_off) * H + h0 + r1 % R] =
+          m1 * kLn2 + logf(d1);
   }
 #pragma unroll
   for (int nb = 0; nb < kNb; ++nb) {
@@ -403,14 +412,14 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
     for (int j = 0; j < 8; ++j) {
       const int col = nb * 64 + 8 * j + cq;
       if (col < D) {
-        if (r0 < live && p0 < S)
+        if (r0 < live && p0 < q_end)
           *reinterpret_cast<float2*>(
-              out + (((long)b * S + p0) * H + h0 + r0 % R) * D + col) =
-              make_float2(o[nb][4 * j] / d0, o[nb][4 * j + 1] / d0);
-        if (r1 < live && p1 < S)
+              out + (((long)b * Sq + p0 - q_off) * H + h0 + r0 % R) * D +
+              col) = make_float2(o[nb][4 * j] / d0, o[nb][4 * j + 1] / d0);
+        if (r1 < live && p1 < q_end)
           *reinterpret_cast<float2*>(
-              out + (((long)b * S + p1) * H + h0 + r1 % R) * D + col) =
-              make_float2(o[nb][4 * j + 2] / d1, o[nb][4 * j + 3] / d1);
+              out + (((long)b * Sq + p1 - q_off) * H + h0 + r1 % R) * D +
+              col) = make_float2(o[nb][4 * j + 2] / d1, o[nb][4 * j + 3] / d1);
       }
     }
   }
@@ -418,50 +427,59 @@ __global__ void __launch_bounds__(kSwaThreads, 1) swa_kernel(
 
 template <int kNb, bool kChunked, bool kLse>
 int launch_swa(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int S, int H, int KV, int D, int window,
-               int chunk, float score_mult, float softcap, cudaStream_t st) {
+               void* lse, int B, int Sq, int Sk, int q_off, int H, int KV,
+               int D, int window, int chunk, float score_mult, float softcap,
+               cudaStream_t st) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       swa_kernel<kNb, kChunked, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)swa_smem_bytes(kNb));
   if (attr != cudaSuccess) return (int)attr;
   const int per_block = kSwaWgs * (kSwaRows / (H / KV));
-  const long blocks = (long)((S + per_block - 1) / per_block) * B * KV;
+  const long blocks = (long)((Sq + per_block - 1) / per_block) * B * KV;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   swa_kernel<kNb, kChunked, kLse><<<(unsigned)blocks, kSwaThreads,
                              swa_smem_bytes(kNb),
                     st>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                          (float*)out, (float*)lse, B, S, H, KV, D, window,
-                          chunk, score_mult, softcap);
+                          (float*)out, (float*)lse, B, Sq, Sk, q_off, H, KV,
+                          D, window, chunk, score_mult, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro
 
-// q (B, S, H, D), k/v (B, S, KV, D) bf16; out (B, S, H, D) fp32; lse
-// (B, S, H) fp32 or null (not written). H / KV
-// at most 64, D a multiple of 16 up to 256, 1 <= window <= S, chunk 0 (none)
-// or the chunk width of chunked attention. Scores
-// are q.k * score_mult, then tanh(.) * softcap when softcap > 0: the caller
-// passes 1/sqrt(D), or with a softcap the fp32 (1/sqrt(D)) / softcap, the
-// one multiply XLA makes of the reference's q.k * scale / softcap.
-extern "C" int repro_sliding_window_attention(
+// q (B, Sq, H, D): the rows at positions q_offset .. q_offset + Sq - 1 of
+// k/v (B, Sk, KV, D), all bf16 (Sq = Sk at offset 0: every row); out (B,
+// Sq, H, D) fp32; lse (B, Sq, H) fp32 or null (not written). H / KV at
+// most 64, D a multiple of 16 up to 256, 1 <= window <= Sk, chunk 0 (none)
+// or the chunk width of chunked attention. Scores are q.k * score_mult,
+// then tanh(.) * softcap when softcap > 0: the caller passes 1/sqrt(D), or
+// with a softcap the fp32 (1/sqrt(D)) / softcap, the one multiply XLA
+// makes of the reference's q.k * scale / softcap. A row's result depends
+// only on where its tile starts: at a q_offset that is a multiple of a
+// block's 2 * (64 / R) positions, every row has the bits of the launch over
+// all Sk rows (the offset is a runtime argument: at 0 each index is the
+// one the kernel computed before it).
+extern "C" int repro_sliding_window_attention_q(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
-    int S, int H, int KV, int D, int window, int chunk, float score_mult,
-    float softcap, void* stream) {
+    int Sq, int Sk, int q_offset, int H, int KV, int D, int window,
+    int chunk, float score_mult, float softcap, void* stream) {
   using namespace repro;
   if (KV < 1 || H % KV || H / KV > kSwaRows || D % 16 || D > 256 ||
-      D < 16 || window < 1 || chunk < 0 || S < 1 || B < 1)
+      D < 16 || window < 1 || chunk < 0 || Sq < 1 || Sk < 1 || B < 1 ||
+      q_offset < 0 || q_offset > Sk - Sq)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int nb = (D + 63) / 64;
 #define REPRO_SWA(NB, CH)                                                   \
   return lse != nullptr                                                     \
-             ? launch_swa<NB, CH, true>(q, k, v, out, lse, B, S, H, KV, D,  \
-                                        window, CH ? chunk : 0, score_mult, \
+             ? launch_swa<NB, CH, true>(q, k, v, out, lse, B, Sq, Sk,       \
+                                        q_offset, H, KV, D, window,         \
+                                        CH ? chunk : 0, score_mult,         \
                                         softcap, st)                        \
-             : launch_swa<NB, CH, false>(q, k, v, out, lse, B, S, H, KV, D, \
-                                         window, CH ? chunk : 0,            \
-                                         score_mult, softcap, st)
+             : launch_swa<NB, CH, false>(q, k, v, out, lse, B, Sq, Sk,      \
+                                         q_offset, H, KV, D, window,        \
+                                         CH ? chunk : 0, score_mult,        \
+                                         softcap, st)
   if (chunk > 0) {
     switch (nb) {
       case 1: REPRO_SWA(1, true);
@@ -477,4 +495,15 @@ extern "C" int repro_sliding_window_attention(
     default: REPRO_SWA(4, false);
   }
 #undef REPRO_SWA
+}
+
+// Every row (q and k/v of S positions): the entry point before the offset,
+// kept for callers of that interface.
+extern "C" int repro_sliding_window_attention(
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int S, int H, int KV, int D, int window, int chunk, float score_mult,
+    float softcap, void* stream) {
+  return repro_sliding_window_attention_q(q, k, v, out, lse, B, S, S, 0, H,
+                                          KV, D, window, chunk, score_mult,
+                                          softcap, stream);
 }

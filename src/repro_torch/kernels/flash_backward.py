@@ -18,7 +18,11 @@ output ``out16`` and fp32 log-sum-exp (B,S,H), and the output's cotangent
   ds k, dk += dsᵀ q), which accumulate in fp32; dq and dk scaled by
   1/sqrt(D).
 
-``flash_backward_plain`` repeats ``_bwd_impl``'s block schedule (flash's
+q may hold a slice of the rows, at positions ``q_offset`` .. of k and v's
+(the reference's sequence-sharded call): dq is then the slice's rows, dk
+and dv the slice's share of the keys' gradients, which the shards' sum
+completes (``models.flash``). ``flash_backward_plain`` repeats
+``_bwd_impl``'s block schedule (flash's
 blocks of ``block_size(S)`` tokens, the kv blocks of each q block in
 flash's order, ``local_attention.band_schedule``) and its order of fp32
 sums, so on the CPU it matches the reference to fp32 rounding.
@@ -44,8 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.local_attention import (
-    NEG_INF, _check_shapes, _score_mult, band_mask, band_schedule,
-    block_is_empty)
+    NEG_INF, _check_shapes, _score_mult, band_mask, band_schedule)
 
 TILE = 64            # positions of a dq block, keys of a dk/dv block
 PART = 128           # head-dim columns per part of the kernel's outputs
@@ -66,61 +69,70 @@ def launch_config(B: int, S: int, H: int, KV: int, D: int) -> dict:
                 reduce_heads=H // KV)
 
 
-def band_flops(S: int, window: int, chunk: int, H: int, D: int,
-               B: int = 1) -> int:
-    """The backward's flops over the band: 10·D per (query, key) pair of
-    the band and head (QKᵀ and dO·Vᵀ recomputed, then dV, dQ and dK, each
-    2·D)."""
-    if chunk:
-        full, rem = divmod(S, chunk)
-        pairs = full * chunk * (chunk + 1) // 2 + rem * (rem + 1) // 2
-    else:
+def band_pairs(S: int, window: int, chunk: int, q_offset: int = 0,
+               Sq: int = 0) -> int:
+    """(query, key) pairs of the band for the Sq rows (all S when 0) at
+    positions q_offset..: a row at p sees min(p + 1, window) keys, or p %
+    chunk + 1 in chunk mode."""
+    def upto(n):                   # the pairs of the rows before n
+        if chunk:
+            full, rem = divmod(n, chunk)
+            return full * chunk * (chunk + 1) // 2 + rem * (rem + 1) // 2
         w = min(window, S)
-        pairs = S * (S + 1) // 2 - (S - w) * (S - w + 1) // 2
-    return 10 * D * pairs * H * B
+        return n * (n + 1) // 2 if n <= w else \
+            w * (w + 1) // 2 + (n - w) * w
+    return upto(q_offset + (Sq or S)) - upto(q_offset)
+
+
+def band_flops(S: int, window: int, chunk: int, H: int, D: int,
+               B: int = 1, q_offset: int = 0, Sq: int = 0) -> int:
+    """The backward's flops over the band (of the Sq rows at q_offset, as
+    ``band_pairs``): 10·D per (query, key) pair of the band and head (QKᵀ
+    and dO·Vᵀ recomputed, then dV, dQ and dK, each 2·D)."""
+    return 10 * D * band_pairs(S, window, chunk, q_offset, Sq) * H * B
 
 
 def flash_backward_plain(q, k, v, out16, lse, dout, *, window: int,
-                         softcap: float = 0.0, chunk: int = 0):
-    """fp32 (dq (B,S,H,D), dk, dv (B,S,KV,D)), ``_bwd_impl``'s schedule."""
-    _check_shapes(q, k, v)
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+                         softcap: float = 0.0, chunk: int = 0,
+                         q_offset: int = 0):
+    """fp32 (dq (B,Sq,H,D), dk, dv (B,Sk,KV,D)), ``_bwd_impl``'s schedule,
+    for q's rows at positions q_offset .. (all Sk rows by default): dk and
+    dv then hold those rows' share."""
+    _check_shapes(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     R = H // KV
-    blk, nb, noff, causal = band_schedule(S, window, chunk)
-    pad = nb * blk - S
+    qb, kb, nq, causal, visits = band_schedule(Sk, window, chunk, Sq,
+                                               q_offset)
+    qpad, kpad = nq * qb - Sq, -(-Sk // kb) * kb - Sk
     dev = q.device
     scale = 1.0 / math.sqrt(D)
     capped = bool(softcap) and softcap > 0.0
     mult = _score_mult(D, softcap)
 
-    def heads(t):                                    # (B,KV,R,Sp,D)
-        return F.pad(t.reshape(B, S, KV, R, D).permute(0, 2, 3, 1, 4),
-                     (0, 0, 0, pad))
+    def heads(t):                                    # (B,KV,R,Sqp,D)
+        return F.pad(t.reshape(B, Sq, KV, R, D).permute(0, 2, 3, 1, 4),
+                     (0, 0, 0, qpad))
 
-    def keys(t):                                     # (B,KV,Sp,D)
-        return F.pad(t.permute(0, 2, 1, 3), (0, 0, 0, pad))
+    def keys(t):                                     # (B,KV,Skp,D)
+        return F.pad(t.permute(0, 2, 1, 3), (0, 0, 0, kpad))
 
     qp, op, dop = heads(q), heads(out16), heads(dout).float()
-    lsep = F.pad(lse.reshape(B, S, KV, R).permute(0, 2, 3, 1), (0, pad))
+    lsep = F.pad(lse.reshape(B, Sq, KV, R).permute(0, 2, 3, 1), (0, qpad))
     kp, vp = keys(k), keys(v)
-    drow = (dop * op.float()).sum(-1)                        # (B,KV,R,Sp)
-    dk = torch.zeros((B, KV, nb * blk, D), device=dev)
+    drow = (dop * op.float()).sum(-1)                        # (B,KV,R,Sqp)
+    dk = torch.zeros((B, KV, Sk + kpad, D), device=dev)
     dv = torch.zeros_like(dk)
-    dq = torch.empty((B, KV, R, nb * blk, D), device=dev)
-    ar = torch.arange(blk, device=dev)
-    for i in range(nb):
-        rows = slice(i * blk, (i + 1) * blk)
+    dq = torch.empty((B, KV, R, nq * qb, D), device=dev)
+    aq, ak = torch.arange(qb, device=dev), torch.arange(kb, device=dev)
+    for i in range(nq):
+        rows = slice(i * qb, (i + 1) * qb)
         qi, oi, li, di = qp[:, :, :, rows], dop[:, :, :, rows], \
             lsep[:, :, :, rows], drow[:, :, :, rows]
-        qpos = i * blk + ar
-        dqi = torch.zeros((B, KV, R, blk, D), device=dev)
-        for r in range(noff):
-            j_log = r if causal else i - r
-            if block_is_empty(i, j_log, blk, S, window, chunk, causal):
-                continue
-            lo = j_log * blk
-            kj, vj = kp[:, :, lo:lo + blk], vp[:, :, lo:lo + blk]
+        qpos = q_offset + i * qb + aq
+        dqi = torch.zeros((B, KV, R, qb, D), device=dev)
+        for lo in visits(i):
+            kj, vj = kp[:, :, lo:lo + kb], vp[:, :, lo:lo + kb]
             x = torch.einsum("bgrqd,bgkd->bgrqk", qi.float(),
                              kj.float()) * mult
             if capped:
@@ -128,7 +140,8 @@ def flash_backward_plain(q, k, v, out16, lse, dout, *, window: int,
                 s = t * softcap
             else:
                 s = x
-            msk = band_mask(qpos, lo + ar, S, window, chunk, causal)
+            msk = band_mask(qpos, lo + ak, Sk, window, chunk, causal,
+                            q_offset + Sq)
             s = torch.where(msk, s, torch.full_like(s, NEG_INF))
             p = torch.where(s > NEG_INF / 2, torch.exp(s - li[..., None]),
                             torch.zeros_like(s))
@@ -141,31 +154,34 @@ def flash_backward_plain(q, k, v, out16, lse, dout, *, window: int,
             p16 = p.to(torch.bfloat16).float()
             dqi = dqi + scale * torch.matmul(
                 ds16, kj[:, :, None].to(torch.bfloat16).float())
-            dk[:, :, lo:lo + blk] += scale * torch.einsum(
+            dk[:, :, lo:lo + kb] += scale * torch.einsum(
                 "bgrqk,bgrqd->bgkd", ds16, qi.to(torch.bfloat16).float())
-            dv[:, :, lo:lo + blk] += torch.einsum(
+            dv[:, :, lo:lo + kb] += torch.einsum(
                 "bgrqk,bgrqd->bgkd", p16, oi.to(torch.bfloat16).float())
         dq[:, :, :, rows] = dqi
-    dq = dq[:, :, :, :S].permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
-    return (dq, dk[:, :, :S].permute(0, 2, 1, 3),
-            dv[:, :, :S].permute(0, 2, 1, 3))
+    dq = dq[:, :, :, :Sq].permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return (dq, dk[:, :, :Sk].permute(0, 2, 1, 3),
+            dv[:, :, :Sk].permute(0, 2, 1, 3))
 
 
 def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,
-                        softcap: float = 0.0, chunk: int = 0):
+                        softcap: float = 0.0, chunk: int = 0,
+                        q_offset: int = 0):
     """The same function through the CUDA kernel: contiguous bf16 q, k, v,
     out16 and dout and fp32 lse on the card, H // KV at most 64, head dim
-    a multiple of 16 up to 256. Returns fp32 (dq, dk, dv)."""
-    _check_shapes(q, k, v)
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    a multiple of 16 up to 256. Returns fp32 (dq, dk, dv). At a
+    ``q_offset`` that is a multiple of ``TILE`` each dq row has the bits
+    of the whole launch; dk and dv are the slice's share."""
+    _check_shapes(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     if H // KV > 64 or D % 16 or D > 256 or window < 1 or chunk < 0:
         raise ValueError(f"the kernel takes H // KV up to 64, head_dim a "
                          f"multiple of 16 up to 256, a window >= 1 and a "
                          f"chunk >= 0; got H {H}, KV {KV}, D {D}, window "
                          f"{window}, chunk {chunk}")
     if out16.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (B, S, H):
+            or lse.shape != (B, Sq, H):
         raise ValueError(f"out16 {tuple(out16.shape)}, dout "
                          f"{tuple(dout.shape)}, lse {tuple(lse.shape)} "
                          f"against q {tuple(q.shape)}")
@@ -180,18 +196,18 @@ def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,
                              f"{dt} CUDA tensor, got {t.dtype} on "
                              f"{t.device}")
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq = torch.empty((B, S, H, D), **f32)
-    dk = torch.empty((B, S, KV, D), **f32)
-    dv = torch.empty((B, S, KV, D), **f32)
-    drow = torch.empty((B, S, H), **f32)
-    dk_part = torch.empty((B, S, H, D), **f32)
-    dv_part = torch.empty((B, S, H, D), **f32)
+    dq = torch.empty((B, Sq, H, D), **f32)
+    dk = torch.empty((B, Sk, KV, D), **f32)
+    dv = torch.empty((B, Sk, KV, D), **f32)
+    drow = torch.empty((B, Sq, H), **f32)
+    dk_part = torch.empty((B, Sk, H, D), **f32)
+    dv_part = torch.empty((B, Sk, H, D), **f32)
     code = _build.library().repro_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out16.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), drow.data_ptr(), dk_part.data_ptr(),
-        dv_part.data_ptr(), B, S, H, KV, D, min(window, S), chunk,
-        _score_mult(D, softcap), float(softcap or 0.0),
+        dv_part.data_ptr(), B, Sq, Sk, q_offset, H, KV, D, min(window, Sk),
+        chunk, _score_mult(D, softcap), float(softcap or 0.0),
         1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(code, "flash_backward")
     flash_backward_cuda.launches += 1

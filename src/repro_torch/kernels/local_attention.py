@@ -6,7 +6,11 @@ function: a query at position p attends to the keys at positions t with
 ``0 <= p - t < window``. ``window >= S`` is plain causal attention, so one
 kernel serves the local layers of gemma2 and every global layer's prefill.
 A ``chunk`` c > 0 (with ``window >= S``) adds ``t // c == p // c``: llama4's
-chunked attention, flash's chunk mode.
+chunked attention, flash's chunk mode. q may hold a slice of the rows:
+those at positions ``q_offset`` .. ``q_offset + Sq - 1`` of k and v's
+``Sk``, the reference's sequence-sharded attention (flash with ``qpos``
+under ``layers._flash_call``'s shard_map), where each shard of the query
+rows attends to the whole K and V.
 
 ``sliding_window_attention_plain`` repeats ``flash._fwd_impl``'s numerics and
 block schedule (``band_schedule``): blocks of ``block_size(S)`` tokens, fp32 scores scaled by
@@ -74,13 +78,18 @@ def block_size(S: int) -> int:
     return max(blk, 16)
 
 
-def _check_shapes(q, k, v):
+def _check_shapes(q, k, v, q_offset: int = 0):
+    """q (B,Sq,H,D) holds the rows at positions q_offset .. q_offset + Sq
+    - 1 of k, v (B,Sk,KV,D): Sq = Sk at offset 0, or a slice of the rows
+    (a sequence shard)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}: want (B,S,H,D) and (B,S,KV,D)")
-    B, S, H, D = q.shape
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, D) or H % k.shape[2]:
-        raise ValueError(f"q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+                         f"{tuple(v.shape)}: want (B,Sq,H,D) and (B,Sk,KV,D)")
+    B, Sq, H, D = q.shape
+    if (k.shape[0], k.shape[3]) != (B, D) or H % k.shape[2] \
+            or q_offset < 0 or q_offset + Sq > k.shape[1]:
+        raise ValueError(f"q {tuple(q.shape)} at offset {q_offset} vs k/v "
+                         f"{tuple(k.shape)}")
 
 
 def _score_mult(D: int, softcap: float) -> float:
@@ -94,26 +103,55 @@ def _score_mult(D: int, softcap: float) -> float:
     return (torch.tensor(scale) / softcap).item()
 
 
-def band_schedule(S: int, window: int, chunk: int):
-    """flash's block schedule for a band: (block, blocks, kv blocks a q
-    block visits, causal). A q block ``i`` visits kv blocks ``r`` (causal)
-    or ``i - r`` (window and chunk mode) for r < the third value."""
-    causal = window >= S and not chunk
-    blk = block_size(S)
-    nb = -(-S // blk)
+def band_schedule(Sk: int, window: int, chunk: int, Sq: int = 0,
+                  q_offset: int = 0):
+    """flash's block schedule for the Sq query rows (all Sk when 0) at
+    positions q_offset.. against Sk keys: (q block, kv block, q blocks,
+    causal, visits). Keys come in blocks of ``block_size(Sk)``; the
+    queries in blocks as long, or of ``min(that, Sq)`` for a slice of the
+    rows (the reference's sequence-sharded call, ``qpos``). ``visits(i)``
+    lists the first key of each kv block q block ``i`` visits, in flash's
+    order (ascending in causal mode, descending from the block of the q
+    block's last position in window and chunk mode, as many as flash's
+    ``_offsets`` gives), without the blocks the mask empties for every
+    row of the q block: they leave the online softmax as it was and add
+    exact zeros in the backward, so both skip them."""
+    Sq = Sq or Sk
+    causal = window >= Sk and not chunk
+    kb = block_size(Sk)
+    qb = kb if Sq == Sk else min(kb, Sq)
+    nq, nk = -(-Sq // qb), -(-Sk // kb)
     if causal:
-        noff = nb
+        noff = nk
     elif chunk:
-        noff = min(chunk // blk + (1 if chunk % blk else 0) + 1, nb)
+        noff = min(chunk // kb + (1 if chunk % kb else 0) + 1, nk)
     else:
-        noff = min((window - 1 + blk) // blk + 1, nb)
-    return blk, nb, noff, causal
+        noff = min((window - 1 + qb) // kb + 1, nk)
+    q_end = q_offset + Sq
+
+    def visits(i: int):
+        q0 = q_offset + i * qb
+        q1 = min(q0 + qb, q_end) - 1
+        last = (q0 + qb - 1) // kb
+        first = q0 // chunk * chunk if chunk else q0 - window + 1
+        out = []
+        for r in range(noff):
+            lo = (r if causal else last - r) * kb
+            if lo > q1 or lo + kb - 1 < 0 or (
+                    not causal and lo + kb - 1 < first):
+                continue
+            out.append(lo)
+        return out
+
+    return qb, kb, nq, causal, visits
 
 
-def band_mask(qpos, kpos, S: int, window: int, chunk: int, causal: bool):
-    """flash's ``_mask`` over (q positions, key positions)."""
-    msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < S) \
-        & (qpos[:, None] < S)
+def band_mask(qpos, kpos, Sk: int, window: int, chunk: int, causal: bool,
+              q_end: int = 0):
+    """flash's ``_mask`` over (q positions, key positions); query rows at
+    or past ``q_end`` (Sk when 0) are padding."""
+    msk = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < Sk) \
+        & (qpos[:, None] < (q_end or Sk))
     if chunk:
         msk &= (qpos[:, None] // chunk) == (kpos[None, :] // chunk)
     elif not causal:
@@ -121,61 +159,50 @@ def band_mask(qpos, kpos, S: int, window: int, chunk: int, causal: bool):
     return msk
 
 
-def block_is_empty(i: int, j_log: int, blk: int, S: int, window: int,
-                   chunk: int, causal: bool) -> bool:
-    """Whether the mask empties kv block ``j_log`` for q block ``i``:
-    then the online softmax leaves (m, l, acc) as they were and the
-    backward adds exact zeros, so both skip it."""
-    lo = j_log * blk
-    first = i * blk // chunk * chunk if chunk else i * blk - window + 1
-    return lo > min(i * blk + blk - 1, S - 1) or lo + blk - 1 < 0 or (
-        not causal and lo + blk - 1 < first)
-
-
 def sliding_window_attention_plain(q, k, v, *, window: int,
                                    softcap: float = 0.0, chunk: int = 0,
-                                   return_lse: bool = False):
-    """q (B,S,H,D); k, v (B,S,KV,D), head h reading KV head h // (H // KV).
-    Returns (B,S,H,D) fp32; causal when ``window >= S``, causal within
-    chunks of ``chunk`` positions when that is > 0. With ``return_lse``
-    also the log-sum-exp of each row's scores, (B,S,H) fp32 in natural-log
-    units, flash's ``m + log(max(l, 1e-30))``."""
-    _check_shapes(q, k, v)
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+                                   return_lse: bool = False,
+                                   q_offset: int = 0):
+    """q (B,Sq,H,D); k, v (B,Sk,KV,D), head h reading KV head h // (H //
+    KV); q's rows are the positions q_offset .. q_offset + Sq - 1 (all Sk
+    rows by default). Returns (B,Sq,H,D) fp32; causal when ``window >=
+    Sk``, causal within chunks of ``chunk`` positions when that is > 0.
+    With ``return_lse`` also the log-sum-exp of each row's scores,
+    (B,Sq,H) fp32 in natural-log units, flash's ``m + log(max(l,
+    1e-30))``."""
+    _check_shapes(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     R = H // KV
-    if chunk and window < S:
+    if chunk and window < Sk:
         raise ValueError(f"chunk {chunk} takes a window >= S, got {window}")
-    blk, nb, noff, causal = band_schedule(S, window, chunk)
-    pad = nb * blk - S
+    qb, kb, nq, causal, visits = band_schedule(Sk, window, chunk, Sq,
+                                               q_offset)
+    kpad = -(-Sk // kb) * kb - Sk
     dev = q.device
-    qf = F.pad(q.float().reshape(B, S, KV, R, D).permute(0, 2, 3, 1, 4),
-               (0, 0, 0, pad))                           # (B,KV,R,Sp,D)
-    kf = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, pad))
+    qf = F.pad(q.float().reshape(B, Sq, KV, R, D).permute(0, 2, 3, 1, 4),
+               (0, 0, 0, nq * qb - Sq))                  # (B,KV,R,Sqp,D)
+    kf = F.pad(k.float().permute(0, 2, 1, 3), (0, 0, 0, kpad))
     vf = F.pad(v.to(torch.bfloat16).float().permute(0, 2, 1, 3),
-               (0, 0, 0, pad))                           # (B,KV,Sp,D)
+               (0, 0, 0, kpad))                          # (B,KV,Skp,D)
     capped = bool(softcap) and softcap > 0.0
     mult = _score_mult(D, softcap)
-    out = torch.empty((B, KV, R, nb * blk, D), device=dev)
-    lse = torch.empty((B, KV, R, nb * blk), device=dev)
-    ar = torch.arange(blk, device=dev)
-    for i in range(nb):
-        qpos = i * blk + ar
-        qi = qf[:, :, :, i * blk:(i + 1) * blk]
-        m = torch.full((B, KV, R, blk), NEG_INF, device=dev)
-        l = torch.zeros((B, KV, R, blk), device=dev)
-        acc = torch.zeros((B, KV, R, blk, D), device=dev)
-        for r in range(noff):
-            j_log = r if causal else i - r
-            if block_is_empty(i, j_log, blk, S, window, chunk, causal):
-                continue
-            lo = j_log * blk
-            kpos = lo + ar
+    out = torch.empty((B, KV, R, nq * qb, D), device=dev)
+    lse = torch.empty((B, KV, R, nq * qb), device=dev)
+    aq, ak = torch.arange(qb, device=dev), torch.arange(kb, device=dev)
+    for i in range(nq):
+        qpos = q_offset + i * qb + aq
+        qi = qf[:, :, :, i * qb:(i + 1) * qb]
+        m = torch.full((B, KV, R, qb), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, R, qb), device=dev)
+        acc = torch.zeros((B, KV, R, qb, D), device=dev)
+        for lo in visits(i):
             s = torch.einsum("bgrqd,bgkd->bgrqk", qi,
-                             kf[:, :, lo:lo + blk]) * mult
+                             kf[:, :, lo:lo + kb]) * mult
             if capped:
                 s = torch.tanh(s) * softcap
-            msk = band_mask(qpos, kpos, S, window, chunk, causal)
+            msk = band_mask(qpos, lo + ak, Sk, window, chunk, causal,
+                            q_offset + Sq)
             s = torch.where(msk, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]),
@@ -183,29 +210,32 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.matmul(
-                p.to(torch.bfloat16).float(), vf[:, :, None, lo:lo + blk])
+                p.to(torch.bfloat16).float(), vf[:, :, None, lo:lo + kb])
             m = m_new
         l_safe = torch.clamp_min(l, 1e-30)
-        out[:, :, :, i * blk:(i + 1) * blk] = acc / l_safe[..., None]
-        lse[:, :, :, i * blk:(i + 1) * blk] = m + torch.log(l_safe)
-    out = out[:, :, :, :S].permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+        out[:, :, :, i * qb:(i + 1) * qb] = acc / l_safe[..., None]
+        lse[:, :, :, i * qb:(i + 1) * qb] = m + torch.log(l_safe)
+    out = out[:, :, :, :Sq].permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
     if not return_lse:
         return out
-    return out, lse[:, :, :, :S].permute(0, 3, 1, 2).reshape(B, S, H)
+    return out, lse[:, :, :, :Sq].permute(0, 3, 1, 2).reshape(B, Sq, H)
 
 
 def sliding_window_attention_cuda(q, k, v, *, window: int,
                                   softcap: float = 0.0, chunk: int = 0,
-                                  return_lse: bool = False):
+                                  return_lse: bool = False,
+                                  q_offset: int = 0):
     """The same function through the CUDA kernel: bf16 q, k, v on the card,
     at most 256 head dimensions (a multiple of 16) and H // KV at most 64
     (a ratio that does not divide 64 leaves each tile's last
-    ``TILE_ROWS % (H // KV)`` rows dead). Returns (B,S,H,D) fp32, and with
-    ``return_lse`` the (B,S,H) fp32 log-sum-exp (the kernel writes it only
-    when given the pointer)."""
-    _check_shapes(q, k, v)
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    ``TILE_ROWS % (H // KV)`` rows dead). Returns (B,Sq,H,D) fp32, and with
+    ``return_lse`` the (B,Sq,H) fp32 log-sum-exp (the kernel writes it only
+    when given the pointer). A ``q_offset`` that is a multiple of the
+    block's ``2 * per_tile`` positions (``launch_config``) gives each row
+    the bits of the whole launch: its tiles start where that launch's do."""
+    _check_shapes(q, k, v, q_offset)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
     if H // KV > TILE_ROWS or D % 16 or D > 256 or window < 1 or chunk < 0:
         raise ValueError(f"the kernel takes H // KV up to {TILE_ROWS}, "
                          f"head_dim a multiple of 16 up to 256, a window "
@@ -216,13 +246,14 @@ def sliding_window_attention_cuda(q, k, v, *, window: int,
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"bf16 CUDA tensor, got {t.dtype} on {t.device}")
-    out = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
-    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device) \
+    out = torch.empty((B, Sq, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device) \
         if return_lse else None
-    code = _build.library().repro_sliding_window_attention(
+    code = _build.library().repro_sliding_window_attention_q(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _build.ptr(lse), B, S, H, KV, D, min(window, S), chunk,
-        _score_mult(D, softcap), float(softcap or 0.0), _build.stream_of(q))
+        _build.ptr(lse), B, Sq, Sk, q_offset, H, KV, D, min(window, Sk),
+        chunk, _score_mult(D, softcap), float(softcap or 0.0),
+        _build.stream_of(q))
     _build.check(code, "sliding_window_attention")
     sliding_window_attention_cuda.launches += 1
     return (out, lse) if return_lse else out

@@ -259,14 +259,15 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
 
 def sliding_window_attention(q, k, v, *, window: int, softcap: float = 0.0,
                              chunk: int = 0, impl: Optional[str] = None,
-                             return_lse: bool = False):
-    """Causal sliding-window GQA attention. q (B,S,H,D) bf16; k, v
-    (B,S,KV,D) bf16. Returns (B,S,H,D) fp32; ``window >= S`` is causal.
-    ``chunk`` > 0 (with ``window >= S``) is chunked attention: causal
-    within chunks of that many positions. ``return_lse`` also returns the
-    (B,S,H) fp32 log-sum-exp the backward needs."""
+                             return_lse: bool = False, q_offset: int = 0):
+    """Causal sliding-window GQA attention. q (B,Sq,H,D) bf16; k, v
+    (B,Sk,KV,D) bf16, q's rows at positions ``q_offset``.. of theirs (all
+    of them by default). Returns (B,Sq,H,D) fp32; ``window >= Sk`` is
+    causal. ``chunk`` > 0 (with ``window >= Sk``) is chunked attention:
+    causal within chunks of that many positions. ``return_lse`` also
+    returns the (B,Sq,H) fp32 log-sum-exp the backward needs."""
     kw = dict(window=window, softcap=softcap, chunk=chunk,
-              return_lse=return_lse)
+              return_lse=return_lse, q_offset=q_offset)
     if _use_kernel(q, impl):
         return _swa.sliding_window_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), **kw)
@@ -275,12 +276,13 @@ def sliding_window_attention(q, k, v, *, window: int, softcap: float = 0.0,
 
 def flash_backward(q, k, v, out16, lse, dout, *, window: int,
                    softcap: float = 0.0, chunk: int = 0,
-                   impl: Optional[str] = None):
+                   impl: Optional[str] = None, q_offset: int = 0):
     """The backward of ``sliding_window_attention`` from its bf16 output
-    and log-sum-exp: fp32 (dq (B,S,H,D), dk, dv (B,S,KV,D)) for the bf16
-    cotangent ``dout`` of the output (``kernels/flash_backward.py``)."""
+    and log-sum-exp: fp32 (dq (B,Sq,H,D), dk, dv (B,Sk,KV,D)) for the bf16
+    cotangent ``dout`` of the output (``kernels/flash_backward.py``); at a
+    ``q_offset``, dk and dv are the slice's share."""
     args = (q, k, v, out16, lse, dout)
-    kw = dict(window=window, softcap=softcap, chunk=chunk)
+    kw = dict(window=window, softcap=softcap, chunk=chunk, q_offset=q_offset)
     if _use_kernel(q, impl):
         return _fbwd.flash_backward_cuda(*(t.contiguous() for t in args),
                                          **kw)

@@ -1,14 +1,17 @@
 """Training driver: ``--arch <id> [--reduced]`` under the fault-tolerant
-Supervisor, on one device (the port's copy of ``repro.launch.train``).
+Supervisor (the port's copy of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --steps 5
 
 Trains on the card unless ``--device cpu`` is given (the kernels' plain
-versions then run). The reference's planner, mesh and sharding hints act
-only on a mesh of more than one device, so this single-device driver has
-none of them; checkpoints, restarts, straggler detection and metrics are
-the reference's.
+versions then run). As the reference does, it builds the mesh over the
+devices there are (``sharding.mesh.make_local_mesh``: data = the cards, or
+the one CPU), plans the model for it (``core.planner.plan_model``) and,
+on a mesh of more than one device, makes the sharding hints
+(``sharding.autoshard.make_hints``); the step runs every shard in this
+process. Checkpoints, restarts, straggler detection and metrics are the
+reference's.
 """
 from __future__ import annotations
 
@@ -19,10 +22,13 @@ import time
 import torch
 
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.core import planner
 from repro_torch.data import pipeline as data_lib
 from repro_torch.runtime.fault_tolerance import (FaultToleranceConfig,
                                                  Supervisor)
 from repro_torch.serve.engine import resolve_device
+from repro_torch.sharding import autoshard
+from repro_torch.sharding.mesh import make_local_mesh, mesh_desc
 from repro_torch.train import loop as train_loop, optimizer as opt_lib
 
 
@@ -47,12 +53,18 @@ def main(argv=None):
 
     cfg = get_config(args.arch + ("-reduced" if args.reduced else ""))
     device = resolve_device(args.device)
+    mesh = make_local_mesh(device=device.type)
+    shape = planner.ShapeConfig("cli", "train", args.seq, args.batch)
+    plan = planner.plan_model(cfg, shape, mesh_desc(mesh))
+    hints = (autoshard.make_hints(plan, mesh, args.batch)
+             if mesh.size > 1 else None)
     opt_cfg = opt_lib.OptimizerConfig(peak_lr=args.lr,
                                       warmup_steps=min(20, args.steps // 5),
                                       total_steps=args.steps)
     step_fn = train_loop.make_train_step(cfg, opt_cfg,
                                          remat_policy=args.remat,
-                                         microbatches=args.microbatches)
+                                         microbatches=args.microbatches,
+                                         hints=hints)
     dcfg = data_lib.DataConfig(
         seq_len=args.seq, global_batch=args.batch,
         vocab_size=cfg.vocab_size, seed=args.seed,

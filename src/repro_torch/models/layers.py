@@ -8,6 +8,8 @@ returning bf16. Weight matrices may already be stored as bf16 copies
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -20,6 +22,60 @@ from repro_torch.models import flash
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -2.0e38
+
+
+# ------------------------------------------------------- sharding-hints context
+# Set by ``transformer.forward`` around its layers (``sharding.autoshard.
+# ShardingHints``), as the reference's ``launch/cell.py`` sets it around
+# tracing. The one place the hints change the computation is
+# ``_band_attention``'s sequence-sharded branch; ``constrain`` is the
+# reference's placement pin, which in one process returns its input.
+_HINTS: contextvars.ContextVar = contextvars.ContextVar("hints", default=None)
+
+
+def set_hints(hints):
+    return _HINTS.set(hints)
+
+
+def reset_hints(token):
+    _HINTS.reset(token)
+
+
+@contextlib.contextmanager
+def hints_context(hints):
+    """``hints`` active for the block; None leaves the context as it is."""
+    if hints is None:
+        yield
+        return
+    token = set_hints(hints)
+    try:
+        yield
+    finally:
+        reset_hints(token)
+
+
+def constrain(x, tp_dim: Optional[int] = None, tp_check=None,
+              batch_dim: int = 0, tp_candidates=None,
+              widen_batch: bool = False):
+    h = _HINTS.get()
+    if h is None:
+        return x
+    return h.constrain_tokens(x, tp_dim=tp_dim, tp_check=tp_check,
+                              batch_dim=batch_dim,
+                              tp_candidates=tp_candidates,
+                              widen_batch=widen_batch)
+
+
+def seq_shards(S: int, H: int, KV: int) -> int:
+    """How many sequence shards the reference's ``_flash_call`` cuts the
+    query rows into under the active hints: the model axis's size when
+    tensor parallelism is on and the head counts do not divide it, S
+    divides it and each shard keeps at least 128 rows; else 1."""
+    h = _HINTS.get()
+    ms = h.model_size if h is not None else 1
+    if h is None or not h.tp or ms <= 1 or (H % ms == 0 and KV % ms == 0):
+        return 1
+    return ms if S % ms == 0 and S // ms >= 128 else 1
 
 
 def cast_compute(x: torch.Tensor) -> torch.Tensor:
@@ -207,15 +263,25 @@ def _band_attention(q, k, v, cfg, window: int, chunk: int,
     through q, k or v it runs as ``models.flash.flash_attention``: the same
     forward, which also writes its log-sum-exp, and the flash backward
     kernel (the reference's custom VJP). Serving calls it without, as
-    before: no log-sum-exp is written."""
+    before: no log-sum-exp is written. Under hints that shard the
+    sequence (``seq_shards``), each shard of the query rows runs at its
+    offset against the whole K and V, in shard order."""
+    S, H, KV = q.shape[1], q.shape[2], k.shape[2]
+    shards = seq_shards(S, H, KV)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return flash.flash_attention(q, k, v, window=window, chunk=chunk,
                                      softcap=cfg.attn_logit_softcap,
-                                     impl=impl)
-    return ops.sliding_window_attention(
-        q, k, v, window=window, chunk=chunk, softcap=cfg.attn_logit_softcap,
-        impl=impl).to(COMPUTE_DTYPE)
+                                     impl=impl, shards=shards)
+    if shards == 1:
+        return ops.sliding_window_attention(
+            q, k, v, window=window, chunk=chunk,
+            softcap=cfg.attn_logit_softcap, impl=impl).to(COMPUTE_DTYPE)
+    n = S // shards
+    return torch.cat([ops.sliding_window_attention(
+        q[:, i * n:(i + 1) * n], k, v, window=window, chunk=chunk,
+        softcap=cfg.attn_logit_softcap, impl=impl, q_offset=i * n).to(
+            COMPUTE_DTYPE) for i in range(shards)], 1)
 
 
 def full_causal_attention(q, k, v, cfg, impl: Optional[str] = None):

@@ -186,6 +186,13 @@ def init_params(cfg, generator: torch.Generator,
     return params
 
 
+def abstract_params(cfg) -> Dict:
+    """The params tree with every leaf a ``meta`` tensor of its shape and
+    dtype: the port's counterpart of the reference's ``jax.eval_shape``
+    of ``init_params`` (no memory, no values)."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
 def compute_copy(params) -> Dict:
     """The params tree with every dense weight matrix stored once as its
     bf16 copy (the cast the reference repeats per call); norm scales,
@@ -382,27 +389,36 @@ def _remat(fn, policy: str):
 
 
 def forward(params, tokens, cfg, *, patch_embeds=None, cond=None,
-            remat_policy: str = "none", plan=None,
+            remat_policy: str = "none", hints=None, plan=None,
             impl: Optional[str] = None):
     """Training / prefill forward. Returns (final hidden states (B,S,d)
     bf16, the MoE aux losses summed, fp32). ``remat_policy`` recomputes
     each pattern period in the backward: "full" everything
     (``torch.utils.checkpoint``), "dots" / "dots_no_batch" all but the
     matrix products (a selective-checkpoint policy), the reference's
-    ``jax.checkpoint`` policies. The reference's ``hints`` (sharding
-    constraints) have no single-device meaning and are not taken."""
+    ``jax.checkpoint`` policies. ``hints`` (``sharding.autoshard.
+    ShardingHints``) are the active hints of every layer, a period's
+    recomputation included: attention then runs sequence-sharded where
+    the reference's does (``layers.seq_shards``); the activation
+    constraints are applied where the reference applies them and, in one
+    process, return their input."""
     x, positions = embed_inputs(params, tokens, cfg, patch_embeds)
+    if hints is not None:
+        x = hints.constrain_act(x)
     kinds = slot_kinds(cfg)
 
     def period_fn(x, i):
-        aux = torch.zeros((), device=x.device)
-        for j, (kind, is_moe) in enumerate(kinds):
-            x, a = apply_block(layer(params["blocks"][f"slot{j}"], i), x,
-                               cond, kind, is_moe, cfg, positions,
-                               plan=plan, impl=impl)
-            if a is not None:
-                aux = aux + a
-        return x, aux
+        with layers.hints_context(hints):       # its recomputation too
+            aux = torch.zeros((), device=x.device)
+            for j, (kind, is_moe) in enumerate(kinds):
+                x, a = apply_block(layer(params["blocks"][f"slot{j}"], i), x,
+                                   cond, kind, is_moe, cfg, positions,
+                                   plan=plan, impl=impl)
+                if hints is not None:
+                    x = hints.constrain_act(x)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
 
     period = _remat(period_fn, remat_policy)
     aux_total = torch.zeros((), device=x.device)
@@ -412,18 +428,21 @@ def forward(params, tokens, cfg, *, patch_embeds=None, cond=None,
             x, a = period(x, i)
             auxs.append(a)
         aux_total = aux_total + torch.stack(auxs).sum()
-    for j, (kind, is_moe) in enumerate(kinds[:num_remainder(cfg)]):
-        x, a = apply_block(params["rem"][f"rem{j}"], x, cond, kind, is_moe,
-                           cfg, positions, plan=plan, impl=impl)
-        if a is not None:
-            aux_total = aux_total + a
+    with layers.hints_context(hints):
+        for j, (kind, is_moe) in enumerate(kinds[:num_remainder(cfg)]):
+            x, a = apply_block(params["rem"][f"rem{j}"], x, cond, kind,
+                               is_moe, cfg, positions, plan=plan, impl=impl)
+            if a is not None:
+                aux_total = aux_total + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux_total
 
 
-def _xent_chunk(params, x_chunk, labels_chunk, cfg):
+def _xent_chunk(params, x_chunk, labels_chunk, cfg, hints=None):
     """Summed nll, z-loss (lse squared), valid count and correct argmax
     count of one chunk of positions; labels < 0 are ignored."""
     logits = lm_logits(params, x_chunk, cfg)                  # fp32
+    if hints is not None:
+        logits = hints.constrain_logits(logits)
     lse = torch.logsumexp(logits, dim=-1)
     lbl = labels_chunk.transpose(1, 2) if cfg.num_codebooks > 1 \
         else labels_chunk                                     # (B,c[,K])
@@ -437,7 +456,7 @@ def _xent_chunk(params, x_chunk, labels_chunk, cfg):
     return nll.sum(), zloss.sum(), valid.sum(), hit.sum()
 
 
-def loss_from_hidden(params, x, labels, cfg):
+def loss_from_hidden(params, x, labels, cfg, hints=None):
     """Chunked softmax cross-entropy over the vocabulary, never holding
     the whole (B,S,V) logits: ``LOSS_CHUNK`` positions at a time (halved
     until they divide S), each chunk recomputed in the backward so that
@@ -452,25 +471,27 @@ def loss_from_hidden(params, x, labels, cfg):
     nll, zl, cnt, acc = zero, zero, zero, zero
     for i in range(S // c):
         n, z, k, a = xent(params, x[:, i * c:(i + 1) * c],
-                          labels[..., i * c:(i + 1) * c], cfg)
+                          labels[..., i * c:(i + 1) * c], cfg, hints)
         nll, zl, cnt, acc = nll + n, zl + z, cnt + k, acc + a
     cnt = torch.clamp_min(cnt, 1.0)
     return nll / cnt, zl / cnt, acc / cnt
 
 
-def loss_fn(params, batch, cfg, *, remat_policy: str = "none", plan=None,
-            impl: Optional[str] = None):
+def loss_fn(params, batch, cfg, *, remat_policy: str = "none", hints=None,
+            plan=None, impl: Optional[str] = None):
     """The full training loss. ``batch``: ``tokens`` and ``labels`` (and
     ``patch_embeds`` / ``cond`` for the frontend configs). Returns (total,
     metrics): total = nll + ``Z_LOSS_WEIGHT`` z-loss + ``MOE_AUX_WEIGHT``
-    aux; the loss is taken on the text positions only."""
+    aux; the loss is taken on the text positions only. ``hints`` as for
+    ``forward``."""
     x, aux = forward(params, batch["tokens"], cfg,
                      patch_embeds=batch.get("patch_embeds"),
                      cond=batch.get("cond"), remat_policy=remat_policy,
-                     plan=plan, impl=impl)
+                     hints=hints, plan=plan, impl=impl)
     if cfg.frontend == "vision":
         x = x[:, cfg.num_patches:]
-    loss, zloss, acc = loss_from_hidden(params, x, batch["labels"], cfg)
+    loss, zloss, acc = loss_from_hidden(params, x, batch["labels"], cfg,
+                                        hints)
     total = loss + Z_LOSS_WEIGHT * zloss + MOE_AUX_WEIGHT * aux
     return total, {"loss": loss, "z_loss": zloss, "moe_aux": aux,
                    "accuracy": acc}

@@ -6,9 +6,12 @@
 optimizer updates params and moments in place (``optimizer.adamw_update``)
 and returns the same tensors. Gradients come from autograd through the
 port's forward (``models.transformer.loss_fn``), whose attention runs the
-flash backward kernel on the card. The reference's ``hints`` (sharding
-constraints) and ``abstract_train_state`` (an XLA shape probe) have no
-single-device counterpart.
+flash backward kernel on the card. ``hints`` (``sharding.autoshard.
+make_hints``, for a mesh of more than one device) run the step as the
+reference runs it on that mesh, every shard in this process: attention
+sequence-sharded where the head counts do not divide the model axis.
+``abstract_train_state`` is the state on the ``meta`` device, the port's
+``jax.eval_shape`` (``checkpoint.manager`` restores into it).
 """
 from __future__ import annotations
 
@@ -30,11 +33,11 @@ def _split_microbatches(batch: Dict, k: int):
              for name, x in batch.items()} for i in range(k)]
 
 
-def make_loss_fn(cfg, remat_policy: str, plan=None,
+def make_loss_fn(cfg, remat_policy: str, hints=None, plan=None,
                  impl: Optional[str] = None) -> Callable:
     def loss_fn(params, batch):
         return tfm.loss_fn(params, batch, cfg, remat_policy=remat_policy,
-                           plan=plan, impl=impl)
+                           hints=hints, plan=plan, impl=impl)
     return loss_fn
 
 
@@ -97,14 +100,16 @@ def _parts(leaf):
 
 def make_train_step(cfg, opt_cfg: opt_lib.OptimizerConfig,
                     remat_policy: str = "dots", microbatches: int = 1,
-                    plan=None, impl: Optional[str] = None) -> Callable:
+                    hints=None, plan=None,
+                    impl: Optional[str] = None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). With ``microbatches`` k > 1 the batch is split into k row
     blocks whose fp32 gradients are summed in order and divided by k, the
     loss and metrics averaged, as the reference's scan does. ``impl`` is
     passed on to the attention (``impl="plain"`` forces the plain versions,
-    for comparisons on the card)."""
-    loss_fn = make_loss_fn(cfg, remat_policy, plan, impl)
+    for comparisons on the card). ``hints`` are active in every forward and
+    backward of the step (``models.transformer.forward``)."""
+    loss_fn = make_loss_fn(cfg, remat_policy, hints, plan, impl)
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -145,7 +150,7 @@ def _sorted(tree):
 def make_eval_step(cfg, plan=None, impl: Optional[str] = None) -> Callable:
     """eval_step(params, batch) -> metrics with ``loss_total``, no
     gradients, no remat."""
-    loss_fn = make_loss_fn(cfg, "none", plan, impl)
+    loss_fn = make_loss_fn(cfg, "none", plan=plan, impl=impl)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -160,4 +165,11 @@ def init_train_state(cfg, generator: torch.Generator, device=None
     """Seeded fp32 params (``transformer.init_params``) and zero AdamW
     moments, on ``device`` (the generator's by default)."""
     params = tfm.init_params(cfg, generator, device)
+    return params, opt_lib.init_adamw(params)
+
+
+def abstract_train_state(cfg) -> Tuple[dict, opt_lib.AdamWState]:
+    """(params, AdamW state) as ``meta`` tensors of their shapes and
+    dtypes: a restore target that holds no memory."""
+    params = tfm.abstract_params(cfg)
     return params, opt_lib.init_adamw(params)

@@ -1040,7 +1040,7 @@ def test_sliding_window_row_map_covers_each_row_once(R, S):
                     for h in range(H)}
     src = (CSRC / "local_attention.cu").read_text()
     assert "const int pos = q0 + w * per_wg + r / R;" in src
-    assert "const bool ok = r < live && pos < S && ch * 8 < D;" in src
+    assert "const bool ok = r < live && pos < q_end && ch * 8 < D;" in src
     assert "H / KV > kSwaRows" in src and "kSwaRows % (H / KV)" not in src
     q = torch.zeros(1, 4, 65, 16, dtype=torch.bfloat16)
     kv = torch.zeros(1, 4, 1, 16, dtype=torch.bfloat16)
@@ -1501,6 +1501,69 @@ def test_cuda_flash_backward_matches_plain(cuda, S, window, chunk, KV, R, D,
                                    atol=2e-3 * float(w.abs().max()),
                                    msg=name)
         assert torch.equal(g, a), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window,chunk,KV,R,D,softcap,shards", [
+    (1024, 1024, 0, 2, 8, 128, 0.0, 4), (1024, 300, 0, 4, 2, 256, 50.0, 2),
+    (768, 768, 256, 2, 5, 64, 0.0, 3), (600, 600, 0, 2, 8, 128, 0.0, 3)])
+def test_cuda_query_offset_matches_plain_and_one_launch(
+        cuda, S, window, chunk, KV, R, D, softcap, shards):
+    """Both kernels on ``shards`` slices of the query rows at their offsets
+    (``q_offset``), each against the whole K and V: against their plain
+    versions at the same offset (out 1e-3, lse 1e-5, dq, dk, dv 2e-3, each
+    of the whole launch's max |value|: the whole launch's tolerances; a
+    later slice's rows average more keys and are smaller, so their own max
+    would tighten them), and against one launch over every row
+    (the slices' dq from the whole launch's out16 and lse): out and lse
+    bit for bit where an offset is a multiple of a block's 2 x (64 // R)
+    positions, dq where it is a multiple of 64, the slices' dk and dv
+    shares summed within 1e-5 of max. The first two shapes are qwen's
+    ratio and gemma2's local layers; 5 heads a KV head leave a shard
+    start inside a block, 200 rows inside both kernels' tiles."""
+    rng = np.random.default_rng(S + R + shards)
+    q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
+               for a in _swa_case(S, B=2, KV=KV, R=R, D=D, seed=S + R))
+    dout = torch.from_numpy(_bf16(rng, (2, S, KV * R, D))).bfloat16().to(
+        cuda)
+    kw = dict(window=window, chunk=chunk, softcap=softcap)
+    out, lse = pops.sliding_window_attention(q, k, v, return_lse=True, **kw)
+    out16 = out.bfloat16()
+    whole = pops.flash_backward(q, k, v, out16, lse, dout, **kw)
+    n = S // shards
+    per_block = 2 * (64 // R)
+    dkv = [torch.zeros_like(whole[1]), torch.zeros_like(whole[2])]
+    for i in range(shards):
+        rows, off = slice(i * n, (i + 1) * n), i * n
+        o_i, l_i = pops.sliding_window_attention(
+            q[:, rows], k, v, return_lse=True, q_offset=off, **kw)
+        po, pl = pops.sliding_window_attention(
+            q[:, rows], k, v, return_lse=True, q_offset=off, impl="plain",
+            **kw)
+        args = (q[:, rows], k, v, out16[:, rows], lse[:, rows],
+                dout[:, rows])
+        got = pops.flash_backward(*args, q_offset=off, **kw)
+        want = pops.flash_backward(*args, q_offset=off, impl="plain", **kw)
+        torch.cuda.synchronize()
+        assert o_i.shape == (2, n, KV * R, D) and l_i.shape == (2, n, KV * R)
+        torch.testing.assert_close(o_i, po, rtol=0,
+                                   atol=1e-3 * float(out.abs().max()))
+        torch.testing.assert_close(l_i, pl, rtol=0,
+                                   atol=1e-5 * float(lse.abs().max()))
+        for name, g, w, top in zip(("dq", "dk", "dv"), got, want, whole):
+            torch.testing.assert_close(g, w, rtol=0,
+                                       atol=2e-3 * float(top.abs().max()),
+                                       msg=name)
+        if off % per_block == 0 and n % per_block == 0:
+            assert torch.equal(o_i, out[:, rows])
+            assert torch.equal(l_i, lse[:, rows])
+        if off % 64 == 0 and n % 64 == 0:
+            assert torch.equal(got[0], whole[0][:, rows])
+        dkv[0] += got[1]
+        dkv[1] += got[2]
+    for name, g, w in zip(("dk", "dv"), dkv, whole[1:]):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()), msg=name)
 
 
 @pytest.mark.gpu
