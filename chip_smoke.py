@@ -1551,6 +1551,7 @@ def phase_kernels_backward(flush, judge, records):
     line as ``records["flash_backward"]``."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_backward as fb
     from repro_torch.kernels import local_attention as swa
     dev = torch.device("cuda")
@@ -1599,7 +1600,8 @@ def phase_kernels_backward(flush, judge, records):
                     all(torch.equal(a, b) for a, b in zip(got, cu())),
                     "no atomics")
         del got, want
-        lc = fb.launch_config(B, S, H, KV, D)
+        lc = fb.launch_config(B, S, H, KV, D, window=window, chunk=chunk,
+                              sms=_build.sm_count(0))
         flops = fb.band_flops(S, window, chunk, H, D, B)
         n_bytes = 2 * (3 * B * S * H * D + 2 * B * S * KV * D) \
             + 4 * B * S * H + 4 * (B * S * H * D + 2 * B * S * KV * D)
@@ -1616,11 +1618,16 @@ def phase_kernels_backward(flush, judge, records):
         lib = "none (softcap)" if rec["library_ms"] is None \
             else f"{rec['library_ms']:.4f} ms"
         log(f"  flash_backward {rec['shape']}: {rec['ms']:.4f} ms "
-            f"({lc['blocks']} blocks of {lc['threads']} threads per kernel, "
-            f"{lc['parts']} column part(s), {lc['smem_bytes']} bytes of "
-            f"shared memory), plain {rec['plain_ms']:.4f} ms, SDPA backward "
-            f"{lib}, bound {ms:.4f} ms ({by}); forward {fwd_ms:.4f} ms "
-            f"without the lse, {fwd_lse_ms:.4f} ms with it")
+            f"(dq: {lc['dq_blocks']} blocks of {lc['dq_threads']} threads, "
+            f"{lc['dq_wgs']} consumer warpgroup(s), {lc['dq_tile']} "
+            f"positions a block, {lc['dq_stages']} K/V stages, "
+            f"{lc['dq_smem_bytes']} bytes of shared memory; dk/dv: "
+            f"{lc['dkv_blocks']} blocks of {lc['dkv_threads']} threads, "
+            f"{lc['groups']} head group(s), columns split "
+            f"{lc['dkv_split']}, {lc['dkv_stages']} Q/dO stages, "
+            f"{lc['dkv_smem_bytes']} bytes), plain {rec['plain_ms']:.4f} "
+            f"ms, SDPA backward {lib}, bound {ms:.4f} ms ({by}); forward "
+            f"{fwd_ms:.4f} ms without the lse, {fwd_lse_ms:.4f} ms with it")
         if tag == "qwen2.5-3b causal":
             records["flash_backward"] = rec
         del q, k, v, dout, out16, lse, args

@@ -49,10 +49,9 @@ SIGNATURES = {
     # q, k, v, out, lse (or null), B, Sq, Sk, q_offset, H, KV, D, window,
     # chunk, score_mult, softcap, stream
     "repro_sliding_window_attention_q": [P] * 5 + [I] * 9 + [F, F, P],
-    # q, k, v, out16, lse, dout, dq, dk, dv, drow, dk_part, dv_part, B, Sq,
-    # Sk, q_offset, H, KV, D, window, chunk, score_mult, softcap, scale,
-    # stream
-    "repro_flash_backward": [P] * 12 + [I] * 9 + [F, F, F, P],
+    # q, k, v, out16, lse, dout, dq, dk, dv, ws, B, Sq, Sk, q_offset, H,
+    # KV, D, window, chunk, groups, score_mult, softcap, scale, stream
+    "repro_flash_backward": [P] * 10 + [I] * 10 + [F, F, F, P],
     # x, ldx, w, ldw, bias, act, out, out_bf16, M, K, N, ws, stream
     "repro_rs_matmul": [P, I, P, I, P, I, P, I, I, I, I, P, P],
 }

@@ -1,8 +1,10 @@
 // Shared device code of the port's Hopper kernels: the fused bias+activation
 // epilogue (counterpart of kernels/epilogue.py::fused_epilogue), cp.async
 // copies and the mbarriers that guard their stages, TMA maps and loads,
-// ldmatrix / mma.sync fragments, wgmma descriptors and fences, and the
-// warp walk of the BCSC fused MLP and GEMV.
+// ldmatrix / mma.sync fragments, wgmma descriptors, fences and the
+// m64n64k16 (and register-A m64n128k16) products of the two attention
+// kernels, named barriers, and the warp walk of the BCSC fused MLP and
+// GEMV.
 #pragma once
 
 #include <cuda.h>
@@ -138,6 +140,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same for a box of a 3-d or 4-d map at coordinates (c0, c1, c2[, c3]),
+// innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"((unsigned)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"((unsigned)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*,
@@ -145,15 +172,18 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// A TMA map of a row-major bf16 matrix (rows x cols, ``ld`` elements from
-// one row to the next, a multiple of 8) read in boxes of box_rows x
-// box_cols; elements outside the matrix read as zero. The driver's encoder
-// is reached through the runtime, so the library needs no link to libcuda.
-static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                                     uint64_t rows, uint64_t cols,
-                                     uint64_t ld, uint32_t box_rows,
-                                     uint32_t box_cols,
-                                     CUtensorMapSwizzle swizzle) {
+// A TMA map of a tensor of ``rank`` dimensions (innermost first: sizes
+// ``dims``, byte strides ``strides`` of dimensions 1..rank-1, each a
+// multiple of 16) read in boxes of ``box``; elements outside the tensor read
+// as zero. The driver's encoder is reached through the runtime, so the
+// library needs no link to libcuda.
+static inline cudaError_t tensor_map_nd(CUtensorMap* map,
+                                        CUtensorMapDataType type, int rank,
+                                        const void* base,
+                                        const cuuint64_t* dims,
+                                        const cuuint64_t* strides,
+                                        const cuuint32_t* box,
+                                        CUtensorMapSwizzle swizzle) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -164,15 +194,27 @@ static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
     if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
     encode = (EncodeTiled)fn;
   }
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides,
+      box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A TMA map of a row-major bf16 matrix (rows x cols, ``ld`` elements from
+// one row to the next, a multiple of 8) read in boxes of box_rows x
+// box_cols; elements outside the matrix read as zero.
+static inline cudaError_t tensor_map(CUtensorMap* map, const void* base,
+                                     uint64_t rows, uint64_t cols,
+                                     uint64_t ld, uint32_t box_rows,
+                                     uint32_t box_cols,
+                                     CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * 2};
   const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return tensor_map_nd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                       strides, box, swizzle);
 }
 
 // Byte offset of 16-byte chunk ``c`` (0..7) of row ``r`` in an x tile of
@@ -256,6 +298,131 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
+
+// The attention kernels' tiles: blocks of 64 rows x 64 bf16 columns, each
+// row 128 bytes in wgmma's (and TMA's) 128-byte swizzle.
+constexpr int kSw128Block = 64 * 128;
+
+// Byte offset of 16-byte chunk ``ch`` (8 bf16 columns) of row ``row`` in a
+// tile of 64-column blocks with 128-byte swizzled rows.
+__device__ __forceinline__ int swz(int row, int ch) {
+  return (ch >> 3) * kSw128Block + row * 128 + (((ch & 7) ^ (row & 7)) << 4);
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64 fp32) = (scale_d ? d : 0) + A (64 x 16, smem, K-major) *
+// B (16 x 64, smem, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64, smem,
+// MN-major).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
+                                            const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The same with N = 128 from two 64-column blocks of B (lbo in the
+// descriptor: the stride between them): d0 takes columns 0..63, d1 64..127,
+// each in the m64n64 accumulator layout.
+__device__ __forceinline__ void wgmma_rs_tb2(float (&d0)[32], float (&d1)[32],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d0[0]), "+f"(d0[1]), "+f"(d0[2]), "+f"(d0[3]),
+        "+f"(d0[4]), "+f"(d0[5]), "+f"(d0[6]), "+f"(d0[7]),
+        "+f"(d0[8]), "+f"(d0[9]), "+f"(d0[10]), "+f"(d0[11]),
+        "+f"(d0[12]), "+f"(d0[13]), "+f"(d0[14]), "+f"(d0[15]),
+        "+f"(d0[16]), "+f"(d0[17]), "+f"(d0[18]), "+f"(d0[19]),
+        "+f"(d0[20]), "+f"(d0[21]), "+f"(d0[22]), "+f"(d0[23]),
+        "+f"(d0[24]), "+f"(d0[25]), "+f"(d0[26]), "+f"(d0[27]),
+        "+f"(d0[28]), "+f"(d0[29]), "+f"(d0[30]), "+f"(d0[31]),
+        "+f"(d1[0]), "+f"(d1[1]), "+f"(d1[2]), "+f"(d1[3]),
+        "+f"(d1[4]), "+f"(d1[5]), "+f"(d1[6]), "+f"(d1[7]),
+        "+f"(d1[8]), "+f"(d1[9]), "+f"(d1[10]), "+f"(d1[11]),
+        "+f"(d1[12]), "+f"(d1[13]), "+f"(d1[14]), "+f"(d1[15]),
+        "+f"(d1[16]), "+f"(d1[17]), "+f"(d1[18]), "+f"(d1[19]),
+        "+f"(d1[20]), "+f"(d1[21]), "+f"(d1[22]), "+f"(d1[23]),
+        "+f"(d1[24]), "+f"(d1[25]), "+f"(d1[26]), "+f"(d1[27]),
+        "+f"(d1[28]), "+f"(d1[29]), "+f"(d1[30]), "+f"(d1[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22).
+__device__ __forceinline__ float fast_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A barrier among ``threads`` threads (a multiple of 32) that use barrier
+// ``id`` (1..15; 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// An arrival on it that does not wait: threads - (this warp's group) more
+// must sync or arrive for the barrier to open.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 // p[0] + p[stride] + ... + p[(n - 1) * stride], added in that order, read
 // from L2 (partials other SMs wrote): the loads go out eight at a time, so a

@@ -86,7 +86,7 @@ constexpr int kSwaWgs = 2;        // consumer warpgroups sharing each K/V tile
 constexpr int kSwaKeys = 64;      // keys per tile
 constexpr int kSwaThreads = 128 * kSwaWgs;
 constexpr int kSwaStages = 2;     // K/V tiles in flight
-constexpr int kSwaBlock = 64 * 128;  // 64 rows x 64 bf16 columns, swizzled
+constexpr int kSwaBlock = kSw128Block;  // 64 rows x 64 bf16 columns
 constexpr float kSwaNegInf = -2.0e38f;
 
 // Dynamic shared memory for D padded to 64 * nb: a Q tile per warpgroup,
@@ -94,79 +94,6 @@ constexpr float kSwaNegInf = -2.0e38f;
 // swizzle atom.
 __host__ __device__ constexpr size_t swa_smem_bytes(int nb) {
   return (size_t)(kSwaWgs + 2 * kSwaStages) * nb * kSwaBlock + 1024;
-}
-
-// Byte offset of 16-byte chunk ``ch`` (8 bf16 columns) of row ``row`` in a
-// tile of 64-column blocks with 128-byte swizzled rows.
-__device__ __forceinline__ int swz(int row, int ch) {
-  return (ch >> 3) * kSwaBlock + row * 128 + (((ch & 7) ^ (row & 7)) << 4);
-}
-
-// Keeps the compiler from moving reads or writes of an accumulator across
-// the asynchronous products.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 64 fp32) = (scale_d ? d : 0) + A (64 x 16, smem, K-major) *
-// B (16 x 64, smem, K-major).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 64 fp32) += A (64 x 16 bf16, registers) * B (16 x 64, smem,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32],
-                                            const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// 2^x on the special-function unit (relative error ~2^-22).
-__device__ __forceinline__ float fast_ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // D padded to 64 * kNb; chunk > 0; the lse written

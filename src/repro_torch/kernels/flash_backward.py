@@ -30,14 +30,23 @@ sums, so on the CPU it matches the reference to fp32 rounding.
 
 On the card the function is bound by operations: 5 products of 2·D
 flops per (query, key) pair of the band and head (QKᵀ and dO·Vᵀ
-recomputed, dV, dQ, dK), ~2.5x the forward's. The kernel (``mma.sync``
-bf16 tiles, fp32 accumulators in registers) runs a small pass for Drow,
-then one block per (64 positions, query head, batch row) for dq, walking
-the band's key tiles, and one per (64 keys, query head, batch row) for
-each head's share of dk and dv, walking the band's q tiles; a last pass
-sums the R heads of each KV head in head order. Every sum is taken in
-a fixed order: no atomics, the same bits every run. Head dims above 128
-run in parts of 128 columns, each part recomputing the scores.
+recomputed, dV, dQ, dK), ~2.5x the forward's. Every product runs on
+``wgmma`` from tiles that TMA brings into shared memory
+(``launch_config`` gives the grids). The dq kernel is the forward's
+block: a consumer warpgroup owns 64 (position, query head) rows, 64 // R
+positions x the R heads of one KV head, so each K/V tile, which a
+producer warp loads, serves all R heads; it walks the band's key tiles,
+after writing its rows' Drow and lse·log2(e) by head for the next
+kernel. The dk/dv kernel
+gives a block 64 keys of one KV head; it walks the band's q tiles for
+each query head of its group in head order, dK and dV summed across the
+heads in registers; its warpgroups take the steps in turn (their own
+stages, turns to issue the scores' products), or above D 128 share each
+step with half of dK and dV's columns each. When B·KV·⌈Sk/64⌉ blocks do
+not fill the card, the R heads are cut into ``groups`` groups, each
+writing one fp32 share that a last pass adds in group order. The mask
+runs only on a tile's edges. Every sum is taken in a fixed order: no
+atomics, the same bits every run.
 """
 from __future__ import annotations
 
@@ -50,23 +59,65 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.local_attention import (
     NEG_INF, _check_shapes, _score_mult, band_mask, band_schedule)
 
-TILE = 64            # positions of a dq block, keys of a dk/dv block
-PART = 128           # head-dim columns per part of the kernel's outputs
+TILE = 64            # rows of a tile: (position, head) pairs, keys, positions
+SMEM_LIMIT = 232448  # bytes of shared memory a block may have on an H100
+SM_COUNT = 132       # the H100's SMs: the default of ``launch_config``
 
 
-def launch_config(B: int, S: int, H: int, KV: int, D: int) -> dict:
-    """The kernels' grids for these shapes, as ``csrc/flash_backward.cu``
-    computes them: blocks of 128 threads (4 warps of 16 rows) over (64-row
-    tile, query head x column part, batch row) for dq and for each head's
-    share of dk / dv; columns in parts of ``PART`` (one of 64 at D <= 64);
-    each block's shared memory (six 64-row tiles of D padded to the parts,
-    rows padded by 16 bytes, and the staged log-sum-exp and Drow)."""
-    tiles = -(-S // TILE)
-    dpad = 64 if D <= 64 else -(-D // PART) * PART
-    parts = 1 if D <= 64 else dpad // PART
-    return dict(threads=128, blocks=tiles * H * parts * B, parts=parts,
-                smem_bytes=6 * TILE * (dpad + 8) * 2 + 4 * TILE * 4,
-                reduce_heads=H // KV)
+def launch_config(B: int, S: int, H: int, KV: int, D: int, *,
+                  window: int | None = None, chunk: int = 0,
+                  q_offset: int = 0, Sq: int | None = None,
+                  sms: int = SM_COUNT) -> dict:
+    """The kernels' launch for these shapes (S keys; the Sq query rows at
+    ``q_offset``, all S by default), as ``csrc/flash_backward.cu`` computes
+    it from the arguments it is given:
+
+    * dq: ``dq_wgs`` consumer warpgroups (3 at D <= 64, 2 at D <= 128,
+      else 1) and a producer warp, each warpgroup owning 64 // R
+      positions x R heads, so a block holds ``dq_tile`` positions;
+      ``dq_stages`` K/V stages;
+    * dk/dv: ``dkv_wgs`` consumer warpgroups (3 at D <= 64, else 2) that
+      take the steps in turn through ``dkv_stages`` stages, kept apart
+      (both take every step at D > 128, ``dkv_split``, splitting dK and
+      dV's columns), a block per (64 keys, group, batch row, KV head);
+      ``groups`` is the least divisor of R (below R when R > 1) at which
+      the blocks whose keys meet the slice's band reach ``sms``, else the
+      largest such divisor;
+    * each kernel's dynamic shared memory (``*_smem_bytes``) and the fp32
+      scratch the wrapper allocates (``ws_floats``: lse·log2(e) and Drow
+      by head, then the groups' dk and dv shares when groups > 1)."""
+    R = H // KV
+    Sq = S if Sq is None else Sq
+    window = S if window is None else min(window, S)
+    nb = -(-D // 64)
+    blk = TILE * 128                 # one 64 x 64 bf16 block of a tile
+    dq_wgs = 3 if nb == 1 else 2 if nb == 2 else 1
+    dq_stages = 4 if nb <= 2 else 2
+    dq_tile = dq_wgs * (TILE // R)
+    split = nb > 2
+    nb_kv = 4 if split else nb       # the split pads D to 256
+    dkv_wgs = 3 if nb == 1 else 2
+    dkv_stages = 2 if split else dkv_wgs * (4 if nb == 1 else 2)
+    # key tiles whose band meets the slice's rows
+    q_end = q_offset + Sq
+    first = max(0, q_offset - window + 1)
+    if chunk:
+        first = max(first, q_offset // chunk * chunk)
+    active = (q_end - 1) // TILE - first // TILE + 1
+    divs = [d for d in range(1, R + 1) if R % d == 0 and (d < R or R == 1)]
+    groups = next((d for d in divs if B * KV * active * d >= sms), divs[-1])
+    sqp = -(-Sq // TILE) * TILE
+    return dict(
+        dq_threads=128 * dq_wgs + 32, dq_wgs=dq_wgs, dq_stages=dq_stages,
+        dq_tile=dq_tile, dq_blocks=-(-Sq // dq_tile) * B * KV,
+        dq_smem_bytes=(3 * dq_wgs + 2 * dq_stages) * nb * blk + 1024,
+        dkv_threads=128 * dkv_wgs, dkv_wgs=dkv_wgs, dkv_stages=dkv_stages,
+        dkv_split=split,
+        groups=groups, dkv_blocks=-(-S // TILE) * groups * B * KV,
+        dkv_smem_bytes=(2 + 2 * dkv_stages) * nb_kv * blk
+        + dkv_stages * 2 * TILE * 4 + (64 * 128 * 4 if split else 0) + 1024,
+        ws_floats=2 * B * H * sqp
+        + (2 * groups * B * S * KV * D if groups > 1 else 0))
 
 
 def band_pairs(S: int, window: int, chunk: int, q_offset: int = 0,
@@ -170,8 +221,9 @@ def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,
     """The same function through the CUDA kernel: contiguous bf16 q, k, v,
     out16 and dout and fp32 lse on the card, H // KV at most 64, head dim
     a multiple of 16 up to 256. Returns fp32 (dq, dk, dv). At a
-    ``q_offset`` that is a multiple of ``TILE`` each dq row has the bits
-    of the whole launch; dk and dv are the slice's share."""
+    ``q_offset`` that is a multiple of ``launch_config``'s ``dq_tile``
+    each dq row has the bits of the whole launch; dk and dv are the
+    slice's share."""
     _check_shapes(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -195,19 +247,20 @@ def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"{dt} CUDA tensor, got {t.dtype} on "
                              f"{t.device}")
+    window = min(window, Sk)
+    lc = launch_config(B, Sk, H, KV, D, window=window, chunk=chunk,
+                       q_offset=q_offset, Sq=Sq,
+                       sms=_build.sm_count(q.device.index))
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Sq, H, D), **f32)
     dk = torch.empty((B, Sk, KV, D), **f32)
     dv = torch.empty((B, Sk, KV, D), **f32)
-    drow = torch.empty((B, Sq, H), **f32)
-    dk_part = torch.empty((B, Sk, H, D), **f32)
-    dv_part = torch.empty((B, Sk, H, D), **f32)
+    ws = torch.empty(lc["ws_floats"], **f32)
     code = _build.library().repro_flash_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out16.data_ptr(),
         lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), drow.data_ptr(), dk_part.data_ptr(),
-        dv_part.data_ptr(), B, Sq, Sk, q_offset, H, KV, D, min(window, Sk),
-        chunk, _score_mult(D, softcap), float(softcap or 0.0),
+        dv.data_ptr(), ws.data_ptr(), B, Sq, Sk, q_offset, H, KV, D, window,
+        chunk, lc["groups"], _score_mult(D, softcap), float(softcap or 0.0),
         1.0 / math.sqrt(D), _build.stream_of(q))
     _build.check(code, "flash_backward")
     flash_backward_cuda.launches += 1

@@ -8,6 +8,7 @@ against its plain version and skip where there is no card; they need
 neither JAX nor the reference package, which the other tests import through
 the ``ref`` fixture, so ``-m gpu`` runs on a machine without JAX.
 """
+import importlib.util
 import math
 import pathlib
 import types
@@ -23,6 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import bcsc_matmul as pbm
 from repro_torch.kernels import bcsc_mlp as pmlp
 from repro_torch.kernels import epilogue as pepi
+from repro_torch.kernels import flash_backward as pfb
 from repro_torch.kernels import local_attention as pswa
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import paged_attention as ppa
@@ -1472,17 +1474,72 @@ def test_cuda_sliding_window_lse_matches_plain(cuda, S, window, chunk, R, D,
     assert torch.equal(out, bare)
 
 
+def _chip_smoke_shapes():
+    """``BACKWARD_SHAPES`` and ``SEQSHARD_SHAPES`` of chip_smoke.py (whose
+    module level imports only the standard library)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_shapes", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.BACKWARD_SHAPES, mod.SEQSHARD_SHAPES
+
+
+def test_flash_backward_launch_config_fits_the_card():
+    """The backward's launches at chip_smoke's shapes (each shard of the
+    sequence-sharded ones) and at D 64, 128 and 256: each kernel's shared
+    memory within the H100's 227 KB a block, the groups a divisor of R
+    below R (when R > 1), the dk/dv grid at qwen2.5-3b's training shape
+    (B 1, S 2048, 2 KV heads) at least one block per SM, the blocks'
+    threads the kernel's, and no mma.sync, atomics or per-head shares left
+    in it."""
+    backward, seqshard = _chip_smoke_shapes()
+    cases = [dict(B=B, S=S, H=H, KV=KV, D=D, window=w, chunk=c)
+             for B, S, H, KV, D, w, c, _ in backward.values()]
+    for B, S, H, KV, D, w, _, n in seqshard.values():
+        cases += [dict(B=B, S=S, H=H, KV=KV, D=D, window=w, q_offset=i * S
+                       // n, Sq=S // n) for i in range(n)]
+    cases += [dict(B=1, S=4096, H=H, KV=KV, D=D)
+              for D in (64, 128, 256) for H, KV in ((16, 2), (8, 8), (40, 8))]
+    for case in cases:
+        lc = pfb.launch_config(**case)
+        R = case["H"] // case["KV"]
+        assert lc["dq_smem_bytes"] <= pfb.SMEM_LIMIT, case
+        assert lc["dkv_smem_bytes"] <= pfb.SMEM_LIMIT, case
+        assert R % lc["groups"] == 0 and (lc["groups"] < R or R == 1), case
+        assert lc["dq_tile"] == lc["dq_wgs"] * (64 // R), case
+    qwen = pfb.launch_config(1, 2048, 16, 2, 128)
+    assert qwen["dkv_blocks"] >= pfb.SM_COUNT and qwen["groups"] > 1
+    assert pfb.launch_config(1, 8192, 8, 4, 256)["groups"] == 1
+    src = (CSRC / "flash_backward.cu").read_text()
+    assert "kThreads = 128 * kWgs + 32;" in src
+    assert "kThreads = 128 * kWgs;" in src
+    assert qwen["dq_threads"] == 288 and qwen["dkv_threads"] == 256
+    for gone in ("mma_16816", "atomicAdd", "dk_part"):
+        assert gone not in src
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,window,chunk,KV,R,D,softcap", [
     (300, 300, 0, 2, 8, 128, 0.0), (200, 96, 0, 2, 2, 256, 50.0),
-    (260, 260, 100, 2, 5, 64, 0.0)])
+    (260, 260, 100, 2, 5, 64, 0.0), (300, 100, 0, 2, 5, 128, 0.0),
+    (190, 190, 0, 1, 4, 64, 0.0), (330, 150, 0, 2, 3, 256, 30.0),
+    (400, 400, 96, 2, 8, 128, 0.0), (150, 150, 0, 2, 2, 192, 0.0),
+    (140, 140, 0, 2, 4, 80, 0.0)])
 def test_cuda_flash_backward_matches_plain(cuda, S, window, chunk, KV, R, D,
                                            softcap):
     """The backward kernel against its plain version on the same inputs
     (the kernel forward's bf16 output and log-sum-exp): dq, dk and dv
     within 2e-3 of each one's max |value| (the kernel's ex2 and tanhf can
     move a bf16 rounding of p or ds by one step, and its fp32 sums run in
-    another order); a second call gives the same bits (no atomics)."""
+    another order); a second call gives the same bits (no atomics). The
+    cases after the first three reach the kernels' edges: 5 heads a KV
+    head (4 dead rows of each dq tile) with a window across key tiles; S
+    not a multiple of 64 with one KV head, where ``launch_config`` cuts
+    the 4 heads into groups; D 256 with a softcap and a window at 3 heads
+    (the dk/dv warpgroups split the columns); a chunk of 96 that starts
+    inside key tiles; D 192 (the split with 2 + 1 column blocks) and D 80
+    (a column block half past D)."""
     rng = np.random.default_rng(S + R + D)
     q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
                for a in _swa_case(S, B=2, KV=KV, R=R, D=D, seed=S + R))
@@ -1517,8 +1574,9 @@ def test_cuda_query_offset_matches_plain_and_one_launch(
     would tighten them), and against one launch over every row
     (the slices' dq from the whole launch's out16 and lse): out and lse
     bit for bit where an offset is a multiple of a block's 2 x (64 // R)
-    positions, dq where it is a multiple of 64, the slices' dk and dv
-    shares summed within 1e-5 of max. The first two shapes are qwen's
+    positions, dq where it is a multiple of the dq kernel's block
+    (``launch_config``'s ``dq_tile``), the slices' dk and dv shares summed
+    within 1e-5 of max. The first two shapes are qwen's
     ratio and gemma2's local layers; 5 heads a KV head leave a shard
     start inside a block, 200 rows inside both kernels' tiles."""
     rng = np.random.default_rng(S + R + shards)
@@ -1532,6 +1590,7 @@ def test_cuda_query_offset_matches_plain_and_one_launch(
     whole = pops.flash_backward(q, k, v, out16, lse, dout, **kw)
     n = S // shards
     per_block = 2 * (64 // R)
+    dq_tile = pfb.launch_config(2, S, KV * R, KV, D)["dq_tile"]
     dkv = [torch.zeros_like(whole[1]), torch.zeros_like(whole[2])]
     for i in range(shards):
         rows, off = slice(i * n, (i + 1) * n), i * n
@@ -1557,7 +1616,7 @@ def test_cuda_query_offset_matches_plain_and_one_launch(
         if off % per_block == 0 and n % per_block == 0:
             assert torch.equal(o_i, out[:, rows])
             assert torch.equal(l_i, lse[:, rows])
-        if off % 64 == 0 and n % 64 == 0:
+        if off % dq_tile == 0 and n % dq_tile == 0:
             assert torch.equal(got[0], whole[0][:, rows])
         dkv[0] += got[1]
         dkv[1] += got[2]
