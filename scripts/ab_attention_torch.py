@@ -5,7 +5,6 @@ backward, over every row (the query offset 0), beside the library calls
 that compute the same functions.
 
     python3 scripts/ab_attention_torch.py --parent DIR [--reps 10]
-                                          [--no-flex]
 
 ``DIR`` holds an earlier tree unpacked with ``git archive``; its C
 interface must be that of commit f6b1c98 (``PARENT_SIGNATURES``: the
@@ -95,8 +94,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True)
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--no-flex", action="store_true",
-                    help="skip flex_attention at gemma2-2b's shape")
     args = ap.parse_args()
     sys.path[:0] = [os.path.join(ROOT, "src"), ROOT,
                     os.path.join(ROOT, "scripts")]
@@ -202,7 +199,7 @@ def main() -> int:
                     lambda: run(side), flush, reps=args.reps)
         row["SDPA backward"] = None if cap else cs._sdpa_backward_ms(
             q, k, v, dout, window, chunk, flush)
-        if tag == FLEX_SHAPE and not args.no_flex:
+        if tag == FLEX_SHAPE:
             try:
                 f_ms, b_ms, err = flex_attention_times(
                     cs, q, k, v, dout, w, cap, flush, args.reps)

@@ -71,7 +71,10 @@
 //     fbwd_groups_kernel adds the shares in group order.
 // The mask runs only on a tile's edge: the diagonal, the window's far edge,
 // a chunk boundary inside the tile, keys past Sk or rows past the slice
-// end, classified per tile as the forward does; interior tiles skip it.
+// end, classified per tile as the forward does; interior tiles run a
+// per-element loop compiled without it (fb_modes makes the mask, like the
+// softcap, a template argument: a mask tested at run time inside the
+// unrolled loop cost its work on every tile).
 // Under a softcap, tanh comes from 2^x and 1/x on the special-function
 // unit (absolute error ~4e-7; the library's tanhf took most of the time).
 //
@@ -81,7 +84,10 @@
 // and the turns overlap it with only the other warpgroups' products; the
 // dq pass recomputes S and dP (7 products a pair in all, not 5); at D 256
 // the dq kernel has one consumer warpgroup a block and the dk/dv kernel's
-// second warpgroup waits for the first's p and ds.
+// second warpgroup waits for the first's p and ds; at D 64 the dq kernel's
+// 416 threads get 128 registers each, and ptxas spills 64 bytes.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace repro {
@@ -219,18 +225,31 @@ __device__ __forceinline__ void fb_p_ds(float s, float dp, float l, float d,
   }
 }
 
+// f(cap, edge) with both as compile-time booleans (std::bool_constant), so
+// that an interior tile's per-element loop holds no mask.
+template <class F>
+__device__ __forceinline__ void fb_modes(bool capped, bool edge, F&& f) {
+  if (capped) {
+    if (edge) f(std::true_type{}, std::true_type{});
+    else f(std::true_type{}, std::false_type{});
+  } else {
+    if (edge) f(std::false_type{}, std::true_type{});
+    else f(std::false_type{}, std::false_type{});
+  }
+}
+
 // A dq tile's ds, as the bf16 A fragments of dQ += dS K (a[i / 2] holds
 // accumulator elements i and i + 1), from S and dP: rows r0 (position p0,
 // the elements with bit 1 clear) and r1 (p1), keys key0 + the fragment's
 // columns; the mask only on an edge tile.
-template <bool kCap>
+template <bool kCap, bool kEdge>
 __device__ __forceinline__ void fb_ds_rows(uint32_t (&a)[16],
                                            const float (&s)[32],
                                            const float (&dp)[32], float l0,
                                            float l1, float d0, float d1,
-                                           const FbScore& c, bool edge, int p0,
-                                           int p1, int key0, int cq,
-                                           int q_end, int window, int chunk) {
+                                           const FbScore& c, int p0, int p1,
+                                           int key0, int cq, int q_end,
+                                           int window, int chunk) {
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     float ds[2];
@@ -240,7 +259,7 @@ __device__ __forceinline__ void fb_ds_rows(uint32_t (&a)[16],
       float p;
       fb_p_ds<kCap>(s[e], dp[e], (e & 2) ? l1 : l0, (e & 2) ? d1 : d0, c,
                     &p, &ds[h]);
-      if (edge && !fb_visible((e & 2) ? p1 : p0,
+      if (kEdge && !fb_visible((e & 2) ? p1 : p0,
                               key0 + 8 * (e >> 2) + cq + (e & 1), q_end,
                               window, chunk))
         ds[h] = 0.0f;
@@ -253,11 +272,11 @@ __device__ __forceinline__ void fb_ds_rows(uint32_t (&a)[16],
 // dS^T Q, from S^T and dP^T (dp(e): element e of dP^T): rows keys key0 /
 // key1, columns positions q0 + col with lse log2(e) lt[col] and Drow
 // dt[col].
-template <bool kCap, class DP>
+template <bool kCap, bool kEdge, class DP>
 __device__ __forceinline__ void fb_p_ds_keys(
     uint32_t (&pa)[16], uint32_t (&da)[16], const float (&s)[32], DP dp,
-    const float* lt, const float* dt, const FbScore& c, bool edge, int q0,
-    int key0, int key1, int Sk, int q_end, int window, int chunk, int cq) {
+    const float* lt, const float* dt, const FbScore& c, int q0, int key0,
+    int key1, int Sk, int q_end, int window, int chunk, int cq) {
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     float p[2], ds[2];
@@ -267,7 +286,7 @@ __device__ __forceinline__ void fb_p_ds_keys(
       const int col = 8 * (e >> 2) + cq + (e & 1);
       const int key = (e & 2) ? key1 : key0;
       fb_p_ds<kCap>(s[e], dp(e), lt[col], dt[col], c, &p[h], &ds[h]);
-      if (edge &&
+      if (kEdge &&
           !(key < Sk && fb_visible(q0 + col, key, q_end, window, chunk)))
         p[h] = ds[h] = 0.0f;
     }
@@ -427,12 +446,11 @@ __global__ void __launch_bounds__(FbDq<kNb>::kThreads, 1) fbwd_dq_kernel(
                       key0 <= qw_last - window || key0 + kFbRows > Sk ||
                       (chunk > 0 && key0 < qw_last / chunk * chunk);
     uint32_t a[16];
-    if (capped)
-      fb_ds_rows<true>(a, s, dp, l0, l1, d0, d1, sc, edge, p0, p1, key0, cq,
-                       q_end, window, chunk);
-    else
-      fb_ds_rows<false>(a, s, dp, l0, l1, d0, d1, sc, edge, p0, p1, key0,
-                        cq, q_end, window, chunk);
+    fb_modes(capped, edge, [&](auto cap, auto e) {
+      fb_ds_rows<decltype(cap)::value, decltype(e)::value>(
+          a, s, dp, l0, l1, d0, d1, sc, p0, p1, key0, cq, q_end, window,
+          chunk);
+    });
     wgmma_fence();
     fb_product_rs<kNb>(acc, a, k_tile(t));
     wgmma_commit();
@@ -719,12 +737,11 @@ __global__ void __launch_bounds__(FbDkv<kNb>::kThreads, 1) fbwd_dkv_kernel(
       const bool edge = edge_of(q0);
       uint32_t pa[16], da[16];
       auto dp_of = [&](int e) { return dp[e]; };
-      if (capped)
-        fb_p_ds_keys<true>(pa, da, s, dp_of, lt, dt, sc, edge, q0, key0,
-                           key1, Sk, q_end, window, chunk, cq);
-      else
-        fb_p_ds_keys<false>(pa, da, s, dp_of, lt, dt, sc, edge, q0, key0,
-                            key1, Sk, q_end, window, chunk, cq);
+      fb_modes(capped, edge, [&](auto cap, auto e) {
+        fb_p_ds_keys<decltype(cap)::value, decltype(e)::value>(
+            pa, da, s, dp_of, lt, dt, sc, q0, key0, key1, Sk, q_end, window,
+            chunk, cq);
+      });
       wgmma_fence();
       fb_product_rs<kNb>(dva, pa, dot);   // dV += P^T dO
       fb_product_rs<kNb>(dka, da, qt);    // dK += dS^T Q
@@ -812,12 +829,11 @@ __global__ void __launch_bounds__(FbDkv<kNb>::kThreads, 1) fbwd_dkv_kernel(
         const bool edge = edge_of(q0);
         uint32_t pw[16], dw[16];
         auto dp_of = [&](int e) { return xdp[e * 128 + ct]; };
-        if (capped)
-          fb_p_ds_keys<true>(pw, dw, sd, dp_of, lt, dt, sc, edge, q0, key0,
-                             key1, Sk, q_end, window, chunk, cq);
-        else
-          fb_p_ds_keys<false>(pw, dw, sd, dp_of, lt, dt, sc, edge, q0, key0,
-                              key1, Sk, q_end, window, chunk, cq);
+        fb_modes(capped, edge, [&](auto cap, auto e) {
+          fb_p_ds_keys<decltype(cap)::value, decltype(e)::value>(
+              pw, dw, sd, dp_of, lt, dt, sc, q0, key0, key1, Sk, q_end,
+              window, chunk, cq);
+        });
 #pragma unroll
         for (int e = 0; e < 16; ++e) {
           xpa[e * 128 + ct] = pw[e];

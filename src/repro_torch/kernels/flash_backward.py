@@ -45,8 +45,9 @@ stages, turns to issue the scores' products), or above D 128 share each
 step with half of dK and dV's columns each. When B·KV·⌈Sk/64⌉ blocks do
 not fill the card, the R heads are cut into ``groups`` groups, each
 writing one fp32 share that a last pass adds in group order. The mask
-runs only on a tile's edges. Every sum is taken in a fixed order: no
-atomics, the same bits every run.
+runs only on a tile's edges (interior tiles run a loop compiled without
+it). Every sum is taken in a fixed order: no atomics, the same bits
+every run.
 """
 from __future__ import annotations
 
@@ -220,10 +221,10 @@ def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,
                         q_offset: int = 0):
     """The same function through the CUDA kernel: contiguous bf16 q, k, v,
     out16 and dout and fp32 lse on the card, H // KV at most 64, head dim
-    a multiple of 16 up to 256. Returns fp32 (dq, dk, dv). At a
+    a multiple of 16 up to 256. Returns fp32 (dq, dk, dv). Only at a
     ``q_offset`` that is a multiple of ``launch_config``'s ``dq_tile``
-    each dq row has the bits of the whole launch; dk and dv are the
-    slice's share."""
+    (and a slice a whole number of such tiles) does each dq row have the
+    bits of the whole launch; dk and dv are the slice's share."""
     _check_shapes(q, k, v, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -1563,7 +1563,8 @@ def test_cuda_flash_backward_matches_plain(cuda, S, window, chunk, KV, R, D,
 @pytest.mark.gpu
 @pytest.mark.parametrize("S,window,chunk,KV,R,D,softcap,shards", [
     (1024, 1024, 0, 2, 8, 128, 0.0, 4), (1024, 300, 0, 4, 2, 256, 50.0, 2),
-    (768, 768, 256, 2, 5, 64, 0.0, 3), (600, 600, 0, 2, 8, 128, 0.0, 3)])
+    (768, 768, 256, 2, 5, 64, 0.0, 3), (864, 864, 256, 2, 5, 64, 0.0, 3),
+    (600, 600, 0, 2, 8, 128, 0.0, 3)])
 def test_cuda_query_offset_matches_plain_and_one_launch(
         cuda, S, window, chunk, KV, R, D, softcap, shards):
     """Both kernels on ``shards`` slices of the query rows at their offsets
@@ -1578,7 +1579,9 @@ def test_cuda_query_offset_matches_plain_and_one_launch(
     (``launch_config``'s ``dq_tile``), the slices' dk and dv shares summed
     within 1e-5 of max. The first two shapes are qwen's
     ratio and gemma2's local layers; 5 heads a KV head leave a shard
-    start inside a block, 200 rows inside both kernels' tiles."""
+    start of 256 inside a block, while shards of 288 rows are whole dq
+    and forward blocks (36 and 24 positions at D 64), so both bit checks
+    run at 5 heads; 200 rows fall inside both kernels' tiles."""
     rng = np.random.default_rng(S + R + shards)
     q, k, v = (torch.from_numpy(a).bfloat16().to(cuda)
                for a in _swa_case(S, B=2, KV=KV, R=R, D=D, seed=S + R))
