@@ -231,20 +231,26 @@ Phases, each of which must pass:
     ``models.frontend.synth_cond_embeds``; four codebooks, sinusoidal
     positions, ungated tanh-gelu MLPs packed at 0.75), passes
     ``MUSICGEN_PASSES`` (4 rows x 256 tokens x 4 codebooks, 128 new; 1 x
-    4000, 32 new), and internvl2-26b at full width and
-    ``INTERNVL_LAYERS`` (24) of its 48 layers (256 patches from
-    ``synth_patch_embeds`` before the text), passes ``INTERNVL_PASSES`` (4
-    x 64, 32 new; 1 x 1024, 16 new); each load's peak and resident
-    memory; the first pass's prefill and first decode logits, kernels
-    against ``impl="plain"`` (5e-2); per pass the greedy streams of the
-    kernel path and the plain path equal or parted at near-ties, the
-    launches exactly as the plan's routes give them (the sliding window
-    once per layer per prefill at head dims 64 and 128, the GEMM 2
-    (musicgen) or 3 (internvl2) per layer per prefill past the fused
-    route, the fused MLP, ungated for musicgen, once per layer per decode
-    step, paged attention, the GEMV and ``rs_matmul`` never), prefill and
-    decode tokens/s (eager), and one decode step's device ms (captured as
-    a CUDA graph) against its bound;
+    4000, 32 new), and internvl2-26b at full width and its published
+    ``INTERNVL_LAYERS`` (48) layers, built one layer at a time
+    (``serve.sparse.build_sparse_params``: its fp32 tree would not fit the
+    card), 256 patches from ``synth_patch_embeds`` before the text, passes
+    ``INTERNVL_PASSES`` (4 x 64, 32 new; 1 x 1024, 16 new); each load's
+    peak and resident memory; the first pass's prefill and first decode
+    logits, kernels against ``impl="plain"`` (5e-2); per pass
+    (``_frontend_pass``) a graphed call (which captures the decode step),
+    a ``graphs=False`` call and a graphed call that replays: their tokens
+    equal bit for bit, the replaying call's launches exactly as the plan's
+    routes give them (the sliding window once per layer per prefill at
+    head dims 64 and 128, the GEMM 2 (musicgen) or 3 (internvl2) per layer
+    per prefill past the fused route, the fused MLP, ungated for musicgen,
+    once per layer per decode step, paged attention, the GEMV and
+    ``rs_matmul`` never), the device-to-host copies of a fourth call equal
+    to its prefill's alone, the greedy streams of the kernel path and the
+    plain path equal or parted at near-ties; prefill and decode tokens/s
+    graphed and eager, the graphed decode's wall per step beside one
+    decode step's device ms (captured as a CUDA graph) and its bound, the
+    capture's seconds;
 13. train qwen2.5-3b (``phase_train``), after the frontends were freed, at
     published width and depth (36 layers, 3.09e9 fp32 parameters and
     their AdamW state on the card): one forward and backward with the
@@ -420,9 +426,9 @@ SHARDED_NEW = 24
 LLAMA4_CHUNK = (1, 16384, 40, 8, 128, 8192)
 CHUNK_EDGE = (2, 300, 40, 8, 128, 96)
 # the frontend phase: musicgen-large at its 48 layers, conditioned on its
-# 64 embeddings, internvl2-26b at full width and INTERNVL_LAYERS of its 48
-# (all 48 in fp32 would be 79.4e9 B at initialisation), 256 patches before
-# each prompt; each model's make_generate_fn passes as (rows, prompt tokens
+# 64 embeddings, internvl2-26b at full width and its published 48 layers
+# (built one layer at a time: all 48 in fp32 would be 79.4e9 B at
+# initialisation), 256 patches before each prompt; each model's make_generate_fn passes as (rows, prompt tokens
 # per row, new tokens per row; a musicgen token is a step of its four
 # codebooks), their plan geometry; the kernel phase's musicgen GEMM rows
 # (the first pass's prefill, 4 x 256) and sliding-window length
@@ -430,7 +436,7 @@ MUSICGEN = "musicgen-large"
 MUSICGEN_PLAN = dict(rows=4, cache_len=4096, page_size=64)
 MUSICGEN_PASSES = ((4, 256, 128), (1, 4000, 32))
 INTERNVL = "internvl2-26b"
-INTERNVL_LAYERS = 24
+INTERNVL_LAYERS = 48
 INTERNVL_PLAN = dict(rows=4, cache_len=2048, page_size=64)
 INTERNVL_PASSES = ((4, 64, 32), (1, 1024, 16))
 MUSICGEN_GEMM_M = 1024
@@ -2724,30 +2730,37 @@ def _free():
             "still allocated before the next load")
 
 
-def _load(arch, plan_kw, layers: int = 0):
+def _load(arch, plan_kw, layers: int = 0, layered: bool = False):
     """Full-width random weights from SEED, MLPs packed at 0.75, on the
     device behind ``LLM`` with a paged fp plan (contiguous when the config
     has no global layer), at ``layers`` of the config's layers when given.
     Frees the previous model first and prints the peak of device memory
     over the load (the fp32 weights of ``init_params`` beside one layer's
-    packing temporaries, or beside their bf16 copies)."""
+    packing temporaries, or beside their bf16 copies). ``layered`` builds
+    the packed bf16 tree one layer at a time instead
+    (``serve.sparse.build_sparse_params``: the tree beside one layer's fp32
+    draw and its packing temporaries)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.plan import plan_for_scheduler
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import LLM
-    from repro_torch.serve.sparse import sparsify_mlp_params
+    from repro_torch.serve.sparse import (build_sparse_params,
+                                          sparsify_mlp_params)
 
     _free()
     _reset_peak()
     cfg = get_config(arch)
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, gen, DEVICE)
-    packed, stats = sparsify_mlp_params(params, cfg, sparsity=0.75)
-    del params
+    if layered:
+        packed, stats = build_sparse_params(cfg, SEED, 0.75, device=DEVICE)
+    else:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        params = tfm.init_params(cfg, gen, DEVICE)
+        packed, stats = sparsify_mlp_params(params, cfg, sparsity=0.75)
+        del params
     plan = plan_for_scheduler(cfg, attn_path="paged", kv_quant="fp",
                               sync_every=8, **plan_kw)
     llm = LLM(cfg, packed, plan, eos_id=-1, device=DEVICE)
@@ -2758,7 +2771,8 @@ def _load(arch, plan_kw, layers: int = 0):
                else "no MLP to pack")
     log(f"serve: {arch}, {cfg.num_layers} layers {cfg.attn_pattern}, "
         f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, head_dim {cfg.head_dim}; "
-        f"{packing}; loaded in "
+        f"{packing}; loaded"
+        + (" one layer at a time" if layered else "") + " in "
         f"{time.perf_counter() - t0:.1f} s; {_memory('load peak')}; "
         f"plan rows {plan.rows}, cache {plan.cache_len}, page "
         f"{plan.page_size}, {plan.num_pages} pages, fused MLP up to M "
@@ -4604,7 +4618,8 @@ def _kernel_groups(graph, n: int = 8):
 
 
 def _step_device_ms(fn, n: int = 16):
-    """(device ms, host ms, device ms by kernel group) of one decode step
+    """(device ms, host ms, device ms by kernel group, graph) of one decode
+    step
     ``fn`` (a ``serve_step`` on fixed tensors, eager): the host clock
     around one synchronised eager call; then ``fn`` captured as a CUDA
     graph (two warm-up calls on the capture stream first, as
@@ -4612,8 +4627,9 @@ def _step_device_ms(fn, n: int = 16):
     CUDA events, which time the device's work with no gap for the host's
     launches (an eager step's thousands of launches fill the launch queue,
     so the device would run at the host's pace); then ``_kernel_groups``.
-    The capture's launch counts are taken back out. Device ms and groups
-    None on the CPU."""
+    The capture's launch counts are taken back out. Device ms, groups and
+    the graph (which replays ``fn`` on its tensors, so they must outlive
+    it) None on the CPU."""
     import torch
     from repro_torch.kernels import ops
     sync()
@@ -4622,7 +4638,7 @@ def _step_device_ms(fn, n: int = 16):
     sync()
     host_ms = (time.perf_counter() - t0) * 1e3
     if DEVICE != "cuda":
-        return None, host_ms, None
+        return None, host_ms, None, None
     before = ops.launch_counts()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -4633,6 +4649,13 @@ def _step_device_ms(fn, n: int = 16):
     with torch.cuda.graph(graph, stream=stream):
         fn()
     ops.set_launches(before)
+    return _replay_ms(graph, n), host_ms, _kernel_groups(graph), graph
+
+
+def _replay_ms(graph, n: int = 16) -> float:
+    """Device ms per replay of the CUDA graph ``graph``: one replay, then
+    ``n`` back to back between CUDA events."""
+    import torch
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -4642,7 +4665,7 @@ def _step_device_ms(fn, n: int = 16):
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / n, host_ms, _kernel_groups(graph)
+    return start.elapsed_time(end) / n
 
 
 def _frontend_check_logits(llm, judge, toks, extra):
@@ -4681,34 +4704,11 @@ def _frontend_check_logits(llm, judge, toks, extra):
     return gaps
 
 
-def _frontend_pass(llm, judge, rows: int, length: int, new: int):
-    """One ``make_generate_fn`` pass of ``rows`` prompts of ``length``
-    tokens and ``new`` new tokens: one decode step on the cache of a
-    ``make_prefill_step`` prefill, its device ms (``_step_device_ms``)
-    against its bound; then the generate call with the launch counts
-    zeroed just before and read just after (the main path's run), held to
-    ``_frontend_launches``, its prefill timed inside it (synchronised on
-    both sides) and the rest counted as decode; its stream against the
-    plain path's (equal, or parted at near-ties). Returns (launch counts,
-    line)."""
-    import torch
-    from repro_torch.kernels import ops
+def _generate_turn(generate, llm, toks, extra):
+    """One ``generate`` call on ``llm``'s weights, synchronised on both
+    sides, with its prefill timed inside it (``decoding.prefill``
+    synchronised around). Returns (tokens, wall s, prefill s)."""
     from repro_torch.models import decoding
-    from repro_torch.serve.engine import make_generate_fn, make_prefill_step
-    cfg, plan = llm.cfg, llm.plan
-    tag = f"{cfg.name} {rows} x {length} + {new}"
-    toks, extra = _frontend_inputs(llm, rows, length)
-    n = _positions_of(cfg, length)
-    logits, cache = make_prefill_step(cfg, n + new, plan)(llm.params, toks,
-                                                           **extra)
-    nxt = logits[:, -1, ..., :cfg.vocab_size].argmax(-1)[..., None]
-    pos = torch.full((rows,), n, dtype=torch.long, device=llm.device)
-    step_ms, step_host_ms, groups = _step_device_ms(
-        lambda: decoding.serve_step(llm.params, cache, nxt, pos, cfg,
-                                    plan=plan, cond=extra.get("cond")))
-    del cache, logits
-    _reset_peak()
-    generate = make_generate_fn(cfg, new, plan=plan)
     prefill, marks = decoding.prefill, {}
 
     def timed_prefill(*args, **kw):
@@ -4721,24 +4721,94 @@ def _frontend_pass(llm, judge, rows: int, length: int, new: int):
     decoding.prefill = timed_prefill
     try:
         sync()
-        ops.reset_launches()
         t0 = time.perf_counter()
         got = generate(llm.params, toks, **extra)
         sync()
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
     finally:
         decoding.prefill = prefill
-    prefill_s = marks["prefill_s"]
-    peak = _memory("peak of the generate call")
+    return got, wall, marks["prefill_s"]
+
+
+def _frontend_pass(llm, judge, rows: int, length: int, new: int):
+    """One ``make_generate_fn`` pass of ``rows`` prompts of ``length``
+    tokens and ``new`` new tokens: in turns, a graphed call (its first: it
+    captures the decode step), a ``graphs=False`` call and a graphed call
+    that replays the captured step, with the launch counts zeroed just
+    before it and read just after (the main path's run), held to
+    ``_frontend_launches``; the three calls' tokens equal bit for bit;
+    each call's prefill timed inside it (synchronised on both sides) and
+    the rest counted as decode; a fourth, graphed, call and the prefill
+    alone under ``_device_transfers`` (the decode steps must add no
+    device-to-host copy); then one decode step on the cache of a
+    ``make_prefill_step`` prefill, its device ms (``_step_device_ms``)
+    against its bound, and its graph and the generate call's own step
+    graph replayed in turns (each 16 replays, twice), the latter by kernel
+    group too; the stream against the plain path's (equal, or parted at
+    near-ties). Returns (launch counts, line)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoding
+    from repro_torch.serve.engine import make_generate_fn, make_prefill_step
+    cfg, plan = llm.cfg, llm.plan
+    tag = f"{cfg.name} {rows} x {length} + {new}"
+    toks, extra = _frontend_inputs(llm, rows, length)
+    n = _positions_of(cfg, length)
+    prefill_step = make_prefill_step(cfg, n + new, plan)
+    _reset_peak()
+    generate = make_generate_fn(cfg, new, plan=plan)
+    eager = make_generate_fn(cfg, new, plan=plan, graphs=False)
+    first, first_wall, _ = _generate_turn(generate, llm, toks, extra)
+    want, eager_wall, eager_prefill_s = _generate_turn(eager, llm, toks,
+                                                       extra)
+    del eager
+    ops.reset_launches()
+    got, wall, prefill_s = _generate_turn(generate, llm, toks, extra)
+    counts = ops.launch_counts()
+    peak = _memory("peak of the generate calls")
+    captures = [c for loop in generate.loops.values() for c in loop.captures]
     shape = (rows, new, cfg.num_codebooks) if cfg.num_codebooks > 1 \
         else (rows, new)
     judge.check(f"{tag}: tokens", tuple(got.shape) == shape and bool(
         ((got >= 0) & (got < cfg.vocab_size)).all()),
         f"{tuple(got.shape)} in-vocab tokens")
-    want = _frontend_launches(cfg, plan, rows * n, rows, new)
-    judge.check(f"{tag}: launches by the plan's routes", counts == want,
-                f"{counts} vs {want}")
+    judge.check(f"{tag}: graphed calls == the graphs=False call, bit for "
+                "bit", torch.equal(first, want) and torch.equal(got, want),
+                f"{len(captures)} capture(s) "
+                + ", ".join(f"{c:.2f} s" for c in captures))
+    judge.check(f"{tag}: one step graph, captured once",
+                DEVICE != "cuda" or len(captures) == 1,
+                f"captures {captures}")
+    want_n = _frontend_launches(cfg, plan, rows * n, rows, new)
+    judge.check(f"{tag}: launches by the plan's routes", counts == want_n,
+                f"{counts} vs {want_n}")
+    _, dtoh, sites = _device_transfers(
+        lambda: generate(llm.params, toks, **extra))
+    _, dtoh_prefill, _ = _device_transfers(
+        lambda: prefill_step(llm.params, toks, **extra))
+    judge.check(f"{tag}: the graphed decode steps copy nothing to the host",
+                dtoh == dtoh_prefill,
+                "not measured (CPU)" if dtoh is None else
+                f"{dtoh} device-to-host copies in a traced generate call, "
+                f"{dtoh_prefill} in its prefill alone; host-blocking calls "
+                f"by site: {_sites(sites)}")
+    logits, cache = prefill_step(llm.params, toks, **extra)
+    nxt = logits[:, -1, ..., :cfg.vocab_size].argmax(-1)[..., None]
+    pos = torch.full((rows,), n, dtype=torch.long, device=llm.device)
+    step_ms, step_host_ms, groups, step_graph = _step_device_ms(
+        lambda: decoding.serve_step(llm.params, cache, nxt, pos, cfg,
+                                    plan=plan, cond=extra.get("cond")))
+    # the generate call's own step graph (sampling, the step, the copies
+    # into its buffers), replayed past the run's end (positions stay at
+    # the cache's last slot, so each replay reads the whole cache), in
+    # turns with the serve_step graph
+    graph = next(iter(generate.loops.values())).graph
+    turns, loop_groups = [], None
+    if graph is not None:
+        turns = [(_replay_ms(step_graph), _replay_ms(graph.graph))
+                 for _ in range(2)]
+        loop_groups = _kernel_groups(graph.graph)
+    del generate, graph, step_graph, cache, logits
     plain, seen = _plain_stream(llm, toks, extra, new)
     parts = _stream_partings(got, plain, seen)
     judge.check(f"{tag}: kernel and plain streams equal, or parted only at "
@@ -4763,23 +4833,35 @@ def _frontend_pass(llm, judge, rows: int, length: int, new: int):
                   * 2 * cfg.num_heads * D * layers)
     bound_ms, by = bound(w_bytes + kv_bytes, flops)
     decode_s = max(wall - prefill_s, 1e-9)
+    eager_s = max(eager_wall - eager_prefill_s, 1e-9)
+    books = f" of {cfg.num_codebooks} codebooks" \
+        if cfg.num_codebooks > 1 else ""
     line = (f"{tag} (make_generate_fn): prefill {rows * n / prefill_s:.1f} "
             f"positions/s ({rows} x {n}"
             + (f", {cfg.num_patches} patches each" if n != length else "")
-            + f", {prefill_s * 1e3:.1f} ms); decode "
-            f"{rows * new / decode_s:.1f} tokens/s ({rows} rows x {new} steps"
-            + (f" of {cfg.num_codebooks} codebooks" if cfg.num_codebooks > 1
-               else "")
-            + f" in {decode_s:.2f} s, eager); one decode step "
-            + (f"{step_ms:.3f} ms on the device (captured, 16 replays; by "
-               "kernel group, traced: " + ", ".join(
+            + f", {prefill_s * 1e3:.1f} ms); decode graphed "
+            f"{rows * new / decode_s:.1f} tokens/s ({rows} rows x {new} "
+            f"steps{books} in {decode_s:.3f} s: {decode_s / new * 1e3:.3f} "
+            f"ms a step), eager {rows * new / eager_s:.1f} tokens/s "
+            f"({eager_s / new * 1e3:.3f} ms a step); one decode step "
+            + (f"{step_ms:.3f} ms on the device (captured, 16 replays; "
+               f"graphed wall / device {decode_s / new * 1e3 / step_ms:.3f}"
+               "; by kernel group, traced: " + ", ".join(
                    f"{g} {t:.3f}" for g, t in sorted(
-                       groups.items(), key=lambda kv: -kv[1])) + ")"
+                       groups.items(), key=lambda kv: -kv[1]))
+               + "; in turns, serve_step graph / the generate call's own "
+               "step graph at the cache's end: " + ", ".join(
+                   f"{a:.3f} / {b:.3f}" for a, b in turns)
+               + " ms; the latter by kernel group: " + ", ".join(
+                   f"{g} {t:.3f}" for g, t in sorted(
+                       loop_groups.items(), key=lambda kv: -kv[1])) + ")"
                if step_ms is not None else "not measured on a device (CPU)")
             + f", {step_host_ms:.1f} ms of host clock eager; bound "
             f"{bound_ms:.3f} ms ({by}: {w_bytes / 1e9:.2f} GB of weights, "
             f"{kv_bytes / 1e6:.1f} MB of K/V, {flops / 1e9:.1f} GFLOP); "
-            f"wall {wall:.2f} s; {peak}")
+            f"capture {', '.join(f'{c:.2f}' for c in captures) or 'none'} "
+            f"s (first call's wall {first_wall:.2f} s); wall {wall:.2f} s; "
+            f"{peak}")
     log(f"  {line}")
     return counts, line
 
@@ -4789,17 +4871,22 @@ def phase_serve_frontends(judge):
     to ``cond`` of 64 embeddings, four codebooks, sinusoidal positions,
     ungated tanh-gelu MLPs packed at 0.75) and internvl2-26b at full width
     and ``INTERNVL_LAYERS`` layers (256 vision patches before the text,
-    GQA 48 / 8 heads of 128, gated silu MLPs packed at 0.75), each after
-    the previous model was freed, through ``make_generate_fn`` (the
-    serving loops do not serve them, as the reference's do not): the
-    logits check on the first pass's inputs, then each pass of
-    ``MUSICGEN_PASSES`` / ``INTERNVL_PASSES`` (``_frontend_pass``).
+    GQA 48 / 8 heads of 128, gated silu MLPs packed at 0.75; built one
+    layer at a time), each after the previous model was freed, through
+    ``make_generate_fn`` (the serving loops do not serve them, as the
+    reference's do not): the load's memory peak, the logits check on the
+    first pass's inputs, then each pass of ``MUSICGEN_PASSES`` /
+    ``INTERNVL_PASSES`` (``_frontend_pass``).
     Returns (the main-path runs' summed launch counts, lines of rates)."""
     lines, total = [], None
-    for arch, plan_kw, layers, passes in (
-            (MUSICGEN, MUSICGEN_PLAN, 0, MUSICGEN_PASSES),
-            (INTERNVL, INTERNVL_PLAN, INTERNVL_LAYERS, INTERNVL_PASSES)):
-        llm = _load(arch, plan_kw, layers)
+    for arch, plan_kw, layers, layered, passes in (
+            (MUSICGEN, MUSICGEN_PLAN, 0, False, MUSICGEN_PASSES),
+            (INTERNVL, INTERNVL_PLAN, INTERNVL_LAYERS, True,
+             INTERNVL_PASSES)):
+        llm = _load(arch, plan_kw, layers, layered)
+        lines.append(f"{arch} ({llm.cfg.num_layers} layers"
+                     + (", built one layer at a time" if layered else "")
+                     + f"): {_memory('load peak')}")
         rows, length, _ = passes[0]
         gaps = _frontend_check_logits(llm, judge,
                                       *_frontend_inputs(llm, rows, length))

@@ -32,7 +32,8 @@ TRAIN_BACKWARD = 3.0  # the backward ≈ 2x the forward's FLOPs
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     """An input shape: the port's copy of the reference's
-    ``configs.shapes.ShapeConfig`` (whose module stays JAX-only)."""
+    ``configs.shapes.ShapeConfig`` (the rest of that module, which
+    imports no JAX, is not ported yet)."""
     name: str
     kind: str          # train | prefill | decode
     seq_len: int

@@ -112,6 +112,71 @@ def layer(tree, i: int):
 
 
 # ---------------------------------------------------------------- init
+def init_block(cfg, kind: str, is_moe: bool, generator: torch.Generator,
+               device, lead=()) -> Dict:
+    """One layer's random parameters of ``kind`` (``lead`` stacks them),
+    drawn from ``generator`` in ``init_params``'s order: normal dense
+    weights ~ N(0, 1/fan_in), zero norms and biases."""
+    dev = torch.device(device)
+    lead = tuple(lead)
+    d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # the dense MLPs of a model with MoE layers are dense_d_ff wide
+    ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
+
+    def dense(shape, fan_in):
+        return layers.dense_init(generator, lead + shape, fan_in, dev)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, device=dev)
+
+    p = {"pre_norm": zeros(d), "pre_norm_mlp": zeros(d)}
+    if cfg.use_post_norm:
+        p.update(post_norm=zeros(d), post_norm_mlp=zeros(d))
+    if kind in ATTN_KINDS:
+        attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
+                "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
+        if cfg.qkv_bias:
+            attn.update(bq=zeros(H, D), bk=zeros(KV, D), bv=zeros(KV, D))
+        if cfg.qk_norm:
+            attn.update(q_norm=zeros(D), k_norm=zeros(D))
+        p["attn"] = attn
+        if cfg.cross_attn_cond:
+            p["cross_attn"] = {
+                "wq": dense((d, H, D), d), "wk": dense((d, H, D), d),
+                "wv": dense((d, H, D), d), "wo": dense((H, D, d), H)}
+            p["pre_norm_cross"] = zeros(d)
+    elif kind == "ssm":
+        p["ssm"] = ssm_lib.init_ssm_params(cfg, generator, dev, lead)
+    elif kind == "rglru":
+        p["rglru"] = rglru_lib.init_rglru_params(cfg, generator, dev, lead)
+    if kind == "ssm":
+        return p
+    if is_moe:
+        p["moe"] = moe_lib.init_moe_params(cfg, generator, dev, lead)
+    elif cfg.mlp_gated:
+        p["mlp"] = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
+                    "wd": dense((ff, d), ff)}
+    else:
+        p["mlp"] = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
+    return p
+
+
+def init_head(cfg, generator: torch.Generator, device) -> Dict:
+    """The embedding, final norm and (untied) head, drawn from
+    ``generator`` in ``init_params``'s order."""
+    dev = torch.device(device)
+    d = cfg.d_model
+    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    params = {"embed": torch.randn(books + (cfg.vocab_padded, d),
+                                   generator=generator, device=dev),
+              "final_norm": torch.zeros(d, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = torch.randn(books + (d, cfg.vocab_padded),
+                                        generator=generator,
+                                        device=dev) / math.sqrt(d)
+    return params
+
+
 def init_params(cfg, generator: torch.Generator,
                 device: Optional[torch.device] = None) -> Dict:
     """Random parameters with the reference's shapes and init scales:
@@ -122,48 +187,9 @@ def init_params(cfg, generator: torch.Generator,
     and ``pre_norm_cross``; with K = ``cfg.num_codebooks`` > 1 the
     embedding is (K, Vp, d) and the head (K, d, Vp)."""
     dev = torch.device(device) if device is not None else generator.device
-    d, H, KV, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    # the dense MLPs of a model with MoE layers are dense_d_ff wide
-    ff = cfg.dense_d_ff if (cfg.moe and cfg.dense_d_ff) else cfg.d_ff
 
     def block(kind, is_moe, lead):
-        def dense(shape, fan_in):
-            return layers.dense_init(generator, lead + shape, fan_in, dev)
-
-        def zeros(*shape):
-            return torch.zeros(lead + shape, device=dev)
-
-        p = {"pre_norm": zeros(d), "pre_norm_mlp": zeros(d)}
-        if cfg.use_post_norm:
-            p.update(post_norm=zeros(d), post_norm_mlp=zeros(d))
-        if kind in ATTN_KINDS:
-            attn = {"wq": dense((d, H, D), d), "wk": dense((d, KV, D), d),
-                    "wv": dense((d, KV, D), d), "wo": dense((H, D, d), H)}
-            if cfg.qkv_bias:
-                attn.update(bq=zeros(H, D), bk=zeros(KV, D), bv=zeros(KV, D))
-            if cfg.qk_norm:
-                attn.update(q_norm=zeros(D), k_norm=zeros(D))
-            p["attn"] = attn
-            if cfg.cross_attn_cond:
-                p["cross_attn"] = {
-                    "wq": dense((d, H, D), d), "wk": dense((d, H, D), d),
-                    "wv": dense((d, H, D), d), "wo": dense((H, D, d), H)}
-                p["pre_norm_cross"] = zeros(d)
-        elif kind == "ssm":
-            p["ssm"] = ssm_lib.init_ssm_params(cfg, generator, dev, lead)
-        elif kind == "rglru":
-            p["rglru"] = rglru_lib.init_rglru_params(cfg, generator, dev,
-                                                     lead)
-        if kind == "ssm":
-            return p
-        if is_moe:
-            p["moe"] = moe_lib.init_moe_params(cfg, generator, dev, lead)
-        elif cfg.mlp_gated:
-            p["mlp"] = {"wg": dense((d, ff), d), "wu": dense((d, ff), d),
-                        "wd": dense((ff, d), ff)}
-        else:
-            p["mlp"] = {"w1": dense((d, ff), d), "w2": dense((ff, d), ff)}
-        return p
+        return init_block(cfg, kind, is_moe, generator, dev, lead)
 
     kinds = slot_kinds(cfg)
     params = {}
@@ -175,14 +201,7 @@ def init_params(cfg, generator: torch.Generator,
         params["rem"] = {f"rem{j}": block(kind, is_moe, ())
                          for j, (kind, is_moe)
                          in enumerate(kinds[:num_remainder(cfg)])}
-    books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
-    params["embed"] = torch.randn(books + (cfg.vocab_padded, d),
-                                  generator=generator, device=dev)
-    params["final_norm"] = torch.zeros(d, device=dev)
-    if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn(books + (d, cfg.vocab_padded),
-                                        generator=generator,
-                                        device=dev) / math.sqrt(d)
+    params.update(init_head(cfg, generator, dev))
     return params
 
 

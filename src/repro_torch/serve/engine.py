@@ -9,7 +9,8 @@ persistent buffers that every step updates in place (``make_step_in_place``);
 on the card each step is one replay of a captured CUDA graph
 (``serve.graphs.StepGraph``), on the CPU (or with ``graphs=False``) the same
 body runs eagerly. :class:`DecodeEngine` (the dense-slot drain engine behind
-``LLM.generate``) and the streaming scheduler both decode through it.
+``LLM.generate``), the streaming scheduler and ``make_generate_fn`` (the
+reference's one-program prefill and decode) all decode through it.
 
 Under a plan with ``spec_k`` >= 2 the loop's step is one round of greedy
 speculative decoding (``make_spec_decode_step``): k candidates drafted from
@@ -28,6 +29,7 @@ disturbing the live rows. The device halves of copy-on-write
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import warnings
@@ -125,41 +127,125 @@ def sample_temperature(logits: torch.Tensor, temperature: float = 0.0,
     return draws.reshape(logits.shape[:-1])
 
 
+GENERATE_LOOPS = 4
+
+
 def make_generate_fn(cfg, num_steps: int, temperature: float = 0.0, *,
-                     plan=None) -> Callable:
+                     plan=None, graphs: bool = True,
+                     max_loops: int = GENERATE_LOOPS) -> Callable:
     """Prefill, then ``num_steps`` decode steps, for prompts of one length
-    (the reference's ``make_generate_fn``, its scan as an eager loop;
-    ``plan`` as in ``make_serve_step``). Returns generate(params, tokens,
-    generator=None, patch_embeds=None, cond=None): tokens (B, S), or (B, K,
-    S) for K codebooks; a vision config's ``cfg.num_patches`` count into
-    the prompt and cache lengths whether or not patches (B, P, d) are
-    given, as the reference counts them (without patches the first step
-    decodes at position S + P);
-    ``cond`` (B, T, d) is read by every step of a config with
-    cross-attention. Returns (B, num_steps) tokens, or (B, num_steps, K):
-    at K > 1 each codebook is sampled from the last position's (B, K, Vp)
+    (the reference's ``make_generate_fn``, its jitted scan as one captured
+    decode step; ``plan`` as in ``make_serve_step``). Returns
+    generate(params, tokens, generator=None, patch_embeds=None, cond=None):
+    tokens (B, S), or (B, K, S) for K codebooks; a vision config's
+    ``cfg.num_patches`` count into the prompt and cache lengths whether or
+    not patches (B, P, d) are given, as the reference counts them (without
+    patches the first step decodes at position S + P); ``cond`` (B, T, d)
+    is read by every step of a config with cross-attention. Returns the
+    (B, num_steps) tokens, or (B, num_steps, K), on the tokens' device: at
+    K > 1 each codebook is sampled from the last position's (B, K, Vp)
     logits and the (B, K, 1) tokens fed back, as the reference's
     ``make_decode_step`` samples them (its ``make_generate_fn`` indexes
-    the codebook axis there and raises)."""
+    the codebook axis there and raises).
+
+    The prefill runs as ``decoding.prefill``; its cache, last logits, the
+    positions and ``cond`` are then copied onto the fixed buffers of a
+    :class:`DecodeLoop` (contiguous, every row live for ``num_steps``
+    steps, no EOS, as in the reference's scan), and the steps run as its
+    in-place body. On the card each step is one replay of the loop's
+    :class:`StepGraph`, captured at the first call of each input shape
+    (rows, prompt, patches, ``cond``); nothing is transferred to the host
+    between the prefill and the return. On the CPU, or with
+    ``graphs=False``, the same body runs eagerly. Sampling draws from
+    ``generator`` (the device's default generator when None) through the
+    loop's own generator, whose state is copied in before the steps and
+    back after them: the draws, and the generator's state after the call,
+    are the eager loop's.
+
+    ``generate.loops`` keeps the loops of the ``max_loops`` input shapes
+    used last, the oldest released first. Each holds device memory between
+    calls: a contiguous cache of (rows, prompt + ``num_steps``) positions,
+    ``last``, ``hist``, the step's outputs and, graphed, the graph's memory
+    pool. A captured graph reads the params' leaves at their addresses, so
+    the loops belong to one set of leaves (the address, shape, stride and
+    dtype of each): a call whose params differ in any leaf, in the same
+    dict or another, releases every loop first."""
+    loops: "collections.OrderedDict[tuple, DecodeLoop]" = \
+        collections.OrderedDict()
+    held = [None]                  # _leaf_key of the params the loops read
+
     def generate(params, tokens, generator=None, patch_embeds=None,
                  cond=None):
+        leaves = _leaf_key(params)
+        if leaves != held[0]:
+            for lp in loops.values():
+                lp.release()
+            loops.clear()
+            held[0] = leaves
         patches = cfg.num_patches if cfg.frontend == "vision" else 0
         prompt_len = tokens.shape[-1] + patches
         logits, cache = decoding.prefill(
             params, tokens, cfg, prompt_len + num_steps, plan=plan,
             patch_embeds=patch_embeds, cond=cond)
-        pos = torch.full((tokens.shape[0],), prompt_len, dtype=torch.long,
-                         device=tokens.device)
-        out = []
-        for _ in range(num_steps):
-            nxt = sample_temperature(logits[:, -1], temperature, generator)
-            out.append(nxt)
-            logits, cache = decoding.serve_step(params, cache, nxt[..., None],
-                                                pos, cfg, plan=plan,
-                                                cond=cond)
-            pos = pos + 1
-        return torch.stack(out, dim=1)
+        key = tuple(None if t is None else tuple(t.shape)
+                    for t in (tokens, patch_embeds, cond))
+        loop = loops.pop(key, None)
+        if loop is None:
+            while len(loops) >= max(1, max_loops):
+                loops.popitem(last=False)[1].release()
+            # allocates only in start()
+            loop = DecodeLoop(
+                cfg, params, plan, temperature=temperature, eos_id=-1,
+                device=tokens.device, paged=False, sync_every=num_steps,
+                graphs=graphs, rows=tokens.shape[0],
+                cache_len=prompt_len + num_steps,
+                cond_len=0 if cond is None else cond.shape[1])
+        loops[key] = loop                       # the most recent last
+        loop.params = params                    # the same leaves
+        state = loop.start()
+        _copy_tree(state[0], cache)
+        state[1].copy_(logits[:, -1])
+        state[2].fill_(prompt_len)
+        state[3].fill_(True)
+        state[4].fill_(num_steps)
+        if cond is not None:
+            loop.cond.copy_(cond)
+        del logits, cache
+        if temperature > 0:
+            if generator is None:
+                generator = torch.cuda.default_generators[
+                    tokens.device.index or 0] \
+                    if tokens.device.type == "cuda" \
+                    else torch.default_generator
+            loop.generator.set_state(generator.get_state())
+        loop.steps()
+        if temperature > 0:
+            generator.set_state(loop.generator.get_state())
+        return loop.toks.movedim(0, 1).clone()
+
+    generate.loops = loops
     return generate
+
+
+def _leaf_key(params) -> tuple:
+    """What a captured step reads of ``params``: the address, shape,
+    stride and dtype of every leaf, in the tree's order."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for t in _tensors(params))
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy every leaf of the cache tree ``src`` into ``dst``'s, which must
+    have the same keys, shapes and dtypes."""
+    for key, t in src.items():
+        if isinstance(t, dict):
+            _copy_tree(dst[key], t)
+        elif dst[key].shape != t.shape or dst[key].dtype != t.dtype:
+            raise ValueError(f"cache leaf {key}: {tuple(t.shape)} {t.dtype} "
+                             f"does not fit {tuple(dst[key].shape)} "
+                             f"{dst[key].dtype}")
+        else:
+            dst[key].copy_(t)
 
 
 @dataclasses.dataclass
@@ -238,11 +324,12 @@ def make_spec_decode_step(cfg, plan, eos_id: int, k: int) -> Callable:
     emitted token, and all k candidates go into ``hist`` at pos..pos+k-1
     (the rejected tail lies past the new pos, where the next round writes
     over it and no read looks). carry = (cache, last, pos, live, budget,
-    hist); returns (carry, (candidates (B, k), emit flags (B, k)))."""
+    hist); returns (carry, (candidates (B, k), emit flags (B, k))).
+    ``cond`` is passed on to ``verify_step``."""
     if k < 2:
         raise ValueError(f"spec k must be >= 2, got {k}")
 
-    def step(params, carry, generator=None, block_table=None):
+    def step(params, carry, generator=None, block_table=None, cond=None):
         cache, last, pos, live, budget, hist = carry
         B, dev = last.shape[0], last.device
         cands = [torch.argmax(last, dim=-1)]
@@ -251,7 +338,8 @@ def make_spec_decode_step(cfg, plan, eos_id: int, k: int) -> Callable:
         v = torch.stack(cands, dim=1)                             # (B, k)
         logits, cache = decoding.verify_step(params, cache, v, pos, cfg,
                                              plan=plan,
-                                             block_table=block_table)
+                                             block_table=block_table,
+                                             cond=cond)
         g = torch.argmax(logits, dim=-1)
         first = torch.ones((B, 1), dtype=torch.bool, device=dev)
         ok = torch.cat([first, v[:, 1:] == g[:, :-1]], dim=1)
@@ -284,18 +372,20 @@ def make_spec_decode_step(cfg, plan, eos_id: int, k: int) -> Callable:
 def make_step_in_place(cfg, plan, temperature: float, eos_id: int,
                        spec_k: int = 0) -> Callable:
     """The decode step with its results written into its inputs:
-    body(params, state, nxt, emit, generator, block_table) leaves the
+    body(params, state, nxt, emit, generator, block_table, cond) leaves the
     sampled tokens in ``nxt``, the emit flags in ``emit`` and the new last,
     pos, live and budget in ``state``'s own buffers (the cache and, in a
-    speculative round, ``hist`` are written in place). ``spec_k`` >= 2
-    makes it a ``make_spec_decode_step`` round (greedy; ``nxt`` and
-    ``emit`` are then (rows, k)), otherwise a ``make_decode_step`` step,
-    which leaves ``hist`` as it is. The body a StepGraph captures."""
+    speculative round, ``hist`` are written in place); ``cond`` (B, T, d),
+    or None, is read. ``spec_k`` >= 2 makes it a ``make_spec_decode_step``
+    round (greedy; ``nxt`` and ``emit`` are then (rows, k)), otherwise a
+    ``make_decode_step`` step, which leaves ``hist`` as it is. The body a
+    StepGraph captures."""
     step = make_spec_decode_step(cfg, plan, eos_id, spec_k) if spec_k \
         else make_decode_step(cfg, temperature, eos_id, plan)
 
-    def body(params, state, nxt, emit, generator=None, block_table=None):
-        new, (tok, em) = step(params, state, generator, block_table)
+    def body(params, state, nxt, emit, generator=None, block_table=None,
+             cond=None):
+        new, (tok, em) = step(params, state, generator, block_table, cond)
         nxt.copy_(tok)
         emit.copy_(em)             # em may be state's live: copy it first
         for buf, value in zip(state[1:5], new[1:5]):
@@ -426,57 +516,78 @@ class DecodeLoop:
     (``refill_rows``, ``resume_suffix``, :meth:`copy_pages`) and never
     rebind them; only :meth:`quantize_kv` swaps the paged pools, inside the
     same cache dict. ``captures`` lists the seconds of every capture this
-    loop made."""
+    loop made.
+
+    ``rows`` and ``cache_len`` default to the plan's (``plan`` may be None
+    when both are given: the step then routes as ``make_serve_step``'s
+    plan-less one does). ``cond_len`` > 0 gives the loop a fixed ``cond``
+    buffer (rows, cond_len, d) bf16 that every step reads (a config with
+    cross-attention). At K = ``cfg.num_codebooks`` > 1, ``last`` is (rows,
+    K, Vp) and ``nxt`` (rows, K)."""
 
     def __init__(self, cfg, params, plan, *, temperature: float,
                  eos_id: int, device, paged: bool, sync_every: int,
-                 graphs: bool = True, spec_k: int = 0):
+                 graphs: bool = True, spec_k: int = 0,
+                 rows: Optional[int] = None, cache_len: Optional[int] = None,
+                 cond_len: int = 0):
         self.cfg, self.params, self.plan = cfg, params, plan
         self.device = device
         self.paged = paged
-        self.rows = plan.rows
+        self.rows = plan.rows if rows is None else rows
+        self.cache_len = plan.cache_len if cache_len is None else cache_len
+        self.cond_len = cond_len
         self.sync_every = max(1, sync_every)
         self.temperature = temperature
         self.eos_id = eos_id
         self.spec_k = spec_k
         # the pool's format and size: the plan's until quantize_kv
-        self.kv_quant, self.num_pages = plan.kv_quant, plan.num_pages
+        self.kv_quant, self.num_pages = (plan.kv_quant, plan.num_pages) \
+            if plan is not None else ("fp", 0)
         self.use_graph = graphs and device.type == "cuda"
         self.body = make_step_in_place(cfg, plan, temperature, eos_id,
                                        spec_k)
         self.generator = torch.Generator(device=device)
         self.state = None
         self.block_table: Optional[torch.Tensor] = None
+        self.cond: Optional[torch.Tensor] = None
         self.nxt = self.emit = self.toks = self.emits = None
         self.graph: Optional[StepGraph] = None
         self.captures: List[float] = []
 
     def _alloc_outputs(self) -> None:
-        """``nxt``/``emit`` (rows[, k]) and the chunk's (T, rows[, k])."""
+        """``nxt`` (rows[, k or K]), ``emit`` (rows[, k]) and the chunk's
+        (T, ...) of each."""
         dev, R, T = self.device, self.rows, self.sync_every
-        shape = (R, self.spec_k) if self.spec_k else (R,)
-        self.nxt = torch.zeros(shape, dtype=torch.long, device=dev)
-        self.emit = torch.zeros(shape, dtype=torch.bool, device=dev)
-        self.toks = torch.zeros((T,) + shape, dtype=torch.long, device=dev)
-        self.emits = torch.zeros((T,) + shape, dtype=torch.bool, device=dev)
+        K = self.cfg.num_codebooks
+        emit = (R, self.spec_k) if self.spec_k else (R,)
+        tok = (R, K) if K > 1 and not self.spec_k else emit
+        self.nxt = torch.zeros(tok, dtype=torch.long, device=dev)
+        self.emit = torch.zeros(emit, dtype=torch.bool, device=dev)
+        self.toks = torch.zeros((T,) + tok, dtype=torch.long, device=dev)
+        self.emits = torch.zeros((T,) + emit, dtype=torch.bool, device=dev)
 
     def _alloc(self) -> None:
         cfg, plan, dev, R = self.cfg, self.plan, self.device, self.rows
         if self.paged:
             cache = decoding.init_paged_cache(
-                cfg, R, plan.cache_len, self.num_pages, plan.page_size,
+                cfg, R, self.cache_len, self.num_pages, plan.page_size,
                 self.kv_quant, device=dev)
             self.block_table = torch.full((R, plan.max_pages), -1,
                                           dtype=torch.int32, device=dev)
         else:
-            cache = decoding.init_cache(cfg, R, plan.cache_len, device=dev)
+            cache = decoding.init_cache(cfg, R, self.cache_len, device=dev)
+        books = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
         self.state = (cache,
-                      torch.zeros((R, cfg.vocab_padded), device=dev),
+                      torch.zeros((R,) + books + (cfg.vocab_padded,),
+                                  device=dev),
                       torch.zeros((R,), dtype=torch.long, device=dev),
                       torch.zeros((R,), dtype=torch.bool, device=dev),
                       torch.zeros((R,), dtype=torch.int32, device=dev),
-                      torch.full((R, plan.cache_len), -1, dtype=torch.int32,
+                      torch.full((R, self.cache_len), -1, dtype=torch.int32,
                                  device=dev))
+        if self.cond_len:
+            self.cond = torch.zeros((R, self.cond_len, cfg.d_model),
+                                    dtype=decoding.COMPUTE_DTYPE, device=dev)
         self._alloc_outputs()
 
     def _reset(self) -> None:
@@ -485,12 +596,15 @@ class DecodeLoop:
         self.state[5].fill_(-1)
         if self.block_table is not None:
             self.block_table.fill_(-1)
+        if self.cond is not None:
+            self.cond.zero_()
 
     def _capture(self) -> None:
         self.graph = StepGraph(
             self.body, self.params, self.state, self.nxt, self.emit,
             block_table=self.block_table,
-            generator=self.generator if self.temperature > 0 else None)
+            generator=self.generator if self.temperature > 0 else None,
+            cond=self.cond)
         self.captures.append(self.graph.capture_s)
 
     def start(self, seed: int = 0):
@@ -560,21 +674,23 @@ class DecodeLoop:
 
     def release(self) -> None:
         """Drop the device memory this loop holds: the decode state (paged
-        pools included), the block table, the step's outputs and the step
-        graph with its memory pool. The next :meth:`start` allocates (and
-        captures) anew, on the pool format of the last one."""
+        pools included), the block table, ``cond``, the step's outputs and
+        the step graph with its memory pool. The next :meth:`start`
+        allocates (and captures) anew, on the pool format of the last
+        one."""
         self.graph = None
-        self.state = self.block_table = None
+        self.state = self.block_table = self.cond = None
         self.nxt = self.emit = self.toks = self.emits = None
 
     def device_bytes(self) -> int:
         """Bytes of the tensors this loop holds (decode state and pools,
-        block table, the step's outputs); 0 once released. A step graph's
-        intermediates live in its private memory pool, which is not
+        block table, ``cond``, the step's outputs); 0 once released. A step
+        graph's intermediates live in its private memory pool, which is not
         counted here."""
         held = list(_tensors(self.state)) if self.state is not None else []
-        held += [t for t in (self.block_table, self.nxt, self.emit,
-                             self.toks, self.emits) if t is not None]
+        held += [t for t in (self.block_table, self.cond, self.nxt,
+                             self.emit, self.toks, self.emits)
+                 if t is not None]
         return sum(t.numel() * t.element_size() for t in held)
 
     def copy_pages(self, src: List[int], dst: List[int]) -> None:
@@ -603,23 +719,28 @@ class DecodeLoop:
             self.graph.replay()
         else:
             self.body(self.params, self.state, self.nxt, self.emit,
-                      self.generator, self.block_table)
+                      self.generator, self.block_table, self.cond)
 
-    def chunk(self):
-        """``sync_every`` steps on the device, then one transfer of the
-        sampled tokens (T, rows) or, speculating, the candidates (T, rows,
-        k), their emit flags and the live flags."""
-        T = self.sync_every
-        for t in range(T):
+    def steps(self) -> None:
+        """``sync_every`` steps on the device, each one's tokens and emit
+        flags written into row t of ``toks`` and ``emits``; nothing leaves
+        the device."""
+        for t in range(self.sync_every):
             self.step()
             self.toks[t].copy_(self.nxt)
             self.emits[t].copy_(self.emit)
-        n = self.toks.numel()
+
+    def chunk(self):
+        """:meth:`steps`, then one transfer of the sampled tokens (T, rows)
+        or, speculating, the candidates (T, rows, k), their emit flags and
+        the live flags."""
+        self.steps()
+        n, m = self.toks.numel(), self.emits.numel()
         host = torch.cat([self.toks.reshape(-1), self.emits.reshape(-1).long(),
                           self.state[3].long()]).cpu().numpy()
         return (host[:n].reshape(self.toks.shape),
-                host[n:2 * n].reshape(self.toks.shape).astype(bool),
-                host[2 * n:].astype(bool))
+                host[n:n + m].reshape(self.emits.shape).astype(bool),
+                host[n + m:].astype(bool))
 
 
 class DecodeEngine:

@@ -8,7 +8,8 @@ on static buffers and replayed ``sync_every`` times per chunk (under
 speculation the body is one round: k drafted candidates, one flattened
 verify, the accepted prefix). The buffers are the decode state itself (the
 cache, ``last``, ``pos``, ``live``, ``budget``, the draft history
-``hist``), the block table of a paged plan, and the step's outputs ``nxt``
+``hist``), the block table of a paged plan, the conditioning sequence
+``cond`` of a config with cross-attention, and the step's outputs ``nxt``
 and ``emit``; the captured body ends by writing the new ``last``, ``pos``,
 ``live`` and ``budget`` back into their input buffers, so T replays are
 the T-step chunk. A replay costs the host one graph launch
@@ -39,13 +40,14 @@ WARMUP_STEPS = 2
 
 
 class StepGraph:
-    """``body(params, state, nxt, emit, generator, block_table)`` captured
-    once; :meth:`replay` runs it on the current stream.
+    """``body(params, state, nxt, emit, generator, block_table, cond)``
+    captured once; :meth:`replay` runs it on the current stream.
 
     ``state`` = (cache, last, pos, live, budget, hist) and the other
-    tensors are the graph's fixed inputs and outputs: the caller writes new
-    rows, flags and tables into them in place between replays and never
-    rebinds them. The warm-up steps write garbage into ``state``; the
+    tensors (``cond`` (B, T, d) bf16 or None) are the graph's fixed inputs
+    and outputs: the caller writes new rows, flags, tables and
+    conditioning into them in place between replays and never rebinds
+    them. The warm-up steps write garbage into ``state``; the
     caller resets it after construction. ``generator`` (temperature
     sampling) is registered with the graph, so each replay draws the
     numbers the next eager step from the generator's current seed and
@@ -53,11 +55,12 @@ class StepGraph:
 
     def __init__(self, body: Callable, params, state, nxt: torch.Tensor,
                  emit: torch.Tensor, *, block_table: Optional[torch.Tensor]
-                 = None, generator: Optional[torch.Generator] = None):
+                 = None, generator: Optional[torch.Generator] = None,
+                 cond: Optional[torch.Tensor] = None):
         dev = state[1].device
         if dev.type != "cuda":
             raise ValueError("CUDA graphs capture work on the card only")
-        args = (params, state, nxt, emit, generator, block_table)
+        args = (params, state, nxt, emit, generator, block_table, cond)
         t0 = time.perf_counter()
         self.stream = torch.cuda.Stream(dev)
         self.stream.wait_stream(torch.cuda.current_stream(dev))

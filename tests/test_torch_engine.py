@@ -28,6 +28,7 @@ from repro_torch.core import plan as pplan
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as pops
 from repro_torch.models import decoding as pdec
+from repro_torch.models import frontend as pfront
 from repro_torch.models import transformer as ptfm
 from repro_torch.serve import LLM, DecodeEngine, Request, StreamRequest
 from repro_torch.serve import engine as peng
@@ -663,6 +664,110 @@ def test_cuda_graphed_generate_equals_eager(cuda, arch):
     assert graphed._engine.graph is not None
     assert graphed._engine.host_syncs == \
         2 * graphed.phase_stats["decode_chunks"]
+
+
+FRONTENDS = ("musicgen-large-reduced", "internvl2-26b-reduced")
+
+
+def _frontend_case(arch, cuda, rows: int = 2, length: int = 9):
+    """A reduced frontend's packed params, prompts ((rows, K, length) for
+    K codebooks) and its ``cond`` or ``patch_embeds``, seeded."""
+    cfg, params = _card_params(arch, cuda)
+    gen = torch.Generator(cuda).manual_seed(2)
+    K = cfg.num_codebooks
+    toks = torch.randint(2, cfg.vocab_size,
+                         (rows, K, length) if K > 1 else (rows, length),
+                         generator=gen, device=cuda)
+    extra = {}
+    if cfg.cross_attn_cond:
+        extra["cond"] = pfront.synth_cond_embeds(gen, rows, cfg, cuda)
+    if cfg.frontend == "vision":
+        extra["patch_embeds"] = pfront.synth_patch_embeds(gen, rows, cfg,
+                                                          cuda)
+    return cfg, params, toks, extra
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_cuda_graphed_generate_fn_equals_eager(cuda, arch, temperature):
+    """``make_generate_fn`` on a reduced frontend (musicgen's ``cond`` and
+    four codebooks, internvl2's patches): the graphed call that captures,
+    a second that replays the same graph, and a ``graphs=False`` call give
+    the same tokens bit for bit from the same generator seed, and leave
+    the generator in the same state; the replaying call's launch counts
+    equal the eager call's."""
+    cfg, params, toks, extra = _frontend_case(arch, cuda)
+    plan = pplan.plan_for_engine(cfg, slots=2, cache_len=64)
+    graphed = peng.make_generate_fn(cfg, 6, temperature, plan=plan)
+    eager = peng.make_generate_fn(cfg, 6, temperature, plan=plan,
+                                  graphs=False)
+    runs = []
+    for fn in (graphed, graphed, eager):
+        gen = torch.Generator(cuda).manual_seed(5)
+        out, counts = _counted(lambda: fn(params, toks, gen, **extra))
+        runs.append((out, counts, gen.get_state()))
+    (loop,) = graphed.loops.values()
+    assert loop.graph is not None and len(loop.captures) == 1
+    assert next(iter(eager.loops.values())).graph is None
+    K = cfg.num_codebooks
+    assert runs[0][0].shape == ((2, 6, K) if K > 1 else (2, 6))
+    for out, _, state in runs[1:]:
+        assert torch.equal(out, runs[0][0])
+        assert torch.equal(state, runs[0][2])
+    assert runs[1][1] == runs[2][1]
+    if temperature > 0:
+        assert len(set(runs[0][0].flatten().tolist())) > 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_cuda_graphed_generate_fn_reads_a_replaced_leaf(cuda, arch):
+    """A leaf replaced in the params dict a graphed ``make_generate_fn``
+    captured on: the next call captures anew and gives the tokens of a
+    ``graphs=False`` call on the new tree, not a replay of the old
+    leaf's."""
+    cfg, params, toks, extra = _frontend_case(arch, cuda)
+    plan = pplan.plan_for_engine(cfg, slots=2, cache_len=64)
+    params = dict(params)
+    graphed = peng.make_generate_fn(cfg, 6, plan=plan)
+    before = graphed(params, toks, **extra)
+    old = next(iter(graphed.loops.values()))
+    params["embed"] = params["embed"].flip(-2).contiguous()
+    after = graphed(params, toks, **extra)
+    want = peng.make_generate_fn(cfg, 6, plan=plan, graphs=False)(
+        params, toks, **extra)
+    (loop,) = graphed.loops.values()
+    assert loop is not old and old.graph is None
+    assert loop.graph is not None and len(loop.captures) == 1
+    assert torch.equal(after, want) and not torch.equal(after, before)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FRONTENDS)
+def test_cuda_generate_fn_decodes_without_host_copies(cuda, arch):
+    """A graphed ``make_generate_fn`` call whose graph is already
+    captured runs as many device-to-host copies as its prefill alone
+    (``make_prefill_step`` on the same inputs), counted in a profiler trace
+    of the card: its decode steps add none."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, toks, extra = _frontend_case(arch, cuda)
+    plan = pplan.plan_for_engine(cfg, slots=2, cache_len=64)
+    generate = peng.make_generate_fn(cfg, 8, 1.0, plan=plan)
+    n = toks.shape[-1] + (cfg.num_patches if cfg.frontend == "vision"
+                          else 0)
+    prefill = peng.make_prefill_step(cfg, n + 8, plan)
+    generate(params, toks, **extra)
+
+    def dtoh(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith("Memcpy DtoH"))
+    assert dtoh(lambda: generate(params, toks, **extra)) \
+        == dtoh(lambda: prefill(params, toks, **extra))
 
 
 @pytest.mark.gpu

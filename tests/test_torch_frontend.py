@@ -428,6 +428,126 @@ def test_generate_fn_samples_each_codebook(cases):
     assert ((outs[0] >= 0) & (outs[0] < case.cfg.vocab_size)).all()
 
 
+def _functional_generate(cfg, num_steps, temperature, *, plan):
+    """The eager loop ``make_generate_fn`` ran before its steps became the
+    in-place body on fixed buffers: prefill, then ``num_steps`` rounds of
+    sample, ``serve_step`` on the fed-back tokens, advance."""
+    def generate(params, tokens, generator=None, patch_embeds=None,
+                 cond=None):
+        patches = cfg.num_patches if cfg.frontend == "vision" else 0
+        prompt_len = tokens.shape[-1] + patches
+        logits, cache = pdec.prefill(
+            params, tokens, cfg, prompt_len + num_steps, plan=plan,
+            patch_embeds=patch_embeds, cond=cond)
+        pos = torch.full((tokens.shape[0],), prompt_len, dtype=torch.long)
+        out = []
+        for _ in range(num_steps):
+            nxt = peng.sample_temperature(logits[:, -1], temperature,
+                                          generator)
+            out.append(nxt)
+            logits, cache = pdec.serve_step(params, cache, nxt[..., None],
+                                            pos, cfg, plan=plan, cond=cond)
+            pos = pos + 1
+        return torch.stack(out, dim=1)
+    return generate
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_fn_in_place_equals_functional_loop(cases, arch,
+                                                     temperature):
+    """``make_generate_fn``'s decode steps run as the loop's in-place body
+    (what a ``StepGraph`` captures on the card; eager here) on fixed
+    buffers: the same tokens, bit for bit, as the functional eager loop
+    from the same prefill, greedy and at temperature 1.0 from one seeded
+    generator, which both leave in the same state; patches and ``cond``
+    given, four codebooks at musicgen."""
+    case = cases[arch]
+    plan = _plan(case.cfg)
+    toks = torch.from_numpy(case.toks)
+    outs, states = [], []
+    for make in (peng.make_generate_fn, _functional_generate):
+        gen = torch.Generator().manual_seed(11)
+        outs.append(make(case.cfg, STEPS, temperature, plan=plan)(
+            case.params, toks, gen, **case.port_extra()))
+        states.append(gen.get_state())
+    K = case.cfg.num_codebooks
+    assert outs[0].shape == ((B, STEPS, K) if K > 1 else (B, STEPS))
+    assert outs[0].dtype == outs[1].dtype and torch.equal(outs[0], outs[1])
+    assert torch.equal(states[0], states[1])
+    if temperature > 0:
+        assert len(set(outs[0].flatten().tolist())) > 2   # draws, not argmax
+
+
+def test_generate_fn_keeps_a_loop_per_input_shape(cases):
+    """``generate.loops`` holds one decode loop (on the card, one captured
+    step) per input shape, reused by a later call of that shape, with its
+    buffers the same tensors: a call on another prompt length adds one, a
+    call on another dict of the same leaves keeps them all, and a call
+    whose params differ in a leaf releases every loop. The second call of
+    a shape gives the first call's tokens."""
+    case = cases[INTERNVL]
+    gen = peng.make_generate_fn(case.cfg, STEPS, plan=_plan(case.cfg))
+    toks = torch.from_numpy(case.toks)
+    pe = case.port_extra()["patch_embeds"]
+    first = gen(case.params, toks, patch_embeds=pe)
+    (key, loop), = gen.loops.items()
+    assert key == (tuple(toks.shape), tuple(pe.shape), None)
+    buffers = [id(t) for t in peng._tensors(loop.state)]
+    assert torch.equal(gen(case.params, toks, patch_embeds=pe), first)
+    assert gen.loops[key] is loop
+    assert [id(t) for t in peng._tensors(loop.state)] == buffers
+    gen(case.params, toks[:, :-2], patch_embeds=pe)
+    assert len(gen.loops) == 2
+    other = dict(case.params)
+    assert torch.equal(gen(other, toks, patch_embeds=pe), first)
+    assert len(gen.loops) == 2 and gen.loops[key] is loop
+    assert loop.params is other
+    other["embed"] = other["embed"].clone()
+    shorter = gen.loops[(tuple(toks[:, :-2].shape), tuple(pe.shape), None)]
+    assert torch.equal(gen(other, toks, patch_embeds=pe), first)
+    assert list(gen.loops) == [key] and gen.loops[key] is not loop
+    assert loop.state is None and shorter.state is None     # released
+    assert all(not lp.captures for lp in gen.loops.values())  # CPU: eager
+
+
+def test_generate_fn_reads_a_replaced_leaf(cases):
+    """A leaf replaced in the same params dict is read by the next call:
+    its tokens are those of a fresh function on the new tree, not of the
+    loop built on the old leaf."""
+    case = cases[INTERNVL]
+    plan = _plan(case.cfg)
+    toks = torch.from_numpy(case.toks)
+    pe = case.port_extra()["patch_embeds"]
+    params = dict(case.params)
+    gen = peng.make_generate_fn(case.cfg, STEPS, plan=plan)
+    before = gen(params, toks, patch_embeds=pe)
+    params["lm_head"] = params["lm_head"].flip(-1).contiguous()
+    after = gen(params, toks, patch_embeds=pe)
+    fresh = peng.make_generate_fn(case.cfg, STEPS, plan=plan)(
+        params, toks, patch_embeds=pe)
+    assert torch.equal(after, fresh) and not torch.equal(after, before)
+
+
+def test_generate_fn_keeps_the_last_max_loops_shapes(cases):
+    """At ``max_loops`` = 2 a third input shape releases the loop of the
+    shape used least recently; a shape used again moves to the end."""
+    case = cases[INTERNVL]
+    gen = peng.make_generate_fn(case.cfg, STEPS, plan=_plan(case.cfg),
+                                max_loops=2)
+    toks = torch.from_numpy(case.toks)
+    pe = case.port_extra()["patch_embeds"]
+    shape = lambda n: (tuple(toks[:, :n].shape), tuple(pe.shape), None)
+    gen(case.params, toks[:, :9], patch_embeds=pe)
+    gen(case.params, toks[:, :10], patch_embeds=pe)
+    nine = gen.loops[shape(9)]
+    gen(case.params, toks[:, :9], patch_embeds=pe)
+    ten = gen.loops[shape(10)]
+    gen(case.params, toks, patch_embeds=pe)
+    assert list(gen.loops) == [shape(9), shape(S)]
+    assert gen.loops[shape(9)] is nine and ten.state is None
+
+
 # ------------------------------------------------------ port invariants
 def test_paged_equals_contiguous_at_four_codebooks(cases):
     """musicgen's four codebooks through a paged cache (``prefill_batched``
@@ -558,8 +678,8 @@ def test_synthetic_embeddings():
 
 def test_full_size_layout():
     """musicgen-large at its 48 layers (3.26e9 parameters: cross-attention
-    on every layer, four 2048-row codebooks) and internvl2-26b at 24 of its
-    48 (the depth the card serves it at), on the meta device."""
+    on every layer, four 2048-row codebooks) and internvl2-26b at its 48
+    (the depth the card serves it at), on the meta device."""
     cfg = get_config("musicgen-large")
     params = ptfm.init_params(cfg, torch.Generator(), "meta")
     blk = params["blocks"]["slot0"]
@@ -568,8 +688,8 @@ def test_full_size_layout():
     assert tuple(params["embed"].shape) == (4, 2048, 2048)
     assert tuple(params["lm_head"].shape) == (4, 2048, 2048)
     assert cfg.param_count() == 3_255_076_864
-    vl = dataclasses.replace(get_config("internvl2-26b"), num_layers=24)
+    vl = get_config("internvl2-26b")
     params = ptfm.init_params(vl, torch.Generator(), "meta")
     assert tuple(params["blocks"]["slot0"]["mlp"]["wg"].shape) == \
-        (24, 6144, 16384)
+        (48, 6144, 16384)
     assert tuple(params["embed"].shape) == (vl.vocab_padded, 6144)

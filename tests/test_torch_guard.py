@@ -383,8 +383,8 @@ class _StandInGraph:
     it once more on the same buffers."""
 
     def __init__(self, body, params, state, nxt, emit, *, block_table=None,
-                 generator=None):
-        self.args = (params, state, nxt, emit, generator, block_table)
+                 generator=None, cond=None):
+        self.args = (params, state, nxt, emit, generator, block_table, cond)
         self.body = body
         for _ in range(3):
             body(*self.args)
