@@ -280,7 +280,19 @@ Phases, each of which must pass:
     step at data=2 under the Supervisor, whose ``CheckpointManager``
     saves it, and ``runtime.elastic.restore_elastic`` at data=1 (every
     tensor equal, the specs the data=1 plan's);
-15. report: prefill and decode tokens/s, the wall time of each phase, one
+15. the dry-run's cells (``phase_cells``): qwen2.5-3b at published width
+    and depth, its prefill (1 x 32768), decode (16 rows on a 32768-token
+    contiguous cache, at its last position) and train (1 x 2048, remat
+    "full") cells built by ``launch.cell.build_cell`` on a one-card mesh,
+    their arguments materialised on the card from a seed: the arguments'
+    bytes equal ``launch.dryrun.run_cell``'s record, one step of each
+    launches exactly the sliding window once per layer (prefill), nothing
+    (decode), or the sliding window twice and the flash backward once per
+    layer (train), the peak of device memory is at least the record's
+    arguments + outputs - aliases, the prefill cell's logits at 2048
+    tokens within 5e-2 of ``impl="plain"``; each step's ms by CUDA events
+    beside the record's roofline time and fraction;
+16. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -482,6 +494,14 @@ MESH_STEPS = 3
 DP_LAYERS = 24
 DP_STEPS = 4
 ELASTIC_LAYERS = 1
+# phase_cells: the dry-run's cells of qwen2.5-3b at published width and
+# depth on a one-card mesh; (name, kind, seq_len, global_batch)
+CELL_ARCH = "qwen2.5-3b"
+CELL_SHAPES = (("prefill_32k-b1", "prefill", 32768, 1),
+               ("decode_32k-b16", "decode", 32768, 16),
+               ("train_2k-b1", "train", 2048, 1))
+CELL_CHECK_SEQ = 2048       # the prefill logits against impl="plain"
+CELL_REPS = 2               # timed runs a cell, after one warm-up
 DEVICE = "cuda"
 BLOCK_BYTES = 16 * 16 * 2 + 4      # one packed bf16 block and its row id
 
@@ -2257,6 +2277,235 @@ def phase_elastic(judge):
     log(f"  {line}")
     del state, live
     return counts, [line]
+
+
+def _cell_args(cell, gen, params):
+    """A cell's arguments on the card: ``params`` where the cell takes
+    them (the model's own init from the seeded generator), AdamW's zero
+    state beside them in a train cell, every other leaf drawn from
+    ``gen`` as its meta stand-in's shape and dtype says: token ids below
+    the vocabulary, floats from N(0, 1), a decode cell's position the last
+    of its cache."""
+    import torch
+    from repro_torch.train import optimizer as opt_lib
+
+    def draw(t):
+        if t.dtype == torch.int32:
+            if t.dim() == 0:
+                return torch.tensor(cell.shape.seq_len - 1,
+                                    dtype=torch.int32, device=DEVICE)
+            return torch.randint(0, cell.cfg.vocab_size, tuple(t.shape),
+                                 generator=gen, device=DEVICE,
+                                 dtype=torch.int32)
+        return torch.empty(tuple(t.shape), dtype=t.dtype,
+                           device=DEVICE).normal_(generator=gen)
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        return draw(t)
+    if cell.kind == "train":
+        return params, opt_lib.init_adamw(params), tree(
+            cell.abstract_args[2])
+    return (params,) + tuple(tree(a) for a in cell.abstract_args[1:])
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    return sum(_tensor_bytes(v) for v in tree)
+
+
+def _cell_launches(cfg, kind: str):
+    """The port kernels one step of a cell launches: the sliding window
+    once per layer in a prefill; in a train step at remat "full" twice
+    (the forward and its recomputation, with the lse) and the flash
+    backward once; nothing in decode (contiguous cache, dense MLPs)."""
+    from repro_torch.kernels import ops
+    want = {name: 0 for name in ops.KERNELS}
+    if kind == "prefill":
+        want["sliding_window_attention"] = cfg.num_layers
+    elif kind == "train":
+        want["sliding_window_attention"] = 2 * cfg.num_layers
+        want["flash_backward"] = cfg.num_layers
+    return want
+
+
+def _cell_attention(judge, cfg):
+    """The sliding-window kernel as the prefill cell's main path calls it,
+    on one layer's attention at the cell's shape (B 1, every one of its
+    positions, ``cfg``'s heads; causal, its softcap): its output, and its
+    output and log-sum-exp where it also writes that, against the plain
+    version on the same inputs. Faults that show only at a long sequence
+    (an index past 2^14 positions, a running max over hundreds of key
+    tiles, a grid dimension) show here."""
+    import torch
+    from repro_torch.kernels import local_attention as swa
+    _, kind, S, B = CELL_SHAPES[0]
+    assert kind == "prefill"
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    q, k, v = (torch.randn(B, S, n, D, generator=gen, device=DEVICE)
+               .bfloat16() for n in (H, KV, KV))
+    kw = dict(window=S, softcap=cfg.attn_logit_softcap)
+    want, want_lse = swa.sliding_window_attention_plain(
+        q, k, v, return_lse=True, **kw)
+    if DEVICE == "cuda":
+        got = swa.sliding_window_attention_cuda(q, k, v, **kw)
+        got_l, lse = swa.sliding_window_attention_cuda(q, k, v,
+                                                       return_lse=True, **kw)
+    else:                  # a CPU rehearsal: the wrappers' plain route
+        got = swa.sliding_window_attention_plain(q, k, v, **kw)
+        got_l, lse = want, want_lse
+    tag = f"cells: sliding_window_attention at B {B}, S {S}, {H}/{KV} heads"
+    why = ("relative to max |out|: keys walked in another order than "
+           "flash's, tensor-core sums in their own")
+    judge(f"{tag}, D {D}, causal", errors(got, want)[1], 1e-3, why)
+    judge(f"{tag}, with the lse: out", errors(got_l, want)[1], 1e-3, why)
+    judge(f"{tag}, with the lse: lse", errors(lse, want_lse)[1], 1e-3,
+          "relative to max |lse|: the same sums' roundings")
+    del q, k, v, want, want_lse, got, got_l, lse
+
+
+def _cell_ms(fn, args, reps: int) -> float:
+    """Mean ms of ``reps`` runs of the step after one warm-up run, CUDA
+    events around each (a train step's host gaps count: the step is
+    host-bound)."""
+    import torch
+    fn(*args)
+    sync()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase_cells(judge):
+    """The dry-run's cells run on the card: ``CELL_ARCH`` at published
+    width and depth, each cell of ``CELL_SHAPES`` built by
+    ``launch.cell.build_cell`` on a one-card ``TrainMesh(1, 1)`` and its
+    arguments materialised on the card from a seeded generator
+    (``_cell_args``). Checks, per cell: the materialised arguments' bytes
+    equal ``launch.dryrun.run_cell``'s ``argument_size_in_bytes`` for the
+    same cell and mesh; one step (the main path: counts zeroed just before
+    it, read just after) launches exactly ``_cell_launches``; the peak of
+    device memory over it is at least the record's arguments + outputs -
+    aliases. The sliding-window kernel at the prefill cell's attention
+    shape (``_cell_attention``: its whole length, as the main path calls
+    it) agrees with its plain version. The prefill cell built at
+    ``CELL_CHECK_SEQ`` gives last-position logits within 5e-2 of max
+    |logit| of ``impl="plain"`` (a plain prefill of all the layers at the
+    cell's full length would take minutes; one plain attention call at
+    it, about a second). Each cell's step time (``_cell_ms``) is printed
+    beside the record's ``t_total`` and roofline fraction and the measured
+    temporaries (the peak less the arguments): readings, not gates."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.cell import build_cell
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import decoding
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.mesh import TrainMesh
+    _free()
+    cfg = get_config(CELL_ARCH)
+    mesh, meta = TrainMesh(1, 1, device=DEVICE), TrainMesh(1, 1,
+                                                           device="meta")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    params = tfm.init_params(cfg, gen, DEVICE)
+    log(f"cells {cfg.name}: {cfg.num_layers} layers, "
+        f"{_tensor_bytes(params)} B of fp32 params, one-card mesh")
+
+    check = build_cell(CELL_ARCH, ShapeConfig(
+        f"prefill_{CELL_CHECK_SEQ}-b1", "prefill", CELL_CHECK_SEQ, 1), mesh)
+    args = _cell_args(check, gen, params)
+    with torch.no_grad():          # the real vocabulary: pads are -2e38
+        got = check.fn(*args)[0][..., :cfg.vocab_size]
+        want = decoding.prefill(params, args[1]["tokens"], cfg,
+                                CELL_CHECK_SEQ, impl="plain",
+                                hints=check.hints)[0][..., :cfg.vocab_size]
+    judge.check("cells: prefill logits finite", bool(
+        torch.isfinite(got).all() and torch.isfinite(want).all()),
+        f"{tuple(got.shape)}, max |logit| {float(want.abs().max()):.4g}")
+    judge(f"cells: prefill logits at {CELL_CHECK_SEQ}, kernels vs plain",
+          errors(got, want)[1], 5e-2, "of max |logit|: bf16 roundings "
+          f"of p in the sliding window, carried through {cfg.num_layers} "
+          "layers")
+    del args, got, want
+    _cell_attention(judge, cfg)
+
+    total = {name: 0 for name in ops.KERNELS}
+    lines = []
+    for name, kind, seq, batch in CELL_SHAPES:
+        shape = ShapeConfig(name, kind, seq, batch)
+        rec = run_cell(CELL_ARCH, shape, remat_policy=TRAIN_REMAT,
+                       microbatches=1, mesh=meta)
+        if rec["status"] != "ok":
+            raise SmokeFailure(f"cell {name}: {rec.get('error')}")
+        mem = rec["memory"]
+        cell = build_cell(CELL_ARCH, shape, mesh, remat_policy=TRAIN_REMAT,
+                          microbatches=1)
+        if kind == "train":           # the step updates its params
+            params = None
+            _free()
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+            params = tfm.init_params(cfg, gen, DEVICE)
+        args = _cell_args(cell, gen, params)
+        n_bytes = _tensor_bytes(args)
+        judge.check(f"cells: {name} argument bytes", n_bytes ==
+                    mem["argument_size_in_bytes"], f"{n_bytes} B on the "
+                    f"card, {mem['argument_size_in_bytes']:.0f} B in the "
+                    "dry-run record")
+        grad = torch.enable_grad() if kind == "train" else torch.no_grad()
+        with grad:
+            sync()
+            _reset_peak()
+            ops.reset_launches()       # the main path: one step of the cell
+            cell.fn(*args)
+            sync()
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" \
+                else float("nan")
+            want = _cell_launches(cfg, kind)
+            judge.check(f"cells: {name} launches", counts == want,
+                        f"{counts} (want {want})")
+            total = {k: total[k] + counts[k] for k in total}
+            floor = (mem["argument_size_in_bytes"]
+                     + mem["output_size_in_bytes"]
+                     - mem["alias_size_in_bytes"])
+            judge.check(f"cells: {name} peak memory", DEVICE != "cuda"
+                        or peak >= floor, f"{peak:.0f} B >= arguments + "
+                        f"outputs - aliases {floor:.0f} B")
+            ms = _cell_ms(cell.fn, args, CELL_REPS) if DEVICE == "cuda" \
+                else float("nan")
+        t_total = max(rec["t_compute_s"], rec["t_memory_s"],
+                      rec["t_collective_s"])
+        measured = rec["model_flops_per_chip"] / (ms / 1e3) \
+            / BF16_FLOP_PER_S
+        line = (f"cell {cfg.name} {name} ({kind}, {batch} x {seq}): "
+                f"{ms:.3f} ms a step (CUDA events, {CELL_REPS} after a "
+                f"warm-up) against the record's t_total "
+                f"{1e3 * t_total:.3f} ms ({rec['bound']}; roofline "
+                f"fraction {rec['roofline_fraction']:.4f}, measured "
+                f"{measured:.4f}); {rec['flops_per_chip']:.4g} flops, "
+                f"{rec['model_flops_per_chip']:.4g} model flops; "
+                f"arguments {mem['argument_size_in_bytes']:.0f} B, peak "
+                f"{peak / 2**30:.2f} GiB, temporaries "
+                f"{(peak - n_bytes) / 2**30:.2f} GiB")
+        log(f"  {line}")
+        lines.append(line)
+        del args, cell
+    del params
+    return total, lines
 
 
 def phase_kernels_frontends(flush, judge):
@@ -4966,7 +5215,8 @@ def main() -> int:
                             ("train qwen2.5-3b on a mesh", phase_train_mesh),
                             ("train qwen2.5-3b compressed DP",
                              phase_train_compressed),
-                            ("elastic round trip", phase_elastic)):
+                            ("elastic round trip", phase_elastic),
+                            ("cells qwen2.5-3b", phase_cells)):
             counts, more = timed(name, phase, judge)
             rates += more
             launches = {k: launches[k] + counts[k] for k in launches}

@@ -10,7 +10,10 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, train_flops_per_token
+from repro_torch.configs.shapes import (LONG_CONTEXT_SKIP, SHAPES,
+                                        ShapeConfig, cell_is_runnable,
+                                        reduced_shape)
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2.5-3b": "qwen2_5_3b",
@@ -40,4 +43,16 @@ def get_config(name: str) -> ArchConfig:
     return cfg
 
 
-__all__ = ["ArchConfig", "ARCH_NAMES", "get_config"]
+def all_cells():
+    """Every (arch, shape, runnable) cell: 40, in ``ARCH_NAMES`` order (not
+    the reference's order; the same set)."""
+    for a in ARCH_NAMES:
+        for s in SHAPES.values():
+            yield a, s, cell_is_runnable(a, s.name)
+
+
+__all__ = [
+    "ArchConfig", "ShapeConfig", "SHAPES", "ARCH_NAMES", "LONG_CONTEXT_SKIP",
+    "get_config", "all_cells", "cell_is_runnable", "reduced_shape",
+    "train_flops_per_token",
+]

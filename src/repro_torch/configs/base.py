@@ -215,3 +215,9 @@ class ArchConfig:
             "max_seq_len": 512,
         }
         return dataclasses.replace(self, **repl)
+
+
+def train_flops_per_token(cfg: ArchConfig) -> int:
+    """A trained token's model FLOPs: 6 x the active parameters (forward
+    and backward of every dense product)."""
+    return 6 * cfg.param_count(active_only=True)

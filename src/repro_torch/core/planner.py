@@ -21,23 +21,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.configs.shapes import ShapeConfig  # noqa: F401 (planner.ShapeConfig)
 from repro_torch.core.eyexam import H100_SXM, DeviceRates
 from repro_torch.core.hmmesh import Mode
 from repro_torch.core.reuse import LayerShape, model_gemms, reuse
 
 BYTES = 2            # bf16
 TRAIN_BACKWARD = 3.0  # the backward ≈ 2x the forward's FLOPs
-
-
-@dataclasses.dataclass(frozen=True)
-class ShapeConfig:
-    """An input shape: the port's copy of the reference's
-    ``configs.shapes.ShapeConfig`` (the rest of that module, which
-    imports no JAX, is not ported yet)."""
-    name: str
-    kind: str          # train | prefill | decode
-    seq_len: int
-    global_batch: int
 
 
 @dataclasses.dataclass
@@ -196,7 +186,7 @@ def plan_model(cfg, shape_cfg, mesh: MeshDesc,
                rates: DeviceRates = H100_SXM) -> ModelPlan:
     """Plan a whole (arch x input shape) cell. ``shape_cfg`` is any object
     with ``kind`` ("train", "prefill" or "decode"), ``global_batch`` and
-    ``seq_len`` (the reference's ``configs.shapes.ShapeConfig``)."""
+    ``seq_len`` (``configs.shapes.ShapeConfig``)."""
     training = shape_cfg.kind == "train"
     decode = shape_cfg.kind == "decode"
     tokens = shape_cfg.global_batch * (1 if decode else shape_cfg.seq_len)

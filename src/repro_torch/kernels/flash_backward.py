@@ -58,7 +58,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.local_attention import (
-    NEG_INF, _check_shapes, _score_mult, band_mask, band_schedule)
+    NEG_INF, _check_shapes, _score_mult, band_mask, band_schedule,
+    meta_products, visited_keys)
 
 TILE = 64            # rows of a tile: (position, head) pairs, keys, positions
 SMEM_LIMIT = 232448  # bytes of shared memory a block may have on an H100
@@ -156,6 +157,8 @@ def flash_backward_plain(q, k, v, out16, lse, dout, *, window: int,
     R = H // KV
     qb, kb, nq, causal, visits = band_schedule(Sk, window, chunk, Sq,
                                                q_offset)
+    if q.device.type == "meta":
+        return _plain_on_meta(q, k, qb, visited_keys(nq, kb, visits))
     qpad, kpad = nq * qb - Sq, -(-Sk // kb) * kb - Sk
     dev = q.device
     scale = 1.0 / math.sqrt(D)
@@ -214,6 +217,17 @@ def flash_backward_plain(q, k, v, out16, lse, dout, *, window: int,
     dq = dq[:, :, :, :Sq].permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
     return (dq, dk[:, :, :Sk].permute(0, 2, 1, 3),
             dv[:, :, :Sk].permute(0, 2, 1, 3))
+
+
+def _plain_on_meta(q, k, qb: int, n: int):
+    """The plain version on ``meta`` tensors: dq, dk and dv's shapes, and
+    its five products (QKᵀ, dO·Vᵀ, dq, dk, dv) over the ``n`` keys of
+    every visited block, the FLOPs of the block loop
+    (``local_attention._plain_on_meta``)."""
+    B, Sq, H, D = q.shape
+    meta_products(5, B * H * qb, n, D)
+    dkv = torch.empty(tuple(k.shape), device="meta")
+    return torch.empty((B, Sq, H, D), device="meta"), dkv, dkv.clone()
 
 
 def flash_backward_cuda(q, k, v, out16, lse, dout, *, window: int,

@@ -178,6 +178,8 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
         raise ValueError(f"chunk {chunk} takes a window >= S, got {window}")
     qb, kb, nq, causal, visits = band_schedule(Sk, window, chunk, Sq,
                                                q_offset)
+    if q.device.type == "meta":
+        return _plain_on_meta(q, qb, kb, nq, visits, return_lse)
     kpad = -(-Sk // kb) * kb - Sk
     dev = q.device
     qf = F.pad(q.float().reshape(B, Sq, KV, R, D).permute(0, 2, 3, 1, 4),
@@ -219,6 +221,35 @@ def sliding_window_attention_plain(q, k, v, *, window: int,
     if not return_lse:
         return out
     return out, lse[:, :, :, :Sq].permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def visited_keys(nq: int, kb: int, visits) -> int:
+    """Keys the schedule's blocks hold, summed over the q blocks."""
+    return kb * sum(len(visits(i)) for i in range(nq))
+
+
+def meta_products(count: int, rows: int, keys: int, D: int) -> None:
+    """``count`` products of 2·rows·keys·D FLOPs each on ``meta``, one
+    ``mm`` apiece: what a plain version's block loop multiplies, summed
+    over its blocks, for ``torch.utils.flop_counter`` to count."""
+    a = torch.empty((rows, D), device="meta")
+    b = torch.empty((D, keys), device="meta")
+    for _ in range(count):
+        torch.mm(a, b)
+
+
+def _plain_on_meta(q, qb: int, kb: int, nq: int, visits, return_lse: bool):
+    """The plain version on ``meta`` tensors: the output shapes, and its
+    two products (QKᵀ and PV, 2·D FLOPs a (query row of a block, visited
+    key) pair and head each) issued once over every visited block, the
+    FLOPs of the block loop (``launch.cell`` counts them). A block loop on
+    ``meta`` costs the host as much per operation as one on the CPU: at
+    32768 positions, minutes a step."""
+    B, Sq, H, D = q.shape
+    meta_products(2, B * H * qb, visited_keys(nq, kb, visits), D)
+    out = torch.empty((B, Sq, H, D), device="meta")
+    return (out, torch.empty((B, Sq, H), device="meta")) if return_lse \
+        else out
 
 
 def sliding_window_attention_cuda(q, k, v, *, window: int,

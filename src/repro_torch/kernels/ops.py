@@ -64,12 +64,14 @@ def add_launches(tally: Dict[str, int]) -> None:
 
 
 def _use_kernel(t: torch.Tensor, impl: Optional[str]) -> bool:
-    """True: launch the CUDA kernel. CPU tensors take the plain version."""
+    """True: launch the CUDA kernel. CPU tensors take the plain version,
+    and so do ``meta`` tensors (shapes only, nothing computed: a step run
+    on ``meta`` for its output shapes and its FLOPs, ``launch.cell``)."""
     if impl == "plain":
         return False
     if impl is not None:
         raise ValueError(f"impl must be None or 'plain', got {impl!r}")
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type == "cuda":
         return True

@@ -100,6 +100,12 @@ def init_cache(cfg, batch: int, cache_len: int, device=None) -> Dict:
         cfg, kind, batch, cache_len, device, lead))
 
 
+def abstract_cache(cfg, batch: int, cache_len: int) -> Dict:
+    """``init_cache`` on the ``meta`` device: every leaf's shape and dtype,
+    no memory (the reference's ``jax.eval_shape`` of ``init_cache``)."""
+    return init_cache(cfg, batch, cache_len, device="meta")
+
+
 def _init_paged_entry(cfg, num_pages: int, page_size: int, kv_quant: str,
                       device, lead=()):
     shape = tuple(lead) + (num_pages, page_size, cfg.num_kv_heads,
@@ -175,6 +181,12 @@ def quantize_to_i8(x, scale):
     s = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.round(x.float() / s * 127.0)
     return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+def dequantize_i8(q, scale):
+    """int8 payload -> fp32 value, q · (scale · (1 / 127)) in the
+    reference's order of operations."""
+    return q.float() * (scale * (1.0 / 127.0))
 
 
 def quantize_paged_entry(entry, num_pages: Optional[int] = None) -> Dict:
@@ -345,6 +357,22 @@ def _valid_mask(cfg, kind: str, cap: int, pos):
 
 
 # ------------------------------------------------------------ decode step
+def _constrain(hints, x):
+    """The reference's ``hints.constrain_act`` pin (the identity in one
+    process, ``sharding.autoshard.ShardingHints``)."""
+    return x if hints is None else hints.constrain_act(x)
+
+
+def _layers(params, cache, cfg):
+    """``transformer.layers_in_order`` with each layer's place: True for
+    a layer of the stacked periods, after which the reference's scan body
+    pins the activations; False for a remainder layer."""
+    stacked = tfm.num_scan_periods(cfg) * tfm.scan_period(cfg)
+    for i, (p, entry, kind) in enumerate(
+            tfm.layers_in_order(params, cache, cfg)):
+        yield p, entry, kind, i < stacked
+
+
 def _positions(pos, B: int, device) -> torch.Tensor:
     """Scalar or (B,) pos -> (B,) int64."""
     p = torch.as_tensor(pos, device=device).long()
@@ -416,7 +444,7 @@ def _block_decode(p, x, kind, entry, posv, cfg, plan, block_table, impl,
 
 def serve_step(params, cache, tokens, pos, cfg, *, plan=None,
                block_table=None, cond=None, impl: Optional[str] = None,
-               split_rows: Optional[int] = None):
+               split_rows: Optional[int] = None, hints=None):
     """One decode step over every row. tokens (B,1), or (B,K,1) for K
     codebooks; pos scalar or (B,) per-row positions; ``block_table`` (B,
     max_pages) int32 routes paged entries through the paged-attention
@@ -426,22 +454,28 @@ def serve_step(params, cache, tokens, pos, cfg, *, plan=None,
     routes by the active plan, else by the ``core.dataflow`` rules, as the
     reference's plan-less call does (``core.plan.route_mlp``). ``impl`` is
     passed on to ``kernels.ops`` (None: by device); ``split_rows`` to paged
-    attention (``verify_step``'s real rows)."""
-    x = tfm.embed_tokens(params, tokens, cfg)
-    B = x.shape[0]
-    posv = _positions(pos, B, x.device)
-    if cfg.pos_embed == "sinusoidal":
-        x = x + layers.sinusoidal_pos(posv[:, None], cfg.d_model).to(
-            COMPUTE_DTYPE)
-    for p, entry, kind in tfm.layers_in_order(params, cache, cfg):
-        x = _block_decode(p, x, kind, entry, posv, cfg, plan, block_table,
-                          impl, split_rows, cond)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return tfm.lm_logits(params, x, cfg), cache
+    attention (``verify_step``'s real rows). ``hints``
+    (``sharding.autoshard.make_hints``) are active over the step
+    (``layers.hints_context``) and pin the activations where the
+    reference's do (``constrain_act``)."""
+    with layers.hints_context(hints):
+        x = _constrain(hints, tfm.embed_tokens(params, tokens, cfg))
+        B = x.shape[0]
+        posv = _positions(pos, B, x.device)
+        if cfg.pos_embed == "sinusoidal":
+            x = x + layers.sinusoidal_pos(posv[:, None], cfg.d_model).to(
+                COMPUTE_DTYPE)
+        for p, entry, kind, stacked in _layers(params, cache, cfg):
+            x = _block_decode(p, x, kind, entry, posv, cfg, plan,
+                              block_table, impl, split_rows, cond)
+            if stacked:
+                x = _constrain(hints, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return tfm.lm_logits(params, x, cfg), cache
 
 
 def verify_step(params, cache, tokens, pos, cfg, *, plan=None, block_table,
-                cond=None, impl: Optional[str] = None):
+                cond=None, impl: Optional[str] = None, hints=None):
     """Score k candidate tokens per row in one step: the speculative
     verifier (the reference's ``verify_step``).
 
@@ -458,7 +492,8 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan=None, block_table,
     of appends is visible there. Only all-global-attention configs on a
     paged cache: a ring's per-row state cannot be replicated. ``cond``
     (B,T,d), the conditioning of a config with cross-attention, is
-    repeated for each row's k virtual rows."""
+    repeated for each row's k virtual rows. ``hints`` are passed on to
+    ``serve_step``."""
     if block_table is None:
         raise ValueError("verify_step needs a paged cache and its block "
                          "table")
@@ -475,7 +510,7 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan=None, block_table,
             lg, cache = serve_step(params, cache, tokens[:, i:i + 1],
                                    posv + i, cfg, plan=plan,
                                    block_table=block_table, cond=cond,
-                                   impl=impl)
+                                   impl=impl, hints=hints)
             outs.append(lg)
         return torch.cat(outs, dim=1), cache
     posf = (posv[:, None] + torch.arange(k, device=posv.device)[None, :]
@@ -484,7 +519,7 @@ def verify_step(params, cache, tokens, pos, cfg, *, plan=None, block_table,
         params, cache, tokens.reshape(-1, 1), posf, cfg, plan=plan,
         block_table=block_table.repeat_interleave(k, dim=0),
         cond=None if cond is None else cond.repeat_interleave(k, dim=0),
-        impl=impl, split_rows=B)
+        impl=impl, split_rows=B, hints=hints)
     return logits.reshape((B, k) + logits.shape[2:]), cache
 
 
@@ -570,34 +605,39 @@ def _block_prefill(p, x, kind, positions, cfg, cache_len, lengths, entry,
 
 def _prefill_impl(params, tokens, cfg, cache_len: int, lengths, *, plan,
                   paged: Optional[PagedPrefill] = None,
-                  impl: Optional[str] = None, patch_embeds=None, cond=None):
-    x, positions = tfm.embed_inputs(params, tokens, cfg, patch_embeds)
-    B = x.shape[0]
-    entries = []
-    for p, entry, kind in tfm.layers_in_order(
-            params, paged.cache if paged is not None else None, cfg):
-        x, e = _block_prefill(p, x, kind, positions, cfg, cache_len,
-                              lengths, entry, paged, plan, impl, cond)
-        entries.append(e)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
-    logits = tfm.lm_logits(params, torch.gather(x, 1, idx), cfg)
-    if paged is not None:
-        return logits, paged.cache
-    # the fresh cache in the reference's layout: per slot, its periods'
-    # entries stacked; the remainder layers' as they are
-    it = iter(entries)
-    periods = [{name: next(it) for name, _ in tfm.slot_names(cfg)}
-               for _ in range(tfm.num_scan_periods(cfg))]
-    cache = {}
-    if periods:
-        cache["blocks"] = {
-            name: {k: torch.stack([per[name][k] for per in periods])
-                   for k in periods[0][name]}
-            for name, _ in tfm.slot_names(cfg)}
-    if tfm.num_remainder(cfg):
-        cache["rem"] = {name: next(it) for name, _ in tfm.rem_names(cfg)}
-    return logits, cache
+                  impl: Optional[str] = None, patch_embeds=None, cond=None,
+                  hints=None):
+    with layers.hints_context(hints):
+        x, positions = tfm.embed_inputs(params, tokens, cfg, patch_embeds)
+        x = _constrain(hints, x)
+        B = x.shape[0]
+        entries = []
+        for p, entry, kind, stacked in _layers(
+                params, paged.cache if paged is not None else None, cfg):
+            x, e = _block_prefill(p, x, kind, positions, cfg, cache_len,
+                                  lengths, entry, paged, plan, impl, cond)
+            if stacked:
+                x = _constrain(hints, x)
+            entries.append(e)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        idx = (lengths.long() - 1)[:, None, None].expand(B, 1, x.shape[-1])
+        logits = tfm.lm_logits(params, torch.gather(x, 1, idx), cfg)
+        if paged is not None:
+            return logits, paged.cache
+        # the fresh cache in the reference's layout: per slot, its periods'
+        # entries stacked; the remainder layers' as they are
+        it = iter(entries)
+        periods = [{name: next(it) for name, _ in tfm.slot_names(cfg)}
+                   for _ in range(tfm.num_scan_periods(cfg))]
+        cache = {}
+        if periods:
+            cache["blocks"] = {
+                name: {k: torch.stack([per[name][k] for per in periods])
+                       for k in periods[0][name]}
+                for name, _ in tfm.slot_names(cfg)}
+        if tfm.num_remainder(cfg):
+            cache["rem"] = {name: next(it) for name, _ in tfm.rem_names(cfg)}
+        return logits, cache
 
 
 def _check_exact(cfg, tokens, lengths) -> None:
@@ -618,7 +658,7 @@ def _check_exact(cfg, tokens, lengths) -> None:
 def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *,
                     plan=None,
                     paged: Optional[PagedPrefill] = None, cond=None,
-                    impl: Optional[str] = None):
+                    impl: Optional[str] = None, hints=None):
     """Batched prefill over right-padded prompts of unequal length.
 
     tokens (B, S) padded to a common tier S; lengths (B,) the real prompt
@@ -630,7 +670,8 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *,
     config with cross-attention. A vision config is refused, as the
     reference's assert refuses it: the per-row last position and the ring
     gathers do not carry the patches' offset; ``prefill`` takes patches.
-    ``impl`` is passed on to ``kernels.ops`` (None: by device)."""
+    ``impl`` is passed on to ``kernels.ops`` (None: by device); ``hints``
+    as in ``prefill``."""
     if cfg.frontend == "vision" and cfg.num_patches:
         raise ValueError(
             f"{cfg.name}: prefill_batched does not take vision patches "
@@ -641,12 +682,12 @@ def prefill_batched(params, tokens, lengths, cfg, cache_len: int, *,
     lengths = torch.as_tensor(lengths, dtype=torch.int32,
                               device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
-                         paged=paged, impl=impl, cond=cond)
+                         paged=paged, impl=impl, cond=cond, hints=hints)
 
 
 def prefill(params, tokens, cfg, cache_len: int, *, plan=None,
             patch_embeds=None,
-            cond=None, impl: Optional[str] = None):
+            cond=None, impl: Optional[str] = None, hints=None):
     """Forward over (B, S) prompts of one length S ((B, K, S) for K
     codebooks), building a fresh contiguous cache (global slots (periods,
     B, cache_len, KV, D), local slots rings at the last position).
@@ -654,10 +695,14 @@ def prefill(params, tokens, cfg, cache_len: int, *, plan=None,
     text (S + P positions); ``cond`` (B, T, d) is the conditioning of a
     config with cross-attention. Returns (last-position logits fp32
     (B,1,Vp) or (B,1,K,Vp), cache). The single-length case of
-    ``prefill_batched``."""
+    ``prefill_batched``. ``hints`` (``sharding.autoshard.make_hints``)
+    are active over the prefill (``layers.hints_context``: attention
+    sequence-sharded where the reference's is, ``layers.seq_shards``) and
+    pin the activations where the reference's do (``constrain_act``)."""
     B, S = tokens.shape[0], tokens.shape[-1]
     if cfg.frontend == "vision" and patch_embeds is not None:
         S += patch_embeds.shape[1]
     lengths = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
     return _prefill_impl(params, tokens, cfg, cache_len, lengths, plan=plan,
-                         impl=impl, patch_embeds=patch_embeds, cond=cond)
+                         impl=impl, patch_embeds=patch_embeds, cond=cond,
+                         hints=hints)

@@ -57,7 +57,9 @@ def test_port_files_exist():
                  "train/loop.py", "data/pipeline.py",
                  "checkpoint/manager.py", "launch/train.py",
                  "launch/serve.py", "serve/shard.py", "core/hmmesh.py",
-                 "core/planner.py", "sharding/tensor_parallel.py"):
+                 "core/planner.py", "sharding/tensor_parallel.py",
+                 "configs/shapes.py", "launch/mesh.py", "launch/cell.py",
+                 "launch/dryrun.py"):
         assert need in names
 
 
@@ -78,7 +80,11 @@ def test_port_files_exist():
                                     "repro_torch.launch.serve",
                                     "repro_torch.serve.shard",
                                     "repro_torch.sharding.tensor_parallel",
-                                    "repro_torch.core.planner"])
+                                    "repro_torch.core.planner",
+                                    "repro_torch.configs.shapes",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.cell",
+                                    "repro_torch.launch.dryrun"])
 def test_decode_loop_modules_import_without_a_card(module):
     """The graph, guard, chaos and telemetry modules import on a machine
     without CUDA: a graph is captured only when a decode loop first runs
@@ -128,3 +134,25 @@ def test_scheduler_defaults_to_the_card(monkeypatch):
         ContinuousBatchingScheduler(cfg, {}, plan)
     sch = ContinuousBatchingScheduler(cfg, {}, plan, device="cpu")
     assert sch.device.type == "cpu"
+
+
+def test_meta_tensors_take_the_plain_version():
+    """``kernels.ops`` sends a ``meta`` tensor (a cell's step run for its
+    shapes and FLOPs) to the plain version, a CPU tensor too, and still
+    refuses every other device that is not CUDA: there is no other
+    fallback."""
+    from repro_torch.kernels import ops
+    assert ops._use_kernel(torch.empty(2, device="meta"), None) is False
+    assert ops._use_kernel(torch.empty(2), None) is False
+    assert ops._use_kernel(_OnDevice("cuda"), None) is True
+    for kind in ("xpu", "mps"):
+        with pytest.raises(RuntimeError, match="no kernel for tensors on"):
+            ops._use_kernel(_OnDevice(kind), None)
+
+
+class _OnDevice:
+    """A stand-in tensor on a device that is neither the CPU, ``meta`` nor
+    CUDA (no such backend is needed to ask where it lives)."""
+
+    def __init__(self, kind):
+        self.device = torch.device(kind)

@@ -886,8 +886,14 @@ def test_dispatch_refuses_unknown_impl_and_device():
     with pytest.raises(ValueError, match="impl"):
         pops.bcsc_apply_packed(x, port, n_out=128, plan=_plan(),
                                impl="fast")
+    # a meta tensor takes the plain version (shapes only, a cell's step on
+    # meta); a device that is neither the CPU, meta nor CUDA is refused
+    assert pops._use_kernel(x.to("meta"), None) is False
+
+    class OnDevice:
+        device = torch.device("xpu")
     with pytest.raises(RuntimeError, match="no kernel"):
-        pops._use_kernel(x.to("meta"), None)
+        pops._use_kernel(OnDevice(), None)
 
 
 def test_plan_routes_match_reference_dataflow(ref):
