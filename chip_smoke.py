@@ -280,7 +280,29 @@ Phases, each of which must pass:
     step at data=2 under the Supervisor, whose ``CheckpointManager``
     saves it, and ``runtime.elastic.restore_elastic`` at data=1 (every
     tensor equal, the specs the data=1 plan's);
-15. the dry-run's cells (``phase_cells``): qwen2.5-3b at published width
+15. train over processes (``phase_train_dist``, ``sharding.dist``): the
+    kernels built once here before any rank starts; qwen2.5-3b at
+    published width and ``DIST_LAYERS`` (8) of its 36 layers (the memory
+    reckoned and checked against the card first), one ``TRAIN_SEQ`` row a
+    replica, ``DIST_STEPS`` steps a side: in this process the compressed
+    DP step on ``TrainMesh(data=2)``, the plain step on the whole batch
+    and the plain step's two rows' gradients summed in one process
+    (losses, grad norms and each state leaf's SHA-256 kept on the host,
+    the card freed); then two gloo ranks sharing the card run the
+    compressed and the plain DP step (``dist.spawn``): the compressed
+    state, each rank's residual slot and the losses equal the one-process
+    step's, the plain state equal to the row-split sum's on both ranks,
+    its first loss and grad norm within 1e-3 / 1e-2 of the whole batch's,
+    every rank's attention launches exact (the forward 2 and the backward
+    1 a layer a step) and no plain version;
+    then an NCCL group of one in this process, whose plain step equals the
+    group-less one bit for bit; with two or more cards, min(cards,
+    ``DIST_CARDS``) NCCL ranks, a card each: the compressed step against
+    one process's at ``DIST_LAYERS``, and the plain step at full depth
+    against each card's whole-batch step in turns (gaps, launches,
+    params equal on every card, tokens/s); on one card a line says that
+    part did not run. Tokens/s of both sides and every rank's peak;
+16. the dry-run's cells (``phase_cells``): qwen2.5-3b at published width
     and depth, its prefill (1 x 32768), decode (16 rows on a 32768-token
     contiguous cache, at its last position) and train (1 x 2048, remat
     "full") cells built by ``launch.cell.build_cell`` on a one-card mesh,
@@ -292,7 +314,7 @@ Phases, each of which must pass:
     arguments + outputs - aliases, the prefill cell's logits at 2048
     tokens within 5e-2 of ``impl="plain"``; each step's ms by CUDA events
     beside the record's roofline time and fraction;
-16. report: prefill and decode tokens/s, the wall time of each phase, one
+17. report: prefill and decode tokens/s, the wall time of each phase, one
     JSON line describing every kernel, the card's name and power limit,
     then the contract line.
 
@@ -494,6 +516,17 @@ MESH_STEPS = 3
 DP_LAYERS = 24
 DP_STEPS = 4
 ELASTIC_LAYERS = 1
+# phase_train_dist: data-parallel ranks (``sharding.dist``) at DIST_LAYERS
+# of 36 layers (one process's compressed step at data=2 holds ~26 B a
+# parameter, a rank ~23 B: 0.93e9 parameters, two ranks 43 GB of one card),
+# one TRAIN_SEQ row a rank, DIST_STEPS steps a side (the first untimed); at
+# most DIST_CARDS ranks across cards; a collective's and the ranks' time
+# limits (s)
+DIST_LAYERS = 8
+DIST_STEPS = 2
+DIST_CARDS = 4
+DIST_TIMEOUT_S = 120.0
+DIST_JOIN_S = 300.0
 # phase_cells: the dry-run's cells of qwen2.5-3b at published width and
 # depth on a one-card mesh; (name, kind, seq_len, global_batch)
 CELL_ARCH = "qwen2.5-3b"
@@ -2277,6 +2310,446 @@ def phase_elastic(judge):
     log(f"  {line}")
     del state, live
     return counts, [line]
+
+
+def _digests(tensors):
+    """The SHA-256 of each tensor's bytes, in threads (hashlib lets go of
+    the interpreter lock while it hashes). A tensor on the card reaches
+    the host in chunks through a pinned buffer a thread (a pageable copy
+    is slower)."""
+    import hashlib
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    chunk = 64 << 20
+    local = threading.local()
+
+    def one(t):
+        flat = t.detach().reshape(-1).contiguous().view(torch.uint8)
+        h = hashlib.sha256()
+        if flat.device.type != "cuda":
+            h.update(flat.numpy())
+            return h.hexdigest()
+        if not hasattr(local, "buf"):
+            local.buf = torch.empty(chunk, dtype=torch.uint8,
+                                    pin_memory=True)
+        for i in range(0, flat.numel(), chunk):
+            part = local.buf[:min(chunk, flat.numel() - i)]
+            part.copy_(flat[i:i + chunk])
+            h.update(part.numpy())
+        return h.hexdigest()
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return list(ex.map(one, tensors))
+
+
+def _ms(times) -> str:
+    return ", ".join(f"{1e3 * t:.1f}" for t in times)
+
+
+def _gib(values) -> str:
+    return ", ".join(f"{v:.2f}" for v in values)
+
+
+def _dist_sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _dist_reset_peak(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _dist_peak(device) -> float:
+    """The peak of ``device``'s memory since ``_dist_reset_peak``, GiB
+    (nan off the card)."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _dist_step(kind: str, mesh, cfg, conf):
+    """The step of ``kind`` as step(params, opt, batch, ef) -> (params,
+    opt, ef, metrics): "compressed" the int8 error-feedback DP step on
+    ``mesh``; "plain" ``make_train_step`` on ``mesh`` (over its ranks on a
+    process mesh); "whole" ``make_train_step`` on the whole batch in this
+    process; "split" the plain step's ``mesh.dp`` replicas one after
+    another in this process: each replica's rows' gradients through the
+    same kernels, summed in replica order and divided by n_dp, then AdamW
+    (at two replicas the sum the ranks' all-reduce makes, bit for bit: a
+    sum of two operands has one order)."""
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    opt_cfg = opt_lib.OptimizerConfig()
+    loss_fn = train_loop.make_loss_fn(cfg, conf["remat"])
+    if kind == "compressed":
+        return gc.make_compressed_dp_train_step(mesh, loss_fn, opt_cfg)
+    if kind == "split":
+        def split(params, opt, batch, ef):
+            grads, losses = None, []
+            for r in range(mesh.dp):
+                loss, _, g = train_loop.value_and_grad(
+                    loss_fn, params, data_lib.replica_rows(batch, r, mesh.dp))
+                losses.append(float(loss))
+                if grads is None:
+                    grads = g
+                    continue
+                for acc, part in zip(opt_lib.leaves(grads),
+                                     opt_lib.leaves(g)):
+                    acc.add_(part)
+                del g
+            for acc in opt_lib.leaves(grads):
+                acc.div_(mesh.dp)
+            params, opt, om = opt_lib.adamw_update(opt_cfg, params, grads,
+                                                   opt)
+            return params, opt, ef, {**om,
+                                     "loss_total": sum(losses) / mesh.dp}
+        return split
+    inner = train_loop.make_train_step(
+        cfg, opt_cfg, remat_policy=conf["remat"],
+        mesh=mesh if kind == "plain" else None)
+
+    def plain(params, opt, batch, ef):
+        params, opt, m = inner(params, opt, batch)
+        return params, opt, ef, m
+    return plain
+
+
+def _dist_side(mesh, conf, turns, probe: bool = False):
+    """The steps ``turns`` (kinds of ``_dist_step``, in that order on one
+    state) on ``mesh`` (a process mesh, or one process's), from the seeded
+    state of ``conf["arch"]`` at ``conf["layers"]`` layers, on the step-0
+    batch of ``conf["rows"]`` rows of ``conf["seq"]`` tokens. By kind:
+    each step's loss, grad norm and host time (synchronised; a kind's
+    first step is its warm-up); the launches and plain-version calls of
+    all of them, the peak of device memory, and the SHA-256 of every state
+    leaf (params, moments, the step) and of each residual slot. ``probe``:
+    the whole batch's loss and grad norm from the seeded params first (a
+    forward and backward, not counted)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import pipeline as data_lib
+    from repro_torch.kernels import ops
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt_lib
+    device = torch.device(mesh.device)
+    cfg = dataclasses.replace(get_config(conf["arch"]),
+                              num_layers=conf["layers"])
+    gen = torch.Generator(device=device).manual_seed(conf["seed"])
+    params, opt = train_loop.init_train_state(cfg, gen, device)
+    batch = data_lib.to_torch(data_lib.synth_batch(data_lib.DataConfig(
+        seq_len=conf["seq"], global_batch=conf["rows"],
+        vocab_size=cfg.vocab_size, seed=conf["seed"]), 0), device)
+    steps = {k: _dist_step(k, mesh, cfg, conf) for k in dict.fromkeys(turns)}
+    ef = (gc.init_error_feedback(mesh, params) if "compressed" in steps
+          else None)
+    out = {key: {k: [] for k in steps} for key in ("losses", "norms",
+                                                  "times")}
+    if probe:
+        loss, _, grads = train_loop.value_and_grad(
+            train_loop.make_loss_fn(cfg, conf["remat"]), params, batch)
+        out["probe"] = (float(loss), float(opt_lib.global_norm(grads)))
+        del grads
+    _dist_reset_peak(device)
+    ops.reset_launches()
+    with _PlainCalls() as plain:
+        for kind in turns:
+            _dist_sync(device)
+            t0 = time.perf_counter()
+            params, opt, ef, m = steps[kind](params, opt, batch, ef)
+            _dist_sync(device)
+            out["times"][kind].append(time.perf_counter() - t0)
+            out["losses"][kind].append(float(m["loss_total"]))
+            out["norms"][kind].append(float(m["grad_norm"]))
+    out["counts"] = ops.launch_counts()
+    out["plain"] = dict(plain.calls)
+    out["peak"] = _dist_peak(device)
+    out["digests"] = _digests(list(opt_lib.leaves(params))
+                              + list(opt_lib.leaves(opt.mu))
+                              + list(opt_lib.leaves(opt.nu)) + [opt.step])
+    if ef is not None:
+        efs = list(opt_lib.leaves(ef))
+        out["ef"] = [_digests([e[r] for e in efs])
+                     for r in range(efs[0].shape[0])]
+    del params, opt, ef, batch, steps
+    return out
+
+
+def _dist_rank(group, sides):
+    """A rank of ``phase_train_dist``: ``_dist_side(mesh, conf, turns,
+    probe)`` of each (name, conf, turns, probe) of ``sides`` on its
+    process mesh, by name, the state freed between."""
+    import gc as pygc
+    import torch
+    from repro_torch.sharding.mesh import make_local_mesh
+    mesh = make_local_mesh(group=group)
+    out = {"rank": group.rank, "device": str(group.device)}
+    for name, conf, turns, probe in sides:
+        out[name] = _dist_side(mesh, conf, turns, probe)
+        pygc.collect()
+        if group.device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dist_tokens_s(side, kind, conf) -> float:
+    """Tokens a second over ``kind``'s timed steps (all but its first)."""
+    timed = side["times"][kind][1:]
+    return conf["rows"] * conf["seq"] * len(timed) / sum(timed)
+
+
+def _dist_checks(judge, tag, one, ranks, conf):
+    """The checks of two ranks against one process: the compressed step's
+    state and each rank's residual slot equal the one-process step's
+    SHA-256 for SHA-256, its losses equal; the plain DP state equal on
+    every rank to the row-split sum's in one process (``_dist_step``
+    "split") by SHA-256, the first loss and grad norm within 1e-3 / 1e-2
+    of the whole-batch step's (``phase_train``'s gaps); on every rank the
+    attention kernels launched exactly (one row a rank: the forward
+    ``fwd`` and the backward once a layer a step) and no plain version."""
+    fwd = 2 if conf["remat"] == "full" else 1
+    layers, steps = conf["layers"], conf["steps"]
+    c1 = one["compressed"]
+    judge.check(f"{tag}: compressed DP state, every rank vs one process",
+                all(r["compressed"]["digests"] == c1["digests"]
+                    for r in ranks),
+                f"{len(c1['digests'])} leaves (params, moments, step) by "
+                "SHA-256")
+    judge.check(f"{tag}: compressed DP residual, rank r vs slot r",
+                all(r["compressed"]["ef"][0] == c1["ef"][i]
+                    for i, r in enumerate(ranks)), f"{len(ranks)} ranks")
+    judge.check(f"{tag}: compressed DP losses equal",
+                all(r["compressed"]["losses"] == c1["losses"]
+                    for r in ranks), f"{c1['losses']['compressed']}")
+    judge.check(f"{tag}: plain DP state, every rank vs the row-split sum",
+                all(r["plain"]["digests"] == one["split"]["digests"]
+                    for r in ranks),
+                f"{len(ranks)} rows' gradients summed in one process, "
+                f"{steps} steps; {len(one['split']['digests'])} leaves by "
+                "SHA-256")
+    w = one["whole"]
+    for r in ranks:
+        pr = r["plain"]
+        judge(f"{tag}: plain DP rank {r['rank']}, loss vs whole batch",
+              abs(pr["losses"]["plain"][0] - w["losses"]["whole"][0])
+              / abs(w["losses"]["whole"][0]), 1e-3,
+              "relative; the rows' means summed in another order")
+        judge(f"{tag}: plain DP rank {r['rank']}, grad norm vs whole batch",
+              abs(pr["norms"]["plain"][0] - w["norms"]["whole"][0])
+              / w["norms"]["whole"][0], 1e-2,
+              "relative; bf16 roundings at another batch shape")
+    ok = all(_attention_launches(r[k]["counts"], fwd * layers * steps,
+                                 layers * steps)
+             and r[k]["plain"] == {"forward": 0, "backward": 0}
+             for r in ranks for k in ("compressed", "plain"))
+    judge.check(f"{tag}: launches on every rank", ok,
+                f"the forward {fwd} x {layers} layers and the backward "
+                f"{layers} a step, {steps} steps, nothing else, no plain "
+                "version")
+
+
+def _dist_sum(ranks, names):
+    """The ranks' launches over the sides ``names``, summed."""
+    total = None
+    for r in ranks:
+        for k in names:
+            c = r[k]["counts"]
+            total = dict(c) if total is None else {
+                n: total[n] + c[n] for n in total}
+    return total
+
+
+def phase_train_dist(judge):
+    """Data-parallel training over processes (``sharding.dist``):
+    qwen2.5-3b at published width and ``DIST_LAYERS`` of its 36 layers,
+    one ``TRAIN_SEQ``-token row a replica, ``DIST_STEPS`` steps, remat
+    ``TRAIN_REMAT``. (1) One process: the compressed DP step on
+    ``TrainMesh(data=2)``, the plain step on the whole batch and the plain
+    step's row-split sum, their losses, grad norms and per-leaf SHA-256
+    kept on the host, the card freed. (2) Two gloo ranks sharing this card
+    run the compressed and the plain DP step: the compressed state and
+    each rank's residual equal the one-process step's, the plain state
+    equal to the row-split sum's, its loss and grad norm within 1e-3 /
+    1e-2 of the whole batch's, every rank's attention launches exact, no
+    plain version. (3) An NCCL group of one in this process: the plain
+    step equal to the group-less one bit for bit. (4) With two or more
+    cards, min(cards, ``DIST_CARDS``) NCCL ranks, one a card: the
+    compressed step at ``DIST_LAYERS`` against one process's, then the
+    plain step at full depth against each card's whole-batch step, in
+    turns, with tokens/s; on one card a line says it did not run. Every
+    figure printed beside each rank's peak; each rate rests on the steps
+    after a side's first (``DIST_STEPS`` - 1)."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.mesh import TrainMesh, make_local_mesh
+    _free()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        _build.build()          # the ranks load this library, built once
+    cfg = get_config(TRAIN_ARCH)
+    n = dataclasses.replace(cfg, num_layers=DIST_LAYERS).param_count()
+    conf = dict(arch=TRAIN_ARCH, layers=DIST_LAYERS, seq=TRAIN_SEQ, rows=2,
+                steps=DIST_STEPS, remat=TRAIN_REMAT, seed=SEED)
+    # fp32 params 4 B, moments 8, residual slots 4 each, the replica's
+    # gradients 4, its int8 payload 1 and the gathered ones 1 each
+    one_b, rank_b = (4 + 8 + 2 * 4 + 4 + 2) * n, (4 + 8 + 4 + 4 + 1 + 2) * n
+    have = (torch.cuda.get_device_properties(0).total_memory if cuda
+            else float("inf"))
+    judge.check("train dist: the reckoning fits the card",
+                2 * rank_b < have and one_b < have,
+                f"{n:.4g} parameters at {DIST_LAYERS} layers: one process "
+                f"{one_b / 1e9:.1f} GB, two ranks 2 x {rank_b / 1e9:.1f} GB "
+                f"before activations, against {have / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    steps = conf["steps"]
+    pair = TrainMesh(data=2, device=DEVICE)
+    one = {"compressed": _dist_side(pair, conf, ["compressed"] * steps),
+           "whole": _dist_side(TrainMesh(device=DEVICE), conf,
+                               ["whole"] * steps),
+           "split": _dist_side(pair, conf, ["split"] * steps)}
+    _free()
+    t1 = time.perf_counter()
+    ranks = dist.spawn(
+        _dist_rank, 2, [(k, conf, [k] * steps, False)
+                        for k in ("compressed", "plain")],
+        device="cuda:0" if cuda else "cpu", backend="gloo",
+        timeout_s=DIST_TIMEOUT_S, join_timeout_s=DIST_JOIN_S)
+    t2 = time.perf_counter()
+    _dist_checks(judge, "train dist (2 gloo ranks, one card)", one, ranks,
+                 conf)
+    launches = _dist_sum(ranks, ("compressed", "plain"))
+
+    with tempfile.TemporaryDirectory(prefix="dist-one-") as tmp:
+        group = dist.init(0, 1, 0, device="cuda:0" if cuda else "cpu",
+                          store=torch.distributed.FileStore(
+                              os.path.join(tmp, "store"), 1))
+        try:
+            alone = _dist_side(make_local_mesh(group=group), conf,
+                               ["plain"] * steps)
+        finally:
+            dist.destroy()
+    judge.check(f"train dist: a {group.backend} group of one vs no group",
+                alone["digests"] == one["whole"]["digests"]
+                and alone["losses"]["plain"] == one["whole"]["losses"][
+                    "whole"], "the plain step's state by SHA-256 and its "
+                "losses")
+    launches = {k: launches[k] + alone["counts"][k] for k in launches}
+    _free()
+    lines = []
+    for kind, mine in (("compressed", "compressed"), ("plain", "whole")):
+        a, b = one[mine], [r[kind] for r in ranks]
+        lines.append(
+            f"train dist {cfg.name} ({DIST_LAYERS} of {cfg.num_layers} "
+            f"layers, {kind}, 2 x {TRAIN_SEQ} tokens a step): one process "
+            f"{_dist_tokens_s(a, mine, conf):.1f} tokens/s (peak "
+            f"{a['peak']:.2f} GiB), two gloo ranks on one card "
+            f"{_dist_tokens_s(b[0], kind, conf):.1f} tokens/s (peaks "
+            f"{_gib(r['peak'] for r in b)} GiB; steps "
+            f"{_ms(b[0]['times'][kind])} against {_ms(a['times'][mine])} "
+            "ms)")
+    lines.append(f"train dist phases: one process {t1 - t0:.1f} s, two "
+                 f"ranks {t2 - t1:.1f} s (process start included); each "
+                 f"rate over {steps - 1} timed step(s) after a side's "
+                 "first")
+    cards = torch.cuda.device_count() if cuda else 0
+    if cards >= 2:
+        more, counts = _dist_cards(judge, min(cards, DIST_CARDS), conf)
+        lines += more
+        launches = {k: launches[k] + counts[k] for k in launches}
+    else:
+        lines.append(f"train dist across cards: not run ({cards} card(s); "
+                     "it needs two)")
+    for line in lines:
+        log(f"  {line}")
+    return launches, lines
+
+
+def _dist_turns(steps: int):
+    """``_dist_cards``' order at full depth: one plain DP step ("plain")
+    and one whole-batch step ("whole", each card the same work, so the
+    params stay equal) untimed, then ``steps`` of each in turns."""
+    order = ["plain", "whole"] + ["whole", "plain", "plain",
+                                  "whole"] * steps
+    return order[:2 + 2 * steps]
+
+
+def _dist_cards(judge, world: int, conf):
+    """``phase_train_dist``'s part (4): ``world`` NCCL ranks, one a card
+    (``_dist_rank``): the compressed step at ``conf``'s depth, then the
+    plain DP step against each card's whole-batch step in turns at full
+    depth, the first DP step's loss and grad norm against a whole-batch
+    forward and backward from the same params."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.mesh import TrainMesh
+    steps = conf["steps"]
+    wide = dict(conf, rows=world)
+    one = _dist_side(TrainMesh(data=world, device=DEVICE), wide,
+                     ["compressed"] * steps)
+    _free()
+    full = dict(wide, layers=get_config(TRAIN_ARCH).num_layers)
+    turns = _dist_turns(steps)
+    ranks = dist.spawn(_dist_rank, world,
+                       [("compressed", wide, ["compressed"] * steps, False),
+                        ("turns", full, turns, True)], device=DEVICE,
+                       timeout_s=DIST_TIMEOUT_S, join_timeout_s=DIST_JOIN_S)
+    tag = (f"train dist ({world} {dist.default_backend(DEVICE)} ranks, a "
+           "card each)")
+    judge.check(f"{tag}: compressed DP state, every rank vs one process",
+                all(r["compressed"]["digests"] == one["digests"]
+                    and r["compressed"]["ef"][0] == one["ef"][i]
+                    and r["compressed"]["losses"] == one["losses"]
+                    for i, r in enumerate(ranks)),
+                "params, moments, step, residual slot by SHA-256; losses")
+    fwd = 2 if conf["remat"] == "full" else 1
+    ok = all(_attention_launches(r["compressed"]["counts"],
+                                 fwd * wide["layers"] * steps,
+                                 wide["layers"] * steps)
+             and _attention_launches(r["turns"]["counts"],
+                                     fwd * full["layers"] * len(turns),
+                                     full["layers"] * len(turns))
+             and r["compressed"]["plain"] == r["turns"]["plain"] ==
+             {"forward": 0, "backward": 0} for r in ranks)
+    judge.check(f"{tag}: launches on every rank", ok,
+                "exact on both steps, no plain version")
+    for r in ranks:
+        t = r["turns"]
+        judge(f"{tag}: plain DP rank {r['rank']} at {full['layers']} layers, "
+              "loss vs one card",
+              abs(t["losses"]["plain"][0] - t["probe"][0])
+              / abs(t["probe"][0]), 1e-3,
+              "relative; the rows' means summed in another order")
+        judge(f"{tag}: plain DP rank {r['rank']}, grad norm vs one card",
+              abs(t["norms"]["plain"][0] - t["probe"][1]) / t["probe"][1],
+              1e-2, "relative; bf16 roundings")
+    judge.check(f"{tag}: plain DP state equal on every card",
+                all(r["turns"]["digests"] == ranks[0]["turns"]["digests"]
+                    for r in ranks), "by SHA-256, after the turns")
+    t = ranks[0]["turns"]
+    rate = {k: _dist_tokens_s(t, k, full) for k in ("plain", "whole")}
+    line = (f"train dist {TRAIN_ARCH} ({full['layers']} layers, plain DP, "
+            f"{world} x {conf['seq']} tokens a step): {world} cards "
+            f"{rate['plain']:.1f} tokens/s against one card "
+            f"{rate['whole']:.1f} ({rate['plain'] / rate['whole']:.3f}x; "
+            f"steps {_ms(t['times']['plain'])} against "
+            f"{_ms(t['times']['whole'])} ms, in turns, the first of each a "
+            f"warm-up); peaks {_gib(r['turns']['peak'] for r in ranks)} GiB; "
+            f"compressed at {wide['layers']} layers "
+            f"{_dist_tokens_s(ranks[0]['compressed'], 'compressed', wide):.1f}"
+            f" tokens/s against one process "
+            f"{_dist_tokens_s(one, 'compressed', wide):.1f} (peaks "
+            f"{_gib(r['compressed']['peak'] for r in ranks)} GiB)")
+    counts = _dist_sum(ranks, ("compressed", "turns"))
+    return [line], counts
 
 
 def _cell_args(cell, gen, params):
@@ -5216,6 +5689,8 @@ def main() -> int:
                             ("train qwen2.5-3b compressed DP",
                              phase_train_compressed),
                             ("elastic round trip", phase_elastic),
+                            ("train qwen2.5-3b over processes",
+                             phase_train_dist),
                             ("cells qwen2.5-3b", phase_cells)):
             counts, more = timed(name, phase, judge)
             rates += more

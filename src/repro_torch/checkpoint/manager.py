@@ -11,6 +11,9 @@
   keys, shapes, dtypes and extras. A checkpoint written by either package
   restores in the other.
 * **Retention**: the newest ``keep`` checkpoints are kept.
+* **Ranks**: under a process group (``sharding.dist``) the state is
+  replicated, so rank 0 alone writes it, after a barrier, and the other
+  ranks wait for it; every rank restores onto its own device.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy
+from repro_torch.sharding import dist
 
 _SEP = "__"
 
@@ -63,14 +67,30 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3,
+                 group: Optional[dist.Group] = None):
         self.directory = directory
         self.keep = keep
+        self.group = group
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Any, extra: Optional[Dict] = None) -> str:
+        """Write ``state`` as step ``step``; under a group, rank 0 writes
+        once every rank has reached the save, and every rank returns once
+        it is written."""
         final = os.path.join(self.directory, f"step_{step:08d}")
+        if self.group is None:
+            self._write(step, final, state, extra)
+        else:
+            dist.barrier(self.group)
+            if self.group.rank == 0:
+                self._write(step, final, state, extra)
+            dist.barrier(self.group)
+        return final
+
+    def _write(self, step: int, final: str, state: Any,
+               extra: Optional[Dict]) -> None:
         tmp = final + ".tmp"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -96,7 +116,6 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.rename(tmp, final)
         self._gc()
-        return final
 
     # ----------------------------------------------------------------- load
     def steps(self) -> List[int]:
@@ -120,8 +139,10 @@ class CheckpointManager:
         ``sharding.specs.Layout`` for the current mesh (an elastic
         re-shard): each leaf still lands whole on the device, the port
         running every shard in one process, after its layout is checked to
-        divide it. Raises ``ValueError`` on a missing checkpoint, a shape
-        that differs from the target's or a layout that does not fit."""
+        divide it (under a process group each rank restores the whole
+        replicated state onto its own device). Raises ``ValueError`` on a
+        missing checkpoint, a shape that differs from the target's or a
+        layout that does not fit."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise ValueError(f"no checkpoint in {self.directory}")

@@ -124,6 +124,19 @@ def batch_for_arch(arch_cfg, seq_len: int, global_batch: int, step: int,
     return synth_batch(d, step)
 
 
+def replica_rows(batch: Dict, index: int, n: int) -> Dict:
+    """Rows [index·B/n, (index+1)·B/n) of every array of ``batch`` (numpy
+    or torch): what the reference's ``P(dp)`` on dim 0 gives replica
+    ``index`` of n, one host's batch cut across its devices. (Drawing the
+    replica's rows with ``host_id`` would give other tokens, so n replicas
+    would not train on what one does.)"""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"{rows} batch rows over {n} replicas")
+    m = rows // n
+    return {k: v[index * m:(index + 1) * m] for k, v in batch.items()}
+
+
 def to_torch(batch: Dict[str, np.ndarray], device=None) -> Dict:
     """A batch's arrays as tensors on ``device`` (the port's train step
     takes tensors)."""

@@ -5,13 +5,23 @@ Supervisor (the port's copy of ``repro.launch.train``).
         --reduced --device cpu --steps 5
 
 Trains on the card unless ``--device cpu`` is given (the kernels' plain
-versions then run). As the reference does, it builds the mesh over the
-devices there are (``sharding.mesh.make_local_mesh``: data = the cards, or
-the one CPU), plans the model for it (``core.planner.plan_model``) and,
-on a mesh of more than one device, makes the sharding hints
-(``sharding.autoshard.make_hints``); the step runs every shard in this
-process. Checkpoints, restarts, straggler detection and metrics are the
-reference's.
+versions then run). As the reference's mesh is all of its devices, the job
+is one rank a card (``sharding.dist``, NCCL), every visible card by
+default; under torchrun it takes torchrun's ranks, and ``--nproc N``
+spawns N ranks itself (gloo on the CPU; ``--backend gloo`` for ranks that
+share one card, ``--device cuda:0``). Each rank builds the mesh over the
+ranks (``sharding.mesh.make_local_mesh``: data = the ranks; one process on
+one device gives data=1), plans the model for it
+(``core.planner.plan_model``) and, on a mesh of more than one device,
+makes the sharding hints (``sharding.autoshard.make_hints``); each rank
+trains on its rows of every batch and the gradients are summed over the
+ranks (``train.loop.make_train_step`` on a process mesh). Checkpoints,
+restarts, straggler detection and metrics are the reference's; rank 0
+alone prints and writes checkpoints.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --device cpu --steps 5 --nproc 2
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch ...
 """
 from __future__ import annotations
 
@@ -27,7 +37,7 @@ from repro_torch.data import pipeline as data_lib
 from repro_torch.runtime.fault_tolerance import (FaultToleranceConfig,
                                                  Supervisor)
 from repro_torch.serve.engine import resolve_device
-from repro_torch.sharding import autoshard
+from repro_torch.sharding import autoshard, dist
 from repro_torch.sharding.mesh import make_local_mesh, mesh_desc
 from repro_torch.train import loop as train_loop, optimizer as opt_lib
 
@@ -49,11 +59,42 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--nproc", type=int, default=None,
+                    help="ranks to spawn (default: one a visible card; "
+                         "1 on the CPU)")
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend by name (default: nccl "
+                         "on the card, gloo on the CPU)")
     args = ap.parse_args(argv)
-
-    cfg = get_config(args.arch + ("-reduced" if args.reduced else ""))
+    if dist.in_torchrun():
+        group = dist.init(device=args.device or "cuda",
+                          backend=args.backend)
+        try:
+            return train(group, args)
+        finally:
+            dist.destroy()
     device = resolve_device(args.device)
-    mesh = make_local_mesh(device=device.type)
+    world = args.nproc or (torch.cuda.device_count()
+                           if device.type == "cuda" and device.index is None
+                           else 1)
+    if world > 1:
+        return dist.spawn(train, world, args, device=device,
+                          backend=args.backend)[0]
+    return train(None, args)
+
+
+def train(group, args):
+    """The training run of ``args`` in this process: rank ``group.rank``
+    of a process group (``dist.spawn`` calls it so), or the whole job when
+    ``group`` is None. Returns the Supervisor's result."""
+    cfg = get_config(args.arch + ("-reduced" if args.reduced else ""))
+    if group is None:
+        device = resolve_device(args.device)
+        mesh = make_local_mesh(device=device.type)
+    else:
+        device = group.device
+        mesh = make_local_mesh(group=group)
+    lead = group is None or group.rank == 0
     shape = planner.ShapeConfig("cli", "train", args.seq, args.batch)
     plan = planner.plan_model(cfg, shape, mesh_desc(mesh))
     hints = (autoshard.make_hints(plan, mesh, args.batch)
@@ -64,7 +105,7 @@ def main(argv=None):
     step_fn = train_loop.make_train_step(cfg, opt_cfg,
                                          remat_policy=args.remat,
                                          microbatches=args.microbatches,
-                                         hints=hints)
+                                         hints=hints, mesh=mesh)
     dcfg = data_lib.DataConfig(
         seq_len=args.seq, global_batch=args.batch,
         vocab_size=cfg.vocab_size, seed=args.seed,
@@ -89,11 +130,14 @@ def main(argv=None):
     sup = Supervisor(
         FaultToleranceConfig(checkpoint_dir=ckpt_dir,
                              checkpoint_every=args.ckpt_every),
-        step_fn=wrapped_step, data_fn=data_fn, init_state_fn=init_state)
+        step_fn=wrapped_step, data_fn=data_fn, init_state_fn=init_state,
+        group=group)
 
     t0 = time.time()
     result = sup.run(args.steps)
     dt = time.time() - t0
+    if not lead:
+        return result
     for m in result["metrics"]:
         if m["step"] % args.log_every == 0 or m["step"] == args.steps - 1:
             print(f"step {m['step']:5d} loss={m.get('loss', 0):.4f} "
@@ -101,7 +145,8 @@ def main(argv=None):
                   f"gnorm={m.get('grad_norm', 0):.2f}")
     toks = args.steps * args.batch * args.seq
     print(f"done: {args.steps} steps, {dt:.1f}s, {toks / dt:.0f} tok/s, "
-          f"restarts={result['restarts']}")
+          f"restarts={result['restarts']}, ranks="
+          f"{1 if group is None else group.world}")
     return result
 
 

@@ -4,8 +4,10 @@ exists (the port's copy of ``repro.runtime.elastic``).
 Checkpoints are stored by logical shape (``checkpoint.manager``), so
 scaling a job from N to M devices — or degrading around a dead host — is:
 build the new mesh, re-run the planner for its ``MeshDesc``, and restore
-with the new layouts. No checkpoint conversion step. The port runs every
-shard in one process, so each leaf lands whole on the mesh's device; the
+with the new layouts. No checkpoint conversion step. Each leaf lands whole
+on the mesh's device: the one process's on a logical mesh, each rank's own
+on a process mesh (``mesh.group``), where the params are replicated, so a
+checkpoint written at a world of N ranks restores at any world M. The
 re-planned specs are checked against every leaf and returned beside the
 state.
 """
@@ -32,9 +34,10 @@ def state_specs(abstract_state, cfg, shape_cfg, mesh):
 
 def restore_elastic(ckpt: CheckpointManager, abstract_state, cfg, shape_cfg,
                     mesh, step: Optional[int] = None) -> Tuple[Any, dict]:
-    """Restore (params, opt_state) onto ``mesh``, re-planning its layouts.
-    Returns (state, manifest); the manifest's ``"specs"`` holds the
-    (param specs, optimizer specs) the re-plan gave."""
+    """Restore (params, opt_state) onto ``mesh``, re-planning its layouts
+    (under a process group, every rank onto its own device). Returns
+    (state, manifest); the manifest's ``"specs"`` holds the (param specs,
+    optimizer specs) the re-plan gave."""
     p_specs, o_specs = state_specs(abstract_state, cfg, shape_cfg, mesh)
     state, manifest = ckpt.restore(
         abstract_state, step=step, device=mesh.device,

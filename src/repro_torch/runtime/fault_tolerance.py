@@ -8,7 +8,14 @@ retry budget with exponential backoff (a failed step restarts from the
 last durable checkpoint), straggler detection against the running median
 (``on_straggler`` when persistent) and a heartbeat file in the telemetry
 schema. Failure injection (``failure_injector(step, attempt)``) is for
-tests.
+tests. Under a process group (``sharding.dist``: one rank a dp replica)
+rank 0 alone writes checkpoints and the heartbeat, and only a failure
+before the step is retried, collectively: one injected on any rank fails
+the attempt on every rank, and every rank restores the same checkpoint. A
+failure inside the step is raised on its rank with no retry: its peers
+wait in the step's collectives, which no retry would match, so the job
+ends (``dist.spawn`` and torchrun stop the other ranks) and a restart
+resumes from rank 0's last checkpoint.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.sharding import dist
 
 
 def backoff_delay(attempt: int, base_s: float) -> float:
@@ -101,19 +109,24 @@ class Supervisor:
     updates the state in place, so a failed step leaves no durable state
     behind it: a retry restores the last checkpoint into a fresh
     ``init_state_fn()`` (or starts from that when there is none), as the
-    reference's does."""
+    reference's does. Under ``group`` every rank runs the loop with its
+    own step and state; an exception from ``step_fn`` is raised as it is
+    (the module's docstring says why)."""
 
     def __init__(self, cfg: FaultToleranceConfig, step_fn: Callable,
                  data_fn: Callable, init_state_fn: Callable,
                  on_straggler: Optional[Callable] = None,
-                 failure_injector: Optional[Callable] = None):
+                 failure_injector: Optional[Callable] = None,
+                 group: Optional[dist.Group] = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.data_fn = data_fn
         self.init_state_fn = init_state_fn
         self.on_straggler = on_straggler or (lambda det: None)
         self.failure_injector = failure_injector
-        self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep)
+        self.group = group
+        self.ckpt = CheckpointManager(cfg.checkpoint_dir, keep=cfg.keep,
+                                      group=group)
         self.detector = StragglerDetector(cfg.straggler_factor,
                                           cfg.straggler_patience)
         self.restarts = 0
@@ -123,7 +136,8 @@ class Supervisor:
 
     # -------------------------------------------------------------- plumbing
     def _heartbeat(self, step: int):
-        if self.cfg.heartbeat_path:
+        if self.cfg.heartbeat_path and (self.group is None
+                                        or self.group.rank == 0):
             # the serving telemetry's schema; imported here, since the
             # serving side imports this module (backoff_delay)
             from repro_torch.serve.telemetry import heartbeat_record
@@ -131,6 +145,22 @@ class Supervisor:
                 json.dump(heartbeat_record(
                     step, wall_time=self.wall_clock(),
                     mono_s=self.mono_clock(), restarts=self.restarts), f)
+
+    def _inject(self, step: int, attempt: int):
+        """Run the failure injector; under a group, fail on every rank
+        when it failed on any (before the step, whose collectives a rank
+        that skipped them would leave waiting)."""
+        err = None
+        if self.failure_injector is not None:
+            try:
+                self.failure_injector(step, attempt)
+            except Exception as e:  # noqa: BLE001 (re-raised below)
+                err = e
+        if self.group is not None and dist.any_rank(err is not None,
+                                                     self.group):
+            raise err or RuntimeError(f"step {step}: a peer rank failed")
+        if err is not None:
+            raise err
 
     def _restore_or_init(self):
         latest = self.ckpt.latest_step()
@@ -148,14 +178,17 @@ class Supervisor:
             batch = self.data_fn(step)
             attempt = 0
             while True:
+                in_step = False
                 try:
-                    if self.failure_injector is not None:
-                        self.failure_injector(step, attempt)
+                    self._inject(step, attempt)
+                    in_step = True
                     t0 = time.monotonic()
                     state, metrics = self.step_fn(state, batch)
                     dt = time.monotonic() - t0
                     break
                 except Exception as e:  # noqa: BLE001 (a node failure)
+                    if in_step and self.group is not None:
+                        raise       # the peers wait in its collectives
                     attempt += 1
                     self.restarts += 1
                     if attempt > self.cfg.max_retries:

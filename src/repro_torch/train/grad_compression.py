@@ -10,13 +10,18 @@ Communication: (n−1)/n · 1 byte/elt vs 2·(n−1)/n · 4 bytes for a ring fp3
 all-reduce → ~8× fewer collective bytes on the DP axes.
 
 State layout: error-feedback buffers are *per-replica*, stacked on a
-leading dp axis (n_dp, *param_shape), as in the reference. The port runs
-the replicas shard-explicit in one process: each takes its rows of the
-batch through autograd in replica order and quantizes with its own slot,
-the payloads are "gathered" in the reference's order, and every
-replica's sum is the same ``einsum("nd,n->d")``, so it is computed once. Params and the
-optimizer state stay whole (the planner's BROADCAST weight mode — pure DP)
-and are updated in place.
+leading dp axis (n_dp, *param_shape), as in the reference. On a logical
+mesh the port runs the replicas shard-explicit in one process: each takes
+its rows of the batch through autograd in replica order and quantizes with
+its own slot, the payloads are "gathered" in the reference's order, and
+every replica's sum is the same ``einsum("nd,n->d")``, so it is computed
+once. On a process mesh (``mesh.group``: one rank a replica,
+``sharding.dist``) each rank keeps only its own slot, (1, *param_shape),
+and its own fp32 gradient; it all-gathers the int8 payloads and fp32
+scales over the ranks and sums them with the same ``_combine`` in the same
+``gather_order``, so every rank computes the one-process step's sum bit
+for bit. Params and the optimizer state stay whole (the planner's
+BROADCAST weight mode — pure DP) and are updated in place.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import List
 
 import torch
 
+from repro_torch.data.pipeline import replica_rows
+from repro_torch.sharding import collectives, dist
 from repro_torch.train import loop as train_loop
 from repro_torch.train import optimizer as opt_lib
 
@@ -43,9 +50,11 @@ def dequantize(q, scale):
 
 
 def init_error_feedback(mesh, params):
-    """Zero fp32 residuals, (n_dp, ...) per param leaf."""
+    """Zero fp32 residuals, (n_dp, ...) per param leaf; (1, ...), this
+    rank's slot alone, on a process mesh."""
+    n = 1 if mesh.group is not None else mesh.dp
     return opt_lib.map_tree(
-        lambda p: torch.zeros((mesh.dp,) + tuple(p.shape),
+        lambda p: torch.zeros((n,) + tuple(p.shape),
                               dtype=torch.float32, device=p.device), params)
 
 
@@ -100,22 +109,19 @@ def make_compressed_dp_train_step(mesh, loss_fn, opt_cfg):
     divides the payloads' sum by n_dp, takes the mean (``pmean``) of the
     loss and metrics over the replicas, then runs AdamW in place. One
     replica's fp32 gradients are alive at a time beside the int8
-    payloads."""
+    payloads. On a process mesh the step is ``_process_step``'s."""
+    if mesh.group is not None:
+        return _process_step(mesh, loss_fn, opt_cfg)
     n_dp, order = mesh.dp, gather_order(mesh)
 
     def step(params, opt_state, batch, ef):
-        rows = next(iter(batch.values())).shape[0]
-        if rows % n_dp:
-            raise ValueError(f"{rows} batch rows over {n_dp} replicas")
-        m = rows // n_dp
         efs = list(opt_lib.leaves(ef))
         qs: List[list] = [[] for _ in efs]
         scales: List[list] = [[] for _ in efs]
         losses, seq = [], []
         for r in range(n_dp):
-            part = {k: v[r * m:(r + 1) * m] for k, v in batch.items()}
             loss, metrics, grads = train_loop.value_and_grad(
-                loss_fn, params, part)
+                loss_fn, params, replica_rows(batch, r, n_dp))
             for i, g in enumerate(opt_lib.leaves(grads)):
                 q, s, new_ef = quantize(g, efs[i][r])
                 efs[i][r].copy_(new_ef)
@@ -138,6 +144,47 @@ def make_compressed_dp_train_step(mesh, loss_fn, opt_cfg):
         params, opt_state, om = opt_lib.adamw_update(opt_cfg, params, grads,
                                                      opt_state)
         return params, opt_state, ef, {**metrics, **om, "loss_total": loss}
+
+    return step
+
+
+def _process_step(mesh, loss_fn, opt_cfg):
+    """The compressed step of one rank of a process mesh: the same
+    signature and result as the one-process step's. This rank's rows go
+    through autograd, each gradient leaf through ``quantize`` with the
+    rank's slot ``ef[..][0]`` (updated in place); the payloads and scales
+    are all-gathered over the ranks leaf by leaf and summed by ``_combine``
+    in ``gather_order``, then divided by n_dp; the loss and metrics are
+    the replicas' mean in replica order (``collectives.mean_over_ranks``).
+    AdamW then runs on every rank and ``dist.check_replicated`` holds the
+    params equal across the ranks."""
+    n_dp, order, group = mesh.dp, gather_order(mesh), mesh.group
+
+    def step(params, opt_state, batch, ef):
+        loss, metrics, grads = train_loop.value_and_grad(
+            loss_fn, params, replica_rows(batch, mesh.dp_index, n_dp))
+        gs = list(opt_lib.leaves(grads))
+        del grads
+        efs = iter(list(opt_lib.leaves(ef)))
+        it = iter(range(len(gs)))
+
+        def summed(_):
+            i, e = next(it), next(efs)
+            q, s, new_ef = quantize(gs[i], e[0])
+            e[0].copy_(new_ef)
+            gs[i] = new_ef = None          # only this rank's gradient lives
+            qs = collectives.allgather_ranks(mesh, q)
+            scales = collectives.allgather_ranks(mesh, s)
+            return _combine(list(qs), list(scales), order).div_(n_dp)
+        grads = opt_lib.map_tree(summed, train_loop._sorted(params))
+        names = sorted(metrics)
+        loss, *means = collectives.mean_over_ranks(
+            mesh, [loss] + [metrics[k] for k in names])
+        params, opt_state, om = opt_lib.adamw_update(opt_cfg, params, grads,
+                                                     opt_state)
+        dist.check_replicated(group, opt_lib.leaves(params))
+        return params, opt_state, ef, {**dict(zip(names, means)), **om,
+                                       "loss_total": loss}
 
     return step
 

@@ -9,9 +9,12 @@ port's forward (``models.transformer.loss_fn``), whose attention runs the
 flash backward kernel on the card. ``hints`` (``sharding.autoshard.
 make_hints``, for a mesh of more than one device) run the step as the
 reference runs it on that mesh, every shard in this process: attention
-sequence-sharded where the head counts do not divide the model axis.
-``abstract_train_state`` is the state on the ``meta`` device, the port's
-``jax.eval_shape`` (``checkpoint.manager`` restores into it).
+sequence-sharded where the head counts do not divide the model axis. On a
+process mesh (``mesh.group``, ``sharding.dist``) each rank is one dp
+replica: it takes its rows of the batch, and the replicas' gradients are
+summed over the ranks before the update. ``abstract_train_state`` is the
+state on the ``meta`` device, the port's ``jax.eval_shape``
+(``checkpoint.manager`` restores into it).
 """
 from __future__ import annotations
 
@@ -19,7 +22,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.data.pipeline import replica_rows
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import collectives, dist
 from repro_torch.train import optimizer as opt_lib
 
 
@@ -100,18 +105,30 @@ def _parts(leaf):
 
 def make_train_step(cfg, opt_cfg: opt_lib.OptimizerConfig,
                     remat_policy: str = "dots", microbatches: int = 1,
-                    hints=None, plan=None,
-                    impl: Optional[str] = None) -> Callable:
+                    hints=None, plan=None, impl: Optional[str] = None,
+                    mesh=None) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics). With ``microbatches`` k > 1 the batch is split into k row
     blocks whose fp32 gradients are summed in order and divided by k, the
     loss and metrics averaged, as the reference's scan does. ``impl`` is
     passed on to the attention (``impl="plain"`` forces the plain versions,
     for comparisons on the card). ``hints`` are active in every forward and
-    backward of the step (``models.transformer.forward``)."""
+    backward of the step (``models.transformer.forward``).
+
+    On a process ``mesh`` (``mesh.group`` set) the step takes the whole
+    batch and runs the forward and backward on this rank's rows
+    (``data.pipeline.replica_rows``); the gradients are summed over the
+    replicas (``collectives.allreduce_ranks``) and divided by n_dp, the
+    loss and metrics averaged over them in replica order, and AdamW runs
+    on every rank, so the params stay replicated: a per-leaf checksum
+    across the ranks (``dist.check_replicated``) raises after an update
+    that left them apart. A mesh without a group changes nothing."""
     loss_fn = make_loss_fn(cfg, remat_policy, hints, plan, impl)
+    group = None if mesh is None else mesh.group
 
     def train_step(params, opt_state, batch):
+        if group is not None:
+            batch = replica_rows(batch, mesh.dp_index, mesh.dp)
         if microbatches == 1:
             loss, metrics, grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -131,8 +148,17 @@ def make_train_step(cfg, opt_cfg: opt_lib.OptimizerConfig,
             loss = loss / microbatches
             metrics = {k: torch.stack([m[k] for m in seq]).float()
                        .mean() for k in seq[0]}
+        if group is not None:
+            for g in opt_lib.leaves(grads):
+                collectives.allreduce_ranks(mesh, g).div_(mesh.dp)
+            names = sorted(metrics)
+            loss, *means = collectives.mean_over_ranks(
+                mesh, [loss] + [metrics[k] for k in names])
+            metrics = dict(zip(names, means))
         params, opt_state, om = opt_lib.adamw_update(opt_cfg, params, grads,
                                                      opt_state)
+        if group is not None:
+            dist.check_replicated(group, opt_lib.leaves(params))
         return params, opt_state, {**metrics, **om, "loss_total": loss}
 
     return train_step

@@ -59,7 +59,7 @@ def test_port_files_exist():
                  "launch/serve.py", "serve/shard.py", "core/hmmesh.py",
                  "core/planner.py", "sharding/tensor_parallel.py",
                  "configs/shapes.py", "launch/mesh.py", "launch/cell.py",
-                 "launch/dryrun.py"):
+                 "launch/dryrun.py", "sharding/dist.py"):
         assert need in names
 
 
@@ -84,7 +84,8 @@ def test_port_files_exist():
                                     "repro_torch.configs.shapes",
                                     "repro_torch.launch.mesh",
                                     "repro_torch.launch.cell",
-                                    "repro_torch.launch.dryrun"])
+                                    "repro_torch.launch.dryrun",
+                                    "repro_torch.sharding.dist"])
 def test_decode_loop_modules_import_without_a_card(module):
     """The graph, guard, chaos and telemetry modules import on a machine
     without CUDA: a graph is captured only when a decode loop first runs

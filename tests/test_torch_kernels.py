@@ -1864,3 +1864,64 @@ def test_cuda_sliding_window_at_frontend_heads(cuda, S, H, KV, D):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-3 * float(want.abs().max()))
+
+
+def _dp_digests(tensors):
+    import hashlib
+    return [hashlib.sha256(t.detach().reshape(-1).cpu().view(torch.uint8)
+                           .numpy()).hexdigest() for t in tensors]
+
+
+def _dp_compressed(mesh, world):
+    """Two compressed DP steps of qwen2.5-3b's width at 2 layers (a 4096
+    vocabulary), one 256-token row a replica, on ``mesh``: the SHA-256 of
+    every state leaf, of each residual slot, and the losses."""
+    import dataclasses
+    from repro_torch.data import pipeline as pdata
+    from repro_torch.train import grad_compression as gc
+    from repro_torch.train import loop as ploop
+    from repro_torch.train import optimizer as popt
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
+                              vocab_size=4096)
+    device = torch.device(mesh.device)
+    params, opt = ploop.init_train_state(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    ef = gc.init_error_feedback(mesh, params)
+    batch = pdata.to_torch(pdata.batch_for_arch(cfg, 256, world, 0), device)
+    step = gc.make_compressed_dp_train_step(
+        mesh, ploop.make_loss_fn(cfg, "full"), popt.OptimizerConfig())
+    losses = []
+    for _ in range(2):
+        params, opt, ef, m = step(params, opt, batch, ef)
+        losses.append(float(m["loss_total"]))
+    efs = list(popt.leaves(ef))
+    return {"state": _dp_digests(list(popt.leaves(params))
+                                 + list(popt.leaves(opt.mu))
+                                 + list(popt.leaves(opt.nu)) + [opt.step]),
+            "ef": [_dp_digests([e[r] for e in efs])
+                   for r in range(efs[0].shape[0])],
+            "losses": losses}
+
+
+def _dp_rank(group):
+    from repro_torch.sharding.mesh import make_local_mesh
+    return _dp_compressed(make_local_mesh(group=group), group.world)
+
+
+@pytest.mark.gpu
+def test_cuda_compressed_dp_across_cards_equals_one_process(cards):
+    """The int8 error-feedback DP step over NCCL ranks, one a card (at
+    most four), equals the one-process step on ``TrainMesh(data=ranks)``
+    on the first card bit for bit: params, moments and step, each rank's
+    residual slot against its slot, the losses."""
+    from repro_torch.sharding import dist
+    from repro_torch.sharding.mesh import TrainMesh
+    world = min(len(cards), 4)
+    one = _dp_compressed(TrainMesh(data=world, device=str(cards[0])), world)
+    torch.cuda.empty_cache()
+    ranks = dist.spawn(_dp_rank, world, device="cuda", timeout_s=120,
+                       join_timeout_s=600)
+    for r, got in enumerate(ranks):
+        assert got["state"] == one["state"]
+        assert got["ef"] == [one["ef"][r]]
+        assert got["losses"] == one["losses"]
